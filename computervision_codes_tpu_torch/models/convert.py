@@ -1,0 +1,117 @@
+"""Carry the JAX package's weights into the port's modules.
+
+``load_jax_variables(module, variables)`` takes the variables of the JAX
+counterpart of ``module`` (what its ``init`` returns: a nested mapping of
+collections ``params``, ``batch_stats`` and ``frozen``, with numpy or JAX
+arrays at the leaves) and copies them in, walking the port's module tree by
+the flax names its children carry:
+
+* ``conv*/kernel`` (kh, kw, Cin, Cout) HWIO -> conv weight OIHW;
+* ``bn*``: ``params/{scale,bias}`` + ``batch_stats/{mean,var}`` -> BatchNorm
+  ``weight, bias, running_mean, running_var``; a frozen BN reads all four
+  from the ``frozen`` collection;
+* 1x1 ``nn.Conv`` over time (``pg_conv_in``, ``latlayer1``, ``head_*``):
+  ``kernel`` (1, Cin, Cout) -> weight (Cout, Cin), plus ``bias``;
+* dilated layers: ``w_taps, b1, w2, b2`` keep the JAX layout.
+
+Every leaf of ``variables`` must be used and every parameter filled:
+a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Set, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
+from .tcn import Conv1x1, DilatedResidualLayer
+
+_COLLECTIONS = ("params", "batch_stats", "frozen")
+Path = Tuple[str, ...]
+
+
+def _leaves(tree, prefix: Path = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),)
+
+
+class _Loader:
+    def __init__(self, variables):
+        extra = set(variables) - set(_COLLECTIONS)
+        if extra:
+            raise KeyError(f"unknown variable collections {sorted(extra)}")
+        self.variables = variables
+        self.used: Set[Path] = set()
+
+    def get(self, coll: str, path: Path) -> np.ndarray:
+        node = self.variables.get(coll, {})
+        for i, k in enumerate(path):
+            if not isinstance(node, Mapping) or k not in node:
+                raise KeyError(f"missing {coll}/{'/'.join(path[:i + 1])}")
+            node = node[k]
+        self.used.add((coll,) + path)
+        return np.asarray(node, dtype=np.float32)
+
+    def put(self, dst: torch.Tensor, value: np.ndarray, where: str) -> None:
+        if tuple(dst.shape) != value.shape:
+            raise ValueError(f"{where}: shape {value.shape} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(value)))  # writable copy
+
+    def load(self, module: nn.Module, path: Path) -> None:
+        def p(*keys: str) -> Path:
+            return path + keys
+
+        name = "/".join(path)
+        if isinstance(module, Conv2d):
+            kernel = self.get("params", p("kernel"))  # HWIO
+            self.put(module.weight, kernel.transpose(3, 2, 0, 1), name)
+        elif isinstance(module, Conv1x1):
+            kernel = self.get("params", p("kernel"))  # (1, Cin, Cout)
+            if kernel.ndim != 3 or kernel.shape[0] != 1:
+                raise ValueError(f"{name}: kernel {kernel.shape} is not a "
+                                 f"(1, Cin, Cout) 1x1 conv")
+            self.put(module.weight, kernel[0].T, name)
+            self.put(module.bias, self.get("params", p("bias")), name)
+        elif isinstance(module, FrozenBatchNorm):
+            for dst, key in (("weight", "scale"), ("bias", "bias"),
+                             ("running_mean", "mean"), ("running_var", "var")):
+                self.put(getattr(module, dst), self.get("frozen", p(key)),
+                         name)
+        elif isinstance(module, BatchNorm):
+            for dst, coll, key in (("weight", "params", "scale"),
+                                   ("bias", "params", "bias"),
+                                   ("running_mean", "batch_stats", "mean"),
+                                   ("running_var", "batch_stats", "var")):
+                self.put(getattr(module, dst), self.get(coll, p(key)), name)
+        elif isinstance(module, DilatedResidualLayer):
+            for key in ("w_taps", "b1", "w2", "b2"):
+                self.put(getattr(module, key), self.get("params", p(key)),
+                         name)
+        else:
+            if next(module.parameters(recurse=False), None) is not None:
+                raise TypeError(f"{name}: no JAX mapping for "
+                                f"{type(module).__name__}")
+            for child_name, child in module.named_children():
+                self.load(child, p(child_name))
+
+
+def load_jax_variables(module: nn.Module, variables) -> nn.Module:
+    """Fill ``module`` in place from its JAX counterpart's variables."""
+    loader = _Loader(variables)
+    with torch.no_grad():
+        loader.load(module, ())
+    present = {(c,) + leaf for c in _COLLECTIONS
+               for leaf in _leaves(variables.get(c, {}))}
+    extra = sorted("/".join(k) for k in present - loader.used)
+    if extra:
+        raise KeyError(f"JAX variables not used by {type(module).__name__}: "
+                       f"{extra[:8]}{' ...' if len(extra) > 8 else ''}")
+    return module

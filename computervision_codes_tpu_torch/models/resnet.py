@@ -1,0 +1,202 @@
+"""ResNet-18/34/50/101 backbones, eval forward (torchvision architecture).
+
+Counterpart of ``models/resnet.py`` in the JAX package: stem 7x7/2 conv ->
+BN -> ReLU -> 3x3/2 max-pool, then BasicBlock or Bottleneck stages with a
+1x1 conv + BN downsample shortcut, returning every stage output and the
+pooled feature. BatchNorm runs with its running statistics only (eval);
+``frozen_bn`` keeps the same arithmetic in a separate ``frozen`` collection,
+as the JAX FrozenBatchNorm does.
+
+Inputs at the public boundary are NHWC, as in the JAX package; inside, the
+tensors are NCHW in ``channels_last`` memory format, which is the same
+bytes. Convolutions are cuDNN's on the card, as they were XLA's on the TPU:
+no Pallas kernel sits on this path at its defaults. ``s2d_stem`` and
+``fused_stem`` are not ported yet (both are off by default).
+
+Child modules carry the flax names (``conv1``, ``bn1``, ``layer1_0``,
+``downsample_conv`` ...) for ``models.convert.load_jax_variables``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple, Type
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+
+
+class Conv2d(nn.Module):
+    """Bias-free conv, weight OIHW, initialised as the JAX package's
+    ``variance_scaling(2.0, "fan_out", "normal")``."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        std = math.sqrt(2.0 / (kernel * kernel * cout))
+        w = torch.empty(cout, cin, kernel, kernel)
+        self.weight = nn.Parameter(nn.init.normal_(w, 0.0, std,
+                                                   generator=generator))
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(self.dtype), None, self.stride,
+                        self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm: y = x * w + b, with w = weight / sqrt(var + eps)
+    and b = bias - mean * w computed in float32, then cast to the compute
+    dtype."""
+
+    collection = "batch_stats"
+
+    def __init__(self, n: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("weight", torch.ones(n))
+        self.register_buffer("bias", torch.zeros(n))
+        self.register_buffer("running_mean", torch.zeros(n))
+        self.register_buffer("running_var", torch.ones(n))
+
+    def forward(self, x):
+        w = self.weight * torch.rsqrt(self.running_var + BN_EPS)
+        b = self.bias - self.running_mean * w
+        shape = (1, -1, 1, 1)
+        return x * w.to(self.dtype).view(shape) + b.to(self.dtype).view(shape)
+
+
+class FrozenBatchNorm(BatchNorm):
+    """BatchNorm whose four vectors come from the JAX ``frozen`` collection."""
+
+    collection = "frozen"
+
+
+def _norm(frozen: bool) -> Type[BatchNorm]:
+    return FrozenBatchNorm if frozen else BatchNorm
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 frozen_bn: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, norm = generator, _norm(frozen_bn)
+        self.conv1 = Conv2d(cin, filters, 3, stride, 1, dtype, g)
+        self.bn1 = norm(filters, dtype)
+        self.conv2 = Conv2d(filters, filters, 3, 1, 1, dtype, g)
+        self.bn2 = norm(filters, dtype)
+        self.has_downsample = cin != filters or stride != 1
+        if self.has_downsample:
+            self.downsample_conv = Conv2d(cin, filters, 1, stride, 0, dtype, g)
+            self.downsample_bn = norm(filters, dtype)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x
+        if self.has_downsample:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 to ``filters * 4`` channels."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 frozen_bn: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, norm = generator, _norm(frozen_bn)
+        out_ch = filters * self.expansion
+        self.conv1 = Conv2d(cin, filters, 1, 1, 0, dtype, g)
+        self.bn1 = norm(filters, dtype)
+        self.conv2 = Conv2d(filters, filters, 3, stride, 1, dtype, g)
+        self.bn2 = norm(filters, dtype)
+        self.conv3 = Conv2d(filters, out_ch, 1, 1, 0, dtype, g)
+        self.bn3 = norm(out_ch, dtype)
+        self.has_downsample = cin != out_ch or stride != 1
+        if self.has_downsample:
+            self.downsample_conv = Conv2d(cin, out_ch, 1, stride, 0, dtype, g)
+            self.downsample_bn = norm(out_ch, dtype)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x
+        if self.has_downsample:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """Headless ResNet: NHWC frames -> ``{"stages": [NHWC maps], "pooled":
+    (N, C)}``."""
+
+    def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
+                 frozen_bn: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype, generator)
+        self.bn1 = _norm(frozen_bn)(64, dtype)
+        cin = 64
+        self.stage_names = []
+        for si, num_blocks in enumerate(stage_sizes):
+            filters = 64 * 2 ** si
+            names = []
+            for bi in range(num_blocks):
+                stride = 2 if si > 0 and bi == 0 else 1
+                name = f"layer{si + 1}_{bi}"
+                self.add_module(name, block_cls(cin, filters, stride,
+                                                frozen_bn, dtype, generator))
+                cin = filters * block_cls.expansion
+                names.append(name)
+            self.stage_names.append(names)
+        self.num_channels = cin
+
+    def forward(self, x: torch.Tensor) -> Dict[str, object]:
+        # NHWC -> NCHW view with channels_last strides (no copy when x is
+        # a contiguous NHWC tensor)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = x.contiguous(memory_format=torch.channels_last)
+        x = torch.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        stages = []
+        for names in self.stage_names:
+            for name in names:
+                x = getattr(self, name)(x)
+            stages.append(x.permute(0, 2, 3, 1))
+        return {"stages": stages, "pooled": x.mean(dim=(2, 3))}
+
+
+VARIANTS: Dict[str, Tuple[Sequence[int], Type[nn.Module]]] = {
+    "resnet18": ((2, 2, 2, 2), BasicBlock),
+    "resnet34": ((3, 4, 6, 3), BasicBlock),
+    "resnet50": ((3, 4, 6, 3), Bottleneck),
+    "resnet101": ((3, 4, 23, 3), Bottleneck),
+}
+
+
+def build_resnet(name: str, frozen_bn: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None) -> ResNet:
+    if name not in VARIANTS:
+        raise ValueError(f"unknown resnet variant {name!r}; one of "
+                         f"{list(VARIANTS)}")
+    sizes, block = VARIANTS[name]
+    return ResNet(sizes, block, frozen_bn, dtype, generator)
+
+
+def feature_dim(name: str) -> int:
+    sizes, block = VARIANTS[name]
+    return 512 * block.expansion

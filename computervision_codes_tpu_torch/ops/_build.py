@@ -1,0 +1,72 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+use it is compiled for Hopper (``sm_90a``) into ``_build/`` inside the
+package (git-ignored), under a name that carries the hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is. Only the repository's own sources are compiled; nothing is fetched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+# compiler output (ptxas register and shared-memory report) per kernel built
+# in this process; empty for a library found already built
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").is_file():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to for its current source."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    if name in _loaded:
+        return _loaded[name]
+    out = library_path(name)
+    if not out.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile to a private name, then rename: a concurrent builder of the
+        # same source never sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+        build_logs[name] = proc.stderr
+    lib = ctypes.CDLL(str(out))
+    _loaded[name] = lib
+    return lib

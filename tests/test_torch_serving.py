@@ -1,0 +1,155 @@
+"""The port's serving sessions: against the JAX session, against the port's
+own offline model, and the behaviours the JAX serving tests pin."""
+
+import os
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from computervision_codes_tpu.serving import InferenceSession as JaxSession
+from computervision_codes_tpu_torch.models.pipeline import EndToEndRecognizer
+from computervision_codes_tpu_torch.serving import (
+    InferenceSession,
+    StreamingSession,
+    tcn_receptive_field,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(num_layers_pg=3, num_layers_r=2, num_refinements=2,
+             num_f_maps=16)
+
+
+def test_inference_session_matches_jax_session(rng):
+    """Same variables, same uint8 clip; both sessions normalise in float32
+    and run the model in bf16. bf16 keeps 8 significant bits and the
+    random-init logits reach |30|, so one rounding moves a probability near
+    0.5 by up to ~0.06 (the JAX bf16 session is itself 0.056 from its
+    float32 model here). Bound: max 0.1 with correlation > 0.999, the bf16
+    cross-check bound of the JAX package's own serving tests."""
+    jsess = JaxSession.create(batch=1, clip_len=4, height=32, width=56)
+    sess = InferenceSession.create(batch=1, clip_len=4, height=32, width=56,
+                                   variables=jsess.variables, device="cpu")
+    clips = rng.integers(0, 256, (1, 4, 32, 56, 3)).astype(np.uint8)
+    want = jsess.predict(clips.copy())
+    got = sess.predict(clips)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == np.float32
+        assert np.corrcoef(got[k].ravel(), want[k].ravel())[0, 1] > 0.999
+        assert np.abs(got[k] - want[k]).max() < 0.1, k
+
+
+def _small_session():
+    return InferenceSession.create(batch=1, clip_len=2, height=32, width=56,
+                                   device="cpu")
+
+
+def test_shape_guard_and_float_input(rng):
+    sess = _small_session()
+    with pytest.raises(ValueError, match="shape"):
+        sess.predict(np.zeros((1, 4, 32, 56, 3), np.uint8))
+    norm = rng.standard_normal((1, 2, 32, 56, 3)).astype(np.float32)
+    probs = sess.predict(norm)
+    for v in probs.values():
+        assert np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()
+
+
+def test_serving_normalizes_dark_uint8_frames():
+    """Near-black uint8 clips are still normalised: the dtype decides, not
+    the magnitude (the port's counterpart of tests/test_serving.py:28)."""
+    sess = _small_session()
+    p_dark = sess.predict(np.zeros((1, 2, 32, 56, 3), np.uint8))["ivt"]
+    p_bright = sess.predict(np.full((1, 2, 32, 56, 3), 255, np.uint8))["ivt"]
+    assert np.isfinite(p_dark).all()
+    assert not np.allclose(p_dark, p_bright)
+    # a float clip of zeros is taken as normalised, i.e. the mean pixel,
+    # which differs from a normalised black frame
+    p_zero = sess.predict(np.zeros((1, 2, 32, 56, 3), np.float32))["ivt"]
+    assert not np.allclose(p_dark, p_zero)
+
+
+def test_streaming_matches_offline_causal(rng):
+    """Push output at step t equals the offline causal model (same seeded
+    weights) at position t once t reaches the receptive field (float32,
+    atol 1e-5 as the JAX test)."""
+    ctx, h, w = 32, 32, 56
+    model = EndToEndRecognizer(causal=True, dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(0),
+                               **SMALL).eval()
+    clips = rng.standard_normal((1, ctx, h, w, 3)).astype(np.float32)
+    with torch.no_grad():
+        offline = torch.sigmoid(model(torch.from_numpy(clips))["ivt"]).numpy()
+    sess = StreamingSession.create(context=ctx, height=h, width=w,
+                                   dtype=torch.float32, device="cpu",
+                                   **SMALL)
+    rf = tcn_receptive_field(3, 2, 2) - 1  # 26 frames of history
+    for t in range(ctx):
+        probs = sess.push(clips[0, t])
+        assert probs["ivt"].shape == (100,)
+        if t >= rf:
+            np.testing.assert_allclose(probs["ivt"], offline[0, t],
+                                       atol=1e-5, err_msg=f"step {t}")
+    assert sess.frames_seen == ctx
+    sess.reset()
+    assert sess.frames_seen == 0
+    assert float(sess.buffer.abs().max()) == 0.0
+
+
+def test_multi_stream_independence_and_reset(rng):
+    """streams=2 equals two single-stream sessions fed the same frames;
+    reset(stream) clears only that stream's buffer and counter."""
+    kw = dict(context=8, height=32, width=56, dtype=torch.float32,
+              device="cpu", num_layers_pg=2, num_layers_r=2,
+              num_refinements=1, num_f_maps=8)
+    frames = rng.standard_normal((4, 2, 32, 56, 3)).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # context 8 < receptive field 13
+        multi = StreamingSession.create(streams=2, **kw)
+        singles = [StreamingSession.create(**kw) for _ in range(2)]
+    for t in range(4):
+        pm = multi.push(frames[t])
+        assert pm["ivt"].shape == (2, 100)
+        for s in range(2):
+            np.testing.assert_allclose(pm["ivt"][s],
+                                       singles[s].push(frames[t, s])["ivt"],
+                                       atol=1e-5)
+    with pytest.raises(ValueError, match="shape"):
+        multi.push(frames[0, 0])
+    multi.reset(stream=0)
+    assert float(multi.buffer[0].abs().max()) == 0.0
+    assert float(multi.buffer[1].abs().max()) > 0.0
+    assert list(multi.frames_seen_per_stream) == [0, 4]
+
+
+def test_receptive_field_and_context_warning():
+    assert tcn_receptive_field(11, 10, 3) == 10233
+    assert tcn_receptive_field(3, 2, 2) == 27
+    kw = dict(height=32, width=56, dtype=torch.float32, device="cpu",
+              num_layers_pg=2, num_layers_r=2, num_refinements=1,
+              num_f_maps=8)  # receptive field 1 + 6 + 6 = 13
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sess = StreamingSession.create(context=8, **kw)
+    assert any("receptive field" in str(w.message) for w in caught)
+    assert sess.receptive_field == 13
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        StreamingSession.create(context=16, **kw)
+    assert not any("receptive field" in str(w.message) for w in caught)
+
+
+def test_port_imports_no_jax():
+    """The GPU machine has no JAX: the port's serving path must not import
+    it, nor the JAX package (whose data/__init__ imports JAX)."""
+    code = ("import sys; import computervision_codes_tpu_torch.serving; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'computervision_codes_tpu')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
