@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's serving paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,22 +7,39 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 and nvcc. Imports torch, numpy and the port only (no JAX). Phases, each
 printing its own lines:
 
-1. device: the card's name and power limit (nvidia-smi); float32 checks
-   run with TF32 off in cuDNN and cuBLAS;
-2. build: every kernel of the path from the checkout's sources (timed);
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   every (dilation, causal) pair of the main path, B=4, T=256, C=512, in
-   bf16 and float32, plus ragged shapes; and its time beside the plain
-   version's;
+1. device: the card's name and power limit (nvidia-smi); the kernel and
+   model checks run float32 with TF32 off in cuDNN and cuBLAS;
+2. build: every kernel of the paths from the checkout's sources, one nvcc
+   per source, all started together (timed, with ptxas' register and spill
+   lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``;
+3. kernels: each kernel against its plain PyTorch version on the card:
+   - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
+     C=512, in bf16 and float32, plus ragged shapes; its time beside the
+     plain version's;
+   - K2 in bf16 and float32 at N x 256x448 frames for N = 4 and 1024 and
+     at the JAX kernel test's ragged shapes and batch sizes; its time at
+     N = 64 and 1024;
+   - Q1 at each of ResNet18's 19 int8 convolutions at 256x448 (N = 2
+     frames), the 3-channel 7x7/2 stem and odd sizes at stride 2: its
+     int8 codes, its int32 sums and its outputs equal the exact plain
+     version's bit for bit; its time beside the plain version's and the
+     bf16 cuDNN convolution's at N = 64;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
-   TCN layers, 512 maps) on the card against the same module and weights
-   on the CPU, on a (1, 16, 256, 448, 3) clip;
-5. offline serving: InferenceSession (bf16) at 4 x 256 frames of 256x448,
-   uint8 input: shapes, range, kernel launches per predict, ms, frames/s;
-6. streaming: StreamingSession at context 256, streams 1 and 16;
-7. breakdown: input, backbone and TCN time of one offline forward and
-   of one push.
+   TCN layers, 512 maps) on the card against the same module on the CPU,
+   and the full-width int8 recognizer (``make_int8_e2e``, fused stem,
+   bf16) on the card against the same quantized module on the CPU, each
+   on a (1, 16, 256, 448, 3) clip;
+5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
+   InferenceSession, the int8 one (``quantize=True``) with its float stem,
+   and the int8 one with the fused stem: launches of each kernel per
+   predict, ms, frames/s, peak device memory;
+6. streaming at context 256, streams 1 and 16: the bf16 StreamingSession
+   and the int8 one with the fused stem, launches per push and ms;
+7. breakdown: input, backbone and TCN time of one offline forward and of
+   one push, for the bf16 and the int8 sessions.
 
+Phases 5 and 6 are the main path: every launch count is set to 0 just
+before them and read just after, and each kernel must have launched.
 Then one JSON line with the kernels, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
@@ -40,17 +57,24 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "computervision_codes_tpu_torch"
 DEVICE = "cuda"
-KERNEL_SOURCE = f"{PACKAGE}/csrc/dilated_residual.cu"
-KERNEL_REPLACES = "computervision_codes_tpu/ops/dilated_conv.py:88"
+# name -> the TPU kernel (or, for Q1, the XLA op and epilogue) it replaces
+KERNELS = {
+    "dilated_residual": "computervision_codes_tpu/ops/dilated_conv.py:88",
+    "stem_pool": "computervision_codes_tpu/ops/stem_pool.py:148",
+    "qconv_bn": "computervision_codes_tpu/ops/quant.py:41 + :63",
+}
 LAYERS_PER_FORWARD = 11 + 3 * 10  # dilated layers of the default TCN
+INT8_CONVS = 19  # ResNet18: 16 block convs + 3 downsamples
 # the serving geometry: (B, T, H, W) offline, K1 at (B, T, C)
 OFFLINE = (4, 256, 256, 448)
 LAYER = (4, 256, 512)
 MODEL_CLIP = (1, 16, 256, 448)
+OFFLINE_CALLS = 6  # per session; the first warms up
 STREAM_CONTEXT, STREAM_COUNTS, PUSHES = 256, (1, 16), 8
 # bf16 keeps 8 significant bits; the plain bf16 version rounds about six
 # times per element, the kernel twice, so allow 8 ulps at the output's
@@ -60,6 +84,26 @@ REL_TOL = {torch.bfloat16: 8 * 2.0 ** -8, torch.float32: 1e-4}
 # full model, float32, card vs CPU: 17 convolutions and 41 residual layers
 # with sums in another order (and other cuDNN algorithms)
 MODEL_REL_TOL = 1e-3
+# int8 model, bf16, card vs CPU: K2's float32 sums in another order can
+# move a bf16 activation by one ulp, and so an int8 code of the next layer
+# by one, and K1 and the bf16 TCN round differently from their plain
+# versions, so the bound is a correlation of each output with the CPU's
+INT8_MODEL_MIN_CORR = 0.999
+# K2: float32 sums of 147 products in another order (the JAX kernel test's
+# 2e-5 absolute); bf16: both sides round the same float32 sum once, so one
+# bf16 ulp of the largest output
+STEM_F32_ATOL = 2e-5
+STEM_CASES = ([(4, 256, 448), (1024, 256, 448)]
+              + [(2, 32, 56), (2, 16, 16), (2, 24, 40)]
+              + [(n, 16, 16) for n in (9, 10, 11, 16, 22)])
+STEM_TIME_N = (64, 1024)
+Q1_CHECK_N, Q1_TIME_N = 2, 64
+# Q1 beyond ResNet18's block convs: (what, Cin, Cout, k, stride, pad, H, W)
+Q1_EXTRA = [("stem 7x7/2 Cin=3", 3, 64, 7, 2, 3, 256, 448),
+            ("odd 7x7/2 Cin=3", 3, 64, 7, 2, 3, 17, 29),
+            ("odd 3x3/2", 64, 128, 3, 2, 1, 33, 57),
+            ("odd 1x1/2", 64, 128, 1, 2, 0, 33, 57),
+            ("odd 3x3/2 Cin=24", 24, 40, 3, 2, 1, 9, 11)]
 TASK_SIZES = {"ivt": 100, "i": 6, "v": 10, "t": 15}
 
 
@@ -83,6 +127,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(fns: dict, reps: dict) -> tuple:
+    """Median ms of each of ``fns`` over two runs each, in the order
+    a, b, ..., b, a after a warm-up; returns (medians, runs)."""
+    for fn in fns.values():
+        cuda_ms(fn, 2)
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(round(cuda_ms(fns[name], reps[name]), 4))
+    return {k: float(np.median(v)) for k, v in runs.items()}, runs
+
+
+def bf16_ulp(top: float) -> float:
+    """One bf16 ulp at magnitude ``top``."""
+    return 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
 
 
 def layer_inputs(b, t, c, dtype, seed):
@@ -114,6 +175,25 @@ def timed_call(fn):
     return out, start.elapsed_time(end)
 
 
+def kernel_wrappers() -> dict:
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from computervision_codes_tpu_torch.ops import dilated_conv, quant
+    from computervision_codes_tpu_torch.ops import stem_pool
+
+    return {"dilated_residual": dilated_conv.dilated_residual_cuda,
+            "stem_pool": stem_pool.stem_pool_cuda,
+            "qconv_bn": quant.qconv_bn_cuda}
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def launched_since(before: dict) -> dict:
+    now = launches()
+    return {name: now[name] - before[name] for name in now}
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,16 +216,18 @@ def phase_build() -> None:
     from computervision_codes_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library("dilated_residual")
-    print(f"[build] dilated_residual.cu -> "
-          f"{_build.library_path('dilated_residual').name} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("dilated_residual", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    seconds = _build.build(list(KERNELS))
+    print(f"[build] {len(KERNELS)} sources, one nvcc each, in parallel: "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    for name in KERNELS:
+        print(f"[build] {name}.cu -> {_build.library_path(name).name} in "
+              f"{seconds[name]:.2f} s")
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
 
 
-def phase_kernels(card: str) -> dict:
+def phase_k1(card: str) -> dict:
     from computervision_codes_tpu_torch.ops.dilated_conv import (
         dilated_residual_cuda, dilated_residual_reference)
 
@@ -183,14 +265,10 @@ def phase_kernels(card: str) -> dict:
     for b, dtype in ((b0, torch.bfloat16), (b0, torch.float32),
                      *((s, torch.bfloat16) for s in STREAM_COUNTS)):
         args = layer_inputs(b, t0, c, dtype, seed=99)
-        fns = {"kernel": lambda: dilated_residual_cuda(*args, 16, False),
-               "plain": lambda: dilated_residual_reference(*args, 16, False)}
-        for fn in fns.values():
-            cuda_ms(fn, 5)  # warm up
-        runs = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            runs[name].append(cuda_ms(fns[name], 50))
-        times[b, dtype] = {k: float(np.median(v)) for k, v in runs.items()}
+        times[b, dtype], runs = in_turns(
+            {"plain": lambda: dilated_residual_reference(*args, 16, False),
+             "kernel": lambda: dilated_residual_cuda(*args, 16, False)},
+            {"plain": 50, "kernel": 50})
         kern_ms = times[b, dtype]["kernel"]
         print(f"[kernels] K1 time {str(dtype)[6:]} B={b} T={t0} C={c} d=16:"
               f" kernel {kern_ms:.4f} ms "
@@ -199,6 +277,190 @@ def phase_kernels(card: str) -> dict:
     return {"max_abs_err": worst_main,
             "ms": times[b0, torch.bfloat16]["kernel"],
             "plain_ms": times[b0, torch.bfloat16]["plain"]}
+
+
+def stem_inputs(n, h, w, dtype, seed):
+    """Frames (N, H, W, 3), a BN-folded-like stem kernel and bias, made on
+    the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(n, h, w, 3, generator=g, device=DEVICE).to(dtype)
+    wt = (0.1 * torch.randn(7, 7, 3, 64, generator=g, device=DEVICE)
+          ).to(dtype)
+    bias = 0.5 * torch.randn(64, generator=g, device=DEVICE)
+    return x, wt, bias
+
+
+def phase_k2(card: str) -> dict:
+    from computervision_codes_tpu_torch.ops.stem_pool import (
+        stem_pool_cuda, stem_pool_reference)
+
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for seed, (n, h, w) in enumerate(STEM_CASES):
+            args = stem_inputs(n, h, w, dtype, seed)
+            got = stem_pool_cuda(*args)
+            want = stem_pool_reference(*args)
+            check(got.shape == want.shape == (n, h // 4, w // 4, 64),
+                  f"K2 {dtype} {(n, h, w)}: shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()),
+                  f"K2 {dtype} {(n, h, w)}: non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            top = want.float().abs().max().item()
+            tol = STEM_F32_ATOL if dtype == torch.float32 else bf16_ulp(top)
+            check(err <= tol, f"K2 {dtype} {(n, h, w)}: max_abs_err {err} > "
+                              f"tol {tol} (max|ref| {top})")
+            if err / tol >= worst[0]:
+                worst = (err / tol, ((n, h, w), err, tol))
+            if dtype == torch.bfloat16 and (n, h, w) == (1024,) + OFFLINE[2:]:
+                main_err = err
+            del args, got, want
+        print(f"[kernels] K2 {str(dtype)[6:]}: {len(STEM_CASES)} shapes "
+              f"within tolerance ("
+              f"{'2e-5 absolute' if dtype == torch.float32 else '1 ulp of max|ref|'}"
+              f"); worst ((N, H, W), err, tol) = {worst[1]}")
+    times = {}
+    h, w = OFFLINE[2:]
+    for n in STEM_TIME_N:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = stem_inputs(n, h, w, dtype, seed=99)
+            reps = 20 if n < 1024 else 5
+            times[n, dtype], runs = in_turns(
+                {"plain": lambda: stem_pool_reference(*args),
+                 "kernel": lambda: stem_pool_cuda(*args)},
+                {"plain": reps, "kernel": reps})
+            kern_ms = times[n, dtype]["kernel"]
+            flop = 2 * n * (h // 2) * (w // 2) * 64 * 147
+            print(f"[kernels] K2 time {str(dtype)[6:]} N={n} {h}x{w}: kernel "
+                  f"{kern_ms:.4f} ms ({flop / kern_ms / 1e9:.1f} TFLOP/s of "
+                  f"conv), plain {times[n, dtype]['plain']:.4f} ms; runs "
+                  f"{runs}; {card}")
+            del args
+    return {"max_abs_err": main_err,
+            "ms": times[1024, torch.bfloat16]["kernel"],
+            "plain_ms": times[1024, torch.bfloat16]["plain"]}
+
+
+def resnet18_convs(h: int, w: int) -> list:
+    """ResNet18's int8 convolutions in call order at an (h, w) frame:
+    (what, Cin, Cout, k, stride, pad, H_in, W_in)."""
+    h, w, cin, out = h // 4, w // 4, 64, []
+    for si in range(4):
+        cout = 64 * 2 ** si
+        for bi in range(2):
+            s = 2 if si > 0 and bi == 0 else 1
+            name = f"layer{si + 1}_{bi}"
+            ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+            out.append((f"{name}.conv1", cin, cout, 3, s, 1, h, w))
+            out.append((f"{name}.conv2", cout, cout, 3, 1, 1, ho, wo))
+            if s != 1 or cin != cout:
+                out.append((f"{name}.downsample", cin, cout, 1, s, 0, h, w))
+            h, w, cin = ho, wo, cout
+    return out
+
+
+def qconv_inputs(n, cin, cout, k, h, w, dtype, seed):
+    """Activations (N, H, W, Cin), int8 weights (Cout, k, k, Cin) and a
+    realistic per-channel ``mult`` (weight scale x BN) and bias."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(n, h, w, cin, generator=g, device=DEVICE).to(dtype)
+    w_q = torch.randint(-127, 128, (cout, k, k, cin), generator=g,
+                        device=DEVICE, dtype=torch.int8)
+    mult = 1e-4 + 1e-3 * torch.rand(cout, generator=g, device=DEVICE)
+    bias = torch.randn(cout, generator=g, device=DEVICE)
+    return x, w_q, mult, bias
+
+
+def phase_q1(card: str) -> dict:
+    from computervision_codes_tpu_torch.ops.quant import (
+        activation_scale, conv_i8, qconv_bn_cuda, qconv_bn_reference,
+        quantize_with_scale)
+
+    h, w = OFFLINE[2:]
+    cases = resnet18_convs(h, w)
+    check(len(cases) == INT8_CONVS, f"{len(cases)} ResNet18 int8 convs")
+    cases = cases + Q1_EXTRA
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, (what, cin, cout, k, s, p, hi, wi) in enumerate(cases):
+            tag = f"Q1 {str(dtype)[6:]} {what} {cin}->{cout} {k}x{k}/{s}"
+            x, w_q, mult, bias = qconv_inputs(Q1_CHECK_N, cin, cout, k, hi,
+                                              wi, dtype, seed)
+            s_act = activation_scale(x).reshape(1)
+            pad = ((p, p), (p, p))
+            ones = torch.ones(cin, device=DEVICE)
+            # codes: a 1x1 identity convolution at unit mult gives
+            # code * s_act, so equal outputs mean equal codes
+            eye = torch.eye(cin, device=DEVICE).to(torch.int8)[:, None, None]
+            got = qconv_bn_cuda(x, s_act, eye, ones, 0 * ones, 1, "VALID",
+                                dtype=torch.float32)
+            want = quantize_with_scale(x, s_act).float() * s_act
+            check(torch.equal(got, want), f"{tag}: int8 codes differ")
+            # int32 sums: integer-valued input at unit scales gives the sum
+            # itself in float32, exact below 2**24
+            codes = torch.randint(-127, 128, x.shape, device=DEVICE).to(dtype)
+            one = torch.ones(1, device=DEVICE)
+            acc = conv_i8(codes.to(torch.int8), w_q, s, pad)
+            check(acc.abs().max().item() < 2 ** 24, f"{tag}: sums too large")
+            got = qconv_bn_cuda(codes, one, w_q, torch.ones(cout, device=DEVICE),
+                                torch.zeros(cout, device=DEVICE), s, pad,
+                                dtype=torch.float32)
+            check(torch.equal(got, acc.float()), f"{tag}: int32 sums differ")
+            # outputs: bit for bit, the epilogue with and without ReLU
+            relu = seed % 2 == 0
+            got = qconv_bn_cuda(x, s_act, w_q, mult, bias, s, pad, relu=relu,
+                                dtype=dtype)
+            want = qconv_bn_reference(x, s_act, w_q, mult, bias, s, pad,
+                                      relu=relu, dtype=dtype)
+            check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+            check(torch.equal(got, want),
+                  f"{tag}: output differs by "
+                  f"{(got.float() - want.float()).abs().max().item()}")
+        print(f"[kernels] Q1 {str(dtype)[6:]} in and out: {len(cases)} "
+              f"shapes (ResNet18's {INT8_CONVS} at {h}x{w}, N={Q1_CHECK_N}, "
+              f"and {len(Q1_EXTRA)} more): codes, int32 sums and outputs "
+              f"equal bit for bit")
+
+    # times at N = 64 frames, bf16 in and out, static scale, each distinct
+    # shape once; the forward's total weights each by its count
+    shapes = {}
+    for what, cin, cout, k, s, p, hi, wi in cases[:INT8_CONVS] + Q1_EXTRA[:1]:
+        key = (cin, cout, k, s, p, hi, wi)
+        shapes.setdefault(key, [what, 0])[1] += 1
+    total = {"kernel": 0.0, "plain": 0.0, "cudnn_bf16": 0.0}
+    for (cin, cout, k, s, p, hi, wi), (what, count) in shapes.items():
+        x, w_q, mult, bias = qconv_inputs(Q1_TIME_N, cin, cout, k, hi, wi,
+                                          torch.bfloat16, seed=99)
+        s_act = activation_scale(x).reshape(1)
+        pad = ((p, p), (p, p))
+        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        wc = w_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        ms, runs = in_turns(
+            {"cudnn_bf16": lambda: F.conv2d(xc, wc, None, s, p),
+             "plain": lambda: qconv_bn_reference(x, s_act, w_q, mult, bias,
+                                                 s, pad, relu=True),
+             "kernel": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, s,
+                                             pad, relu=True)},
+            {"cudnn_bf16": 20, "plain": 3, "kernel": 20})
+        if "stem" not in what:
+            for name in total:
+                total[name] += count * ms[name]
+        macs = Q1_TIME_N * ((hi + 2 * p - k) // s + 1) * (
+            (wi + 2 * p - k) // s + 1) * cout * k * k * cin
+        print(f"[kernels] Q1 time N={Q1_TIME_N} {what} {cin}->{cout} "
+              f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward): kernel "
+              f"{ms['kernel']:.4f} ms ({2 * macs / ms['kernel'] / 1e9:.1f} "
+              f"TOP/s), plain {ms['plain']:.4f} ms, bf16 cuDNN convolution "
+              f"alone (labelled cudnn_bf16) {ms['cudnn_bf16']:.4f} ms; runs "
+              f"{runs}; {card}")
+        del x, xc, wc
+    print(f"[kernels] Q1 per ResNet18 forward of {Q1_TIME_N} frames "
+          f"({INT8_CONVS} convs): kernel {total['kernel']:.4f} ms, plain "
+          f"{total['plain']:.4f} ms, bf16 cuDNN {total['cudnn_bf16']:.4f} "
+          f"ms; {card}")
+    return {"max_abs_err": 0.0, "ms": round(total["kernel"], 4),
+            "plain_ms": round(total["plain"], 4),
+            "cudnn_bf16_ms": round(total["cudnn_bf16"], 4)}
 
 
 def phase_model() -> None:
@@ -232,36 +494,95 @@ def phase_model() -> None:
     print(f"[model] CPU forward {t_cpu:.2f} s (host clock)")
 
 
-def phase_offline(card: str, launches):
+def phase_model_int8() -> None:
+    from computervision_codes_tpu_torch.models.pipeline import (
+        EndToEndRecognizer)
+    from computervision_codes_tpu_torch.models.quantized import make_int8_e2e
+    from computervision_codes_tpu_torch.serving import _to_model_input
+
+    float_model = EndToEndRecognizer(
+        dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0)).eval()
+    pixels = np.random.default_rng(3).integers(0, 256, MODEL_CLIP + (3,),
+                                               dtype=np.uint8)
+    clip = _to_model_input(pixels, torch.device("cpu"), torch.bfloat16)
+    t0 = time.perf_counter()
+    cpu_model = make_int8_e2e(float_model, calibrate_clips=clip[:, :4],
+                              fused_stem=True)
+    t_cal = time.perf_counter() - t0
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(clip)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = {k: v.cpu() for k, v in dev_model(clip.to(DEVICE)).items()}
+        count = launched_since(before)
+    want_count = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 1,
+                  "qconv_bn": INT8_CONVS}
+    check(count == want_count, f"int8 model launches {count}, want "
+                               f"{want_count}")
+    for k in ("ivt", "i", "v", "t", "features"):
+        g, w = got[k].float(), want[k].float()
+        check(g.shape == w.shape, f"int8 model {k}: shape {g.shape}")
+        check(bool(torch.isfinite(g).all()), f"int8 model {k}: non-finite")
+        corr = float(np.corrcoef(g.numpy().ravel(), w.numpy().ravel())[0, 1])
+        err = (g - w).abs().max().item()
+        check(corr > INT8_MODEL_MIN_CORR,
+              f"int8 model {k}: card vs CPU correlation {corr} <= "
+              f"{INT8_MODEL_MIN_CORR}")
+        print(f"[model] int8 bf16 fused stem {k} {tuple(g.shape)}: card vs "
+              f"CPU correlation {corr:.6f} (bound > {INT8_MODEL_MIN_CORR}), "
+              f"max_abs_err {err:.3e} (max|ref| {w.abs().max().item():.3f})")
+    print(f"[model] int8 launches on the card per forward {count}; CPU "
+          f"calibration (4 frames) {t_cal:.2f} s and forward {t_cpu:.2f} s "
+          f"(host clock)")
+
+
+def phase_offline(card: str, configs: dict) -> tuple:
+    """``configs``: label -> (launches per predict, ``create`` kwargs).
+    Creates every session, then predicts with them in turns (the order
+    reversed every other round), so their times share one window."""
     from computervision_codes_tpu_torch.serving import InferenceSession
 
     b, t, h, w = OFFLINE
-    sess = InferenceSession.create(batch=b, clip_len=t, height=h, width=w,
-                                   device=DEVICE)
+    sessions = {label: InferenceSession.create(
+        batch=b, clip_len=t, height=h, width=w, device=DEVICE, **kw)
+        for label, (_, kw) in configs.items()}
     base = np.random.default_rng(1).integers(0, 256, (b, t, h, w, 3),
                                              dtype=np.uint8)
-    torch.cuda.reset_peak_memory_stats()
-    ms = []
-    for call in range(4):  # call 0 warms up (cuDNN plans, allocator)
+    labels = list(configs)
+    ms = {label: [] for label in labels}
+    peak = dict.fromkeys(labels, 0)
+    for call in range(OFFLINE_CALLS):  # call 0 warms up (cuDNN, allocator)
         clips = base + np.uint8(call)  # a different clip per call
-        before = launches()
-        probs, call_ms = timed_call(lambda: sess.predict(clips))
-        ms.append(call_ms)
-        check(launches() - before == LAYERS_PER_FORWARD,
-              f"predict {call}: {launches() - before} K1 launches, want "
-              f"{LAYERS_PER_FORWARD}")
-        check_probs(probs, (b, t), f"predict {call}")
-    steady = float(np.median(ms[1:]))
-    print(f"[offline] InferenceSession bf16 {b}x{t} frames {h}x{w} uint8: "
-          f"{LAYERS_PER_FORWARD} K1 launches per predict; ms per predict "
-          f"{[round(m, 3) for m in ms]} (first warms up); median "
-          f"{steady:.3f} ms = {b * t / steady * 1e3:.1f} frames/s; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB; {card}")
-    return sess, base
+        for label in labels if call % 2 == 0 else labels[::-1]:
+            want, sess = configs[label][0], sessions[label]
+            torch.cuda.reset_peak_memory_stats()
+            before = launches()
+            probs, call_ms = timed_call(lambda: sess.predict(clips))
+            peak[label] = max(peak[label], torch.cuda.max_memory_allocated())
+            ms[label].append(call_ms)
+            count = launched_since(before)
+            check(count == want, f"{label} predict {call}: launches {count},"
+                                 f" want {want}")
+            check_probs(probs, (b, t), f"{label} predict {call}")
+    steady = {label: float(np.median(ms[label][1:])) for label in labels}
+    for label in labels:
+        print(f"[offline] InferenceSession {label} {b}x{t} frames {h}x{w} "
+              f"uint8: launches per predict {configs[label][0]}; ms per "
+              f"predict {[round(m, 3) for m in ms[label]]} (first warms up); "
+              f"median {steady[label]:.3f} ms = "
+              f"{b * t / steady[label] * 1e3:.1f} frames/s; peak device "
+              f"memory in predict {peak[label] / 2**30:.2f} GiB (every "
+              f"session's weights resident); {card}")
+    print(f"[offline] frames/s on one line, sessions in turns: " + ", ".join(
+        f"{label} {b * t / ms_ * 1e3:.1f} ({ms_:.3f} ms)"
+        for label, ms_ in steady.items()) + f"; {card}")
+    return sessions, base
 
 
-def phase_streaming(card: str, launches) -> list:
+def phase_streaming(card: str, label: str, want: dict, **session_kw) -> list:
     from computervision_codes_tpu_torch.serving import StreamingSession
 
     _, _, h, w = OFFLINE
@@ -270,7 +591,7 @@ def phase_streaming(card: str, launches) -> list:
     for streams in STREAM_COUNTS:
         sess = StreamingSession.create(context=STREAM_CONTEXT, height=h,
                                        width=w, streams=streams,
-                                       device=DEVICE)
+                                       device=DEVICE, **session_kw)
         frames = rng.integers(0, 256, (PUSHES, streams, h, w, 3),
                               dtype=np.uint8)
         ms = []
@@ -278,17 +599,16 @@ def phase_streaming(card: str, launches) -> list:
             before = launches()
             probs, push_ms = timed_call(lambda: sess.push(frames[i]))
             ms.append(push_ms)
-            check(launches() - before == LAYERS_PER_FORWARD,
-                  f"push {i}: {launches() - before} K1 launches, want "
-                  f"{LAYERS_PER_FORWARD}")
+            count = launched_since(before)
+            check(count == want, f"{label} push {i}: launches {count}, want "
+                                 f"{want}")
             check_probs(probs, (streams,) if streams > 1 else (),
-                        f"push {i} streams={streams}")
+                        f"{label} push {i} streams={streams}")
         check(sess.frames_seen == PUSHES, f"frames_seen {sess.frames_seen}")
-        print(f"[streaming] StreamingSession causal bf16 "
-              f"context={STREAM_CONTEXT} streams={streams}: "
-              f"{LAYERS_PER_FORWARD} K1 launches per push; ms per push "
-              f"{[round(m, 3) for m in ms]} (first warms up); median "
-              f"{float(np.median(ms[1:])):.3f} ms; {card}")
+        print(f"[streaming] StreamingSession {label} causal "
+              f"context={STREAM_CONTEXT} streams={streams}: launches per "
+              f"push {want}; ms per push {[round(m, 3) for m in ms]} (first "
+              f"warms up); median {float(np.median(ms[1:])):.3f} ms; {card}")
         sessions.append((sess, frames[-1]))
     return sessions
 
@@ -316,13 +636,17 @@ def breakdown(model, x_host: torch.Tensor, buffer=None) -> dict:
     return parts
 
 
-def phase_breakdown(card: str, offline, clips: np.ndarray, streaming) -> None:
-    print(f"[breakdown] ms per offline forward "
-          f"{breakdown(offline.model, torch.from_numpy(clips))}; {card}")
-    for sess, frame in streaming:
-        parts = breakdown(sess.model, torch.from_numpy(frame), sess.buffer)
-        print(f"[breakdown] ms per push, streams={sess.streams}: {parts}; "
-              f"{card}")
+def phase_breakdown(card: str, offline: dict, clips: np.ndarray,
+                    streaming: dict) -> None:
+    for label, sess in offline.items():
+        print(f"[breakdown] {label}: ms per offline forward "
+              f"{breakdown(sess.model, torch.from_numpy(clips))}; {card}")
+    for label, sessions in streaming.items():
+        for sess, frame in sessions:
+            parts = breakdown(sess.model, torch.from_numpy(frame),
+                              sess.buffer)
+            print(f"[breakdown] {label}: ms per push, streams="
+                  f"{sess.streams}: {parts}; {card}")
 
 
 def main() -> None:
@@ -333,25 +657,46 @@ def main() -> None:
         fail("no CUDA device (torch.cuda.is_available() is False); this "
              "check runs only on the card")
     sys.path.insert(0, str(ROOT))
-    from computervision_codes_tpu_torch.ops import dilated_conv
 
     card = phase_device()
     phase_build()
-    k1 = phase_kernels(card)
+    measured = {"dilated_residual": phase_k1(card),
+                "stem_pool": phase_k2(card),
+                "qconv_bn": phase_q1(card)}
     phase_model()
+    phase_model_int8()
 
-    def launches() -> int:
-        return dilated_conv.dilated_residual_cuda.launches
-
-    dilated_conv.dilated_residual_cuda.launches = 0  # main path starts here
-    sess, clips = phase_offline(card, launches)
-    streaming = phase_streaming(card, launches)
+    # the main path: the serving entry points at the serving geometry,
+    # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
+    # int8 sessions' float stem convolves bf16-valued float32 tensors,
+    # which TF32 holds exactly, so its sums are the float32 sums
+    torch.backends.cudnn.allow_tf32 = True
+    k1_only = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 0,
+               "qconv_bn": 0}
+    int8_fused = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 1,
+                  "qconv_bn": INT8_CONVS}
+    int8_float_stem = dict(int8_fused, stem_pool=0)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # main path starts here
+    offline, clips = phase_offline(card, {
+        "bf16": (k1_only, {}),
+        "int8 float stem": (int8_float_stem, {"quantize": True}),
+        "int8 fused stem": (int8_fused, {"quantize": True,
+                                         "fused_stem": True})})
+    streaming = {
+        "bf16": phase_streaming(card, "bf16", k1_only),
+        "int8 fused stem": phase_streaming(card, "int8 fused stem",
+                                           int8_fused, quantize=True,
+                                           fused_stem=True)}
     total = launches()
-    check(total > 0, "the main path launched no K1 kernel")
-    phase_breakdown(card, sess, clips, streaming)
-    print(json.dumps({"kernels": [{
-        "name": "dilated_residual", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": total, **k1}]}))
+    for name, n in total.items():
+        check(n > 0, f"the main path launched no {name} kernel")
+    print(f"[main path] launches {total}")
+    phase_breakdown(card, offline, clips, streaming)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{name}.cu",
+         "replaces": replaces, "launches": total[name], **measured[name]}
+        for name, replaces in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,6 +16,12 @@ the flax names its children carry:
 
 Every leaf of ``variables`` must be used and every parameter filled:
 a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.
+
+``load_jax_quantized(qmodule, q_backbone)`` does the same for a tree that
+the JAX ``quantize_resnet`` / ``calibrate_resnet`` made: int8 ``w_q`` goes
+from HWIO to the kernel's (Cout, kh, kw, Cin), ``w`` (a float stem) stays
+HWIO, and ``mult``, ``bias`` and ``act_scale`` come across as they are (a
+conv without ``act_scale`` in the tree goes back to dynamic scales).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .quantized import QConv
 from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
 from .tcn import Conv1x1, DilatedResidualLayer
 
@@ -115,3 +122,50 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
         raise KeyError(f"JAX variables not used by {type(module).__name__}: "
                        f"{extra[:8]}{' ...' if len(extra) > 8 else ''}")
     return module
+
+
+def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:
+    """Fill a ``QuantizedResNet`` in place from a JAX quantized tree of the
+    same architecture and stem kind."""
+    convs = {name: m for name, m in qmodule.named_modules()
+             if isinstance(m, QConv)}
+    nodes = {}
+
+    def walk(tree, prefix):
+        if any(not isinstance(v, Mapping) for v in tree.values()):
+            nodes[".".join(prefix)] = tree
+            return
+        for k, v in tree.items():
+            walk(v, prefix + (str(k),))
+
+    walk(q_backbone, ())
+    if set(nodes) != set(convs):
+        odd = sorted(set(nodes) ^ set(convs))
+        raise KeyError(f"convs {odd[:8]} are not in both the quantized tree "
+                       f"and the module")
+    with torch.no_grad():
+        for name, conv in convs.items():
+            node = {k: np.asarray(v) for k, v in nodes[name].items()}
+            kinds = ("w" in node, "w" in conv.qw)
+            if kinds[0] != kinds[1]:
+                raise ValueError(f"{name}: float stem in "
+                                 f"{'the tree' if kinds[0] else 'the module'}"
+                                 f" only")
+            extra = set(node) - {"w", "w_q", "mult", "bias", "act_scale"}
+            if extra:
+                raise KeyError(f"{name}: unknown keys {sorted(extra)}")
+            for key, value in node.items():
+                if key == "act_scale":
+                    conv.act_scale = torch.tensor(np.float32(value),
+                                                  device=conv.bias.device)
+                    continue
+                if key == "w_q":
+                    value = value.transpose(3, 0, 1, 2)  # HWIO -> OHWI
+                want = getattr(conv, key)
+                if tuple(want.shape) != value.shape:
+                    raise ValueError(f"{name}/{key}: shape {value.shape} "
+                                     f"does not fit {tuple(want.shape)}")
+                want.copy_(torch.from_numpy(np.array(value)).to(want.dtype))
+            if "w_q" in node and "act_scale" not in node:
+                conv.act_scale = None
+    return qmodule

@@ -5,7 +5,8 @@ frame, then the TCN over the pooled feature sequence. Input (B, T, H, W, 3)
 normalised frames; output per-frame logits for the four tasks from TCN
 pyramid level 0 plus the (B, T, D) backbone ``features``. ``causal=True``
 front-pads every temporal layer (the variant ``serving.StreamingSession``
-runs).
+runs). ``s2d_stem`` and ``fused_stem`` choose the backbone's stem
+execution plan (``models.resnet``).
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ class EndToEndRecognizer(nn.Module):
     def __init__(self, network: str = "resnet18", num_layers_pg: int = 11,
                  num_layers_r: int = 10, num_refinements: int = 3,
                  num_f_maps: int = 512, causal: bool = False,
+                 s2d_stem: bool = False, fused_stem: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         sizes, block = RESNET_VARIANTS[network]
-        self.backbone = ResNet(sizes, block, dtype=dtype, generator=generator)
+        self.network = network
+        self.backbone = ResNet(sizes, block, dtype=dtype, generator=generator,
+                               s2d_stem=s2d_stem, fused_stem=fused_stem)
         self.tcn = TemporalTCN(
             in_features=self.backbone.num_channels,
             num_layers_pg=num_layers_pg, num_layers_r=num_layers_r,

@@ -10,8 +10,15 @@ as the JAX FrozenBatchNorm does.
 Inputs at the public boundary are NHWC, as in the JAX package; inside, the
 tensors are NCHW in ``channels_last`` memory format, which is the same
 bytes. Convolutions are cuDNN's on the card, as they were XLA's on the TPU:
-no Pallas kernel sits on this path at its defaults. ``s2d_stem`` and
-``fused_stem`` are not ported yet (both are off by default).
+no Pallas kernel sits on this path at its defaults.
+
+Two execution plans of the stem, both off by default and with the JAX
+package's gates: ``fused_stem`` folds the eval BatchNorm into the stem in
+float32 and runs conv + bias + ReLU + max-pool as one kernel
+(``ops.stem_pool.stem_pool_fused``), when H and W are divisible by 4;
+otherwise ``s2d_stem`` runs the 7x7/2 conv as a 4x4/1 conv over the 2x2
+space-to-depth input (``_s2d_conv1``), when H and W are even. ``fused_stem``
+wins when both are set.
 
 Child modules carry the flax names (``conv1``, ``bn1``, ``layer1_0``,
 ``downsample_conv`` ...) for ``models.convert.load_jax_variables``.
@@ -25,6 +32,8 @@ from typing import Dict, Optional, Sequence, Tuple, Type
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.stem_pool import stem_pool_fused
 
 BN_EPS = 1e-5
 
@@ -78,6 +87,28 @@ class FrozenBatchNorm(BatchNorm):
 
 def _norm(frozen: bool) -> Type[BatchNorm]:
     return FrozenBatchNorm if frozen else BatchNorm
+
+
+def _s2d_conv1(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The stem conv (7x7, stride 2, pad 3) as a 4x4 stride-1 VALID conv
+    over the 2x2 space-to-depth input, on the same kernel: tap (dy, dx)
+    maps to spatial (dy // 2, dx // 2) and input channel (dy % 2, dx % 2,
+    c). Identical multiply-adds; needs even H, W.
+
+    x: (N, C, H, W) (any memory format); kernel: OIHW (64, C, 7, 7).
+    Returns (N, 64, H/2, W/2).
+    """
+    n, c, h, w = x.shape
+    oc = kernel.shape[0]
+    xp = F.pad(x, (3, 3, 3, 3))
+    hp, wp = h + 6, w + 6
+    # (n, c, hp/2, 2, wp/2, 2) -> channels ordered (py, px, c)
+    xs = xp.reshape(n, c, hp // 2, 2, wp // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = xs.reshape(n, 4 * c, hp // 2, wp // 2)
+    kp = F.pad(kernel, (0, 1, 0, 1))  # zero tap 7 -> (oc, c, 8, 8)
+    k2 = kp.reshape(oc, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    k2 = k2.reshape(oc, 4 * c, 4, 4)
+    return F.conv2d(xs, k2)
 
 
 class BasicBlock(nn.Module):
@@ -144,9 +175,11 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: Type[nn.Module],
                  frozen_bn: bool = False, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 s2d_stem: bool = False, fused_stem: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.s2d_stem, self.fused_stem = s2d_stem, fused_stem
         self.conv1 = Conv2d(3, 64, 7, 2, 3, dtype, generator)
         self.bn1 = _norm(frozen_bn)(64, dtype)
         cin = 64
@@ -164,13 +197,32 @@ class ResNet(nn.Module):
             self.stage_names.append(names)
         self.num_channels = cin
 
+    def stem_bn_fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(w', b'): the stem kernel, HWIO (7, 7, 3, 64), with the eval
+        BatchNorm folded in, and the folded bias; float32."""
+        bn = self.bn1
+        mult = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+        kernel = self.conv1.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        return kernel * mult, bn.bias - bn.running_mean * mult
+
     def forward(self, x: torch.Tensor) -> Dict[str, object]:
-        # NHWC -> NCHW view with channels_last strides (no copy when x is
-        # a contiguous NHWC tensor)
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = x.to(self.dtype)
+        h, w = x.shape[1], x.shape[2]
+        if self.fused_stem and h % 4 == 0 and w % 4 == 0:
+            wf, bf = self.stem_bn_fold()
+            x = stem_pool_fused(x.contiguous(), wf.to(self.dtype), bf)
+            x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        else:
+            # NHWC -> NCHW view with channels_last strides (no copy when x
+            # is a contiguous NHWC tensor)
+            x = x.permute(0, 3, 1, 2)
+            x = x.contiguous(memory_format=torch.channels_last)
+            if self.s2d_stem and h % 2 == 0 and w % 2 == 0:
+                x = _s2d_conv1(x, self.conv1.weight.to(self.dtype))
+            else:
+                x = self.conv1(x)
+            x = torch.relu(self.bn1(x))
+            x = F.max_pool2d(x, 3, 2, 1)
         stages = []
         for names in self.stage_names:
             for name in names:
@@ -189,12 +241,14 @@ VARIANTS: Dict[str, Tuple[Sequence[int], Type[nn.Module]]] = {
 
 def build_resnet(name: str, frozen_bn: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None) -> ResNet:
+                 generator: Optional[torch.Generator] = None,
+                 s2d_stem: bool = False, fused_stem: bool = False) -> ResNet:
     if name not in VARIANTS:
         raise ValueError(f"unknown resnet variant {name!r}; one of "
                          f"{list(VARIANTS)}")
     sizes, block = VARIANTS[name]
-    return ResNet(sizes, block, frozen_bn, dtype, generator)
+    return ResNet(sizes, block, frozen_bn, dtype, generator, s2d_stem,
+                  fused_stem)
 
 
 def feature_dim(name: str) -> int:

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -48,25 +49,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
-    if name in _loaded:
-        return _loaded[name]
-    out = library_path(name)
-    if not out.is_file():
+def build(names) -> Dict[str, float]:
+    """Compile each ``csrc/<name>.cu`` whose library is missing, with one
+    nvcc per source, all started together. Returns the seconds each build
+    took (0.0 for a library found already built); raises on a failed
+    build."""
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # compile to a private name, then rename: a concurrent builder of the
         # same source never sees a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        _, stderr = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{stderr}")
+            continue
         os.replace(tmp, out)
-        build_logs[name] = proc.stderr
-    lib = ctypes.CDLL(str(out))
+        build_logs[name] = stderr
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    if name in _loaded:
+        return _loaded[name]
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     _loaded[name] = lib
     return lib

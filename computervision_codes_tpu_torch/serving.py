@@ -9,14 +9,22 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
   compute dtype) before the model;
 * probabilities are the sigmoid, in float32, of the float32-cast logits;
 * a session serves one fixed input shape and raises ``ValueError`` on any
-  other.
+  other;
+* ``quantize=True`` serves the int8-PTQ backbone (``models.quantized``)
+  under the bf16 TCN, with static activation scales calibrated once at
+  creation, from the given normalised frames or from uniform [0, 255]
+  pixels through the ImageNet normalisation (``_default_calibration``);
+  ``fused_stem`` runs the stem as one kernel (``ops.stem_pool``);
+* ``from_checkpoint`` serves a checkpoint that the JAX package's
+  ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed).
 
-Not ported yet: ``quantize``, ``mesh``, ``export``/``load_exported`` and
-``from_checkpoint`` (msgpack is absent on the GPU machine).
+Not ported yet: ``mesh`` and ``export``/``load_exported``.
 
 Usage::
 
     sess = InferenceSession.create(batch=4, clip_len=256, device="cuda")
+    sess = InferenceSession.create(quantize=True, fused_stem=True)
+    sess = InferenceSession.from_checkpoint(directory, "student")
     probs = sess.predict(clips_uint8)       # {task: (B, T, C) numpy}
 """
 
@@ -24,7 +32,7 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +40,8 @@ import torch
 from .data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from .models.convert import load_jax_variables
 from .models.pipeline import EndToEndRecognizer
+from .models.quantized import Int8Recognizer, make_int8_e2e
+from .train.checkpoint import checkpoint_path, restore_variables
 
 TASKS = ("ivt", "i", "v", "t")
 Device = Union[str, torch.device]
@@ -45,6 +55,19 @@ def tcn_receptive_field(num_layers_pg: int, num_layers_r: int,
     config (11 + 3x10): 1 + 4094 + 3 * 2046 = 10233."""
     return (1 + 2 * (2 ** num_layers_pg - 1)
             + num_refinements * 2 * (2 ** num_layers_r - 1))
+
+
+def _default_calibration(shape: Tuple[int, ...], dtype: torch.dtype,
+                         device: Device) -> torch.Tensor:
+    """Int8 calibration batch: uniform [0, 255] pixels (a ``torch.Generator``
+    seeded with 7) through the ImageNet normalisation, in ``dtype``. A
+    standard-normal stand-in would have about twice the absmax of real
+    normalised frames and halve the first layers' resolution."""
+    gen = torch.Generator().manual_seed(7)
+    pix = torch.rand(shape, generator=gen) * 255.0
+    mean = torch.as_tensor(IMAGENET_MEAN)
+    std = torch.as_tensor(IMAGENET_STD)
+    return ((pix / 255.0 - mean) / std).to(device, dtype)
 
 
 def _build_model(variables, device: Device, **model_kw
@@ -77,7 +100,7 @@ def _to_model_input(arr, device: torch.device, dtype: torch.dtype
 class InferenceSession:
     """A fixed-shape session: (B, T, H, W, 3) clips -> task probabilities."""
 
-    model: EndToEndRecognizer
+    model: Union[EndToEndRecognizer, Int8Recognizer]
     batch: int
     clip_len: int
     height: int
@@ -87,15 +110,39 @@ class InferenceSession:
     @classmethod
     def create(cls, batch: int = 4, clip_len: int = 256, height: int = 256,
                width: int = 448, network: str = "resnet18",
-               variables=None, device: Device = "cuda"
+               variables=None, quantize: bool = False,
+               calibrate_clips=None, s2d_stem: bool = False,
+               fused_stem: bool = False, device: Device = "cuda"
                ) -> "InferenceSession":
         """``variables``: the JAX ``EndToEndRecognizer`` variables to serve;
         without them, weights are drawn from a seeded generator. ``device``
-        is used as given: a session never moves itself to another device."""
+        is used as given: a session never moves itself to another device.
+
+        ``quantize=True`` serves the int8 backbone. ``calibrate_clips``,
+        normalised (B, T, H, W, 3) frames, bake its static activation
+        scales; without them ``_default_calibration`` at (1, 8, H, W, 3)
+        stands in. As in the JAX session, ``fused_stem`` applies to the
+        int8 backbone only and ``s2d_stem`` to both."""
         device = torch.device(device)
         model = _build_model(variables, device, network=network,
-                             dtype=torch.bfloat16)
+                             s2d_stem=s2d_stem, dtype=torch.bfloat16)
+        if quantize:
+            if calibrate_clips is None:
+                calibrate_clips = _default_calibration(
+                    (1, 8, height, width, 3), torch.bfloat16, device)
+            model = make_int8_e2e(
+                model, torch.as_tensor(calibrate_clips).to(device),
+                s2d_stem=s2d_stem, fused_stem=fused_stem)
         return cls(model, batch, clip_len, height, width, device)
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, modelname: str, **kwargs
+                        ) -> "InferenceSession":
+        """Serve the EndToEndRecognizer state that the JAX package's
+        ``CheckpointManager`` saved as ``<modelname>.msgpack`` in
+        ``directory``; ``kwargs`` go to ``create``."""
+        variables = restore_variables(checkpoint_path(directory, modelname))
+        return cls.create(variables=variables, **kwargs)
 
     @property
     def shape(self):
@@ -128,7 +175,7 @@ class StreamingSession:
     videos; streams never mix.
     """
 
-    model: EndToEndRecognizer
+    model: Union[EndToEndRecognizer, Int8Recognizer]
     buffer: torch.Tensor  # (streams, context, D); oldest feature first
     context: int
     height: int
@@ -151,8 +198,15 @@ class StreamingSession:
                network: str = "resnet18", variables=None,
                num_layers_pg: int = 11, num_layers_r: int = 10,
                num_refinements: int = 3, num_f_maps: int = 512,
-               dtype: torch.dtype = torch.bfloat16, streams: int = 1,
+               dtype: torch.dtype = torch.bfloat16, quantize: bool = False,
+               calibrate_frames=None, streams: int = 1,
+               fused_stem: bool = False,
                device: Device = "cuda") -> "StreamingSession":
+        """``quantize=True`` runs the backbone int8 per frame, with static
+        scales calibrated on ``calibrate_frames`` (normalised (N, H, W, 3))
+        or, without them, on ``_default_calibration`` at (4, H, W, 3).
+        ``fused_stem`` applies to the float and the int8 backbone, as in
+        the JAX session (which has no ``s2d_stem``)."""
         rf = tcn_receptive_field(num_layers_pg, num_layers_r,
                                  num_refinements)
         if context < rf:
@@ -166,10 +220,25 @@ class StreamingSession:
             variables, device, network=network, causal=True,
             num_layers_pg=num_layers_pg, num_layers_r=num_layers_r,
             num_refinements=num_refinements, num_f_maps=num_f_maps,
-            dtype=dtype)
+            fused_stem=fused_stem, dtype=dtype)
+        if quantize:
+            if calibrate_frames is None:
+                calibrate_frames = _default_calibration(
+                    (4, height, width, 3), dtype, device)
+            frames = torch.as_tensor(calibrate_frames).to(device, dtype)
+            model = make_int8_e2e(model, frames[None], fused_stem=fused_stem)
         buffer = torch.zeros(streams, context, model.backbone.num_channels,
                              dtype=dtype, device=device)
         return cls(model, buffer, context, height, width, streams, rf)
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, modelname: str, **kwargs
+                        ) -> "StreamingSession":
+        """Serve the EndToEndRecognizer state that the JAX package's
+        ``CheckpointManager`` saved as ``<modelname>.msgpack`` in
+        ``directory``; ``kwargs`` go to ``create``."""
+        variables = restore_variables(checkpoint_path(directory, modelname))
+        return cls.create(variables=variables, **kwargs)
 
     def push(self, frame) -> Dict[str, np.ndarray]:
         """One frame per stream, (H, W, 3) or (S, H, W, 3), uint8 or

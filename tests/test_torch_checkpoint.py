@@ -1,0 +1,132 @@
+"""The port's reader of the JAX package's flax-msgpack checkpoints.
+
+A checkpoint is written by the JAX ``CheckpointManager`` and read back by
+the port in a subprocess in which ``import msgpack`` fails (the GPU machine
+has no msgpack, flax or JAX): params and batch_stats must come back equal.
+Then ``InferenceSession.from_checkpoint`` of both packages serve the same
+file.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import msgpack
+import numpy as np
+import pytest
+
+from computervision_codes_tpu.models.pipeline import (
+    EndToEndRecognizer as JaxRecognizer,
+)
+from computervision_codes_tpu.serving import InferenceSession as JaxSession
+from computervision_codes_tpu.train import build_sgd, create_train_state
+from computervision_codes_tpu.train.checkpoint import CheckpointManager
+from computervision_codes_tpu_torch.serving import InferenceSession
+from computervision_codes_tpu_torch.train.checkpoint import (
+    checkpoint_path,
+    restore_variables,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEP = "|"
+
+# reads the checkpoint with msgpack, flax and JAX unimportable, and saves
+# the flattened trees as .npz
+_READER = """
+import sys
+for name in ("msgpack", "flax", "jax", "jaxlib"):
+    sys.modules[name] = None  # import raises ImportError
+import numpy as np
+from computervision_codes_tpu_torch.train.checkpoint import restore_variables
+
+def flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat(v, prefix + k + "{sep}")
+        else:
+            yield prefix + k, v
+
+variables = restore_variables(sys.argv[1])
+np.savez(sys.argv[2], **dict(flat(variables)))
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("msgpack", "flax", "jax", "computervision_codes_tpu")
+       and sys.modules[m] is not None]
+assert not bad, bad
+""".replace("{sep}", SEP)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _flat(v, prefix + k + SEP)
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+@pytest.mark.parametrize("save_optimizer", [True, False])
+def test_restore_without_msgpack(tmp_path, save_optimizer):
+    model = JaxRecognizer(num_layers_pg=2, num_layers_r=2, num_refinements=1,
+                          num_f_maps=8, dtype=jnp.bfloat16)
+    state = create_train_state(
+        model, build_sgd(1e-2, momentum=0.9), jax.random.PRNGKey(0),
+        (jnp.zeros((1, 2, 32, 56, 3), jnp.bfloat16),))
+    manager = CheckpointManager(str(tmp_path), "student",
+                                save_optimizer=save_optimizer)
+    path = manager.save(state, tag="latest")
+    assert path == checkpoint_path(str(tmp_path), "student", "latest")
+    out = tmp_path / "restored.npz"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _READER, path, str(out)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = dict(np.load(out))
+    want = dict(_flat({"params": state.params,
+                       "batch_stats": state.batch_stats}))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_rejects_what_it_does_not_read(tmp_path):
+    """flax's chunked layout and complex numbers raise ValueError, and so
+    does a file that is not a state dict with params."""
+    cases = {
+        "chunked": {"params": {"w": {"__msgpack_chunked_array__": True,
+                                     "shape": {"0": 2}, "chunks": {}}}},
+        "complex": {"params": {"w": msgpack.ExtType(2, msgpack.packb(
+            (1.0, 2.0)))}},
+        "noparams": {"step": 3},
+        "notadict": [1, 2],
+    }
+    for name, tree in cases.items():
+        path = tmp_path / f"{name}.msgpack"
+        path.write_bytes(msgpack.packb(tree))
+        with pytest.raises(ValueError):
+            restore_variables(str(path))
+
+
+def test_from_checkpoint_matches_jax(tmp_path, rng):
+    """Both packages serve the same JAX-written TrainState (the default
+    recognizer, as JAX ``from_checkpoint`` builds its template at
+    (1, 4, H, W, 3) bf16). Bound: the bf16 cross-check of
+    tests/test_torch_serving.py (max 0.1, correlation > 0.999)."""
+    h, w = 32, 56
+    state = create_train_state(
+        JaxRecognizer(dtype=jnp.bfloat16), build_sgd(1e-2),
+        jax.random.PRNGKey(0), (jnp.zeros((1, 4, h, w, 3), jnp.bfloat16),))
+    CheckpointManager(str(tmp_path), "student").save(state)
+    kw = dict(batch=1, clip_len=4, height=h, width=w)
+    jsess = JaxSession.from_checkpoint(str(tmp_path), "student", **kw)
+    sess = InferenceSession.from_checkpoint(str(tmp_path), "student",
+                                            device="cpu", **kw)
+    clips = rng.integers(0, 256, (1, 4, h, w, 3)).astype(np.uint8)
+    want = jsess.predict(clips.copy())
+    got = sess.predict(clips)
+    for k in want:
+        assert got[k].shape == want[k].shape
+        assert np.corrcoef(got[k].ravel(), want[k].ravel())[0, 1] > 0.999
+        assert np.abs(got[k] - want[k]).max() < 0.1, k

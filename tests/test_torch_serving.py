@@ -10,7 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from computervision_codes_tpu.models.pipeline import (
+    EndToEndRecognizer as JaxRecognizer,
+)
 from computervision_codes_tpu.serving import InferenceSession as JaxSession
+from computervision_codes_tpu.serving import (
+    StreamingSession as JaxStreamingSession,
+)
 from computervision_codes_tpu_torch.models.pipeline import EndToEndRecognizer
 from computervision_codes_tpu_torch.serving import (
     InferenceSession,
@@ -41,6 +50,114 @@ def test_inference_session_matches_jax_session(rng):
         assert got[k].shape == want[k].shape and got[k].dtype == np.float32
         assert np.corrcoef(got[k].ravel(), want[k].ravel())[0, 1] > 0.999
         assert np.abs(got[k] - want[k]).max() < 0.1, k
+
+
+def _calibration(rng, shape):
+    """Normalised uniform-pixel frames, the same array for both packages."""
+    from computervision_codes_tpu_torch.data.transforms import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+
+    pix = rng.uniform(0.0, 255.0, shape).astype(np.float32)
+    return ((pix / 255.0 - np.asarray(IMAGENET_MEAN, np.float32))
+            / np.asarray(IMAGENET_STD, np.float32)).astype(np.float32)
+
+
+def _assert_bf16_close(got, want):
+    """The bf16 cross-check bound of the test above."""
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == np.float32
+        assert np.corrcoef(got[k].ravel(), want[k].ravel())[0, 1] > 0.999, k
+        assert np.abs(got[k] - want[k]).max() < 0.1, k
+
+
+def test_inference_session_quantized_matches_jax(rng):
+    """quantize=True with fused_stem (the deployed config), same float
+    variables and the same explicit calibration clips in both packages;
+    the int8 backbone and the bf16 TCN under the bf16 bound."""
+    h, w = 32, 56
+    variables = JaxRecognizer(dtype=jnp.bfloat16).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4, h, w, 3), jnp.bfloat16))
+    cal = _calibration(rng, (1, 8, h, w, 3))
+    kw = dict(batch=1, clip_len=4, height=h, width=w, quantize=True,
+              fused_stem=True)
+    jsess = JaxSession.create(variables=variables,
+                              calibrate_clips=jnp.asarray(cal), **kw)
+    sess = InferenceSession.create(variables=variables, calibrate_clips=cal,
+                                   device="cpu", **kw)
+    backbone = sess.model.backbone
+    assert "w" in backbone.conv1.qw and backbone.fused_stem
+    assert float(backbone.layer1_0.conv1.act_scale) == pytest.approx(
+        float(jsess.variables["q_backbone"]["layer1_0"]["conv1"]
+              ["act_scale"]), rel=1e-5)
+    clips = rng.integers(0, 256, (1, 4, h, w, 3)).astype(np.uint8)
+    _assert_bf16_close(sess.predict(clips), jsess.predict(clips.copy()))
+
+
+def test_streaming_quantized_matches_jax(rng):
+    """StreamingSession(quantize=True, fused_stem=True) against the JAX
+    session: same causal variables, same calibration frames, every push
+    under the bf16 bound."""
+    h, w = 32, 56
+    tcn = dict(num_layers_pg=2, num_layers_r=2, num_refinements=1,
+               num_f_maps=8)
+    variables = JaxRecognizer(causal=True, dtype=jnp.bfloat16, **tcn).init(
+        jax.random.PRNGKey(5), jnp.zeros((1, 4, h, w, 3), jnp.bfloat16))
+    cal = _calibration(rng, (4, h, w, 3))
+    kw = dict(context=8, height=h, width=w, quantize=True, fused_stem=True,
+              **tcn)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # context 8 < receptive field 13
+        jsess = JaxStreamingSession.create(
+            variables=variables, calibrate_frames=jnp.asarray(cal), **kw)
+        sess = StreamingSession.create(variables=variables,
+                                       calibrate_frames=cal, device="cpu",
+                                       **kw)
+    for _ in range(3):
+        frame = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        got = sess.push(frame)
+        assert got["ivt"].shape == (100,)
+        _assert_bf16_close(got, jsess.push(frame.copy()))
+
+
+def test_quantized_default_calibration(rng):
+    """Without calibration data both sessions calibrate on uniform pixels
+    through the ImageNet normalisation, and serve valid probabilities."""
+    sess = InferenceSession.create(batch=1, clip_len=2, height=32, width=56,
+                                   quantize=True, device="cpu")
+    assert sess.model.backbone.layer4_1.conv2.act_scale is not None
+    probs = sess.predict(rng.integers(0, 256, (1, 2, 32, 56, 3)).astype(
+        np.uint8))
+    for v in probs.values():
+        assert np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        stream = StreamingSession.create(
+            context=8, height=32, width=56, quantize=True, device="cpu",
+            num_layers_pg=2, num_layers_r=2, num_refinements=1, num_f_maps=8)
+    probs = stream.push(rng.integers(0, 256, (32, 56, 3)).astype(np.uint8))
+    assert probs["ivt"].shape == (100,)
+    assert np.isfinite(probs["ivt"]).all()
+
+
+def test_streaming_quantized_bottleneck(rng):
+    """quantize=True with a Bottleneck network calibrates with its own
+    block (the JAX session calibrates as BasicBlock there, and fails), so
+    every int8 conv, conv3 included, gets a static scale."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        stream = StreamingSession.create(
+            context=8, height=32, width=32, network="resnet50",
+            quantize=True, device="cpu", num_layers_pg=2, num_layers_r=2,
+            num_refinements=1, num_f_maps=8)
+    backbone = stream.model.backbone
+    assert backbone.block == "bottleneck"
+    assert all(getattr(backbone, f"layer{s}_0").conv3.act_scale is not None
+               for s in (1, 2, 3, 4))
+    probs = stream.push(rng.integers(0, 256, (32, 32, 3)).astype(np.uint8))
+    assert probs["ivt"].shape == (100,) and np.isfinite(probs["ivt"]).all()
 
 
 def _small_session():
@@ -143,12 +260,18 @@ def test_receptive_field_and_context_warning():
 
 
 def test_port_imports_no_jax():
-    """The GPU machine has no JAX: the port's serving path must not import
-    it, nor the JAX package (whose data/__init__ imports JAX)."""
-    code = ("import sys; import computervision_codes_tpu_torch.serving; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'computervision_codes_tpu')]; "
-            "assert not bad, bad")
+    """The GPU machine has no JAX, flax or msgpack: no module of the port
+    may import them, nor the JAX package (whose data/__init__ imports
+    JAX)."""
+    modules = ("serving", "models.quantized", "models.convert",
+               "models.resnet", "models.pipeline", "ops.quant",
+               "ops.stem_pool", "ops.dilated_conv", "train.checkpoint")
+    code = ("import sys; "
+            + "; ".join(f"import computervision_codes_tpu_torch.{m}"
+                        for m in modules)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'msgpack', "
+            "'computervision_codes_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
