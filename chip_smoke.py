@@ -11,7 +11,8 @@ printing its own lines:
    model checks run float32 with TF32 off in cuDNN and cuBLAS;
 2. build: every kernel of the paths from the checkout's sources, one nvcc
    per source, all started together (timed, with ptxas' register and spill
-   lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``;
+   lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
+   ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block``;
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -24,23 +25,36 @@ printing its own lines:
      int8 codes, its int32 sums and its outputs equal the exact plain
      version's bit for bit; its time beside the plain version's and the
      bf16 cuDNN convolution's at N = 64;
+   - K3 (window attention half), shifted and not, at the SwinL-384 stage-2
+     shape, the SwinL-224 window-7 stage-0 shape and a ragged map; K4 (MLP
+     half) at the stage-2 and stage-3 shapes and a ragged token count; K5
+     (whole block) at stages 0 and 1, shifted and not; bf16 and float32;
+     times beside the plain versions' (K5 also beside K3 then K4);
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
-   and the full-width int8 recognizer (``make_int8_e2e``, fused stem,
-   bf16) on the card against the same quantized module on the CPU, each
-   on a (1, 16, 256, 448, 3) clip;
+   the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
+   the card against the same quantized module on the CPU, each on a
+   (1, 16, 256, 448, 3) clip, and the full-width float32
+   Q2L(swin_L_384_22k, "i") on the card against the CPU on one frame;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
    predict, ms, frames/s, peak device memory;
 6. streaming at context 256, streams 1 and 16: the bf16 StreamingSession
    and the int8 one with the fused stem, launches per push and ms;
-7. breakdown: input, backbone and TCN time of one offline forward and of
-   one push, for the bf16 and the int8 sessions.
+7. teacher serving: ``TeacherSession.create()`` at its defaults (Swin-L-384
+   Q2L, bf16) and predicts of 16 uint8 frames of 384x384: launches per
+   predict (K3 18, K4 20, K5 4), ms, frames/s, peak device memory;
+8. breakdown: input, backbone and TCN time of one offline forward and of
+   one push, for the bf16 and the int8 sessions; input, patch embed, each
+   Swin stage, norm and the Q2L transformer and heads of one teacher
+   predict, and its device time by kernel from torch.profiler.
 
-Phases 5 and 6 are the main path: every launch count is set to 0 just
-before them and read just after, and each kernel must have launched.
-Then one JSON line with the kernels, and the last line
+Phases 5-6 (the student's main path) and phase 7 (the teacher's) each
+start with every launch count set to 0 and read them just after, and each
+kernel must have launched on its path. Then one JSON line with the kernels
+(each with its bound: the larger of its operations at the H100's published
+peak and its bytes at 3.35 TB/s), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -49,6 +63,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -67,7 +82,13 @@ KERNELS = {
     "dilated_residual": "computervision_codes_tpu/ops/dilated_conv.py:88",
     "stem_pool": "computervision_codes_tpu/ops/stem_pool.py:148",
     "qconv_bn": "computervision_codes_tpu/ops/quant.py:41 + :63",
+    "window_mhsa": "computervision_codes_tpu/ops/window_mhsa.py:209",
+    "mlp_block": "computervision_codes_tpu/ops/mlp_block.py:139",
+    "swin_block": "computervision_codes_tpu/ops/swin_block.py:133",
 }
+# published H100 SXM peaks (dense): the bound of each kernel's work
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 LAYERS_PER_FORWARD = 11 + 3 * 10  # dilated layers of the default TCN
 INT8_CONVS = 19  # ResNet18: 16 block convs + 3 downsamples
 # the serving geometry: (B, T, H, W) offline, K1 at (B, T, C)
@@ -105,6 +126,24 @@ Q1_EXTRA = [("stem 7x7/2 Cin=3", 3, 64, 7, 2, 3, 256, 448),
             ("odd 1x1/2", 64, 128, 1, 2, 0, 33, 57),
             ("odd 3x3/2 Cin=24", 24, 40, 3, 2, 1, 9, 11)]
 TASK_SIZES = {"ivt": 100, "i": 6, "v": 10, "t": 15}
+# the teacher: TeacherSession.create() at its defaults (Swin-L-384 Q2L,
+# loss "i", bf16), B x img x img uint8 frames per predict; per predict K5
+# runs at stages 0-1 (4 blocks), K3 + K4 at stage 2 (18), K4 at stage 3 (2)
+TEACHER_BACKBONE, TEACHER_BATCH, TEACHER_IMG = "swin_L_384_22k", 16, 384
+TEACHER_LAUNCHES = {"window_mhsa": 18, "mlp_block": 20, "swin_block": 4}
+TEACHER_CALLS = 6  # the first warms up
+TEACHER_MODEL_FRAMES = 1  # full-width float32 Q2L, card vs CPU
+TEACHER_MODEL_REL_TOL = 1e-3  # 24 blocks and the decoder, sums reordered
+# kernel checks: (what, B, Hp=Wp, C, heads, window) for K3 and K5, shifted
+# by window // 2 and not; (what, tokens, C, hidden) for K4
+K3_CASES = [("SwinL-384 stage 2", 16, 24, 768, 24, 12),
+            ("SwinL-224 stage 0, window 7", 16, 56, 192, 6, 7),
+            ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7)]
+K4_CASES = [("SwinL-384 stage 2", 16 * 24 * 24, 768, 3072),
+            ("SwinL-384 stage 3", 16 * 12 * 12, 1536, 6144),
+            ("ragged tokens", 1000, 192, 768)]
+K5_CASES = [("SwinL-384 stage 0", 16, 96, 192, 6, 12),
+            ("SwinL-384 stage 1", 16, 48, 384, 12, 12)]
 
 
 def fail(msg: str) -> None:
@@ -180,9 +219,15 @@ def kernel_wrappers() -> dict:
     from computervision_codes_tpu_torch.ops import dilated_conv, quant
     from computervision_codes_tpu_torch.ops import stem_pool
 
+    from computervision_codes_tpu_torch.ops import mlp_block, swin_block
+    from computervision_codes_tpu_torch.ops import window_mhsa
+
     return {"dilated_residual": dilated_conv.dilated_residual_cuda,
             "stem_pool": stem_pool.stem_pool_cuda,
-            "qconv_bn": quant.qconv_bn_cuda}
+            "qconv_bn": quant.qconv_bn_cuda,
+            "window_mhsa": window_mhsa.window_mhsa_cuda,
+            "mlp_block": mlp_block.mlp_block_cuda,
+            "swin_block": swin_block.swin_block_cuda}
 
 
 def launches() -> dict:
@@ -192,6 +237,15 @@ def launches() -> dict:
 def launched_since(before: dict) -> dict:
     now = launches()
     return {name: now[name] - before[name] for name in now}
+
+
+def bound(ops: float, nbytes: float, kind: str) -> dict:
+    """The least time the card could take for work of ``ops`` operations
+    of ``kind`` moving ``nbytes`` (each input read once, each output written
+    once): the larger of the two times at the published peaks."""
+    t_ops, t_bytes = ops / PEAK_OPS_S[kind], nbytes / PEAK_BYTES_S
+    return {"bound_ms": round(1e3 * max(t_ops, t_bytes), 6),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_device() -> str:
@@ -276,7 +330,10 @@ def phase_k1(card: str) -> dict:
               f"{times[b, dtype]['plain']:.4f} ms; runs {runs}; {card}")
     return {"max_abs_err": worst_main,
             "ms": times[b0, torch.bfloat16]["kernel"],
-            "plain_ms": times[b0, torch.bfloat16]["plain"]}
+            "plain_ms": times[b0, torch.bfloat16]["plain"],
+            **bound(8 * b0 * t0 * c * c,
+                    2 * (2 * b0 * t0 * c + 4 * c * c + 2 * c), "bf16"),
+            "library_ms": None}
 
 
 def stem_inputs(n, h, w, dtype, seed):
@@ -336,9 +393,14 @@ def phase_k2(card: str) -> dict:
                   f"conv), plain {times[n, dtype]['plain']:.4f} ms; runs "
                   f"{runs}; {card}")
             del args
+    n = STEM_TIME_N[-1]
     return {"max_abs_err": main_err,
-            "ms": times[1024, torch.bfloat16]["kernel"],
-            "plain_ms": times[1024, torch.bfloat16]["plain"]}
+            "ms": times[n, torch.bfloat16]["kernel"],
+            "plain_ms": times[n, torch.bfloat16]["plain"],
+            **bound(2 * n * (h // 2) * (w // 2) * 64 * 147,
+                    2 * (n * h * w * 3 + n * (h // 4) * (w // 4) * 64
+                         + 147 * 64) + 4 * 64, "bf16"),
+            "library_ms": None}
 
 
 def resnet18_convs(h: int, w: int) -> list:
@@ -427,6 +489,7 @@ def phase_q1(card: str) -> dict:
         key = (cin, cout, k, s, p, hi, wi)
         shapes.setdefault(key, [what, 0])[1] += 1
     total = {"kernel": 0.0, "plain": 0.0, "cudnn_bf16": 0.0}
+    work = {"ops": 0, "bytes": 0}  # of the 19 convs, for the bound
     for (cin, cout, k, s, p, hi, wi), (what, count) in shapes.items():
         x, w_q, mult, bias = qconv_inputs(Q1_TIME_N, cin, cout, k, hi, wi,
                                           torch.bfloat16, seed=99)
@@ -442,11 +505,17 @@ def phase_q1(card: str) -> dict:
              "kernel": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, s,
                                              pad, relu=True)},
             {"cudnn_bf16": 20, "plain": 3, "kernel": 20})
+        ho, wo = (hi + 2 * p - k) // s + 1, (wi + 2 * p - k) // s + 1
+        macs = Q1_TIME_N * ho * wo * cout * k * k * cin
         if "stem" not in what:
             for name in total:
                 total[name] += count * ms[name]
-        macs = Q1_TIME_N * ((hi + 2 * p - k) // s + 1) * (
-            (wi + 2 * p - k) // s + 1) * cout * k * k * cin
+            # bf16 in, int8 weights, bf16 out, float32 mult and bias
+            work["ops"] += count * 2 * macs
+            work["bytes"] += count * (2 * Q1_TIME_N * hi * wi * cin
+                                      + cout * k * k * cin
+                                      + 2 * Q1_TIME_N * ho * wo * cout
+                                      + 8 * cout)
         print(f"[kernels] Q1 time N={Q1_TIME_N} {what} {cin}->{cout} "
               f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward): kernel "
               f"{ms['kernel']:.4f} ms ({2 * macs / ms['kernel'] / 1e9:.1f} "
@@ -460,7 +529,227 @@ def phase_q1(card: str) -> dict:
           f"ms; {card}")
     return {"max_abs_err": 0.0, "ms": round(total["kernel"], 4),
             "plain_ms": round(total["plain"], 4),
-            "cudnn_bf16_ms": round(total["cudnn_bf16"], 4)}
+            "cudnn_bf16_ms": round(total["cudnn_bf16"], 4),
+            **bound(work["ops"], work["bytes"], "int8"),
+            "library_ms": None}
+
+
+def swin_inputs(lead, c, hidden, heads, w, dtype, seed):
+    """Activations of shape ``lead + (C,)``, the attention half's operands
+    (float32 LayerNorm parameters, the rest in ``dtype``, as the Swin
+    modules pass them) and the MLP half's, made on the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def f(*shape, scale=1.0, keep=False):
+        t = scale * torch.randn(*shape, generator=g, device=DEVICE)
+        return t if keep else t.to(dtype)
+
+    n = w * w
+    x = f(*lead, c)
+    attn = [1 + f(c, scale=0.1, keep=True), f(c, scale=0.1, keep=True),
+            f(c, 3 * c, scale=c ** -0.5), f(3 * c, scale=0.1),
+            f(c, c, scale=c ** -0.5), f(c, scale=0.1), f(heads, n, n)]
+    mlp = [1 + f(c, scale=0.1, keep=True), f(c, scale=0.1, keep=True),
+           f(c, hidden, scale=c ** -0.5), f(hidden, scale=0.1),
+           f(hidden, c, scale=hidden ** -0.5), f(c, scale=0.1)]
+    return x, attn, mlp
+
+
+def compare(tag: str, got, want, dtype) -> tuple:
+    """Checks ``got`` against the plain version's ``want``: same shape,
+    finite, within REL_TOL of the largest magnitude. Returns (err, tol)."""
+    check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = REL_TOL[dtype] * max(1.0, want.float().abs().max().item())
+    check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol}")
+    return err, tol
+
+
+def attn_work(b, hp, wp, c, heads, w, shifted: bool, es: int) -> tuple:
+    """(operations, bytes) of one attention half-block: QKV, scores, P V
+    and proj products; x in, y out, weights, biases, rel-pos bias and the
+    shift mask each once (``es`` bytes per element, LN vectors float32)."""
+    m, n = b * hp * wp, w * w
+    ops = 2 * m * c * 3 * c + 2 * m * c * c + 4 * m * n * c
+    nbytes = es * (2 * m * c + 4 * c * c + 4 * c + heads * n * n
+                   + shifted * (hp // w) * (wp // w) * n * n) + 8 * c
+    return ops, nbytes
+
+
+def mlp_work(m, c, hidden, es: int) -> tuple:
+    return (4 * m * c * hidden,
+            es * (2 * m * c + 2 * c * hidden + hidden + c) + 8 * c)
+
+
+def swin_mask(hp, wp, w, shift):
+    from computervision_codes_tpu_torch.models.swin import shift_mask
+
+    return shift_mask(hp, wp, w, shift, DEVICE, torch.float32) if shift \
+        else None
+
+
+def geometry(hw) -> tuple:
+    return hw if isinstance(hw, tuple) else (hw, hw)
+
+
+def phase_k3(card: str) -> dict:
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_mhsa_cuda, window_mhsa_reference)
+
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for seed, (what, b, hw, c, heads, w) in enumerate(K3_CASES):
+            hp, wp = geometry(hw)
+            x, attn, _ = swin_inputs((b, hp, wp), c, 4 * c, heads, w, dtype,
+                                     seed)
+            for shift in (0, w // 2):
+                kw = dict(window=w, num_heads=heads)
+                mask = swin_mask(hp, wp, w, shift)
+                err, tol = compare(
+                    f"K3 {str(dtype)[6:]} {what} shift={shift}",
+                    window_mhsa_cuda(x, *attn, mask, **kw),
+                    window_mhsa_reference(x, *attn, mask, **kw), dtype)
+                if err / tol >= worst[0]:
+                    worst = (err / tol, (what, shift, err, tol))
+                if dtype == torch.bfloat16 and seed == 0:
+                    main_err = max(main_err, err)
+            del x, attn
+        print(f"[kernels] K3 {str(dtype)[6:]}: {2 * len(K3_CASES)} cases "
+              f"within tolerance ({REL_TOL[dtype]:g} x max|ref|); worst "
+              f"(case, shift, err, tol) = {worst[1]}")
+    what, b, hw, c, heads, w = K3_CASES[0]
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, attn, _ = swin_inputs((b, hw, hw), c, 4 * c, heads, w, dtype, 99)
+        for shift in (0, w // 2):
+            mask, kw = swin_mask(hw, hw, w, shift), dict(window=w,
+                                                         num_heads=heads)
+            ms, runs = in_turns(
+                {"plain": lambda: window_mhsa_reference(x, *attn, mask, **kw),
+                 "kernel": lambda: window_mhsa_cuda(x, *attn, mask, **kw)},
+                {"plain": 10, "kernel": 20})
+            times[dtype, shift] = ms
+            ops, _ = attn_work(b, hw, hw, c, heads, w, bool(shift), 2)
+            print(f"[kernels] K3 time {str(dtype)[6:]} {what} B={b} {hw}x{hw}"
+                  f" C={c} heads={heads} w={w} shift={shift}: kernel "
+                  f"{ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} "
+                  f"TFLOP/s), plain {ms['plain']:.4f} ms; runs {runs}; "
+                  f"{card}")
+        del x, attn
+    ms = times[torch.bfloat16, w // 2]
+    return {"max_abs_err": main_err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"],
+            **bound(*attn_work(b, hw, hw, c, heads, w, True, 2), "bf16"),
+            "library_ms": None}
+
+
+def phase_k4(card: str) -> dict:
+    from computervision_codes_tpu_torch.ops.mlp_block import (
+        mlp_block_cuda, mlp_block_reference)
+
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for seed, (what, m, c, hidden) in enumerate(K4_CASES):
+            x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, seed)
+            err, tol = compare(f"K4 {str(dtype)[6:]} {what}",
+                               mlp_block_cuda(x, *mlp),
+                               mlp_block_reference(x, *mlp), dtype)
+            if err / tol >= worst[0]:
+                worst = (err / tol, (what, err, tol))
+            if dtype == torch.bfloat16 and seed == 0:
+                main_err = err
+            del x, mlp
+        print(f"[kernels] K4 {str(dtype)[6:]}: {len(K4_CASES)} cases within "
+              f"tolerance ({REL_TOL[dtype]:g} x max|ref|); worst (case, err,"
+              f" tol) = {worst[1]}")
+    times = {}
+    for what, m, c, hidden in K4_CASES[:2]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, 99)
+            ms, runs = in_turns(
+                {"plain": lambda: mlp_block_reference(x, *mlp),
+                 "kernel": lambda: mlp_block_cuda(x, *mlp)},
+                {"plain": 10, "kernel": 20})
+            times[what, dtype] = ms
+            print(f"[kernels] K4 time {str(dtype)[6:]} {what} {m} x {c}, "
+                  f"hidden {hidden}: kernel {ms['kernel']:.4f} ms "
+                  f"({4 * m * c * hidden / ms['kernel'] / 1e9:.1f} TFLOP/s),"
+                  f" plain {ms['plain']:.4f} ms; runs {runs}; {card}")
+            del x, mlp
+    what, m, c, hidden = K4_CASES[0]
+    ms = times[what, torch.bfloat16]
+    return {"max_abs_err": main_err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], **bound(*mlp_work(m, c, hidden, 2),
+                                             "bf16"),
+            "library_ms": None}
+
+
+def phase_k5(card: str) -> dict:
+    from computervision_codes_tpu_torch.ops.mlp_block import mlp_block_cuda
+    from computervision_codes_tpu_torch.ops.swin_block import (
+        swin_block_cuda, swin_block_reference)
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_mhsa_cuda)
+
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for seed, (what, b, hw, c, heads, w) in enumerate(K5_CASES):
+            x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                                       dtype, seed)
+            for shift in (0, w // 2):
+                kw = dict(window=w, num_heads=heads)
+                mask = swin_mask(hw, hw, w, shift)
+                err, tol = compare(
+                    f"K5 {str(dtype)[6:]} {what} shift={shift}",
+                    swin_block_cuda(x, *attn, mask, *mlp, **kw),
+                    swin_block_reference(x, *attn, mask, *mlp, **kw), dtype)
+                if err / tol >= worst[0]:
+                    worst = (err / tol, (what, shift, err, tol))
+                if dtype == torch.bfloat16 and seed == 0:
+                    main_err = max(main_err, err)
+            del x, attn, mlp
+        print(f"[kernels] K5 {str(dtype)[6:]}: {2 * len(K5_CASES)} cases "
+              f"within tolerance ({REL_TOL[dtype]:g} x max|ref|); worst "
+              f"(case, shift, err, tol) = {worst[1]}")
+    # K5 against its plain version and against K3 then K4 (what a merged
+    # block has to beat), bf16, shifted
+    times = {}
+    for what, b, hw, c, heads, w in K5_CASES:
+        x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                                   torch.bfloat16, 99)
+        mask, kw = swin_mask(hw, hw, w, w // 2), dict(window=w,
+                                                      num_heads=heads)
+        ms, runs = in_turns(
+            {"plain": lambda: swin_block_reference(x, *attn, mask, *mlp,
+                                                   **kw),
+             "kernel": lambda: swin_block_cuda(x, *attn, mask, *mlp, **kw),
+             "k3_then_k4": lambda: mlp_block_cuda(
+                 window_mhsa_cuda(x, *attn, mask, **kw), *mlp)},
+            {"plain": 5, "kernel": 20, "k3_then_k4": 20})
+        times[what] = ms
+        ops = (attn_work(b, hw, hw, c, heads, w, True, 2)[0]
+               + mlp_work(b * hw * hw, c, 4 * c, 2)[0])
+        print(f"[kernels] K5 time bf16 {what} B={b} {hw}x{hw} C={c} "
+              f"heads={heads} w={w} shifted: kernel {ms['kernel']:.4f} ms "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), K3 then K4 "
+              f"{ms['k3_then_k4']:.4f} ms, plain {ms['plain']:.4f} ms; runs "
+              f"{runs}; {card}")
+        del x, attn, mlp
+    what, b, hw, c, heads, w = K5_CASES[0]
+    m, es = b * hw * hw, 2
+    a_ops, a_bytes = attn_work(b, hw, hw, c, heads, w, True, es)
+    m_ops, m_bytes = mlp_work(m, c, 4 * c, es)
+    ms = times[what]
+    # y stays inside the block: x in and the output out, once each
+    return {"max_abs_err": main_err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"],
+            **bound(a_ops + m_ops, a_bytes + m_bytes - 2 * es * m * c,
+                    "bf16"),
+            "library_ms": None}
 
 
 def phase_model() -> None:
@@ -518,8 +807,9 @@ def phase_model_int8() -> None:
         before = launches()
         got = {k: v.cpu() for k, v in dev_model(clip.to(DEVICE)).items()}
         count = launched_since(before)
-    want_count = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 1,
-                  "qconv_bn": INT8_CONVS}
+    want_count = dict.fromkeys(KERNELS, 0) | {
+        "dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 1,
+        "qconv_bn": INT8_CONVS}
     check(count == want_count, f"int8 model launches {count}, want "
                                f"{want_count}")
     for k in ("ivt", "i", "v", "t", "features"):
@@ -537,6 +827,148 @@ def phase_model_int8() -> None:
     print(f"[model] int8 launches on the card per forward {count}; CPU "
           f"calibration (4 frames) {t_cal:.2f} s and forward {t_cpu:.2f} s "
           f"(host clock)")
+
+
+def phase_model_teacher() -> None:
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+
+    cpu_model = Q2L(backbone=TEACHER_BACKBONE, loss_type="i",
+                    dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(0)).eval()
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    frames = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (TEACHER_MODEL_FRAMES, TEACHER_IMG, TEACHER_IMG, 3)).astype(
+            np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(frames)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(frames.to(DEVICE))
+        count = launched_since(before)
+    want_count = dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
+    check(count == want_count, f"teacher model launches {count}, want "
+                               f"{want_count}")
+    for k, g, w in (("logits i", got["logits"]["i"], want["logits"]["i"]),
+                    ("feature", got["feature"], want["feature"])):
+        g = g.cpu()
+        check(g.shape == w.shape, f"teacher model {k}: shape {g.shape}")
+        check(bool(torch.isfinite(g).all()), f"teacher model {k}: non-finite")
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(err <= TEACHER_MODEL_REL_TOL * scale,
+              f"teacher model {k}: card vs CPU max_abs_err {err} > "
+              f"{TEACHER_MODEL_REL_TOL} x {scale}")
+        print(f"[model] teacher float32 Q2L({TEACHER_BACKBONE}, 'i') {k} "
+              f"{tuple(g.shape)}: card vs CPU max_abs_err {err:.3e} (max|ref|"
+              f" {scale:.3f}, tol {TEACHER_MODEL_REL_TOL:g} x max|ref|)")
+    print(f"[model] teacher launches on the card per forward {count}; CPU "
+          f"forward of {TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host "
+          f"clock)")
+
+
+def phase_teacher(card: str) -> tuple:
+    """TeacherSession at its defaults on the card: uint8 frames in, launches
+    of each kernel per predict, ms, frames/s, peak device memory."""
+    from computervision_codes_tpu_torch.serving import TeacherSession
+
+    b, img = TEACHER_BATCH, TEACHER_IMG
+    sess = TeacherSession.create(batch=b, img_size=img,
+                                 backbone=TEACHER_BACKBONE, device=DEVICE)
+    want = dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
+    base = np.random.default_rng(5).integers(0, 256, (b, img, img, 3),
+                                             dtype=np.uint8)
+    ms, peak = [], 0
+    for call in range(TEACHER_CALLS):
+        frames = base + np.uint8(call)
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        out, call_ms = timed_call(lambda: sess.predict(frames))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        ms.append(call_ms)
+        count = launched_since(before)
+        check(count == want, f"teacher predict {call}: launches {count}, "
+                             f"want {want}")
+        check(set(out) == {"i", "feature"}, f"teacher outputs {set(out)}")
+        p, feat = out["i"], out["feature"]
+        check(p.shape == (b, TASK_SIZES["i"]), f"teacher i: {p.shape}")
+        check(bool(np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()),
+              "teacher i: non-finite or outside [0, 1]")
+        check(feat.shape[0] == b and bool(np.isfinite(feat).all()),
+              f"teacher feature: shape {feat.shape} or non-finite")
+    steady = float(np.median(ms[1:]))
+    print(f"[teacher] TeacherSession {TEACHER_BACKBONE} Q2L 'i' bf16 {b} "
+          f"frames {img}x{img} uint8: launches per predict "
+          f"{TEACHER_LAUNCHES}; ms per predict {[round(m, 3) for m in ms]} "
+          f"(first warms up); median {steady:.3f} ms = "
+          f"{b / steady * 1e3:.1f} frames/s; peak device memory in predict "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    return sess, base
+
+
+def teacher_breakdown(card: str, sess, frames: np.ndarray) -> None:
+    """ms of the input, the patch embed, each Swin stage (its blocks and
+    the patch merge after it), the final norm and the Q2L transformer and
+    heads of one predict (CUDA events, mean of 3 after a warm-up), then
+    the device time by kernel of one predict from torch.profiler."""
+    from computervision_codes_tpu_torch.serving import _to_model_input
+
+    model, bb = sess.model, sess.model.backbone
+    with torch.inference_mode():
+        x = _to_model_input(frames, sess.device, torch.bfloat16)
+        maps = [bb.embed(x)]
+        for si in range(len(bb.depths)):
+            maps.append(bb.stage(si, maps[-1]))
+        fmap = bb.norm(maps[-1])
+        parts = {}
+        for name, fn in (
+                [("input", lambda: _to_model_input(frames, sess.device,
+                                                   torch.bfloat16)),
+                 ("patch_embed", lambda: bb.embed(x))]
+                + [(f"stage{si}", functools.partial(bb.stage, si, maps[si]))
+                   for si in range(len(bb.depths))]
+                + [("norm", lambda: bb.norm(maps[-1])),
+                   ("q2l_head", lambda: model.head(fmap))]):
+            fn()
+            parts[name] = round(cuda_ms(fn, 3), 3)
+    print(f"[breakdown] teacher: ms per predict of {frames.shape[0]} frames "
+          f"{parts}; {card}")
+    device_profile(card, "teacher predict", lambda: sess.predict(frames), 14)
+    with torch.inference_mode():
+        device_profile(card, "teacher Q2L transformer and heads",
+                       lambda: model.head(fmap), 8)
+
+
+def device_profile(card: str, label: str, fn, top: int) -> None:
+    """One call of ``fn`` under torch.profiler after a warm-up: host wall
+    time to a synchronise, device busy time (the sum of the kernel and copy
+    rows) and the ``top`` rows by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, launched = [], 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel"):
+            launched += evt.count
+        if not str(evt.device_type).endswith("CUDA"):
+            continue  # CPU rows nest over their kernels' time
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        rows.append((dev_us / 1e3, evt.count, evt.key[:70]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[breakdown] {label} under torch.profiler: {wall_ms:.3f} ms wall, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{launched} kernel launches from the host; {card}")
+    for dev_ms, count, name in rows[:top]:
+        print(f"[breakdown]   {dev_ms:9.3f} ms  x{count:<5d} {name}")
 
 
 def phase_offline(card: str, configs: dict) -> tuple:
@@ -662,22 +1094,25 @@ def main() -> None:
     phase_build()
     measured = {"dilated_residual": phase_k1(card),
                 "stem_pool": phase_k2(card),
-                "qconv_bn": phase_q1(card)}
+                "qconv_bn": phase_q1(card),
+                "window_mhsa": phase_k3(card),
+                "mlp_block": phase_k4(card),
+                "swin_block": phase_k5(card)}
     phase_model()
     phase_model_int8()
+    phase_model_teacher()
 
     # the main path: the serving entry points at the serving geometry,
     # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
     # int8 sessions' float stem convolves bf16-valued float32 tensors,
     # which TF32 holds exactly, so its sums are the float32 sums
     torch.backends.cudnn.allow_tf32 = True
-    k1_only = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 0,
-               "qconv_bn": 0}
-    int8_fused = {"dilated_residual": LAYERS_PER_FORWARD, "stem_pool": 1,
-                  "qconv_bn": INT8_CONVS}
+    k1_only = dict.fromkeys(KERNELS, 0) | {
+        "dilated_residual": LAYERS_PER_FORWARD}
+    int8_fused = k1_only | {"stem_pool": 1, "qconv_bn": INT8_CONVS}
     int8_float_stem = dict(int8_fused, stem_pool=0)
     for fn in kernel_wrappers().values():
-        fn.launches = 0  # main path starts here
+        fn.launches = 0  # the student's main path starts here
     offline, clips = phase_offline(card, {
         "bf16": (k1_only, {}),
         "int8 float stem": (int8_float_stem, {"quantize": True}),
@@ -688,11 +1123,19 @@ def main() -> None:
         "int8 fused stem": phase_streaming(card, "int8 fused stem",
                                            int8_fused, quantize=True,
                                            fused_stem=True)}
+    student = launches()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # the teacher's main path starts here
+    teacher, frames = phase_teacher(card)
     total = launches()
-    for name, n in total.items():
-        check(n > 0, f"the main path launched no {name} kernel")
-    print(f"[main path] launches {total}")
+    print(f"[main path] launches: student sessions {student}, teacher "
+          f"session {total}")
+    for name in KERNELS:
+        if name not in TEACHER_LAUNCHES:
+            total[name] = student[name]
+        check(total[name] > 0, f"the main path launched no {name} kernel")
     phase_breakdown(card, offline, clips, streaming)
+    teacher_breakdown(card, teacher, frames)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{name}.cu",
          "replaces": replaces, "launches": total[name], **measured[name]}

@@ -1,0 +1,601 @@
+// Device phases shared by the Swin kernels, written by hand for Hopper
+// (sm_90a): K3 window_mhsa.cu, K4 mlp_block.cu and K5 swin_block.cu each
+// include this header and export their own C entry point.
+//
+// Phases, all over row-major token matrices of one dtype T (float or bf16):
+//
+//   ln_stats_kernel   per-row LayerNorm statistics (mean, 1/sqrt(var+eps))
+//                     in float32, one warp per row, two passes over the row;
+//   gemm_kernel       out = epilogue(A W + b): A is either a token matrix or,
+//                     with LN, LayerNorm(x) applied while the A tile is
+//                     loaded (float32 math, rounded to T: the operand the
+//                     TPU kernel feeds its MXU); W is (K, N) row-major, the
+//                     flax kernel layout; the float32 sum goes through one
+//                     of four epilogues (bias; bias + exact-erf GELU; bias,
+//                     rounded, + a residual in T; bias + residual summed in
+//                     float32), rounded to T once;
+//   window_attn_kernel one block per (window, head): q, k, v of one window
+//                     (N = w*w tokens, head_dim 32) gathered from the qkv
+//                     matrix into shared memory, S = q k^T in float32, then
+//                     S * scale + rel-pos bias (+ shift mask), a float32
+//                     softmax with the denominator floored at 1e-30, P
+//                     rounded to T, O = P v in float32, rounded to T and
+//                     written at the tokens' own rows.
+//
+// bf16 products run on tensor cores through WMMA (mma.sync underneath)
+// with float32 accumulation; float32 products use plain FMA so float32
+// stays float32. The GEMM keeps one tile in flight: the next A/B tile is
+// read into registers while the current one is multiplied. TMA, wgmma and
+// deeper pipelines are later work.
+//
+// Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
+// for the GEMM (C % 64 == 0 for the blocks); head_dim 32; window <= 12
+// (the score tile of a 144-token window is 85 KB of float32, and q, k, v,
+// S and P together 160 KB of the 227 KB a block may use).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+namespace swin {
+
+constexpr float LN_EPS = 1e-5f;
+constexpr int HD = 32;            // head_dim of every Swin variant
+constexpr int MAX_WINDOW = 12;
+constexpr int THREADS = 256;      // 8 warps, every kernel
+constexpr int BM = 128, BN = 64, BK = 32;  // GEMM block tile
+constexpr int LDC = BN + 4;       // row stride of the float32 staging tile
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// round to T and back: the value a T-typed intermediate holds
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__host__ __device__ constexpr size_t round128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
+
+// 16-byte vectors of V elements; every row offset used below is a multiple
+// of V and the wrappers pass 16-byte-aligned base pointers
+template <typename T> struct Vec {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int PAD = V;  // shared-memory row padding, elements
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm statistics: stats[r] = (mean, rsqrt(var + eps)) of row r of the
+// (M, C) matrix x, in float32, the variance from a second pass.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int M,
+                int C) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * C;
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
+  const float mu = warp_sum(s) / C;
+  float q = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f(xr[c]) - mu;
+    q += d * d;
+  }
+  const float var = warp_sum(q) / C;
+  if (lane == 0) stats[row] = make_float2(mu, rsqrtf(var + LN_EPS));
+}
+
+// ---------------------------------------------------------------------------
+// GEMM with an optional LayerNorm prologue and a fused epilogue.
+
+enum Epilogue {
+  EPI_BIAS = 0,        // out = T(acc + b)
+  EPI_BIAS_GELU = 1,   // out = T(gelu_erf(acc + b))
+  EPI_ROUND_RES = 2,   // out = T(res + T(acc + b)): K3's proj + residual
+  EPI_RES_F32 = 3,     // out = T(acc + b + res): K4's float32 sum
+};
+
+template <typename T> struct GemmArgs {
+  const T* a;          // (M, K)
+  const float2* stats; // (M,) LayerNorm statistics of a, or null
+  const float* gamma;  // (K,) LayerNorm scale, float32
+  const float* beta;   // (K,) LayerNorm shift, float32
+  const T* w;          // (K, N)
+  const T* bias;       // (N,)
+  const T* res;        // (M, N) residual, or null
+  T* out;              // (M, N)
+  int M, N, K;
+};
+
+// (BM x BN) float32 accumulators of As (BM x BK, stride lda) times
+// Bs (BK x BN, stride ldb), both in shared memory.
+// bf16: warp w owns rows 32 (w % 4) .. +32 and columns 32 (w / 4) .. +32.
+struct MmaBF16 {
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
+      c[2][2];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.0f);
+  }
+  __device__ void mma(const __nv_bfloat16* As, int lda,
+                      const __nv_bfloat16* Bs, int ldb) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm * 32 + 16 * i) * lda + kk, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], Bs + kk * ldb + wn * 32 + 16 * j, ldb);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+    }
+  }
+  __device__ void store(float* Cs) {
+    const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        nvcuda::wmma::store_matrix_sync(
+            Cs + (wm * 32 + 16 * i) * LDC + wn * 32 + 16 * j, c[i][j], LDC,
+            nvcuda::wmma::mem_row_major);
+  }
+};
+
+// float32: thread (ty, tx) = (tid / 16, tid % 16) owns rows 8 ty .. +8 and
+// columns tx + 16 j, j < 4.
+struct MmaF32 {
+  float c[8][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[i][j] = 0.0f;
+  }
+  __device__ void mma(const float* As, int lda, const float* Bs, int ldb) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = As[(8 * ty + i) * lda + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * ldb + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
+    }
+  }
+  __device__ void store(float* Cs) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Cs[(8 * ty + i) * LDC + tx + 16 * j] = c[i][j];
+  }
+};
+
+template <typename T> struct MmaFor;
+template <> struct MmaFor<float> { using type = MmaF32; };
+template <> struct MmaFor<__nv_bfloat16> { using type = MmaBF16; };
+
+template <typename T> struct GemmTile {
+  static constexpr int V = Vec<T>::V;
+  static constexpr int LDA = BK + Vec<T>::PAD;
+  static constexpr int LDB = BN + Vec<T>::PAD;
+  static constexpr int NA = BM * BK / V / THREADS;  // A vectors per thread
+  static constexpr int NB = BK * BN / V / THREADS;  // B vectors per thread
+  static constexpr size_t A_BYTES = round128(sizeof(T) * BM * LDA);
+  static constexpr size_t AB_BYTES = A_BYTES + round128(sizeof(T) * BK * LDB);
+  static constexpr size_t C_BYTES = sizeof(float) * BM * LDC;
+  // the float32 staging tile reuses the A/B tiles once the K loop is done
+  static constexpr size_t SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+};
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+}
+
+template <typename T, bool LN, int EPI>
+__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> p) {
+  using Tile = GemmTile<T>;
+  using Mma = typename MmaFor<T>::type;
+  constexpr int V = Tile::V;
+  __shared__ __align__(128) unsigned char smem[Tile::SMEM];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = reinterpret_cast<T*>(smem + Tile::A_BYTES);
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int tid = threadIdx.x;
+  uint4 ra[Tile::NA], rb[Tile::NB];
+
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < Tile::NA; ++i) {
+      const int v = tid + i * THREADS;
+      const int r = v / (BK / V), c = (v % (BK / V)) * V;
+      ra[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < p.M)
+        ra[i] = *reinterpret_cast<const uint4*>(
+            p.a + (size_t)(m0 + r) * p.K + k0 + c);
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::NB; ++i) {
+      const int v = tid + i * THREADS;
+      const int r = v / (BN / V), c = (v % (BN / V)) * V;
+      rb[i] = *reinterpret_cast<const uint4*>(
+          p.w + (size_t)(k0 + r) * p.N + n0 + c);
+    }
+  };
+  auto stash = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < Tile::NA; ++i) {
+      const int v = tid + i * THREADS;
+      const int r = v / (BK / V), c = (v % (BK / V)) * V;
+      T* dst = As + r * Tile::LDA + c;
+      if (LN) {
+        // LayerNorm on load, float32, rounded to T; rows past M stay zero
+        const T* e = reinterpret_cast<const T*>(&ra[i]);
+        float2 st = make_float2(0.0f, 0.0f);
+        if (m0 + r < p.M) st = p.stats[m0 + r];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float nv = (to_f(e[j]) - st.x) * st.y;
+          dst[j] = from_f<T>(m0 + r < p.M
+                                 ? nv * p.gamma[k0 + c + j] + p.beta[k0 + c + j]
+                                 : 0.0f);
+        }
+      } else {
+        *reinterpret_cast<uint4*>(dst) = ra[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::NB; ++i) {
+      const int v = tid + i * THREADS;
+      const int r = v / (BN / V), c = (v % (BN / V)) * V;
+      *reinterpret_cast<uint4*>(Bs + r * Tile::LDB + c) = rb[i];
+    }
+  };
+
+  Mma acc;
+  acc.zero();
+  load(0);
+  for (int k0 = 0; k0 < p.K; k0 += BK) {
+    stash(k0);
+    __syncthreads();
+    if (k0 + BK < p.K) load(k0 + BK);  // next tile in flight meanwhile
+    acc.mma(As, Tile::LDA, Bs, Tile::LDB);
+    __syncthreads();
+  }
+  acc.store(Cs);
+  __syncthreads();
+
+  for (int i = tid; i < BM * BN; i += THREADS) {
+    const int r = i / BN, c = i % BN;
+    if (m0 + r >= p.M) continue;
+    const size_t o = (size_t)(m0 + r) * p.N + n0 + c;
+    const float v = Cs[r * LDC + c] + to_f(p.bias[n0 + c]);
+    float out;
+    if (EPI == EPI_BIAS) {
+      out = v;
+    } else if (EPI == EPI_BIAS_GELU) {
+      out = gelu_erf(v);
+    } else if (EPI == EPI_ROUND_RES) {
+      out = to_f(p.res[o]) + round_to<T>(v);
+    } else {
+      out = v + to_f(p.res[o]);
+    }
+    p.out[o] = from_f<T>(out);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Window attention: one block per (window, head).
+
+template <typename T> struct AttnTile {
+  static constexpr int LDQ = HD + Vec<T>::PAD;  // q, k, v row stride
+  __host__ __device__ static int ldp(int np) {  // P row stride
+    return np + Vec<T>::PAD;
+  }
+  __host__ __device__ static int lds(int np) { return np + 4; }
+  __host__ __device__ static size_t qkv_bytes(int np) {
+    return round128(sizeof(T) * np * LDQ);
+  }
+  // S, and for bf16 the float32 staging tile of O (np x (HD + 4)) after it
+  __host__ __device__ static size_t s_bytes(int np) {
+    const int ld = lds(np) > HD + 4 ? lds(np) : HD + 4;
+    return round128(sizeof(float) * np * ld);
+  }
+  // float32 P overwrites S in place; bf16 P has its own tile
+  __host__ __device__ static size_t p_bytes(int np) {
+    return sizeof(T) == sizeof(float) ? 0
+                                      : round128(sizeof(T) * np * ldp(np));
+  }
+  __host__ __device__ static size_t smem(int np) {
+    return 3 * qkv_bytes(np) + s_bytes(np) + p_bytes(np);
+  }
+};
+
+// S[i][j] = q_i . k_j for i, j < Np (padded rows are zero)
+__device__ void attn_scores(const __nv_bfloat16* Qs, const __nv_bfloat16* Ks,
+                            float* S, int np, int n) {
+  using namespace nvcuda;
+  constexpr int LDQ = AttnTile<__nv_bfloat16>::LDQ;
+  const int lds = AttnTile<__nv_bfloat16>::lds(np);
+  const int nt = np / 16, warp = threadIdx.x / 32;
+  for (int t = warp; t < nt * nt; t += THREADS / 32) {
+    const int ti = t / nt, tj = t % nt;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    wmma::fill_fragment(c, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major> b;  // k^T: column j of B is row j of k
+      wmma::load_matrix_sync(a, Qs + ti * 16 * LDQ + kk, LDQ);
+      wmma::load_matrix_sync(b, Ks + tj * 16 * LDQ + kk, LDQ);
+      wmma::mma_sync(c, a, b, c);
+    }
+    wmma::store_matrix_sync(S + ti * 16 * lds + tj * 16, c, lds,
+                            wmma::mem_row_major);
+  }
+}
+__device__ void attn_scores(const float* Qs, const float* Ks, float* S,
+                            int np, int n) {
+  constexpr int LDQ = AttnTile<float>::LDQ;
+  const int lds = AttnTile<float>::lds(np);
+  for (int idx = threadIdx.x; idx < n * n; idx += THREADS) {
+    const int i = idx / n, j = idx % n;
+    float s = 0.0f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) s = fmaf(Qs[i * LDQ + d], Ks[j * LDQ + d], s);
+    S[i * lds + j] = s;
+  }
+}
+
+// out row of token r = P[r] V, rounded to T
+template <typename Store>
+__device__ void attn_pv(const __nv_bfloat16* P, const __nv_bfloat16* Vs,
+                        float* Os, int np, int n, Store store) {
+  using namespace nvcuda;
+  constexpr int LDQ = AttnTile<__nv_bfloat16>::LDQ, LDO = HD + 4;
+  const int ldp = AttnTile<__nv_bfloat16>::ldp(np);
+  const int nt = np / 16, warp = threadIdx.x / 32;
+  for (int t = warp; t < nt * (HD / 16); t += THREADS / 32) {
+    const int ti = t / (HD / 16), dj = t % (HD / 16);
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    wmma::fill_fragment(c, 0.0f);
+    for (int k0 = 0; k0 < np; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> b;
+      wmma::load_matrix_sync(a, P + ti * 16 * ldp + k0, ldp);
+      wmma::load_matrix_sync(b, Vs + k0 * LDQ + dj * 16, LDQ);
+      wmma::mma_sync(c, a, b, c);
+    }
+    wmma::store_matrix_sync(Os + ti * 16 * LDO + dj * 16, c, LDO,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n * HD; idx += THREADS)
+    store(idx / HD, idx % HD, Os[(idx / HD) * LDO + idx % HD]);
+}
+template <typename Store>
+__device__ void attn_pv(const float* P, const float* Vs, float* /*Os*/,
+                        int np, int n, Store store) {
+  constexpr int LDQ = AttnTile<float>::LDQ;
+  const int ldp = AttnTile<float>::lds(np);  // P is S, in place
+  for (int idx = threadIdx.x; idx < n * HD; idx += THREADS) {
+    const int r = idx / HD, d = idx % HD;
+    float o = 0.0f;
+    for (int j = 0; j < n; ++j) o = fmaf(P[r * ldp + j], Vs[j * LDQ + d], o);
+    store(r, d, o);
+  }
+}
+
+// qkv (B, Hp, Wp, 3C) holds q | k | v per token; bias (H, N, N) and mask
+// (nW, N, N, or null) in T; out (B, Hp, Wp, C). Window wi of an image is
+// row-major over the (Hp/w, Wp/w) grid, as the shift mask is.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                   const T* __restrict__ mask, T* __restrict__ out, int Hp,
+                   int Wp, int C, int w, int np, float scale) {
+  using Tile = AttnTile<T>;
+  constexpr int V = Vec<T>::V, LDQ = Tile::LDQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = reinterpret_cast<T*>(smem + Tile::qkv_bytes(np));
+  T* Vs = reinterpret_cast<T*>(smem + 2 * Tile::qkv_bytes(np));
+  float* S = reinterpret_cast<float*>(smem + 3 * Tile::qkv_bytes(np));
+  T* P = reinterpret_cast<T*>(smem + 3 * Tile::qkv_bytes(np) +
+                              (Tile::p_bytes(np) ? Tile::s_bytes(np) : 0));
+  const int lds = Tile::lds(np);
+  const int ldp = Tile::p_bytes(np) ? Tile::ldp(np) : lds;
+
+  const int n = w * w, nww = Wp / w, nw = (Hp / w) * nww;
+  const int b = blockIdx.x / nw, wi = blockIdx.x % nw;
+  const int wr = wi / nww, wc = wi % nww, h = blockIdx.y;
+  auto token = [&](int r) {  // row of token r of this window in (B*Hp*Wp)
+    return ((size_t)b * Hp + wr * w + r / w) * Wp + wc * w + r % w;
+  };
+
+  // gather q, k, v (padded rows zero)
+  for (int i = threadIdx.x; i < 3 * np * (HD / V); i += THREADS) {
+    const int which = i / (np * (HD / V)), rem = i % (np * (HD / V));
+    const int r = rem / (HD / V), c = (rem % (HD / V)) * V;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n)
+      v = *reinterpret_cast<const uint4*>(qkv + token(r) * 3 * C +
+                                          which * C + h * HD + c);
+    T* dst = which == 0 ? Qs : which == 1 ? Ks : Vs;
+    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
+  }
+  __syncthreads();
+  attn_scores(Qs, Ks, S, np, n);
+  __syncthreads();
+
+  // softmax over the n real keys, one warp per row
+  const T* bias_h = bias + (size_t)h * n * n;
+  const T* mask_w = mask ? mask + (size_t)wi * n * n : nullptr;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x / 32; i < np; i += THREADS / 32) {
+    float* srow = S + i * lds;
+    T* prow = P + i * ldp;
+    if (i >= n) {
+      for (int j = lane; j < np; j += 32) prow[j] = from_f<T>(0.0f);
+      continue;
+    }
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int j = lane; j < n; j += 32) {
+      float s = srow[j] * scale + to_f(bias_h[i * n + j]);
+      if (mask_w) s += to_f(mask_w[i * n + j]);
+      srow[j] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float sum = 0.0f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(srow[j] - m);
+      srow[j] = e;
+      sum += e;
+    }
+    const float inv = 1.0f / fmaxf(warp_sum(sum), 1e-30f);
+    for (int j = lane; j < np; j += 32)
+      prow[j] = from_f<T>(j < n ? srow[j] * inv : 0.0f);
+  }
+  __syncthreads();
+
+  // bf16 stages O in S, which P no longer needs
+  attn_pv(P, Vs, S, np, n, [&](int r, int d, float o) {
+    out[token(r) * C + h * HD + d] = from_f<T>(o);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Host side: the phases launched in order on one stream. Each returns the
+// first CUDA error (cudaSuccess when every launch was accepted).
+
+template <typename T>
+cudaError_t ln_stats(const T* x, float2* stats, int M, int C,
+                     cudaStream_t s) {
+  const int rows = THREADS / 32;
+  ln_stats_kernel<T><<<(M + rows - 1) / rows, THREADS, 0, s>>>(x, stats, M,
+                                                                C);
+  return cudaGetLastError();
+}
+
+template <typename T, bool LN, int EPI>
+cudaError_t gemm(const GemmArgs<T>& p, cudaStream_t s) {
+  if (p.M <= 0 || p.K % BK || p.N % BN || (p.M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  gemm_kernel<T, LN, EPI><<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
+                             T* out, int B, int Hp, int Wp, int C, int heads,
+                             int w, float scale, cudaStream_t s) {
+  const int np = (w * w + 15) / 16 * 16;
+  const size_t smem = AttnTile<T>::smem(np);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * (Hp / w) * (Wp / w), heads);
+  window_attn_kernel<T><<<grid, THREADS, smem, s>>>(qkv, bias, mask, out, Hp,
+                                                     Wp, C, w, np, scale);
+  return cudaGetLastError();
+}
+
+inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
+  return B > 0 && w > 0 && w <= MAX_WINDOW && Hp % w == 0 && Wp % w == 0 &&
+         Hp > 0 && Wp > 0 && C % 64 == 0 && heads > 0 && C == heads * HD &&
+         (long long)B * (Hp / w) * (Wp / w) <= 2147483647LL && heads <= 65535;
+}
+
+// K3's phases: y = x + proj(window attention(LN(x))).
+// Scratch: qkv (M, 3C), attn (M, C), stats (M,) with M = B * Hp * Wp.
+template <typename T>
+cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
+                           const T* wqkv, const T* bqkv, const T* wproj,
+                           const T* bproj, const T* bias, const T* mask,
+                           T* qkv, T* attn, float2* stats, T* y, int B,
+                           int Hp, int Wp, int C, int heads, int w,
+                           float scale, cudaStream_t s) {
+  const int M = B * Hp * Wp;
+  cudaError_t err = ln_stats(x, stats, M, C, s);
+  if (err != cudaSuccess) return err;
+  err = gemm<T, true, EPI_BIAS>(
+      {x, stats, gamma, beta, wqkv, bqkv, nullptr, qkv, M, 3 * C, C}, s);
+  if (err != cudaSuccess) return err;
+  err = window_attention(qkv, bias, mask, attn, B, Hp, Wp, C, heads, w,
+                         scale, s);
+  if (err != cudaSuccess) return err;
+  return gemm<T, false, EPI_ROUND_RES>(
+      {attn, nullptr, nullptr, nullptr, wproj, bproj, x, y, M, C, C}, s);
+}
+
+// K4's phases: y = x + W2 gelu(W1 LN(x) + b1) + b2, the last sum in float32.
+// Scratch: h (M, hidden), stats (M,).
+template <typename T>
+cudaError_t mlp_half(const T* x, const float* gamma, const float* beta,
+                     const T* w1, const T* b1, const T* w2, const T* b2, T* h,
+                     float2* stats, T* y, int M, int C, int hidden,
+                     cudaStream_t s) {
+  cudaError_t err = ln_stats(x, stats, M, C, s);
+  if (err != cudaSuccess) return err;
+  err = gemm<T, true, EPI_BIAS_GELU>(
+      {x, stats, gamma, beta, w1, b1, nullptr, h, M, hidden, C}, s);
+  if (err != cudaSuccess) return err;
+  return gemm<T, false, EPI_RES_F32>(
+      {h, nullptr, nullptr, nullptr, w2, b2, x, y, M, C, hidden}, s);
+}
+
+}  // namespace swin

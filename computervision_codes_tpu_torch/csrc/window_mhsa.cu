@@ -1,0 +1,79 @@
+// K3: the Swin window-attention half-block, written by hand for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// computervision_codes_tpu/ops/window_mhsa.py::window_mhsa_fused (its
+// _kernel and packed_window_attention), float path. Over x (B, Hp, Wp, C),
+// already rolled by the caller when the block is shifted:
+//
+//   y = x + proj(window_MHSA(LayerNorm(x)))
+//
+// with a relative-position bias (H, N, N) and an optional additive shift
+// mask (nW, N, N), N = w*w, head_dim 32.
+//
+// What bounds it on the card: at the SwinL-384 stage-2 shape (B = 16,
+// 24x24, C = 768, 24 heads, w = 12) the two projections are 43.5 GFLOP and
+// the attention core 4.1 GFLOP against about 33 MB of device traffic, so by
+// arithmetic intensity it is tensor-core bound (0.048 ms at 989 TFLOP/s).
+// What the design does: the TPU kernel keeps a whole row of windows in VMEM,
+// but on Hopper one window's LN tile alone (144 x 768 bf16, 221 KB) nearly
+// fills a block's 227 KB of shared memory. So the half-block runs as four
+// phases on one stream (swin_common.cuh): LN statistics; the LN-on-load QKV
+// GEMM into a qkv scratch; attention with one block per (window, head),
+// whose 144 x 144 float32 score tile stays in shared memory; the proj GEMM
+// with bias and residual. The scratch round trip costs 4 bytes x 4C per
+// token of traffic, well under the GEMMs' time. Odd windows (N = 49) are
+// masked at their real size; no (w+1)^2 padding. The TPU kernel's
+// head-group packing is an MXU device and has no counterpart here.
+//
+// Interface: plain C, loaded with ctypes. Launches go on the caller's
+// stream, never synchronise and allocate nothing; the return value is the
+// first CUDA error of the phases' launches (0 on success).
+
+#include "swin_common.cuh"
+
+namespace {
+
+template <typename T>
+int run(const void* x, const void* gamma, const void* beta, const void* wqkv,
+        const void* bqkv, const void* wproj, const void* bproj,
+        const void* bias, const void* mask, void* qkv, void* attn,
+        void* stats, void* y, int B, int Hp, int Wp, int C, int heads,
+        int window, float scale, cudaStream_t s) {
+  return (int)swin::attention_half<T>(
+      static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const T*>(wqkv),
+      static_cast<const T*>(bqkv), static_cast<const T*>(wproj),
+      static_cast<const T*>(bproj), static_cast<const T*>(bias),
+      static_cast<const T*>(mask), static_cast<T*>(qkv),
+      static_cast<T*>(attn), static_cast<float2*>(stats), static_cast<T*>(y),
+      B, Hp, Wp, C, heads, window, scale, s);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. x, y (B, Hp, Wp, C); gamma, beta (C,)
+// float32; wqkv (C, 3C), bqkv (3C,), wproj (C, C), bproj (C,), bias
+// (heads, N, N) and mask (nW, N, N, or null) in dtype. Scratch: qkv
+// (B*Hp*Wp, 3C) and attn (B*Hp*Wp, C) in dtype, stats (B*Hp*Wp,) float2.
+extern "C" int window_mhsa_launch(const void* x, const void* gamma,
+                                  const void* beta, const void* wqkv,
+                                  const void* bqkv, const void* wproj,
+                                  const void* bproj, const void* bias,
+                                  const void* mask, void* qkv, void* attn,
+                                  void* stats, void* y, int B, int Hp, int Wp,
+                                  int C, int heads, int window, float scale,
+                                  int dtype, void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+                      qkv, attn, stats, y, B, Hp, Wp, C, heads, window, scale,
+                      s);
+  if (dtype == 1)
+    return run<__nv_bfloat16>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                              mask, qkv, attn, stats, y, B, Hp, Wp, C, heads,
+                              window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

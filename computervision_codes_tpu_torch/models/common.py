@@ -1,8 +1,137 @@
-"""Shared model helpers; counterpart of ``models/common.py`` in the JAX package."""
+"""Shared model helpers; counterpart of ``models/common.py`` in the JAX package.
+
+The transformer building blocks keep flax's conventions, so that
+``models.convert.load_jax_variables`` fills them by name and the tests
+compare like with like: parameters are float32 and cast to the compute
+``dtype`` at each call; a ``Dense`` holds ``kernel`` (in, out) and ``bias``;
+a ``LayerNorm`` holds ``scale`` and ``bias``.
+"""
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.mlp_block import layer_norm_f32
+
+# a unit normal truncated to [-2, 2] has this standard deviation; flax's
+# truncated_normal divides by it so that the drawn values have ``stddev``
+TRUNC_STD = 0.87962566103423978
+
+
+def trunc_normal_(t: torch.Tensor, stddev: float = 0.02,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """flax ``truncated_normal(stddev, lower=-2, upper=2)``, drawn from a
+    ``torch.Generator`` (values differ from JAX's; the distribution is the
+    same)."""
+    s = stddev / TRUNC_STD
+    return nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s,
+                                 generator=generator)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """flax's default ``Dense``/``Conv`` kernel init (truncated normal of
+    variance 1 / fan_in)."""
+    return trunc_normal_(t, 1.0 / math.sqrt(fan_in), generator)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x @ kernel + bias in the compute dtype, with
+    ``kernel`` (in, out) in the flax layout."""
+
+    def __init__(self, cin: int, cout: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 init: str = "lecun"):
+        super().__init__()
+        self.dtype = dtype
+        w = torch.empty(cin, cout)
+        if init == "trunc_normal":
+            trunc_normal_(w, 0.02, generator)
+        else:
+            lecun_normal_(w, cin, generator)
+        self.kernel = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (eps 1e-5): statistics and the affine map in
+    float32, the result in the compute dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return layer_norm_f32(x, self.scale, self.bias).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP (Dense -> exact GELU -> Dense; eval, so no dropout).
+    The children carry flax's auto names ``Dense_0`` and ``Dense_1``."""
+
+    def __init__(self, dim: int, hidden: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.Dense_0 = Dense(dim, hidden, dtype=dtype, generator=generator,
+                             init="trunc_normal")
+        self.Dense_1 = Dense(hidden, dim, dtype=dtype, generator=generator,
+                             init="trunc_normal")
+
+    def forward(self, x):
+        return self.Dense_1(F.gelu(self.Dense_0(x)))  # exact (erf) GELU
+
+
+class DropPath(nn.Module):
+    """Stochastic depth. Identity in eval; the training forward comes with
+    the training slice."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("DropPath in training is not ported "
+                                      "yet (the training slice)")
+        return x
+
+
+class GroupWiseLinear(nn.Module):
+    """Per-class readout out[b, k] = <W[k], x[b, k]> + b[k], the product and
+    the sum in the compute dtype; init U(-1/sqrt(d), 1/sqrt(d))."""
+
+    def __init__(self, num_class: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        bound = 1.0 / math.sqrt(hidden_dim)
+
+        def uniform(*shape):
+            return nn.Parameter(
+                torch.rand(*shape, generator=generator) * 2 * bound - bound)
+
+        self.W = uniform(num_class, hidden_dim)
+        self.b = uniform(num_class)
+
+    def forward(self, x):  # x (B, K, D)
+        out = (self.W.to(self.dtype) * x.to(self.dtype)).sum(-1)
+        return out + self.b.to(self.dtype)
 
 
 def interpolate_1d(x: torch.Tensor, size: int, mode: str = "linear"

@@ -10,9 +10,15 @@ the flax names its children carry:
 * ``bn*``: ``params/{scale,bias}`` + ``batch_stats/{mean,var}`` -> BatchNorm
   ``weight, bias, running_mean, running_var``; a frozen BN reads all four
   from the ``frozen`` collection;
+* a conv with a bias (Swin's ``patch_embed``) reads ``bias`` too;
 * 1x1 ``nn.Conv`` over time (``pg_conv_in``, ``latlayer1``, ``head_*``):
   ``kernel`` (1, Cin, Cout) -> weight (Cout, Cin), plus ``bias``;
-* dilated layers: ``w_taps, b1, w2, b2`` keep the JAX layout.
+* every other parameter is read by its own name and keeps the JAX layout:
+  ``Dense`` ``kernel`` (in, out) and ``bias``, ``LayerNorm`` ``scale`` and
+  ``bias``, the dilated layers' ``w_taps, b1, w2, b2``, and raw params
+  such as ``relative_position_bias_table``, ``query_embed_*`` and
+  ``fc_*/{W,b}`` (the ``Mlp`` children are named ``Dense_0``/``Dense_1``,
+  as flax names them).
 
 Every leaf of ``variables`` must be used and every parameter filled:
 a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.
@@ -35,7 +41,7 @@ import torch.nn as nn
 
 from .quantized import QConv
 from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
-from .tcn import Conv1x1, DilatedResidualLayer
+from .tcn import Conv1x1
 
 _COLLECTIONS = ("params", "batch_stats", "frozen")
 Path = Tuple[str, ...]
@@ -80,6 +86,8 @@ class _Loader:
         if isinstance(module, Conv2d):
             kernel = self.get("params", p("kernel"))  # HWIO
             self.put(module.weight, kernel.transpose(3, 2, 0, 1), name)
+            if module.bias is not None:
+                self.put(module.bias, self.get("params", p("bias")), name)
         elif isinstance(module, Conv1x1):
             kernel = self.get("params", p("kernel"))  # (1, Cin, Cout)
             if kernel.ndim != 3 or kernel.shape[0] != 1:
@@ -98,14 +106,9 @@ class _Loader:
                                    ("running_mean", "batch_stats", "mean"),
                                    ("running_var", "batch_stats", "var")):
                 self.put(getattr(module, dst), self.get(coll, p(key)), name)
-        elif isinstance(module, DilatedResidualLayer):
-            for key in ("w_taps", "b1", "w2", "b2"):
-                self.put(getattr(module, key), self.get("params", p(key)),
-                         name)
         else:
-            if next(module.parameters(recurse=False), None) is not None:
-                raise TypeError(f"{name}: no JAX mapping for "
-                                f"{type(module).__name__}")
+            for key, param in module.named_parameters(recurse=False):
+                self.put(param, self.get("params", p(key)), f"{name}/{key}")
             for child_name, child in module.named_children():
                 self.load(child, p(child_name))
 

@@ -1,0 +1,201 @@
+"""Query2Label teacher (Swin or ResNet backbone + DETR-style decoder), eval.
+
+Counterpart of ``models/q2l.py`` in the JAX package: d_model = the
+backbone's channels, 4 heads, FFN 8192, one post-norm encoder layer and two
+decoder layers without self-attention, one ``Q2LTransformer`` shared by
+every task; per task an ``input_proj`` Dense, query embeddings and a
+``GroupWiseLinear`` head; the task feature is the mean of the encoder
+memory over positions. Attention products are plain ``torch.matmul`` with a
+float32 softmax, as XLA computed them in the JAX package.
+
+Not ported yet, and refused: the CvT and TResNet backbones (the zoo slice),
+the KD block (``feat_i``, the training slice) and the Swin options
+``models.swin`` refuses. The JAX ``return_sim_mat`` output is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from .common import Dense, GroupWiseLinear, LayerNorm
+from .position_encoding import sine_position_embedding
+from .resnet import VARIANTS as RESNET_VARIANTS
+from .resnet import build_resnet, feature_dim
+from .swin import VARIANTS as SWIN_VARIANTS
+from .swin import build_swin, swin_feature_dim
+
+# the reference transformer (its models/transformer.py:347-359)
+NUM_HEADS, FFN_DIM, ENCODER_LAYERS, DECODER_LAYERS = 4, 8192, 1, 2
+TASK_SIZES = {"i": 6, "v": 10, "t": 15, "ivt": 100}
+
+
+class MultiHeadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's math with separate q/k/v/out Dense
+    layers (the JAX package's layout)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, Dense(dim, dim, dtype=dtype,
+                                      generator=generator))
+
+    def forward(self, q, k, v):
+        h = self.num_heads
+        hd = self.dim // h
+        b, nq, _ = q.shape
+        nk = k.shape[1]
+
+        def split(t, n):
+            return t.reshape(b, n, h, hd).transpose(1, 2)
+
+        attn = (split(self.q_proj(q), nq) * hd ** -0.5) @ split(
+            self.k_proj(k), nk).transpose(-1, -2)
+        attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+        out = (attn @ split(self.v_proj(v), nk)).transpose(1, 2)
+        return self.out_proj(out.reshape(b, nq, self.dim))
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm DETR encoder layer (pos added to q and k only)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.self_attn = MultiHeadAttention(dim, NUM_HEADS, dtype, g)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.linear1 = Dense(dim, FFN_DIM, dtype=dtype, generator=g)
+        self.linear2 = Dense(FFN_DIM, dim, dtype=dtype, generator=g)
+        self.norm2 = LayerNorm(dim, dtype)
+
+    def forward(self, x, pos):
+        qk = x + pos
+        x = self.norm1(x + self.self_attn(qk, qk, x))
+        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+
+
+class DecoderLayer(nn.Module):
+    """Post-norm DETR decoder layer with self-attention removed."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.cross_attn = MultiHeadAttention(dim, NUM_HEADS, dtype, g)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.linear1 = Dense(dim, FFN_DIM, dtype=dtype, generator=g)
+        self.linear2 = Dense(FFN_DIM, dim, dtype=dtype, generator=g)
+        self.norm3 = LayerNorm(dim, dtype)
+
+    def forward(self, tgt, memory, pos, query_pos):
+        tgt = self.norm2(tgt + self.cross_attn(tgt + query_pos, memory + pos,
+                                               memory))
+        return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+
+
+class Q2LTransformer(nn.Module):
+    """1 encoder + 2 decoder layers, shared across the task decoders."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        for i in range(ENCODER_LAYERS):
+            self.add_module(f"encoder{i}", EncoderLayer(dim, dtype,
+                                                        generator))
+        for i in range(DECODER_LAYERS):
+            self.add_module(f"decoder{i}", DecoderLayer(dim, dtype,
+                                                        generator))
+        self.decoder_norm = LayerNorm(dim, dtype)
+
+    def forward(self, src, pos, query_embed):
+        """src (B, HW, d), pos (1, HW, d), query_embed (K, d) ->
+        (decoded queries (B, K, d), encoder memory (B, HW, d))."""
+        memory = src
+        for i in range(ENCODER_LAYERS):
+            memory = getattr(self, f"encoder{i}")(memory, pos)
+        query = query_embed[None].expand(src.shape[0], -1, -1).to(self.dtype)
+        tgt = torch.zeros_like(query)
+        for i in range(DECODER_LAYERS):
+            tgt = getattr(self, f"decoder{i}")(tgt, memory, pos, query)
+        return self.decoder_norm(tgt), memory
+
+
+class Q2L(nn.Module):
+    """Query2Label with per-task decoders over one shared transformer:
+    NHWC frames -> ``{"logits": {task: (B, K)}, "feature": (B, d),
+    "task_features": {task: (B, d)}}``."""
+
+    def __init__(self, backbone: str = "swin_L_384_22k",
+                 loss_type: str = "all", drop_path_rate: float = 0.1,
+                 fused_eval: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 **swin_flags):
+        super().__init__()
+        self.loss_type, self.dtype = loss_type, dtype
+        g = generator
+        if backbone in SWIN_VARIANTS:
+            self.backbone = build_swin(backbone, drop_path_rate, dtype, g,
+                                       fused_eval=fused_eval, **swin_flags)
+            dim = swin_feature_dim(backbone)
+        elif backbone in RESNET_VARIANTS:
+            self.backbone = build_resnet(backbone, frozen_bn=True, dtype=dtype,
+                                         generator=g)
+            dim = feature_dim(backbone)
+        elif backbone.startswith(("cvt", "tresnet")):
+            raise NotImplementedError(f"backbone {backbone!r} is not ported "
+                                      f"yet (the backbone zoo slice)")
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        self.backbone_name, self.dim = backbone, dim
+        self.transformer = Q2LTransformer(dim, dtype=dtype, generator=g)
+        for key in self.tasks:
+            n = TASK_SIZES[key]
+            self.add_module(f"input_proj_{key}",
+                            Dense(dim, dim, dtype=dtype, generator=g))
+            self.register_parameter(f"query_embed_{key}", nn.Parameter(
+                torch.randn(n, dim, generator=g)))
+            self.add_module(f"fc_{key}",
+                            GroupWiseLinear(n, dim, dtype=dtype, generator=g))
+
+    @property
+    def tasks(self):
+        lt = self.loss_type
+        keys = [k for k in ("i", "v", "t") if lt in (k, "all")]
+        return keys + (["ivt"] if lt == "all" else [])
+
+    def feature_map(self, images: torch.Tensor) -> torch.Tensor:
+        if self.backbone_name in SWIN_VARIANTS:
+            return self.backbone(images)["feature_map"]
+        return self.backbone(images)["stages"][-1]
+
+    def head(self, fmap: torch.Tensor) -> Dict:
+        """The transformer and the task heads over a (B, h, w, d) map."""
+        b, h, w, _ = fmap.shape
+        pos = torch.as_tensor(sine_position_embedding(h, w, self.dim // 2))
+        pos = pos.to(fmap.device, self.dtype).reshape(1, h * w, self.dim)
+        src = fmap.reshape(b, h * w, self.dim)
+        logits = {k: torch.zeros(b, n, dtype=self.dtype, device=fmap.device)
+                  for k, n in TASK_SIZES.items()}
+        feats = {}
+        for key in self.tasks:
+            proj = getattr(self, f"input_proj_{key}")(src)
+            hs, memory = self.transformer(
+                proj, pos, getattr(self, f"query_embed_{key}"))
+            logits[key] = getattr(self, f"fc_{key}")(hs)
+            feats[key] = memory.mean(dim=1)
+        feature = feats.get("ivt", next(iter(feats.values())))
+        return {"logits": logits, "feature": feature, "task_features": feats}
+
+    def forward(self, images, feat_i=None, feat_v=None, feat_t=None) -> Dict:
+        if feat_i is not None:
+            raise NotImplementedError("the KD block (feat_i) is not ported "
+                                      "yet (the training slice)")
+        return self.head(self.feature_map(images))

@@ -39,21 +39,25 @@ BN_EPS = 1e-5
 
 
 class Conv2d(nn.Module):
-    """Bias-free conv, weight OIHW, initialised as the JAX package's
-    ``variance_scaling(2.0, "fan_out", "normal")``."""
+    """Conv, weight OIHW, initialised as the JAX package's
+    ``variance_scaling(2.0, "fan_out", "normal")``; bias-free unless
+    ``bias`` (zeros, as flax's ``Conv``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bias: bool = False):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
         std = math.sqrt(2.0 / (kernel * kernel * cout))
         w = torch.empty(cout, cin, kernel, kernel)
         self.weight = nn.Parameter(nn.init.normal_(w, 0.0, std,
                                                    generator=generator))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(self.dtype), None, self.stride,
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride,
                         self.padding)
 
 

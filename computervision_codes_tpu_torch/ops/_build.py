@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface (the Swin
+kernels share ``csrc/swin_common.cuh``). At first
 use it is compiled for Hopper (``sm_90a``) into ``_build/`` inside the
 package (git-ignored), under a name that carries the hash of its source and
 flags, so an edited source is rebuilt and an unchanged one is loaded as it
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to for its current source."""
+    """Where ``csrc/<name>.cu`` builds to for its current source and the
+    shared headers (``csrc/*.cuh``) it may include."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,182 @@
+"""Swin window-attention half-block (K3): hand-written CUDA kernel + plain
+version.
+
+Counterpart of ``computervision_codes_tpu/ops/window_mhsa.py``. Over x
+(B, Hp, Wp, C), with Hp and Wp multiples of the window w, N = w*w,
+
+    y = x + proj(window_MHSA(LN(x)))
+
+where ``bias`` (H, N, N) is the relative-position bias and ``mask``
+(nW, N, N) the additive shift mask (0 / -100) or None; the caller rolls x
+for a shifted block, as the JAX module does. Numerics of the TPU kernel's
+float path: LayerNorm in float32 rounded to x's dtype; qkv = LN(x) wqkv +
+bqkv summed in float32 and rounded; scores f32(q.k) * hd^-0.5 + bias
+(+ mask), with bias and mask as held in x's dtype; float32 softmax with the
+denominator floored at 1e-30 and p rounded to x's dtype; p v in float32,
+rounded; proj + bias rounded, then the residual added in x's dtype.
+
+``window_mhsa_fused`` dispatches on the tensor's device: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel
+(``csrc/window_mhsa.cu``), anything else raises. The int8 branch
+(``quant=True`` there) belongs to the int8 teacher and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .mlp_block import (C_MULTIPLE, DTYPE_CODES, check_operands,
+                        launch_checked, layer_norm_f32, mm_f32)
+
+HEAD_DIM = 32  # every Swin variant; the kernel's q/k/v tiles
+MAX_WINDOW = 12  # a 144-token window's float32 score tile is 85 KB
+
+
+def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nW, w*w, C), windows row-major per image."""
+    b, h, wd, c = x.shape
+    x = x.reshape(b, h // w, w, wd // w, w, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, w * w, c)
+
+
+def window_reverse(windows: torch.Tensor, w: int, h: int, wd: int
+                   ) -> torch.Tensor:
+    """(B*nW, w*w, C) -> (B, H, W, C)."""
+    c = windows.shape[-1]
+    b = windows.shape[0] // ((h // w) * (wd // w))
+    x = windows.reshape(b, h // w, wd // w, w, w, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, wd, c)
+
+
+def window_attention_core(qkv, bias, mask, num_heads: int, dtype):
+    """Attention of each window: qkv (B, nW, N, 3C) in ``dtype`` ->
+    (B, nW, N, C), with the kernel's rounding points."""
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // num_heads
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, nw, n, num_heads, hd)
+               .transpose(2, 3) for i in range(3))  # (B, nW, H, N, hd)
+    s = mm_f32(q, k.transpose(-1, -2)) * (hd ** -0.5)
+    s = s + bias.to(dtype).float()
+    if mask is not None:
+        s = s + mask.to(dtype).float()[None, :, None]
+    s = s - s.amax(-1, keepdim=True)
+    e = torch.exp(s)
+    denom = torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    p = (e * (1.0 / denom)).to(dtype)
+    o = mm_f32(p, v).to(dtype)  # (B, nW, H, N, hd)
+    return o.transpose(2, 3).reshape(b, nw, n, c)
+
+
+def window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                          mask, *, window: int, num_heads: int):
+    """Plain PyTorch version, with the kernel's rounding points; mirrors the
+    JAX ``window_mhsa_reference``."""
+    b, hp, wp, _ = x.shape
+    n = window * window
+    normed = layer_norm_f32(x, gamma, beta)
+    qkv = (mm_f32(normed, wqkv) + bqkv.float()).to(x.dtype)
+    qkv = window_partition(qkv, window).reshape(b, -1, n, qkv.shape[-1])
+    o = window_attention_core(qkv, bias, mask, num_heads, x.dtype)
+    o = window_reverse(o.flatten(0, 1), window, hp, wp)
+    o = (mm_f32(o, wproj) + bproj.float()).to(x.dtype)
+    return (x.float() + o.float()).to(x.dtype)
+
+
+def check_geometry(x, window: int, num_heads: int) -> None:
+    """The kernels' limits on the block geometry; raises ValueError."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be (B, Hp, Wp, C), got {tuple(x.shape)}")
+    _, hp, wp, c = x.shape
+    if hp % window or wp % window:
+        raise ValueError(f"map {hp}x{wp} is not a multiple of window "
+                         f"{window}")
+    if not 0 < window <= MAX_WINDOW:
+        raise ValueError(f"window kernels take window <= {MAX_WINDOW}, got "
+                         f"{window}")
+    if c != num_heads * HEAD_DIM or c % C_MULTIPLE:
+        raise ValueError(f"window kernels need head_dim {HEAD_DIM} and C % "
+                         f"{C_MULTIPLE} == 0, got C={c}, heads={num_heads}")
+
+
+def attention_operands(what, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                       mask, window, num_heads):
+    """Checked, aligned operands of the attention half (matrices, mask or
+    None, float32 LN vectors). ``bias`` and ``mask`` are cast to x's dtype,
+    as the JAX module passes them."""
+    check_geometry(x, window, num_heads)
+    _, hp, wp, c = x.shape
+    n = window * window
+    bias = bias.to(x.dtype)
+    named = {"x": (x, x.shape), "wqkv": (wqkv, (c, 3 * c)),
+             "bqkv": (bqkv, (3 * c,)), "wproj": (wproj, (c, c)),
+             "bproj": (bproj, (c,)), "bias": (bias, (num_heads, n, n))}
+    if mask is not None:
+        mask = mask.to(x.dtype)
+        named["mask"] = (mask, ((hp // window) * (wp // window), n, n))
+    mats, vecs = check_operands(what, x, named,
+                                {"gamma": (gamma, (c,)),
+                                 "beta": (beta, (c,))})
+    return mats[:6], (mats[6] if mask is not None else None), vecs
+
+
+@functools.cache
+def _launch_fn():
+    """The C entry point of ``csrc/window_mhsa.cu`` (built on first use),
+    with its argument types declared."""
+    from ._build import load_library
+
+    fn = load_library("window_mhsa").window_mhsa_launch
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+                     *, window: int, num_heads: int):
+    """Launch K3 on x's device and current stream.
+
+    x (B, Hp, Wp, C) float32 or bfloat16, Hp and Wp multiples of ``window``
+    (<= 12), head_dim 32, C % 64 == 0; weights and biases in x's dtype;
+    gamma, beta in any float dtype; bias and mask are cast to x's dtype.
+    ``launches`` counts the kernel launches made through this wrapper.
+    """
+    (x, wqkv, bqkv, wproj, bproj, bias), mask, (gamma, beta) = \
+        attention_operands("window_mhsa", x, gamma, beta, wqkv, bqkv, wproj,
+                           bproj, bias, mask, window, num_heads)
+    b, hp, wp, c = x.shape
+    m = b * hp * wp
+    y = torch.empty_like(x)
+    if m == 0:
+        return y
+    qkv = torch.empty(m, 3 * c, dtype=x.dtype, device=x.device)
+    attn = torch.empty(m, c, dtype=x.dtype, device=x.device)
+    stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
+    launch_checked("window_mhsa", _launch_fn(), x, gamma, beta, wqkv, bqkv,
+                   wproj, bproj, bias, mask, qkv, attn, stats, y, b, hp, wp,
+                   c, num_heads, window, HEAD_DIM ** -0.5,
+                   DTYPE_CODES[x.dtype])
+    window_mhsa_cuda.launches += 1
+    return y
+
+
+window_mhsa_cuda.launches = 0
+
+
+def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+                      *, window: int, num_heads: int):
+    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj,
+                                     bproj, bias, mask, window=window,
+                                     num_heads=num_heads)
+    if x.device.type == "cuda":
+        return window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                bias, mask, window=window,
+                                num_heads=num_heads)
+    raise ValueError(f"window_mhsa_fused runs on CPU (plain version) or CUDA "
+                     f"(kernel) tensors, got {x.device}")

@@ -16,9 +16,13 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
   pixels through the ImageNet normalisation (``_default_calibration``);
   ``fused_stem`` runs the stem as one kernel (``ops.stem_pool``);
 * ``from_checkpoint`` serves a checkpoint that the JAX package's
-  ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed).
+  ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed);
+* ``TeacherSession`` serves the bf16 Q2L teacher (Swin-L-384 by default):
+  frames -> task probabilities and the per-frame feature vector that the
+  cached feature bus carries.
 
-Not ported yet: ``mesh`` and ``export``/``load_exported``.
+Not ported yet: ``mesh``, ``export``/``load_exported`` and the int8 teacher
+(``TeacherSession(quantize=True)``, the next slice).
 
 Usage::
 
@@ -26,6 +30,8 @@ Usage::
     sess = InferenceSession.create(quantize=True, fused_stem=True)
     sess = InferenceSession.from_checkpoint(directory, "student")
     probs = sess.predict(clips_uint8)       # {task: (B, T, C) numpy}
+    teacher = TeacherSession.create(batch=16, img_size=384, device="cuda")
+    out = teacher.predict(frames_uint8)     # {task: (B, C), "feature": (B, D)}
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from .data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from .models.convert import load_jax_variables
 from .models.pipeline import EndToEndRecognizer
+from .models.q2l import Q2L
 from .models.quantized import Int8Recognizer, make_int8_e2e
 from .train.checkpoint import checkpoint_path, restore_variables
 
@@ -274,3 +281,56 @@ class StreamingSession:
             else:
                 self.buffer[stream].zero_()
                 self.frames_seen_per_stream[stream] = 0
+
+
+@dataclass
+class TeacherSession:
+    """A fixed-shape Q2L teacher session: (B, H, W, 3) frames -> task
+    probabilities and the per-frame feature (the mean of the encoder memory
+    of "ivt" when served, else of the first task), in bf16 on ``device``."""
+
+    model: Q2L
+    batch: int
+    height: int
+    width: int
+    tasks: Tuple[str, ...]
+    device: torch.device
+
+    @classmethod
+    def create(cls, batch: int = 16, img_size: int = 384,
+               backbone: str = "swin_L_384_22k", loss_type: str = "i",
+               variables=None, quantize: bool = False,
+               device: Device = "cuda") -> "TeacherSession":
+        """``variables``: the JAX ``Q2L`` variables to serve; without them,
+        weights are drawn from a ``torch.Generator`` seeded with 0."""
+        if quantize:
+            raise NotImplementedError(
+                "TeacherSession(quantize=True), the int8 teacher, is not "
+                "ported yet: it is the next slice of the port")
+        device = torch.device(device)
+        model = Q2L(backbone=backbone, loss_type=loss_type,
+                    dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0))
+        if variables is not None:
+            load_jax_variables(model, variables)
+        model = model.to(device).eval()
+        return cls(model, batch, img_size, img_size, tuple(model.tasks),
+                   device)
+
+    @property
+    def shape(self):
+        return (self.batch, self.height, self.width, 3)
+
+    def predict(self, frames) -> Dict[str, np.ndarray]:
+        """uint8 (normalised here) or normalised float frames -> {task:
+        (B, C) float32 probabilities, "feature": (B, D) float32}."""
+        if tuple(frames.shape) != self.shape:
+            raise ValueError(f"session serves shape {self.shape}, got "
+                             f"{tuple(frames.shape)}")
+        with torch.inference_mode():
+            x = _to_model_input(frames, self.device, torch.bfloat16)
+            out = self.model(x)
+            probs = {k: torch.sigmoid(out["logits"][k].float()).cpu().numpy()
+                     for k in self.tasks}
+            probs["feature"] = out["feature"].float().cpu().numpy()
+        return probs

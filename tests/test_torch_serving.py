@@ -264,8 +264,11 @@ def test_port_imports_no_jax():
     may import them, nor the JAX package (whose data/__init__ imports
     JAX)."""
     modules = ("serving", "models.quantized", "models.convert",
-               "models.resnet", "models.pipeline", "ops.quant",
-               "ops.stem_pool", "ops.dilated_conv", "train.checkpoint")
+               "models.resnet", "models.pipeline", "models.swin",
+               "models.q2l", "models.position_encoding", "models.common",
+               "ops.quant", "ops.stem_pool", "ops.dilated_conv",
+               "ops.window_mhsa", "ops.mlp_block", "ops.swin_block",
+               "train.checkpoint")
     code = ("import sys; "
             + "; ".join(f"import computervision_codes_tpu_torch.{m}"
                         for m in modules)

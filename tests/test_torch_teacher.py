@@ -1,0 +1,69 @@
+"""The port's TeacherSession against the JAX package's.
+
+Both sessions serve ``Q2L(swin_nano_64)`` in bf16 at batch 2, 64x64, from
+the same variables (the JAX session's, carried across by
+``load_jax_variables``). Building a JAX session compiles two executables
+(tens of seconds), so each loss type's pair is built once per module.
+Bound: the bf16 cross-check bound of tests/test_torch_serving.py for
+probabilities (max 0.1, correlation > 0.999) and, for the feature, 4% of
+its largest magnitude with correlation > 0.999.
+"""
+
+import numpy as np
+import pytest
+
+from computervision_codes_tpu.serving import TeacherSession as JaxTeacher
+from computervision_codes_tpu_torch.serving import TeacherSession
+
+KW = dict(batch=2, img_size=64, backbone="swin_nano_64")
+
+
+@pytest.fixture(scope="module", params=["i", "all"])
+def sessions(request):
+    jsess = JaxTeacher.create(loss_type=request.param, **KW)
+    sess = TeacherSession.create(loss_type=request.param,
+                                 variables=jsess.variables, device="cpu",
+                                 **KW)
+    return jsess, sess
+
+
+def _assert_close(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == np.float32, k
+        assert np.corrcoef(g.ravel(), w.ravel())[0, 1] > 0.999, k
+        bound = 0.04 * np.abs(w).max() if k == "feature" else 0.1
+        assert np.abs(g - w).max() < bound, k
+
+
+def test_uint8_frames_match_jax(sessions):
+    jsess, sess = sessions
+    frames = np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
+                                               dtype=np.uint8)
+    got = sess.predict(frames)
+    assert set(got) == set(jsess.tasks) | {"feature"}
+    assert got["feature"].shape == (2, 256)
+    _assert_close(got, jsess.predict(frames.copy()))
+
+
+def test_float_frames_match_jax(sessions):
+    """Float frames are taken as normalised (not divided by 255)."""
+    jsess, sess = sessions
+    frames = np.random.default_rng(1).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32)
+    got = sess.predict(frames)
+    _assert_close(got, jsess.predict(frames.copy()))
+    dark = sess.predict(np.zeros((2, 64, 64, 3), np.uint8))
+    zero = sess.predict(np.zeros((2, 64, 64, 3), np.float32))
+    assert not np.allclose(dark["feature"], zero["feature"])
+
+
+def test_shape_guard_and_quantize(sessions):
+    _, sess = sessions
+    with pytest.raises(ValueError, match="shape"):
+        sess.predict(np.zeros((1, 64, 64, 3), np.uint8))
+    with pytest.raises(ValueError, match="shape"):
+        sess.predict(np.zeros((2, 32, 64, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        TeacherSession.create(quantize=True, device="cpu", **KW)
