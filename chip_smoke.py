@@ -12,7 +12,8 @@ printing its own lines:
 2. build: every kernel of the paths from the checkout's sources, one nvcc
    per source, all started together (timed, with ptxas' register and spill
    lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
-   ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block``;
+   ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block`` (the int8 branches
+   of K3, K4 and K5 live in the same three sources);
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -30,12 +31,23 @@ printing its own lines:
      half) at the stage-2 and stage-3 shapes and a ragged token count; K5
      (whole block) at stages 0 and 1, shifted and not; bf16 and float32;
      times beside the plain versions' (K5 also beside K3 then K4);
+   - the int8 branches of K3 (stage 2, shifted and not, and the window-7
+     shape), K4 (stages 2 and 3) and K5 (stages 0 and 1, shifted and not)
+     in bf16 and float32: the share of outputs more than one int8 step
+     from the plain version's, the max error and the correlation; times
+     beside the plain versions' and the float kernels';
+   - Q1 as the int8 teacher's Dense layers (1x1 over (M, 1, 1, K)) at
+     their shapes, equal to its plain version bit for bit; its time at the
+     largest beside the plain version's and ``torch._int_mm``'s;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
    the card against the same quantized module on the CPU, each on a
-   (1, 16, 256, 448, 3) clip, and the full-width float32
-   Q2L(swin_L_384_22k, "i") on the card against the CPU on one frame;
+   (1, 16, 256, 448, 3) clip, the full-width float32
+   Q2L(swin_L_384_22k, "i") on the card against the CPU on one frame, and
+   the same Q2L as the int8 teacher (``quant_eval``, ``s2d_embed``, Dense
+   layers of >= 512 inputs on Q1, calibrated on the CPU) on the card
+   against the CPU;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
@@ -43,18 +55,23 @@ printing its own lines:
 6. streaming at context 256, streams 1 and 16: the bf16 StreamingSession
    and the int8 one with the fused stem, launches per push and ms;
 7. teacher serving: ``TeacherSession.create()`` at its defaults (Swin-L-384
-   Q2L, bf16) and predicts of 16 uint8 frames of 384x384: launches per
-   predict (K3 18, K4 20, K5 4), ms, frames/s, peak device memory;
+   Q2L, bf16) and ``TeacherSession.create(quantize=True)`` (the int8
+   teacher), predicting 16 uint8 frames of 384x384 in turns: launches per
+   predict (bf16: K3 18, K4 20, K5 4; int8: K5 4, K3 int8 18, K4 int8 20,
+   Q1 26), ms, frames/s, peak device memory;
 8. breakdown: input, backbone and TCN time of one offline forward and of
    one push, for the bf16 and the int8 sessions; input, patch embed, each
-   Swin stage, norm and the Q2L transformer and heads of one teacher
-   predict, and its device time by kernel from torch.profiler.
+   Swin stage, norm and the Q2L transformer and heads of one predict of
+   each teacher, and its device time by kernel from torch.profiler.
 
-Phases 5-6 (the student's main path) and phase 7 (the teacher's) each
+Phases 5-6 (the student's main path) and phase 7 (the teachers') each
 start with every launch count set to 0 and read them just after, and each
-kernel must have launched on its path. Then one JSON line with the kernels
-(each with its bound: the larger of its operations at the H100's published
-peak and its bytes at 3.35 TB/s), and the last line
+kernel must have launched on its path; K5's int8 branch runs on no serving
+path (it serves dims >= ``quant_min_dim``, 768, and K5 only dims <= 384),
+so its count is 0 there and only phase 3 launches it. Then one JSON line
+with the kernels (each with its bound: the larger of its operations at the
+H100's published peak for their type and its bytes at 3.35 TB/s), and the
+last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -77,7 +94,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "computervision_codes_tpu_torch"
 DEVICE = "cuda"
-# name -> the TPU kernel (or, for Q1, the XLA op and epilogue) it replaces
+# name -> the TPU kernel (or, for Q1, the XLA op and epilogue) it replaces;
+# the "_q8" names are the int8 branches of K3, K4 and K5
 KERNELS = {
     "dilated_residual": "computervision_codes_tpu/ops/dilated_conv.py:88",
     "stem_pool": "computervision_codes_tpu/ops/stem_pool.py:148",
@@ -85,10 +103,25 @@ KERNELS = {
     "window_mhsa": "computervision_codes_tpu/ops/window_mhsa.py:209",
     "mlp_block": "computervision_codes_tpu/ops/mlp_block.py:139",
     "swin_block": "computervision_codes_tpu/ops/swin_block.py:133",
+    "window_mhsa_q8":
+        "computervision_codes_tpu/ops/window_mhsa.py:158-159,181-183",
+    "mlp_block_q8": "computervision_codes_tpu/ops/mlp_block.py:59-71,85-88",
+    "swin_block_q8":
+        "computervision_codes_tpu/ops/swin_block.py:76-78,94-96,107-111",
 }
+# the CUDA source of each (csrc/<source>.cu)
+SOURCES = {name: name.removesuffix("_q8") for name in KERNELS}
+OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # published H100 SXM peaks (dense): the bound of each kernel's work
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# the int8 branches against their plain versions: an int8 code of an input
+# can move by one where the kernel's float32 sums (LayerNorm statistics,
+# epilogues, expf) differ in the last bits from the plain version's; that
+# moves an output by about one int8 step (max|ref| / 127) of its scale.
+# So at most 1e-4 of the outputs more than one step off, none more than
+# two, and a correlation of at least 0.9999
+Q8_MAX_SHARE, Q8_MAX_STEPS, Q8_MIN_CORR = 1e-4, 2.0, 0.9999
 LAYERS_PER_FORWARD = 11 + 3 * 10  # dilated layers of the default TCN
 INT8_CONVS = 19  # ResNet18: 16 block convs + 3 downsamples
 # the serving geometry: (B, T, H, W) offline, K1 at (B, T, C)
@@ -131,9 +164,20 @@ TASK_SIZES = {"ivt": 100, "i": 6, "v": 10, "t": 15}
 # runs at stages 0-1 (4 blocks), K3 + K4 at stage 2 (18), K4 at stage 3 (2)
 TEACHER_BACKBONE, TEACHER_BATCH, TEACHER_IMG = "swin_L_384_22k", 16, 384
 TEACHER_LAUNCHES = {"window_mhsa": 18, "mlp_block": 20, "swin_block": 4}
+# the int8 teacher (quantize=True): K5 float at stages 0-1, the int8 K3 + K4
+# at stage 2 (18 each), the int8 K4 after the plain attention half at
+# stage 3 (2), and Q1 for the 26 Dense layers of >= 512 inputs (3 patch
+# merges, stage 3's qkv and proj, the input projection, 6 in the encoder
+# layer and 12 in the two decoder layers)
+TEACHER_Q8_LAUNCHES = {"swin_block": 4, "window_mhsa_q8": 18,
+                       "mlp_block_q8": 20, "qconv_bn": 26}
 TEACHER_CALLS = 6  # the first warms up
 TEACHER_MODEL_FRAMES = 1  # full-width float32 Q2L, card vs CPU
 TEACHER_MODEL_REL_TOL = 1e-3  # 24 blocks and the decoder, sums reordered
+# int8 teacher, float32, card vs CPU: as the int8 student, the correlation
+# of each output with the CPU's (codes may move by one, see Q8_*); the
+# int8 student's card runs reached 0.99986
+TEACHER_Q8_MIN_CORR = 0.9998
 # kernel checks: (what, B, Hp=Wp, C, heads, window) for K3 and K5, shifted
 # by window // 2 and not; (what, tokens, C, hidden) for K4
 K3_CASES = [("SwinL-384 stage 2", 16, 24, 768, 24, 12),
@@ -144,6 +188,19 @@ K4_CASES = [("SwinL-384 stage 2", 16 * 24 * 24, 768, 3072),
             ("ragged tokens", 1000, 192, 768)]
 K5_CASES = [("SwinL-384 stage 0", 16, 96, 192, 6, 12),
             ("SwinL-384 stage 1", 16, 48, 384, 12, 12)]
+# the int8 branches: K3 at stage 2 and the window-7 shape (padded queries),
+# K4 at stages 2 and 3, K5 at stages 0 and 1
+K3_Q8_CASES = K3_CASES[:2]
+K4_Q8_CASES = K4_CASES[:2]
+K5_Q8_CASES = K5_CASES
+# the int8 teacher's Dense layers on Q1 at batch 16: (what, M, K, N)
+Q1_DENSE = [("stage-3 attn qkv", 16 * 144, 1536, 4608),
+            ("merge0 reduction", 16 * 48 * 48, 768, 384),
+            ("merge2 reduction", 16 * 144, 3072, 1536),
+            ("Q2L linear1", 16 * 144, 1536, 8192),
+            ("Q2L linear2", 16 * 144, 8192, 1536),
+            ("decoder q_proj, 6 queries", 16 * 6, 1536, 1536)]
+Q1_DENSE_TIMED = "Q2L linear1"  # the largest (with linear2) by operations
 
 
 def fail(msg: str) -> None:
@@ -227,7 +284,10 @@ def kernel_wrappers() -> dict:
             "qconv_bn": quant.qconv_bn_cuda,
             "window_mhsa": window_mhsa.window_mhsa_cuda,
             "mlp_block": mlp_block.mlp_block_cuda,
-            "swin_block": swin_block.swin_block_cuda}
+            "swin_block": swin_block.swin_block_cuda,
+            "window_mhsa_q8": window_mhsa.window_mhsa_q8_cuda,
+            "mlp_block_q8": mlp_block.mlp_block_q8_cuda,
+            "swin_block_q8": swin_block.swin_block_q8_cuda}
 
 
 def launches() -> dict:
@@ -243,7 +303,14 @@ def bound(ops: float, nbytes: float, kind: str) -> dict:
     """The least time the card could take for work of ``ops`` operations
     of ``kind`` moving ``nbytes`` (each input read once, each output written
     once): the larger of the two times at the published peaks."""
-    t_ops, t_bytes = ops / PEAK_OPS_S[kind], nbytes / PEAK_BYTES_S
+    return bound_mixed({kind: ops}, nbytes)
+
+
+def bound_mixed(ops: dict, nbytes: float) -> dict:
+    """``bound`` for work of several kinds (kind -> operations): the
+    operations' times at their peaks add up."""
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    t_bytes = nbytes / PEAK_BYTES_S
     return {"bound_ms": round(1e3 * max(t_ops, t_bytes), 6),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -269,11 +336,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     from computervision_codes_tpu_torch.ops import _build
 
+    sources = list(dict.fromkeys(SOURCES.values()))
     t0 = time.perf_counter()
-    seconds = _build.build(list(KERNELS))
-    print(f"[build] {len(KERNELS)} sources, one nvcc each, in parallel: "
+    seconds = _build.build(sources)
+    print(f"[build] {len(sources)} sources, one nvcc each, in parallel: "
           f"{time.perf_counter() - t0:.2f} s wall")
-    for name in KERNELS:
+    for name in sources:
         print(f"[build] {name}.cu -> {_build.library_path(name).name} in "
               f"{seconds[name]:.2f} s")
         for line in _build.build_logs.get(name, "").splitlines():
@@ -752,6 +820,247 @@ def phase_k5(card: str) -> dict:
             "library_ms": None}
 
 
+def q8_compare(tag: str, got, want) -> dict:
+    """Checks an int8 branch's output against its plain version's: same
+    shape, finite, and within the Q8_* bounds. Returns the readings."""
+    check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    g, w = got.double().flatten(), want.double().flatten()
+    step = w.abs().max().item() / 127.0
+    err = (g - w).abs()
+    out = {"max_abs_err": err.max().item(), "step": step,
+           "share": (err > step).double().mean().item(),
+           "corr": torch.corrcoef(torch.stack([g, w]))[0, 1].item()}
+    check(out["max_abs_err"] <= Q8_MAX_STEPS * step,
+          f"{tag}: max_abs_err {out['max_abs_err']} > {Q8_MAX_STEPS} int8 "
+          f"steps ({step})")
+    check(out["share"] <= Q8_MAX_SHARE,
+          f"{tag}: {out['share']} of outputs more than one int8 step off")
+    check(out["corr"] >= Q8_MIN_CORR, f"{tag}: correlation {out['corr']}")
+    return out
+
+
+def q8_args(attn=None, mlp=None):
+    """The operands with their weights as ``Q8Weight``s (made once, as the
+    model makes them)."""
+    from computervision_codes_tpu_torch.ops.mlp_block import q8_weight
+
+    out = []
+    for part in (attn, mlp):
+        if part is not None:
+            part = list(part)
+            part[2], part[4] = q8_weight(part[2]), q8_weight(part[4])
+            out.append(part)
+    return out
+
+
+def q8_summary(kernel: str, dtype, readings: list) -> None:
+    worst = max(readings, key=lambda r: r[1]["max_abs_err"] / r[1]["step"])
+    print(f"[kernels] {kernel} int8 {str(dtype)[6:]}: {len(readings)} cases "
+          f"within bounds (share > 1 int8 step <= {Q8_MAX_SHARE:g}, max err "
+          f"<= {Q8_MAX_STEPS:g} steps, corr >= {Q8_MIN_CORR}); per case "
+          + "; ".join(f"{what}: err {r['max_abs_err']:.4g} (step "
+                      f"{r['step']:.4g}), share {r['share']:.3g}, corr "
+                      f"{r['corr']:.7f}" for what, r in readings)
+          + f"; worst {worst[0]}")
+
+
+def phase_q8(card: str) -> dict:
+    """The int8 branches of K3, K4 and K5 against their plain versions,
+    then their times beside the plain versions' and the float kernels'."""
+    from computervision_codes_tpu_torch.ops import mlp_block as k4
+    from computervision_codes_tpu_torch.ops import swin_block as k5
+    from computervision_codes_tpu_torch.ops import window_mhsa as k3
+
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        readings = []
+        for seed, (what, b, hw, c, heads, w) in enumerate(K3_Q8_CASES):
+            x, attn, _ = swin_inputs((b, hw, hw), c, 4 * c, heads, w, dtype,
+                                     seed)
+            (qa,) = q8_args(attn)
+            for shift in (0, w // 2):
+                kw = dict(window=w, num_heads=heads)
+                mask = swin_mask(hw, hw, w, shift)
+                tag = f"{what} shift={shift}"
+                readings.append((tag, q8_compare(
+                    f"K3 int8 {str(dtype)[6:]} {tag}",
+                    k3.window_mhsa_q8_cuda(x, *qa, mask, **kw),
+                    k3.window_mhsa_reference(x, *qa, mask, quant=True,
+                                             **kw))))
+            del x, attn, qa
+        q8_summary("K3", dtype, readings)
+        if dtype == torch.bfloat16:
+            main["window_mhsa_q8"] = max(r["max_abs_err"]
+                                         for _, r in readings[:2])
+        readings = []
+        for seed, (what, m, c, hidden) in enumerate(K4_Q8_CASES):
+            x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, seed)
+            (qm,) = q8_args(mlp=mlp)
+            readings.append((what, q8_compare(
+                f"K4 int8 {str(dtype)[6:]} {what}",
+                k4.mlp_block_q8_cuda(x, *qm),
+                k4.mlp_block_reference(x, *qm, quant=True))))
+            del x, mlp, qm
+        q8_summary("K4", dtype, readings)
+        if dtype == torch.bfloat16:
+            main["mlp_block_q8"] = readings[0][1]["max_abs_err"]
+        readings = []
+        for seed, (what, b, hw, c, heads, w) in enumerate(K5_Q8_CASES):
+            x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                                       dtype, seed)
+            qa, qm = q8_args(attn, mlp)
+            for shift in (0, w // 2):
+                kw = dict(window=w, num_heads=heads)
+                mask = swin_mask(hw, hw, w, shift)
+                tag = f"{what} shift={shift}"
+                readings.append((tag, q8_compare(
+                    f"K5 int8 {str(dtype)[6:]} {tag}",
+                    k5.swin_block_q8_cuda(x, *qa, mask, *qm, **kw),
+                    k5.swin_block_reference(x, *qa, mask, *qm, quant=True,
+                                            **kw))))
+            del x, attn, mlp, qa, qm
+        q8_summary("K5", dtype, readings)
+        if dtype == torch.bfloat16:
+            main["swin_block_q8"] = max(r["max_abs_err"]
+                                        for _, r in readings[:2])
+
+    # times, bf16, at the main shapes: K3 stage 2 shifted, K4 stage 2 (and
+    # stage 3), K5 stage 0 shifted; int8 kernel, plain version and the
+    # float kernel in turns
+    out, es = {}, 2
+    what, b, hw, c, heads, w = K3_Q8_CASES[0]
+    x, attn, _ = swin_inputs((b, hw, hw), c, 4 * c, heads, w, torch.bfloat16,
+                             99)
+    (qa,) = q8_args(attn)
+    mask, kw = swin_mask(hw, hw, w, w // 2), dict(window=w, num_heads=heads)
+    ms, runs = in_turns(
+        {"plain": lambda: k3.window_mhsa_reference(x, *qa, mask, quant=True,
+                                                   **kw),
+         "kernel": lambda: k3.window_mhsa_q8_cuda(x, *qa, mask, **kw),
+         "float_kernel": lambda: k3.window_mhsa_cuda(x, *attn, mask, **kw)},
+        {"plain": 5, "kernel": 20, "float_kernel": 20})
+    m, n = b * hw * hw, w * w
+    int8_ops, bf16_ops = 8 * m * c * c, 4 * m * n * c
+    # x in, y out, int8 weights, float32 scales and LN vectors, biases,
+    # the rel-pos bias and the shift mask, each once
+    nbytes = (es * (2 * m * c + 4 * c + heads * n * n
+                    + (hw // w) ** 2 * n * n) + 4 * c * c + 24 * c)
+    out["window_mhsa_q8"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                             "float_kernel_ms": ms["float_kernel"],
+                             **bound_mixed({"int8": int8_ops,
+                                            "bf16": bf16_ops}, nbytes)}
+    print(f"[kernels] K3 int8 time bf16 {what} B={b} {hw}x{hw} C={c} w={w} "
+          f"shifted: kernel {ms['kernel']:.4f} ms "
+          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), float "
+          f"kernel {ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
+          f"runs {runs}; {card}")
+    del x, attn, qa
+    for i, (what, m, c, hidden) in enumerate(K4_Q8_CASES):
+        x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, torch.bfloat16, 99)
+        (qm,) = q8_args(mlp=mlp)
+        ms, runs = in_turns(
+            {"plain": lambda: k4.mlp_block_reference(x, *qm, quant=True),
+             "kernel": lambda: k4.mlp_block_q8_cuda(x, *qm),
+             "float_kernel": lambda: k4.mlp_block_cuda(x, *mlp)},
+            {"plain": 5, "kernel": 20, "float_kernel": 20})
+        ops = 4 * m * c * hidden
+        if i == 0:
+            out["mlp_block_q8"] = {
+                "ms": ms["kernel"], "plain_ms": ms["plain"],
+                "float_kernel_ms": ms["float_kernel"],
+                **bound(ops, es * 2 * m * c + 2 * c * hidden
+                        + 4 * (hidden + c) + es * (hidden + c) + 8 * c,
+                        "int8")}
+        print(f"[kernels] K4 int8 time bf16 {what} {m} x {c}, hidden "
+              f"{hidden}: kernel {ms['kernel']:.4f} ms "
+              f"({ops / ms['kernel'] / 1e9:.1f} TOP/s), float kernel "
+              f"{ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
+              f"runs {runs}; {card}")
+        del x, mlp, qm
+    what, b, hw, c, heads, w = K5_Q8_CASES[0]
+    x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                               torch.bfloat16, 99)
+    qa, qm = q8_args(attn, mlp)
+    mask, kw = swin_mask(hw, hw, w, w // 2), dict(window=w, num_heads=heads)
+    ms, runs = in_turns(
+        {"plain": lambda: k5.swin_block_reference(x, *qa, mask, *qm,
+                                                  quant=True, **kw),
+         "kernel": lambda: k5.swin_block_q8_cuda(x, *qa, mask, *qm, **kw),
+         "float_kernel": lambda: k5.swin_block_cuda(x, *attn, mask, *mlp,
+                                                    **kw)},
+        {"plain": 3, "kernel": 10, "float_kernel": 10})
+    m, n = b * hw * hw, w * w
+    int8_ops, bf16_ops = 8 * m * c * c + 4 * m * c * 4 * c, 4 * m * n * c
+    nbytes = (es * (2 * m * c + 9 * c + heads * n * n
+                    + (hw // w) ** 2 * n * n) + 12 * c * c + 52 * c)
+    out["swin_block_q8"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                            "float_kernel_ms": ms["float_kernel"],
+                            **bound_mixed({"int8": int8_ops,
+                                           "bf16": bf16_ops}, nbytes)}
+    print(f"[kernels] K5 int8 time bf16 {what} B={b} {hw}x{hw} C={c} w={w} "
+          f"shifted: kernel {ms['kernel']:.4f} ms "
+          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), float "
+          f"kernel {ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
+          f"runs {runs}; {card}")
+    del x, attn, mlp, qa, qm
+    return {name: {"max_abs_err": main[name], **out[name],
+                   "library_ms": None} for name in out}
+
+
+def phase_q1_dense(card: str) -> dict:
+    """Q1 as the int8 teacher's Dense layers: bit for bit against its plain
+    version at their shapes, then its time at the largest beside the plain
+    version's and torch._int_mm's (the int8 product alone, from codes
+    already made)."""
+    from computervision_codes_tpu_torch.ops.quant import (
+        qconv_bn_cuda, qconv_bn_reference, quantize_with_scale)
+
+    for seed, (what, m, k, n) in enumerate(Q1_DENSE):
+        x, w_q, mult, bias = qconv_inputs(1, k, n, 1, m, 1, torch.bfloat16,
+                                          seed)
+        x = x.reshape(m, 1, 1, k)
+        s_act = torch.tensor([0.03], device=DEVICE)
+        for dtype in (torch.bfloat16, torch.float32):
+            got = qconv_bn_cuda(x, s_act, w_q, mult, bias, 1, "VALID",
+                                dtype=dtype)
+            want = qconv_bn_reference(x, s_act, w_q, mult, bias, 1, "VALID",
+                                      dtype=dtype)
+            check(torch.equal(got, want),
+                  f"Q1 Dense {what} {m}x{k}->{n} out {dtype}: differs by "
+                  f"{(got.float() - want.float()).abs().max().item()}")
+        del x, w_q, got, want
+    print(f"[kernels] Q1 as the int8 Dense, bf16 in, bf16 and float32 out, "
+          f"{len(Q1_DENSE)} shapes (M, K, N) "
+          f"{[(m, k, n) for _, m, k, n in Q1_DENSE]}: equal to the plain "
+          f"version bit for bit")
+    what, m, k, n = next(c for c in Q1_DENSE if c[0] == Q1_DENSE_TIMED)
+    x, w_q, mult, bias = qconv_inputs(1, k, n, 1, m, 1, torch.bfloat16, 99)
+    x = x.reshape(m, 1, 1, k)
+    s_act = torch.tensor([0.03], device=DEVICE)
+    a8 = quantize_with_scale(x, s_act).reshape(m, k)
+    b8 = w_q.reshape(n, k).t()  # (K, N), column-major
+    fns = {"plain": lambda: qconv_bn_reference(x, s_act, w_q, mult, bias, 1,
+                                               "VALID"),
+           "kernel": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, 1,
+                                           "VALID")}
+    try:
+        torch._int_mm(a8, b8)
+        fns["int_mm"] = lambda: torch._int_mm(a8, b8)
+    except RuntimeError as err:
+        print(f"[kernels] torch._int_mm at {m}x{k}->{n} unavailable: {err}")
+    ms, runs = in_turns(fns, {"plain": 5, "kernel": 20, "int_mm": 20})
+    ops = 2 * m * k * n
+    print(f"[kernels] Q1 Dense time {what} bf16 {m}x{k}->{n}: kernel "
+          f"{ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} TOP/s), "
+          f"plain {ms['plain']:.4f} ms, torch._int_mm (int8 product alone) "
+          f"{ms.get('int_mm', float('nan')):.4f} ms; runs {runs}; {card}")
+    return {"dense_shape": [m, k, n], "dense_ms": ms["kernel"],
+            "dense_plain_ms": ms["plain"], "dense_int_mm_ms": ms.get("int_mm"),
+            "dense_bound": bound(ops, 2 * m * k + k * n + 2 * m * n + 8 * n,
+                                 "int8")}
+
+
 def phase_model() -> None:
     from computervision_codes_tpu_torch.models.pipeline import (
         EndToEndRecognizer)
@@ -829,7 +1138,7 @@ def phase_model_int8() -> None:
           f"(host clock)")
 
 
-def phase_model_teacher() -> None:
+def phase_model_teacher() -> dict:
     from computervision_codes_tpu_torch.models.q2l import Q2L
 
     cpu_model = Q2L(backbone=TEACHER_BACKBONE, loss_type="i",
@@ -865,48 +1174,146 @@ def phase_model_teacher() -> None:
     print(f"[model] teacher launches on the card per forward {count}; CPU "
           f"forward of {TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host "
           f"clock)")
+    return want
 
 
-def phase_teacher(card: str) -> tuple:
-    """TeacherSession at its defaults on the card: uint8 frames in, launches
-    of each kernel per predict, ms, frames/s, peak device memory."""
+def phase_model_teacher_int8(float_want: dict) -> None:
+    """The full-width int8 teacher in float32: Q2L(quant_eval, s2d_embed)
+    with its Dense layers of >= 512 inputs swapped for Int8Dense, calibrated
+    on the CPU, then on the card against the CPU on one frame. Beside each
+    reading: the int8 model's own distance from the float32 model on the
+    CPU (``float_want``, the same weights and frame), the PTQ noise."""
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+    from computervision_codes_tpu_torch.models.quant_dense import (
+        apply_int8_dense, collect_dense_scales, quantize_dense_params)
+    from computervision_codes_tpu_torch.serving import (
+        INT8_DENSE_MIN_FEATURES, _default_calibration)
+
+    cpu_model = Q2L(backbone=TEACHER_BACKBONE, loss_type="i",
+                    dtype=torch.float32, quant_eval=True, s2d_embed=True,
+                    generator=torch.Generator().manual_seed(0)).eval()
+    frames = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (TEACHER_MODEL_FRAMES, TEACHER_IMG, TEACHER_IMG, 3)).astype(
+            np.float32))
+    t0 = time.perf_counter()
+    scales = collect_dense_scales(cpu_model, _default_calibration(
+        (1, TEACHER_IMG, TEACHER_IMG, 3), torch.float32, "cpu"))
+    apply_int8_dense(cpu_model, quantize_dense_params(cpu_model), scales,
+                     min_features=INT8_DENSE_MIN_FEATURES)
+    t_cal = time.perf_counter() - t0
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(frames)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(frames.to(DEVICE))
+        count = launched_since(before)
+    want_count = dict.fromkeys(KERNELS, 0) | TEACHER_Q8_LAUNCHES
+    check(count == want_count, f"int8 teacher model launches {count}, want "
+                               f"{want_count}")
+    pairs = [("logits i", got["logits"]["i"], want["logits"]["i"],
+              float_want["logits"]["i"]),
+             ("feature", got["feature"], want["feature"],
+              float_want["feature"])]
+    pairs.append(("logits and feature",
+                  *(torch.cat([p[i].flatten() for p in pairs])
+                    for i in (1, 2, 3))))
+    for k, g, w, f in pairs:
+        g = g.cpu()
+        ptq = float(np.corrcoef(w.numpy().ravel(), f.numpy().ravel())[0, 1])
+        check(g.shape == w.shape, f"int8 teacher model {k}: shape {g.shape}")
+        check(bool(torch.isfinite(g).all()),
+              f"int8 teacher model {k}: non-finite")
+        corr = float(np.corrcoef(g.numpy().ravel(), w.numpy().ravel())[0, 1])
+        err = (g - w).abs().max().item()
+        if k != "logits i":  # 6 values: printed, not bounded alone
+            check(corr >= TEACHER_Q8_MIN_CORR,
+                  f"int8 teacher model {k}: card vs CPU correlation {corr} "
+                  f"< {TEACHER_Q8_MIN_CORR}")
+        print(f"[model] int8 teacher float32 Q2L({TEACHER_BACKBONE}, 'i') "
+              f"{k} {tuple(g.shape)}: card vs CPU correlation {corr:.6f} "
+              f"(bound >= {TEACHER_Q8_MIN_CORR}), max_abs_err {err:.3e} "
+              f"(max|ref| {w.abs().max().item():.3f}); the int8 model vs "
+              f"the float32 model on the CPU: correlation {ptq:.6f}")
+    print(f"[model] int8 teacher launches on the card per forward {count}; "
+          f"CPU calibration (1 frame) and swap {t_cal:.2f} s, CPU forward "
+          f"of {TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host clock)")
+
+
+def phase_teacher(card: str, configs: dict) -> tuple:
+    """``configs``: label -> (launches per predict, ``create`` kwargs).
+    Creates each TeacherSession at its defaults otherwise (Swin-L-384 Q2L,
+    "i") and predicts with them in turns (the order reversed every other
+    round) on uint8 frames: launches of each kernel per predict, ms,
+    frames/s, the device memory a predict adds and its peak."""
     from computervision_codes_tpu_torch.serving import TeacherSession
 
     b, img = TEACHER_BATCH, TEACHER_IMG
-    sess = TeacherSession.create(batch=b, img_size=img,
-                                 backbone=TEACHER_BACKBONE, device=DEVICE)
-    want = dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
+    sessions = {}
+    for label, (_, kw) in configs.items():
+        t0 = time.perf_counter()
+        sessions[label] = TeacherSession.create(
+            batch=b, img_size=img, backbone=TEACHER_BACKBONE, device=DEVICE,
+            **kw)
+        torch.cuda.synchronize()
+        print(f"[teacher] {label} TeacherSession created in "
+              f"{time.perf_counter() - t0:.2f} s (host clock)")
     base = np.random.default_rng(5).integers(0, 256, (b, img, img, 3),
                                              dtype=np.uint8)
-    ms, peak = [], 0
+    labels = list(configs)
+    ms = {label: [] for label in labels}
+    peak, added = dict.fromkeys(labels, 0), dict.fromkeys(labels, 0)
     for call in range(TEACHER_CALLS):
         frames = base + np.uint8(call)
-        torch.cuda.reset_peak_memory_stats()
-        before = launches()
-        out, call_ms = timed_call(lambda: sess.predict(frames))
-        peak = max(peak, torch.cuda.max_memory_allocated())
-        ms.append(call_ms)
-        count = launched_since(before)
-        check(count == want, f"teacher predict {call}: launches {count}, "
-                             f"want {want}")
-        check(set(out) == {"i", "feature"}, f"teacher outputs {set(out)}")
-        p, feat = out["i"], out["feature"]
-        check(p.shape == (b, TASK_SIZES["i"]), f"teacher i: {p.shape}")
-        check(bool(np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()),
-              "teacher i: non-finite or outside [0, 1]")
-        check(feat.shape[0] == b and bool(np.isfinite(feat).all()),
-              f"teacher feature: shape {feat.shape} or non-finite")
-    steady = float(np.median(ms[1:]))
-    print(f"[teacher] TeacherSession {TEACHER_BACKBONE} Q2L 'i' bf16 {b} "
-          f"frames {img}x{img} uint8: launches per predict "
-          f"{TEACHER_LAUNCHES}; ms per predict {[round(m, 3) for m in ms]} "
-          f"(first warms up); median {steady:.3f} ms = "
-          f"{b / steady * 1e3:.1f} frames/s; peak device memory in predict "
-          f"{peak / 2**30:.2f} GiB; {card}")
-    return sess, base
+        for label in labels if call % 2 == 0 else labels[::-1]:
+            sess = sessions[label]
+            want = dict.fromkeys(KERNELS, 0) | configs[label][0]
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = launches()
+            out, call_ms = timed_call(lambda: sess.predict(frames))
+            top = torch.cuda.max_memory_allocated()
+            peak[label] = max(peak[label], top)
+            added[label] = max(added[label], top - resident)
+            ms[label].append(call_ms)
+            count = launched_since(before)
+            check(count == want, f"{label} teacher predict {call}: launches "
+                                 f"{count}, want {want}")
+            check(set(out) == {"i", "feature"},
+                  f"{label} teacher outputs {set(out)}")
+            p, feat = out["i"], out["feature"]
+            check(p.shape == (b, TASK_SIZES["i"]),
+                  f"{label} teacher i: {p.shape}")
+            check(bool(np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()),
+                  f"{label} teacher i: non-finite or outside [0, 1]")
+            check(feat.shape[0] == b and bool(np.isfinite(feat).all()),
+                  f"{label} teacher feature: shape {feat.shape} or "
+                  f"non-finite")
+    steady = {label: float(np.median(ms[label][1:])) for label in labels}
+    for label in labels:
+        weights = sum(t.numel() * t.element_size() for t in
+                      list(sessions[label].model.parameters())
+                      + list(sessions[label].model.buffers()))
+        print(f"[teacher] TeacherSession {label} {TEACHER_BACKBONE} Q2L 'i' "
+              f"{b} frames {img}x{img} uint8: launches per predict "
+              f"{configs[label][0]}; ms per predict "
+              f"{[round(m, 3) for m in ms[label]]} (first warms up); median "
+              f"{steady[label]:.3f} ms = {b / steady[label] * 1e3:.1f} "
+              f"frames/s; device memory: the session's weights "
+              f"{weights / 2**30:.2f} GiB, a predict adds up to "
+              f"{added[label] / 2**30:.2f} GiB, peak in predict "
+              f"{peak[label] / 2**30:.2f} GiB (both sessions resident); "
+              f"{card}")
+    print(f"[teacher] frames/s on one line, sessions in turns: " + ", ".join(
+        f"{label} {b / ms_ * 1e3:.1f} ({ms_:.3f} ms)"
+        for label, ms_ in steady.items()) + f"; {card}")
+    return sessions, base
 
 
-def teacher_breakdown(card: str, sess, frames: np.ndarray) -> None:
+def teacher_breakdown(card: str, label: str, sess,
+                      frames: np.ndarray) -> None:
     """ms of the input, the patch embed, each Swin stage (its blocks and
     the patch merge after it), the final norm and the Q2L transformer and
     heads of one predict (CUDA events, mean of 3 after a warm-up), then
@@ -931,11 +1338,12 @@ def teacher_breakdown(card: str, sess, frames: np.ndarray) -> None:
                    ("q2l_head", lambda: model.head(fmap))]):
             fn()
             parts[name] = round(cuda_ms(fn, 3), 3)
-    print(f"[breakdown] teacher: ms per predict of {frames.shape[0]} frames "
-          f"{parts}; {card}")
-    device_profile(card, "teacher predict", lambda: sess.predict(frames), 14)
+    print(f"[breakdown] {label} teacher: ms per predict of "
+          f"{frames.shape[0]} frames {parts}; {card}")
+    device_profile(card, f"{label} teacher predict",
+                   lambda: sess.predict(frames), 16)
     with torch.inference_mode():
-        device_profile(card, "teacher Q2L transformer and heads",
+        device_profile(card, f"{label} teacher Q2L transformer and heads",
                        lambda: model.head(fmap), 8)
 
 
@@ -1097,10 +1505,12 @@ def main() -> None:
                 "qconv_bn": phase_q1(card),
                 "window_mhsa": phase_k3(card),
                 "mlp_block": phase_k4(card),
-                "swin_block": phase_k5(card)}
+                "swin_block": phase_k5(card),
+                **phase_q8(card)}
+    measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
     phase_model_int8()
-    phase_model_teacher()
+    phase_model_teacher_int8(phase_model_teacher())
 
     # the main path: the serving entry points at the serving geometry,
     # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
@@ -1125,20 +1535,28 @@ def main() -> None:
                                            fused_stem=True)}
     student = launches()
     for fn in kernel_wrappers().values():
-        fn.launches = 0  # the teacher's main path starts here
-    teacher, frames = phase_teacher(card)
-    total = launches()
+        fn.launches = 0  # the teachers' main path starts here
+    teachers, frames = phase_teacher(card, {
+        "bf16": (TEACHER_LAUNCHES, {}),
+        "int8": (TEACHER_Q8_LAUNCHES, {"quantize": True})})
+    teacher = launches()
+    total = {name: student[name] + teacher[name] for name in KERNELS}
     print(f"[main path] launches: student sessions {student}, teacher "
-          f"session {total}")
+          f"sessions (creation and predicts) {teacher}")
     for name in KERNELS:
-        if name not in TEACHER_LAUNCHES:
-            total[name] = student[name]
-        check(total[name] > 0, f"the main path launched no {name} kernel")
+        if name in OFF_MAIN_PATH:
+            check(total[name] == 0, f"{name} launched on a serving path")
+        else:
+            check(total[name] > 0, f"the main path launched no {name} kernel")
     phase_breakdown(card, offline, clips, streaming)
-    teacher_breakdown(card, teacher, frames)
+    for label, sess in teachers.items():
+        teacher_breakdown(card, label, sess, frames)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{PACKAGE}/csrc/{name}.cu",
-         "replaces": replaces, "launches": total[name], **measured[name]}
+        {"name": name, "route": "cuda",
+         "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",
+         "replaces": replaces, "launches": total[name],
+         **({"on_main_path": False} if name in OFF_MAIN_PATH else {}),
+         **measured[name]}
         for name, replaces in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel
 // computervision_codes_tpu/ops/mlp_block.py::mlp_block_fused (its _kernel),
-// float path. Over x (M tokens, C):
+// float path and int8 branch. Over x (M tokens, C):
 //
 //   y = x + W2 gelu_erf(W1 LayerNorm(x) + b1) + b2
 //
@@ -22,6 +22,16 @@
 // (0.07 ms at stage 2), the price of not keeping h on chip; a kernel that
 // keeps it (one block per token tile looping over hidden chunks) is later
 // work.
+//
+// The int8 branch (mlp_block_q8_launch; quant=True there, one hidden chunk):
+// both products on the int8 tensor cores (swin_common.cuh gemm_q8_kernel),
+// one activation absmax per block of blk tokens for each product: LN
+// statistics with the normed rows' block absmax; GEMM1 with LN and the
+// quantizer on load, then bias and the A-S GELU into a float32 h scratch
+// (the TPU kernel keeps h in float32 too; 113 MB at the stage-2 shape) with
+// h's block absmax; GEMM2 quantizing h on load, then y = x + T(o + b2). Its
+// bound: 4 M C hidden int8 operations, 0.044 ms at stage 2 at 1,979
+// TOP/s, against x, y and the int8 weights (about 21 MB, 0.006 ms).
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
@@ -63,5 +73,37 @@ extern "C" int mlp_block_launch(const void* x, const void* gamma,
   if (dtype == 1)
     return run<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, h, stats, y, M,
                               C, hidden, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 branch. x, y (M, C) in dtype; gamma, beta (C,) float32; w1
+// (hidden, C) and w2 (C, hidden) int8 codes, one output channel per row;
+// s1 (hidden,), s2 (C,) float32 weight scales; b1, b2 in dtype; blk the
+// token block of the activation scales. Scratch: h (M, hidden) float32,
+// stats (M,) float2, amax (2 * ceil(M / blk)) int32.
+extern "C" int mlp_block_q8_launch(const void* x, const void* gamma,
+                                   const void* beta, const void* w1,
+                                   const void* s1, const void* b1,
+                                   const void* w2, const void* s2,
+                                   const void* b2, void* h, void* stats,
+                                   void* amax, void* y, int M, int C,
+                                   int hidden, int blk, int dtype,
+                                   void* stream) {
+  if (M <= 0 || C <= 0 || C % 64 || hidden <= 0 || hidden % 64 || blk <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run_q8 = [&](auto zero) {
+    using T = decltype(zero);
+    return (int)swin::mlp_half_q8<T>(
+        static_cast<const T*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<const int8_t*>(w1),
+        static_cast<const float*>(s1), static_cast<const T*>(b1),
+        static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+        static_cast<const T*>(b2), static_cast<float*>(h),
+        static_cast<float2*>(stats), static_cast<int*>(amax),
+        static_cast<T*>(y), M, C, hidden, blk, false, s);
+  };
+  if (dtype == 0) return run_q8(0.0f);
+  if (dtype == 1) return run_q8(__nv_bfloat16());
   return (int)cudaErrorInvalidValue;
 }

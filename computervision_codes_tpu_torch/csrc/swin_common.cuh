@@ -28,6 +28,33 @@
 // read into registers while the current one is multiplied. TMA, wgmma and
 // deeper pipelines are later work.
 //
+// The int8 branch (the TPU kernels' ``quant``) adds, after the float
+// phases below:
+//
+//   ln_stats_amax_kernel LayerNorm statistics as above, then a third pass
+//                     over the row for max |LN(x)| (float32, or rounded to
+//                     T first when ln_round), reduced per activation-scale
+//                     block with atomicMax on the float bits (non-negative
+//                     floats order like their bits as integers);
+//   gemm_q8_kernel    out = epilogue(dequant(q(A) W8) + b): the A tile is
+//                     quantized on load, q = rint(a * (127 / amax)) with
+//                     amax = max|block| + 1e-6 of the row's block; A is
+//                     LayerNorm(x) applied on load, a float32 matrix, or a
+//                     T matrix; W8 is (N, K) int8 with float32 scales (N,);
+//                     products on the tensor cores through mma.sync
+//                     m16n8k32 s8 x s8 -> s32; the int32 sum is dequantized
+//                     as (float)acc * ((amax / 127) * scale[n]), the bias
+//                     added, then T(v), or gelu_as(v) into a float32 matrix
+//                     with its per-block absmax, or T(res + T(v));
+//   window_attn_kernel with a window absmax: max |output| of each window
+//                     (all heads), and for an odd window the output of a
+//                     padded query of the TPU kernel's (w+1)^2 geometry
+//                     (uniform attention over the w^2 keys), which enters
+//                     that absmax on the TPU.
+//
+// The int8 epilogues and quantizers use the _rn intrinsics and rintf (no
+// FMA contraction), in the JAX code's order of operations.
+//
 // Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
 // for the GEMM (C % 64 == 0 for the blocks); head_dim 32; window <= 12
 // (the score tile of a 144-token window is 85 KB of float32, and q, k, v,
@@ -38,6 +65,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 namespace swin {
 
@@ -440,11 +468,15 @@ __device__ void attn_pv(const float* P, const float* Vs, float* /*Os*/,
 // qkv (B, Hp, Wp, 3C) holds q | k | v per token; bias (H, N, N) and mask
 // (nW, N, N, or null) in T; out (B, Hp, Wp, C). Window wi of an image is
 // row-major over the (Hp/w, Wp/w) grid, as the shift mask is.
+// wamax (B * nW window absmaxes, float bits, or null): the int8 branch's
+// proj scales, max |out| over the window's tokens and heads, with the
+// padded query of an odd window when pad_query.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-                   const T* __restrict__ mask, T* __restrict__ out, int Hp,
-                   int Wp, int C, int w, int np, float scale) {
+                   const T* __restrict__ mask, T* __restrict__ out,
+                   int* __restrict__ wamax, int Hp, int Wp, int C, int w,
+                   int np, float scale, bool pad_query) {
   using Tile = AttnTile<T>;
   constexpr int V = Vec<T>::V, LDQ = Tile::LDQ;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -511,9 +543,30 @@ window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   __syncthreads();
 
   // bf16 stages O in S, which P no longer needs
+  float omax = 0.0f;
   attn_pv(P, Vs, S, np, n, [&](int r, int d, float o) {
-    out[token(r) * C + h * HD + d] = from_f<T>(o);
+    const T ov = from_f<T>(o);
+    out[token(r) * C + h * HD + d] = ov;
+    omax = fmaxf(omax, fabsf(to_f(ov)));
   });
+  if (wamax == nullptr) return;
+  if (pad_query && threadIdx.x < HD) {
+    // p = T(1 / n) on every real key: the padded query's row of P
+    const float p = round_to<T>(__fdiv_rn(1.0f, (float)n));
+    float o = 0.0f;
+    for (int j = 0; j < n; ++j)
+      o = __fadd_rn(o, __fmul_rn(p, to_f(Vs[j * LDQ + threadIdx.x])));
+    omax = fmaxf(omax, fabsf(round_to<T>(o)));
+  }
+  __shared__ float red[THREADS / 32];
+  omax = warp_max(omax);
+  if (lane == 0) red[threadIdx.x / 32] = omax;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float m = red[0];
+    for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
+    atomicMax(wamax + blockIdx.x, __float_as_int(m));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -541,7 +594,8 @@ cudaError_t gemm(const GemmArgs<T>& p, cudaStream_t s) {
 template <typename T>
 cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
                              T* out, int B, int Hp, int Wp, int C, int heads,
-                             int w, float scale, cudaStream_t s) {
+                             int w, float scale, cudaStream_t s,
+                             int* wamax = nullptr) {
   const int np = (w * w + 15) / 16 * 16;
   const size_t smem = AttnTile<T>::smem(np);
   cudaError_t err = cudaFuncSetAttribute(
@@ -549,8 +603,8 @@ cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * (Hp / w) * (Wp / w), heads);
-  window_attn_kernel<T><<<grid, THREADS, smem, s>>>(qkv, bias, mask, out, Hp,
-                                                     Wp, C, w, np, scale);
+  window_attn_kernel<T><<<grid, THREADS, smem, s>>>(
+      qkv, bias, mask, out, wamax, Hp, Wp, C, w, np, scale, w % 2 == 1);
   return cudaGetLastError();
 }
 
@@ -582,9 +636,11 @@ cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
       {attn, nullptr, nullptr, nullptr, wproj, bproj, x, y, M, C, C}, s);
 }
 
-// K4's phases: y = x + W2 gelu(W1 LN(x) + b1) + b2, the last sum in float32.
-// Scratch: h (M, hidden), stats (M,).
-template <typename T>
+// K4's phases: y = x + W2 gelu(W1 LN(x) + b1) + b2, the last sum in float32
+// (EPI_RES_F32), or with W2 h + b2 rounded to T before the residual is
+// added (EPI_ROUND_RES: K5's merged block). Scratch: h (M, hidden), stats
+// (M,).
+template <typename T, int EPI = EPI_RES_F32>
 cudaError_t mlp_half(const T* x, const float* gamma, const float* beta,
                      const T* w1, const T* b1, const T* w2, const T* b2, T* h,
                      float2* stats, T* y, int M, int C, int hidden,
@@ -594,8 +650,384 @@ cudaError_t mlp_half(const T* x, const float* gamma, const float* beta,
   err = gemm<T, true, EPI_BIAS_GELU>(
       {x, stats, gamma, beta, w1, b1, nullptr, h, M, hidden, C}, s);
   if (err != cudaSuccess) return err;
-  return gemm<T, false, EPI_RES_F32>(
+  return gemm<T, false, EPI>(
       {h, nullptr, nullptr, nullptr, w2, b2, x, y, M, C, hidden}, s);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 branch.
+
+// which activation-scale block token row m belongs to: contiguous blocks of
+// blk rows (w == 0), or the windows of a (B, Hp, Wp) map (w > 0), numbered
+// as window_attn_kernel's blocks are
+struct ScaleMap {
+  int blk, Hp, Wp, w;
+  __device__ __forceinline__ int operator()(int m) const {
+    if (w == 0) return m / blk;
+    const int per = Hp * Wp, r = m % per;
+    return ((m / per) * (Hp / w) + (r / Wp) / w) * (Wp / w) + (r % Wp) / w;
+  }
+};
+
+// amax = max|block| + 1e-6 from the block's stored float bits
+__device__ __forceinline__ float block_amax(const int* amax, int id) {
+  return __fadd_rn(__int_as_float(amax[id]), 1e-6f);
+}
+
+__device__ __forceinline__ float ln_apply(float v, float2 st, float g,
+                                          float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, st.x), st.y), g), b);
+}
+
+// the JAX _gelu_exact: x Phi(x) with the Abramowitz-Stegun 7.1.26 erf
+__device__ __forceinline__ float gelu_as(float x) {
+  const float z = __fmul_rn(x, 0.7071067811865476f);
+  const float sg = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float a = fabsf(z);
+  const float t =
+      __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(0.3275911f, a)));
+  float p = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  p = __fadd_rn(1.421413741f, __fmul_rn(t, p));
+  p = __fadd_rn(-0.284496736f, __fmul_rn(t, p));
+  p = __fmul_rn(t, __fadd_rn(0.254829592f, __fmul_rn(t, p)));
+  const float erf =
+      __fmul_rn(sg, __fsub_rn(1.0f, __fmul_rn(p, expf(__fmul_rn(-a, a)))));
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, erf));
+}
+
+// LayerNorm statistics (as ln_stats_kernel, without FMA contraction) and
+// the per-block absmax of the normed rows.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ln_stats_amax_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, float2* __restrict__ stats,
+                     int* __restrict__ amax, int M, int C, int blk,
+                     bool ln_round) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * C;
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) s = __fadd_rn(s, to_f(xr[c]));
+  const float mu = __fdiv_rn(warp_sum(s), (float)C);
+  float q = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = __fsub_rn(to_f(xr[c]), mu);
+    q = __fadd_rn(q, __fmul_rn(d, d));
+  }
+  const float2 st = make_float2(
+      mu, __frsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(q), (float)C), LN_EPS)));
+  float m = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    float v = ln_apply(to_f(xr[c]), st, gamma[c], beta[c]);
+    if (ln_round) v = round_to<T>(v);
+    m = fmaxf(m, fabsf(v));
+  }
+  m = warp_max(m);
+  if (lane == 0) {
+    stats[row] = st;
+    atomicMax(amax + row / blk, __float_as_int(m));
+  }
+}
+
+enum Q8Source {
+  Q8_LN = 0,   // A = LayerNorm(x) applied on load, x in T
+  Q8_F32 = 1,  // A is a float32 matrix
+  Q8_T = 2,    // A is a T matrix
+};
+enum Q8Epilogue {
+  Q8E_BIAS = 0,       // out = T(v)
+  Q8E_GELU_AMAX = 1,  // out = gelu_as(v) in float32, and its block absmax
+  Q8E_ROUND_RES = 2,  // out = T(res + T(v))
+};
+
+template <typename T> struct Q8Args {
+  const void* a;        // (M, K), T or float32
+  const float2* stats;  // Q8_LN: LayerNorm statistics of a
+  const float* gamma;   // Q8_LN: (K,) float32
+  const float* beta;
+  const int* a_amax;    // per-block max |A| (float bits)
+  ScaleMap a_map;
+  const int8_t* w;      // (N, K) int8 codes
+  const float* wscale;  // (N,) float32
+  const T* bias;        // (N,)
+  const T* res;         // (M, N), Q8E_ROUND_RES
+  void* out;            // (M, N): float32 for Q8E_GELU_AMAX, else T
+  int* out_amax;        // Q8E_GELU_AMAX: per-block max |out|, contiguous
+  int out_blk;          // blocks of out_blk rows
+  int M, N, K;
+  bool ln_round;        // Q8_LN: LN rounded to T before it is quantized
+};
+
+constexpr int Q8_LDS = BK + 16;  // 48-byte rows: conflict-free fragments
+
+__device__ __forceinline__ uint32_t q8_code(float v, float inv) {
+  float q = rintf(__fmul_rn(v, inv));
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return (uint32_t)(uint8_t)(int8_t)(int)q;
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// eight consecutive A values of row r at column k, as float32
+template <typename T, int SRC>
+__device__ __forceinline__ void load8(const Q8Args<T>& p, int r, int k,
+                                      float* v) {
+  if (SRC == Q8_F32) {
+    const float* a = static_cast<const float*>(p.a) + (size_t)r * p.K + k;
+    const float4 u = *reinterpret_cast<const float4*>(a);
+    const float4 t = *reinterpret_cast<const float4*>(a + 4);
+    v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    v[4] = t.x, v[5] = t.y, v[6] = t.z, v[7] = t.w;
+  } else {
+    const T* a = static_cast<const T*>(p.a) + (size_t)r * p.K + k;
+#pragma unroll
+    for (int h = 0; h < 8; h += Vec<T>::V) {
+      const uint4 u = *reinterpret_cast<const uint4*>(a + h);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int j = 0; j < Vec<T>::V; ++j) v[h + j] = to_f(e[j]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// One block of 256 threads (8 warps, 4 x 2) per 128 x 64 output tile; each
+// warp owns 32 x 32 (2 x 4 MMA tiles); 32-deep K slices, no pipelining.
+template <typename T, int SRC, int EPI>
+__global__ void __launch_bounds__(THREADS) gemm_q8_kernel(Q8Args<T> p) {
+  __shared__ __align__(16) int8_t As[BM * Q8_LDS];
+  __shared__ __align__(16) int8_t Bs[BN * Q8_LDS];
+  __shared__ int smax[BM];  // Q8E_GELU_AMAX: the tile's block absmaxes
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (EPI == Q8E_GELU_AMAX && tid < BM) smax[tid] = 0;
+
+  // the two A rows this thread fills, at k offset 8 (tid % 4) of a slice
+  const int kc = (tid % 4) * 8;
+  int arow[2];
+  bool valid[2];
+  float inv[2];
+  float2 st[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    arow[j] = tid / 4 + 64 * j;
+    const int m = m0 + arow[j];
+    valid[j] = m < p.M;
+    inv[j] = 0.0f;
+    st[j] = make_float2(0.0f, 0.0f);
+    if (valid[j]) {
+      inv[j] = __fdiv_rn(127.0f, block_amax(p.a_amax, p.a_map(m)));
+      if (SRC == Q8_LN) st[j] = p.stats[m];
+    }
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp % 4, wn = warp / 4;
+  const int g = lane / 4, tig = lane % 4;
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int k0 = 0; k0 < p.K; k0 += BK) {
+    const int k = k0 + kc;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint2 codes = make_uint2(0u, 0u);
+      if (valid[j]) {
+        float v[8];
+        load8<T, SRC>(p, m0 + arow[j], k, v);
+        uint32_t word[2] = {0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float a = v[e];
+          if (SRC == Q8_LN) {
+            a = ln_apply(a, st[j], p.gamma[k + e], p.beta[k + e]);
+            if (p.ln_round) a = round_to<T>(a);
+          }
+          word[e / 4] |= q8_code(a, inv[j]) << (8 * (e % 4));
+        }
+        codes = make_uint2(word[0], word[1]);
+      }
+      *reinterpret_cast<uint2*>(As + arow[j] * Q8_LDS + kc) = codes;
+    }
+    if (tid < 128) {  // B: 64 output channels x 32 bytes of K
+      const int row = tid / 2, kb = (tid % 2) * 16;
+      *reinterpret_cast<uint4*>(Bs + row * Q8_LDS + kb) =
+          *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + row) * p.K +
+                                          k0 + kb);
+    }
+    __syncthreads();
+
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int8_t* base = As + (wm * 32 + i * 16 + g) * Q8_LDS + tig * 4;
+      a[i][0] = *reinterpret_cast<const uint32_t*>(base);
+      a[i][1] = *reinterpret_cast<const uint32_t*>(base + 8 * Q8_LDS);
+      a[i][2] = *reinterpret_cast<const uint32_t*>(base + 16);
+      a[i][3] = *reinterpret_cast<const uint32_t*>(base + 8 * Q8_LDS + 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int8_t* base = Bs + (wn * 32 + j * 8 + g) * Q8_LDS + tig * 4;
+      b[j][0] = *reinterpret_cast<const uint32_t*>(base);
+      b[j][1] = *reinterpret_cast<const uint32_t*>(base + 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    __syncthreads();
+  }
+
+  // epilogue, from the registers: rows (i, h), columns (j, cc)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+      float rmax = 0.0f;
+      if (m < p.M) {
+        const float as = __fdiv_rn(block_amax(p.a_amax, p.a_map(m)), 127.0f);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + wn * 32 + j * 8 + tig * 2;
+          const size_t o = (size_t)m * p.N + n;
+          float v[2];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            v[cc] = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[i][j][2 * h + cc]),
+                          __fmul_rn(as, p.wscale[n + cc])),
+                to_f(p.bias[n + cc]));
+            if (EPI == Q8E_GELU_AMAX) {
+              v[cc] = gelu_as(v[cc]);
+              rmax = fmaxf(rmax, fabsf(v[cc]));
+            } else if (EPI == Q8E_ROUND_RES) {
+              v[cc] = __fadd_rn(to_f(p.res[o + cc]), round_to<T>(v[cc]));
+            }
+          }
+          if (EPI == Q8E_GELU_AMAX)
+            store2<float>(static_cast<float*>(p.out) + o, v[0], v[1]);
+          else
+            store2<T>(static_cast<T*>(p.out) + o, v[0], v[1]);
+        }
+      }
+      if (EPI == Q8E_GELU_AMAX) {
+        // the row's max over this warp's 32 columns, then the tile's
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+        if (tig == 0 && m < p.M)
+          atomicMax(smax + (m / p.out_blk - m0 / p.out_blk),
+                    __float_as_int(rmax));
+      }
+    }
+  }
+  if (EPI == Q8E_GELU_AMAX) {
+    __syncthreads();
+    const int last = min(m0 + BM, p.M) - 1;
+    if (tid <= last / p.out_blk - m0 / p.out_blk && smax[tid] > 0)
+      atomicMax(p.out_amax + m0 / p.out_blk + tid, smax[tid]);
+  }
+}
+
+template <typename T>
+cudaError_t ln_stats_amax(const T* x, const float* gamma, const float* beta,
+                          float2* stats, int* amax, int M, int C, int blk,
+                          bool ln_round, cudaStream_t s) {
+  const int rows = THREADS / 32;
+  ln_stats_amax_kernel<T><<<(M + rows - 1) / rows, THREADS, 0, s>>>(
+      x, gamma, beta, stats, amax, M, C, blk, ln_round);
+  return cudaGetLastError();
+}
+
+template <typename T, int SRC, int EPI>
+cudaError_t gemm_q8(const Q8Args<T>& p, cudaStream_t s) {
+  if (p.M <= 0 || p.K % BK || p.N % BN || (p.M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  gemm_q8_kernel<T, SRC, EPI><<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// K3's int8 branch: y = x + T(q8(proj) + bproj) over the attention of
+// T(q8(qkv) + bqkv). QKV scales per window-row strip (w * Wp tokens), proj
+// scales per window. Scratch: qkv (M, 3C), attn (M, C), stats (M,), amax
+// (B * Hp / w + B * nW ints), M = B * Hp * Wp.
+template <typename T>
+cudaError_t attention_half_q8(const T* x, const float* gamma,
+                              const float* beta, const int8_t* wqkv,
+                              const float* sqkv, const T* bqkv,
+                              const int8_t* wproj, const float* sproj,
+                              const T* bproj, const T* bias, const T* mask,
+                              T* qkv, T* attn, float2* stats, int* amax, T* y,
+                              int B, int Hp, int Wp, int C, int heads, int w,
+                              float scale, bool ln_round, cudaStream_t s) {
+  const int M = B * Hp * Wp, strips = B * (Hp / w);
+  int* wamax = amax + strips;
+  cudaError_t err = cudaMemsetAsync(
+      amax, 0, sizeof(int) * (strips + strips * (Wp / w)), s);
+  if (err != cudaSuccess) return err;
+  err = ln_stats_amax(x, gamma, beta, stats, amax, M, C, w * Wp, ln_round,
+                      s);
+  if (err != cudaSuccess) return err;
+  Q8Args<T> q{x, stats, gamma, beta, amax, {w * Wp, 0, 0, 0}, wqkv, sqkv,
+              bqkv, nullptr, qkv, nullptr, 1, M, 3 * C, C, ln_round};
+  err = gemm_q8<T, Q8_LN, Q8E_BIAS>(q, s);
+  if (err != cudaSuccess) return err;
+  err = window_attention(qkv, bias, mask, attn, B, Hp, Wp, C, heads, w,
+                         scale, s, wamax);
+  if (err != cudaSuccess) return err;
+  Q8Args<T> pr{attn, nullptr, nullptr, nullptr, wamax, {1, Hp, Wp, w},
+               wproj, sproj, bproj, x, y, nullptr, 1, M, C, C, false};
+  return gemm_q8<T, Q8_T, Q8E_ROUND_RES>(pr, s);
+}
+
+// K4's int8 branch: y = x + T(q8(h) W2 + b2) with h = gelu_as(q8(LN(x)) W1
+// + b1) in float32, both scales per block of blk tokens. Scratch: h (M,
+// hidden) float32, stats (M,), amax (2 * ceil(M / blk) ints).
+template <typename T>
+cudaError_t mlp_half_q8(const T* x, const float* gamma, const float* beta,
+                        const int8_t* w1, const float* s1, const T* b1,
+                        const int8_t* w2, const float* s2, const T* b2,
+                        float* h, float2* stats, int* amax, T* y, int M,
+                        int C, int hidden, int blk, bool ln_round,
+                        cudaStream_t s) {
+  const int blocks = (M + blk - 1) / blk;
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(int) * 2 * blocks, s);
+  if (err != cudaSuccess) return err;
+  err = ln_stats_amax(x, gamma, beta, stats, amax, M, C, blk, ln_round, s);
+  if (err != cudaSuccess) return err;
+  Q8Args<T> g1{x, stats, gamma, beta, amax, {blk, 0, 0, 0}, w1, s1, b1,
+               nullptr, h, amax + blocks, blk, M, hidden, C, ln_round};
+  err = gemm_q8<T, Q8_LN, Q8E_GELU_AMAX>(g1, s);
+  if (err != cudaSuccess) return err;
+  Q8Args<T> g2{h, nullptr, nullptr, nullptr, amax + blocks, {blk, 0, 0, 0},
+               w2, s2, b2, x, y, nullptr, 1, M, C, hidden, false};
+  return gemm_q8<T, Q8_F32, Q8E_ROUND_RES>(g2, s);
 }
 
 }  // namespace swin

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 // computervision_codes_tpu/ops/window_mhsa.py::window_mhsa_fused (its
-// _kernel and packed_window_attention), float path. Over x (B, Hp, Wp, C),
+// _kernel and packed_window_attention), float path and int8 branch. Over
+// x (B, Hp, Wp, C),
 // already rolled by the caller when the block is shifted:
 //
 //   y = x + proj(window_MHSA(LayerNorm(x)))
@@ -25,6 +26,17 @@
 // token of traffic, well under the GEMMs' time. Odd windows (N = 49) are
 // masked at their real size; no (w+1)^2 padding. The TPU kernel's
 // head-group packing is an MXU device and has no counterpart here.
+//
+// The int8 branch (window_mhsa_q8_launch; quant=True there): the QKV and
+// proj products on the int8 tensor cores (swin_common.cuh gemm_q8_kernel):
+// LN statistics with one absmax per window-row strip (w x Wp tokens); the
+// QKV GEMM quantizing LN(x) on load, + bqkv, rounded; the attention phase
+// unchanged but for each window's absmax of its output (with the padded
+// query of an odd window, which the TPU's (w+1)^2 geometry computes); the
+// proj GEMM quantizing the attention output on load with its window's
+// scale, then y = x + T(o + bproj). Its bound at stage 2: 43.5 G int8
+// operations (0.022 ms at 1,979 TOP/s) and the attention core's 4.1 GFLOP
+// of bf16 (0.004 ms at 989 TFLOP/s).
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
@@ -75,5 +87,35 @@ extern "C" int window_mhsa_launch(const void* x, const void* gamma,
     return run<__nv_bfloat16>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                               mask, qkv, attn, stats, y, B, Hp, Wp, C, heads,
                               window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 branch. As window_mhsa_launch, but wqkv (3C, C) and wproj (C, C)
+// int8 codes, one output channel per row, with float32 scales sqkv (3C,)
+// and sproj (C,); amax scratch of B * Hp / window + B * nW int32.
+extern "C" int window_mhsa_q8_launch(
+    const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
+    const void* bproj, const void* bias, const void* mask, void* qkv,
+    void* attn, void* stats, void* amax, void* y, int B, int Hp, int Wp,
+    int C, int heads, int window, float scale, int dtype, void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run_q8 = [&](auto zero) {
+    using T = decltype(zero);
+    return (int)swin::attention_half_q8<T>(
+        static_cast<const T*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<const int8_t*>(wqkv),
+        static_cast<const float*>(sqkv), static_cast<const T*>(bqkv),
+        static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
+        static_cast<const T*>(bproj), static_cast<const T*>(bias),
+        static_cast<const T*>(mask), static_cast<T*>(qkv),
+        static_cast<T*>(attn), static_cast<float2*>(stats),
+        static_cast<int*>(amax), static_cast<T*>(y), B, Hp, Wp, C, heads,
+        window, scale, false, s);
+  };
+  if (dtype == 0) return run_q8(0.0f);
+  if (dtype == 1) return run_q8(__nv_bfloat16());
   return (int)cudaErrorInvalidValue;
 }

@@ -8,6 +8,11 @@ every task; per task an ``input_proj`` Dense, query embeddings and a
 memory over positions. Attention products are plain ``torch.matmul`` with a
 float32 softmax, as XLA computed them in the JAX package.
 
+The Swin options (``fused_split``, ``quant_eval``, ``quant_min_dim``,
+``s2d_embed`` ...) go to the backbone. The int8 teacher is
+``Q2L(quant_eval=True, s2d_embed=True)`` with its ``Dense`` layers swapped
+for ``models.quant_dense.Int8Dense``.
+
 Not ported yet, and refused: the CvT and TResNet backbones (the zoo slice),
 the KD block (``feat_i``, the training slice) and the Swin options
 ``models.swin`` refuses. The JAX ``return_sim_mat`` output is not ported.

@@ -11,12 +11,21 @@ Execution plans of a block, with the JAX package's eval gate
 False (None, the default, means: use the kernel functions, which run their
 plain versions on CPU tensors and launch the CUDA kernels on CUDA ones):
 
-* the map divides by the window, dim <= 384 and the window is even: the
-  whole block through K5 (``ops.swin_block``);
+* the map divides by the window, dim <= 384, the window is even and not
+  ``fused_split``: the whole block through K5 (``ops.swin_block``);
 * the map divides by the window and dim <= 768: the attention half through
   K3 (``ops.window_mhsa``), then the MLP half through K4 (``ops.mlp_block``);
 * otherwise (dim 1536, or a map that does not divide): the plain attention
   half, which pads the map to window multiples, then K4.
+
+``quant_eval`` runs the kernels' int8 branches in every block whose dim is
+at least ``quant_min_dim`` (768 by default: stages 2 and 3 of Swin-L). The
+kernels take the weights cast to the model dtype and then quantized
+(``ops.mlp_block.q8_weight``), as the JAX module passes them; each block
+keeps its int8 weights from the first call on and makes them anew only
+when a weight changes (a load, a move to another device). ``s2d_embed``
+computes the 4x4/4 patch embedding as the exact GEMM over the block-4
+space-to-depth view, in the model dtype (``swin.py:426-440`` there).
 
 ``fused_eval=False`` runs every block as the JAX package's XLA path does
 (``WindowAttention`` and ``Mlp`` modules). The roll of a shifted block stays
@@ -24,8 +33,7 @@ outside the kernels, as in the JAX module; a block's shift is dropped when
 the map is no larger than its window.
 
 Not ported yet, and refused: ``use_fused_attn`` (K10), ``fused_train`` and
-``remat`` (the training slice), ``quant_eval`` and ``s2d_embed`` (the int8
-teacher).
+``remat`` (the training slice).
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.mlp_block import mlp_block_fused
+from ..ops.mlp_block import mlp_block_fused, q8_weight
 from ..ops.swin_block import swin_block_fused
 from ..ops.window_mhsa import (window_mhsa_fused, window_partition,
                                window_reverse)
@@ -63,9 +71,7 @@ VARIANTS = {
 MLP_RATIO = 4
 NOT_PORTED = {"use_fused_attn": "K10, the per-window attention kernel",
               "fused_train": "the training slice",
-              "remat": "the training slice",
-              "quant_eval": "the int8 teacher, the next slice",
-              "s2d_embed": "the int8 teacher, the next slice"}
+              "remat": "the training slice"}
 
 
 def refuse_unported(**flags) -> None:
@@ -157,10 +163,15 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
                  drop_path: float = 0.0, fused_eval: Optional[bool] = None,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fused_split: bool = False, quant_eval: bool = False,
+                 quant_min_dim: int = 768):
         super().__init__()
         self.dim, self.num_heads, self.window = dim, num_heads, window
         self.shift, self.fused_eval, self.dtype = shift, fused_eval, dtype
+        self.fused_split = fused_split
+        self.quant = quant_eval and dim >= quant_min_dim
+        self._q8 = (None, None)  # (weights' identity, their Q8Weights)
         g = generator
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = WindowAttention(dim, window, num_heads, dtype, g)
@@ -176,8 +187,26 @@ class SwinBlock(nn.Module):
             return "plain"
         w = self.window
         if hgt % w == 0 and wid % w == 0 and self.dim <= 768:
-            return "split" if self.dim > 384 or w % 2 else "merged"
+            if self.fused_split or self.dim > 384 or w % 2:
+                return "split"
+            return "merged"
         return "mlp"
+
+    def q8_weights(self) -> Dict[str, object]:
+        """The int8 branch's weights (``Q8Weight``s of the kernels ``qkv``,
+        ``proj``, ``Dense_0``, ``Dense_1``), cast to the model dtype and
+        then quantized; made once and again only when a weight changes."""
+        dense = {"qkv": self.attn.qkv, "proj": self.attn.proj,
+                 "Dense_0": self.mlp.Dense_0, "Dense_1": self.mlp.Dense_1}
+        key = tuple((d.kernel.data_ptr(), d.kernel._version, d.kernel.device)
+                    for d in dense.values())
+        if self._q8[0] != key:
+            # a normal tensor even when first asked for in inference mode;
+            # inference_mode(False) turns grad mode on, so no_grad after it
+            with torch.inference_mode(False), torch.no_grad():
+                self._q8 = (key, {k: q8_weight(d.kernel.to(self.dtype))
+                                  for k, d in dense.items()})
+        return self._q8[1]
 
     def _attn_args(self, x):
         """Shared preamble of the kernel paths: shift gating, the roll, the
@@ -186,9 +215,14 @@ class SwinBlock(nn.Module):
         w = self.window
         shift = self.shift if min(hgt, wid) > w else 0
         p = self.attn
-        args = (self.norm1.scale, self.norm1.bias,
-                p.qkv.kernel.to(self.dtype), p.qkv.bias.to(self.dtype),
-                p.proj.kernel.to(self.dtype), p.proj.bias.to(self.dtype),
+        if self.quant:
+            q8 = self.q8_weights()
+            wqkv, wproj = q8["qkv"], q8["proj"]
+        else:
+            wqkv = p.qkv.kernel.to(self.dtype)
+            wproj = p.proj.kernel.to(self.dtype)
+        args = (self.norm1.scale, self.norm1.bias, wqkv,
+                p.qkv.bias.to(self.dtype), wproj, p.proj.bias.to(self.dtype),
                 p.rel_bias().to(self.dtype))
         mask = None
         if shift:
@@ -198,9 +232,15 @@ class SwinBlock(nn.Module):
 
     def _mlp_args(self):
         m = self.mlp
-        return (self.norm2.scale, self.norm2.bias,
-                m.Dense_0.kernel.to(self.dtype), m.Dense_0.bias.to(self.dtype),
-                m.Dense_1.kernel.to(self.dtype), m.Dense_1.bias.to(self.dtype))
+        if self.quant:
+            q8 = self.q8_weights()
+            w1, w2 = q8["Dense_0"], q8["Dense_1"]
+        else:
+            w1 = m.Dense_0.kernel.to(self.dtype)
+            w2 = m.Dense_1.kernel.to(self.dtype)
+        return (self.norm2.scale, self.norm2.bias, w1,
+                m.Dense_0.bias.to(self.dtype), w2,
+                m.Dense_1.bias.to(self.dtype))
 
     def _plain_attn_half(self, x):
         shortcut = x
@@ -227,23 +267,23 @@ class SwinBlock(nn.Module):
     def forward(self, x):
         _, hgt, wid, _ = x.shape
         plan = self.plan(hgt, wid)
-        w, heads = self.window, self.num_heads
+        w, heads, quant = self.window, self.num_heads, self.quant
         if plan in ("merged", "split"):
             xr, args, mask, shift = self._attn_args(x)
             if plan == "merged":
                 xr = swin_block_fused(xr, *args, mask, *self._mlp_args(),
-                                      window=w, num_heads=heads)
+                                      window=w, num_heads=heads, quant=quant)
             else:
                 xr = window_mhsa_fused(xr, *args, mask, window=w,
-                                       num_heads=heads)
+                                       num_heads=heads, quant=quant)
             if shift:
                 xr = torch.roll(xr, (shift, shift), dims=(1, 2))
             if plan == "merged":
                 return xr
-            return mlp_block_fused(xr, *self._mlp_args())
+            return mlp_block_fused(xr, *self._mlp_args(), quant=quant)
         x = self._plain_attn_half(x)
         if plan == "mlp":
-            return mlp_block_fused(x, *self._mlp_args())
+            return mlp_block_fused(x, *self._mlp_args(), quant=quant)
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 
 
@@ -292,15 +332,16 @@ class SwinTransformer(nn.Module):
                  window_size: int = 7, drop_path_rate: float = 0.1,
                  fused_eval: Optional[bool] = None,
                  use_fused_attn: bool = False, fused_train: bool = False,
-                 remat: bool = False, quant_eval: bool = False,
+                 remat: bool = False, fused_split: bool = False,
+                 quant_eval: bool = False, quant_min_dim: int = 768,
                  s2d_embed: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         refuse_unported(use_fused_attn=use_fused_attn,
-                        fused_train=fused_train, remat=remat,
-                        quant_eval=quant_eval, s2d_embed=s2d_embed)
+                        fused_train=fused_train, remat=remat)
         self.dtype, self.depths = dtype, tuple(depths)
+        self.s2d_embed, self.embed_dim = s2d_embed, embed_dim
         g = generator
         self.patch_embed = PatchEmbed(embed_dim, dtype, g)
         self.patch_norm = LayerNorm(embed_dim, dtype)
@@ -312,7 +353,8 @@ class SwinTransformer(nn.Module):
                 shift = 0 if d % 2 == 0 else window_size // 2
                 self.add_module(f"stage{si}_block{d}", SwinBlock(
                     dim, num_heads[si], window_size, shift, float(dpr[bi]),
-                    fused_eval, dtype, g))
+                    fused_eval, dtype, g, fused_split, quant_eval,
+                    quant_min_dim))
                 bi += 1
             if si < len(depths) - 1:
                 self.add_module(f"merge{si}", PatchMerging(dim, dtype, g))
@@ -328,7 +370,20 @@ class SwinTransformer(nn.Module):
         return x
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
-        return self.patch_norm(self.patch_embed(images.to(self.dtype)))
+        x = images.to(self.dtype)
+        b, h, w, c = x.shape
+        if self.s2d_embed and h % 4 == 0 and w % 4 == 0:
+            # stride == kernel: the 4x4/4 conv is the GEMM over the block-4
+            # space-to-depth view, (ky, kx, c) minor as the HWIO kernel
+            xs = x.reshape(b, h // 4, 4, w // 4, 4, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(b, h // 4, w // 4, 16 * c)
+            pe = self.patch_embed
+            k = pe.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(
+                16 * c, self.embed_dim)
+            x = xs @ k + pe.bias.to(self.dtype)
+        else:
+            x = self.patch_embed(x)
+        return self.patch_norm(x)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.embed(images)

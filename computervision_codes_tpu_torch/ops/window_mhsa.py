@@ -15,10 +15,23 @@ bqkv summed in float32 and rounded; scores f32(q.k) * hd^-0.5 + bias
 denominator floored at 1e-30 and p rounded to x's dtype; p v in float32,
 rounded; proj + bias rounded, then the residual added in x's dtype.
 
+The int8 branch (``quant=True``, ``window_mhsa.py:158-203`` there, one
+window row per grid step as the module runs it): ``wqkv`` and ``wproj``
+come as ``Q8Weight``s. The QKV activation scale is one absmax per
+window-row strip (w x Wp tokens of LN(x), float32, unrounded), then
+``(q8_dot + bqkv)`` rounded to x's dtype; the attention core is the float
+path's; the proj scale is one absmax per window over its attention output
+(x's dtype, read as float32), then ``(q8_dot + bproj)`` rounded and added
+to x in x's dtype. For an odd window the TPU kernel computes the padded
+query rows of its (w+1)^2 geometry and they enter the window's proj
+absmax: a padded query (q = 0, zero bias, padded keys at -1e9) attends
+uniformly to the w^2 valid keys, so its output is each head's
+``p @ v`` with p = 1/w^2 rounded to x's dtype. Both the plain version and
+the kernel include that row.
+
 ``window_mhsa_fused`` dispatches on the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel
-(``csrc/window_mhsa.cu``), anything else raises. The int8 branch
-(``quant=True`` there) belongs to the int8 teacher and is not ported yet.
+(``csrc/window_mhsa.cu``), anything else raises.
 """
 
 from __future__ import annotations
@@ -28,8 +41,9 @@ import functools
 
 import torch
 
-from .mlp_block import (C_MULTIPLE, DTYPE_CODES, check_operands,
-                        launch_checked, layer_norm_f32, mm_f32)
+from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, block_absmax,
+                        check_operands, check_q8, launch_checked,
+                        layer_norm_f32, layer_norm_float32, mm_f32, q8_dot)
 
 HEAD_DIM = 32  # every Swin variant; the kernel's q/k/v tiles
 MAX_WINDOW = 12  # a 144-token window's float32 score tile is 85 KB
@@ -71,10 +85,52 @@ def window_attention_core(qkv, bias, mask, num_heads: int, dtype):
     return o.transpose(2, 3).reshape(b, nw, n, c)
 
 
+def padded_query_absmax(qkv, num_heads: int, dtype):
+    """max |output| of an odd window's padded query rows, per window:
+    qkv (B, nW, N, 3C) -> (B, nW, 1, 1) float32."""
+    b, nw, n, c3 = qkv.shape
+    c = c3 // 3
+    v = qkv[..., 2 * c:].reshape(b, nw, n, num_heads, c // num_heads)
+    one = torch.ones((), dtype=torch.float32, device=qkv.device)
+    p = (one / float(n)).to(dtype).expand(1, n)  # 1 / w^2, rounded
+    o = mm_f32(p, v.transpose(2, 3)).to(dtype)  # (B, nW, H, 1, hd)
+    return o.float().abs().amax(dim=(2, 3, 4))[..., None, None]
+
+
+def window_mhsa_q8_reference(x, gamma, beta, wqkv: Q8Weight, bqkv,
+                             wproj: Q8Weight, bproj, bias, mask, *,
+                             window: int, num_heads: int,
+                             ln_round: bool = False):
+    """The int8 branch. ``ln_round``: LN(x) is rounded to x's dtype before
+    it is quantized (K5's branch)."""
+    b, hp, wp, c = x.shape
+    w, n = window, window * window
+    normed = layer_norm_float32(x, gamma, beta)
+    if ln_round:
+        normed = normed.to(x.dtype).float()
+    strips = normed.reshape(b, hp // w, w * wp, c)
+    qkv = (q8_dot(strips, wqkv) + bqkv.float()).to(x.dtype)
+    qkv = window_partition(qkv.reshape(b, hp, wp, 3 * c), w)
+    qkv = qkv.reshape(b, -1, n, 3 * c)
+    o = window_attention_core(qkv, bias, mask, num_heads, x.dtype)
+    of = o.float()  # (B, nW, N, C)
+    amax = block_absmax(of)
+    if w % 2:
+        amax = torch.maximum(amax, padded_query_absmax(qkv, num_heads,
+                                                       x.dtype))
+    o = (q8_dot(of, wproj, amax) + bproj.float()).to(x.dtype)
+    return x + window_reverse(o.flatten(0, 1), w, hp, wp)
+
+
 def window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                          mask, *, window: int, num_heads: int):
+                          mask, *, window: int, num_heads: int,
+                          quant: bool = False):
     """Plain PyTorch version, with the kernel's rounding points; mirrors the
-    JAX ``window_mhsa_reference``."""
+    JAX ``window_mhsa_reference`` (float) and ``_kernel`` (``quant``)."""
+    if quant:
+        return window_mhsa_q8_reference(x, gamma, beta, wqkv, bqkv, wproj,
+                                        bproj, bias, mask, window=window,
+                                        num_heads=num_heads)
     b, hp, wp, _ = x.shape
     n = window * window
     normed = layer_norm_f32(x, gamma, beta)
@@ -103,24 +159,35 @@ def check_geometry(x, window: int, num_heads: int) -> None:
 
 
 def attention_operands(what, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                       mask, window, num_heads):
+                       mask, window, num_heads, quant: bool = False):
     """Checked, aligned operands of the attention half (matrices, mask or
     None, float32 LN vectors). ``bias`` and ``mask`` are cast to x's dtype,
-    as the JAX module passes them."""
+    as the JAX module passes them. The matrices are x, wqkv, bqkv, wproj,
+    bproj, bias; with ``quant`` (``Q8Weight``s) x, wqkv's codes and scales,
+    bqkv, wproj's codes and scales, bproj, bias."""
     check_geometry(x, window, num_heads)
     _, hp, wp, c = x.shape
     n = window * window
     bias = bias.to(x.dtype)
-    named = {"x": (x, x.shape), "wqkv": (wqkv, (c, 3 * c)),
-             "bqkv": (bqkv, (3 * c,)), "wproj": (wproj, (c, c)),
+    named = {"x": (x, x.shape), "bqkv": (bqkv, (3 * c,)),
              "bproj": (bproj, (c,)), "bias": (bias, (num_heads, n, n))}
+    if not quant:
+        named |= {"wqkv": (wqkv, (c, 3 * c)), "wproj": (wproj, (c, c))}
     if mask is not None:
         mask = mask.to(x.dtype)
         named["mask"] = (mask, ((hp // window) * (wp // window), n, n))
     mats, vecs = check_operands(what, x, named,
                                 {"gamma": (gamma, (c,)),
                                  "beta": (beta, (c,))})
-    return mats[:6], (mats[6] if mask is not None else None), vecs
+    got = dict(zip(named, mats))
+    mask = got.get("mask")
+    if quant:
+        wq, sq, wpc, sp = check_q8(what, x, {"wqkv": (wqkv, (3 * c, c)),
+                                             "wproj": (wproj, (c, c))})
+        return ([got["x"], wq, sq, got["bqkv"], wpc, sp, got["bproj"],
+                 got["bias"]], mask, vecs)
+    return ([got[k] for k in ("x", "wqkv", "bqkv", "wproj", "bproj",
+                              "bias")], mask, vecs)
 
 
 @functools.cache
@@ -167,16 +234,61 @@ def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
 window_mhsa_cuda.launches = 0
 
 
+@functools.cache
+def _launch_q8_fn():
+    """The int8 branch's C entry point in ``csrc/window_mhsa.cu``."""
+    from ._build import load_library
+
+    fn = load_library("window_mhsa").window_mhsa_q8_launch
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_mhsa_q8_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
+                        wproj: Q8Weight, bproj, bias, mask, *, window: int,
+                        num_heads: int):
+    """Launch K3's int8 branch on x's device and current stream: as
+    ``window_mhsa_cuda``, with wqkv and wproj as ``Q8Weight``s.
+    ``launches`` counts the launches made through this wrapper."""
+    mats, mask, (gamma, beta) = attention_operands(
+        "window_mhsa", x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+        window, num_heads, quant=True)
+    x, wq, sq, bqkv, wpc, sp, bproj, bias = mats
+    b, hp, wp, c = x.shape
+    m = b * hp * wp
+    y = torch.empty_like(x)
+    if m == 0:
+        return y
+    strips = b * (hp // window)
+    qkv = torch.empty(m, 3 * c, dtype=x.dtype, device=x.device)
+    attn = torch.empty(m, c, dtype=x.dtype, device=x.device)
+    stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
+    amax = torch.empty(strips * (1 + wp // window), dtype=torch.int32,
+                       device=x.device)
+    launch_checked("window_mhsa", _launch_q8_fn(), x, gamma, beta, wq, sq,
+                   bqkv, wpc, sp, bproj, bias, mask, qkv, attn, stats, amax,
+                   y, b, hp, wp, c, num_heads, window, HEAD_DIM ** -0.5,
+                   DTYPE_CODES[x.dtype])
+    window_mhsa_q8_cuda.launches += 1
+    return y
+
+
+window_mhsa_q8_cuda.launches = 0
+
+
 def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
-                      *, window: int, num_heads: int):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+                      *, window: int, num_heads: int, quant: bool = False):
+    """K3 on CUDA tensors, its plain version on CPU tensors. ``quant``: the
+    int8 branch, wqkv and wproj as ``Q8Weight``s."""
     if x.device.type == "cpu":
         return window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj,
                                      bproj, bias, mask, window=window,
-                                     num_heads=num_heads)
+                                     num_heads=num_heads, quant=quant)
     if x.device.type == "cuda":
-        return window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
-                                bias, mask, window=window,
-                                num_heads=num_heads)
+        fn = window_mhsa_q8_cuda if quant else window_mhsa_cuda
+        return fn(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+                  window=window, num_heads=num_heads)
     raise ValueError(f"window_mhsa_fused runs on CPU (plain version) or CUDA "
                      f"(kernel) tensors, got {x.device}")

@@ -19,10 +19,14 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
   ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed);
 * ``TeacherSession`` serves the bf16 Q2L teacher (Swin-L-384 by default):
   frames -> task probabilities and the per-frame feature vector that the
-  cached feature bus carries.
+  cached feature bus carries. ``quantize=True`` serves the int8 teacher
+  of the JAX session: ``Q2L(quant_eval=True, s2d_embed=True)`` (the Swin
+  kernels' int8 branches at dims >= 768, the patch embed as a GEMM), with
+  every ``Dense`` of at least 512 inputs swapped for an ``Int8Dense`` with
+  static activation scales calibrated once at creation
+  (``models.quant_dense``).
 
-Not ported yet: ``mesh``, ``export``/``load_exported`` and the int8 teacher
-(``TeacherSession(quantize=True)``, the next slice).
+Not ported yet: ``mesh`` and ``export``/``load_exported``.
 
 Usage::
 
@@ -31,6 +35,7 @@ Usage::
     sess = InferenceSession.from_checkpoint(directory, "student")
     probs = sess.predict(clips_uint8)       # {task: (B, T, C) numpy}
     teacher = TeacherSession.create(batch=16, img_size=384, device="cuda")
+    teacher = TeacherSession.create(quantize=True)   # the int8 teacher
     out = teacher.predict(frames_uint8)     # {task: (B, C), "feature": (B, D)}
 """
 
@@ -47,10 +52,13 @@ from .data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from .models.convert import load_jax_variables
 from .models.pipeline import EndToEndRecognizer
 from .models.q2l import Q2L
+from .models.quant_dense import (apply_int8_dense, collect_dense_scales,
+                                 quantize_dense_params)
 from .models.quantized import Int8Recognizer, make_int8_e2e
 from .train.checkpoint import checkpoint_path, restore_variables
 
 TASKS = ("ivt", "i", "v", "t")
+INT8_DENSE_MIN_FEATURES = 512  # the JAX TeacherSession's min_features
 Device = Union[str, torch.device]
 
 
@@ -300,20 +308,32 @@ class TeacherSession:
     def create(cls, batch: int = 16, img_size: int = 384,
                backbone: str = "swin_L_384_22k", loss_type: str = "i",
                variables=None, quantize: bool = False,
+               calibrate_frames=None,
                device: Device = "cuda") -> "TeacherSession":
         """``variables``: the JAX ``Q2L`` variables to serve; without them,
-        weights are drawn from a ``torch.Generator`` seeded with 0."""
-        if quantize:
-            raise NotImplementedError(
-                "TeacherSession(quantize=True), the int8 teacher, is not "
-                "ported yet: it is the next slice of the port")
+        weights are drawn from a ``torch.Generator`` seeded with 0.
+
+        ``quantize=True`` serves the int8 teacher. ``calibrate_frames``,
+        normalised (N, H, W, 3) frames, bake the ``Int8Dense`` scales; without
+        them ``_default_calibration`` at (2, img, img, 3) stands in."""
         device = torch.device(device)
         model = Q2L(backbone=backbone, loss_type=loss_type,
                     dtype=torch.bfloat16,
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0),
+                    quant_eval=quantize, s2d_embed=quantize)
         if variables is not None:
             load_jax_variables(model, variables)
         model = model.to(device).eval()
+        if quantize:
+            if calibrate_frames is None:
+                calibrate_frames = _default_calibration(
+                    (2, img_size, img_size, 3), torch.bfloat16, device)
+            frames = torch.as_tensor(calibrate_frames).to(device,
+                                                          torch.bfloat16)
+            # the kernels' int8 branches run here, the Dense layers in float
+            scales = collect_dense_scales(model, frames)
+            apply_int8_dense(model, quantize_dense_params(model), scales,
+                             min_features=INT8_DENSE_MIN_FEATURES)
         return cls(model, batch, img_size, img_size, tuple(model.tasks),
                    device)
 

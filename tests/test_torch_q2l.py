@@ -92,8 +92,11 @@ def test_unported_parts_raise():
         Q2L(backbone="tresnet_m")
     with pytest.raises(ValueError, match="unknown backbone"):
         Q2L(backbone="vgg16")
-    with pytest.raises(NotImplementedError, match="int8"):
-        Q2L(backbone="swin_nano_64", quant_eval=True)
+    # the int8 teacher's options build: int8 branches from quant_min_dim on
+    q8 = Q2L(backbone="swin_nano_64", quant_eval=True, quant_min_dim=128,
+             s2d_embed=True)
+    assert [q8.backbone.stage1_block0.quant, q8.backbone.stage2_block0.quant,
+            q8.backbone.s2d_embed] == [False, True, True]
     model = Q2L(backbone="swin_nano_64", loss_type="all").eval()
     feat = torch.zeros(1, 512)
     with pytest.raises(NotImplementedError, match="KD"):

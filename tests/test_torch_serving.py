@@ -265,7 +265,8 @@ def test_port_imports_no_jax():
     JAX)."""
     modules = ("serving", "models.quantized", "models.convert",
                "models.resnet", "models.pipeline", "models.swin",
-               "models.q2l", "models.position_encoding", "models.common",
+               "models.q2l", "models.quant_dense",
+               "models.position_encoding", "models.common",
                "ops.quant", "ops.stem_pool", "ops.dilated_conv",
                "ops.window_mhsa", "ops.mlp_block", "ops.swin_block",
                "train.checkpoint")

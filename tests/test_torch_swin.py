@@ -129,8 +129,7 @@ def test_loader_rejects_missing_and_extra_keys(rng):
         load_jax_variables(build_swin("swin_nano_64"), {"params": params})
 
 
-@pytest.mark.parametrize("flag", ["use_fused_attn", "fused_train", "remat",
-                                  "quant_eval", "s2d_embed"])
+@pytest.mark.parametrize("flag", ["use_fused_attn", "fused_train", "remat"])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         build_swin("swin_nano_64", **{flag: True})

@@ -65,5 +65,9 @@ def test_shape_guard_and_quantize(sessions):
         sess.predict(np.zeros((1, 64, 64, 3), np.uint8))
     with pytest.raises(ValueError, match="shape"):
         sess.predict(np.zeros((2, 32, 64, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TeacherSession.create(quantize=True, device="cpu", **KW)
+    # the int8 teacher builds, and guards its shape alike
+    # (tests/test_torch_int8_teacher.py holds it against the JAX session)
+    q8 = TeacherSession.create(quantize=True, device="cpu", **KW)
+    assert q8.model.backbone.s2d_embed
+    with pytest.raises(ValueError, match="shape"):
+        q8.predict(np.zeros((1, 64, 64, 3), np.uint8))
