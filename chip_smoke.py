@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one CUDA card and check them.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,7 @@ printing its own lines:
    per source, all started together (timed, with ptxas' register and spill
    lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
    ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block`` (the int8 branches
-   of K3, K4 and K5 live in the same three sources);
+   of K3, K4 and K5 live in the same three sources), K7 ``attention``;
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -39,6 +39,12 @@ printing its own lines:
    - Q1 as the int8 teacher's Dense layers (1x1 over (M, 1, 1, K)) at
      their shapes, equal to its plain version bit for bit; its time at the
      largest beside the plain version's and ``torch._int_mm``'s;
+   - K7 (full attention) in bf16 and float32 at MS-TCT's (1, 8, T, D) for
+     D = 32, 48, 72, 108 and T = 1000, 2048, 5400, a batch of training
+     windows (32, 8, 256, D) and Tq != Tk, against the plain version in
+     float32 rounded once and (bf16) the plain version in bf16; its time
+     at (1, 8, 8192, D) beside the plain version's, SDPA's (the yardstick
+     only) and its bound;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
@@ -47,7 +53,8 @@ printing its own lines:
    Q2L(swin_L_384_22k, "i") on the card against the CPU on one frame, and
    the same Q2L as the int8 teacher (``quant_eval``, ``s2d_embed``, Dense
    layers of >= 512 inputs on Q1, calibrated on the CPU) on the card
-   against the CPU;
+   against the CPU, and the full-width float32 MSTCT on 1536-d features
+   on the card against the CPU on one 1,800-frame video;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
@@ -59,16 +66,23 @@ printing its own lines:
    teacher), predicting 16 uint8 frames of 384x384 in turns: launches per
    predict (bf16: K3 18, K4 20, K5 4; int8: K5 4, K3 int8 18, K4 int8 20,
    Q1 26), ms, frames/s, peak device memory;
-8. breakdown: input, backbone and TCN time of one offline forward and of
+8. the MS-TCT driver (``cli.temporal_mstct.main``) in process, ``-e -d``
+   at float32 and at bfloat16 on a synthetic CholecT45 tree (the nine
+   fold-1 test videos at 1,000-6,000 frames of random 1536-d features, the
+   other videos at 64): ms per video, frames/s, K7 launches (8 per video),
+   peak device memory, the test mAP and both dumps;
+9. breakdown: input, backbone and TCN time of one offline forward and of
    one push, for the bf16 and the int8 sessions; input, patch embed, each
    Swin stage, norm and the Q2L transformer and heads of one predict of
-   each teacher, and its device time by kernel from torch.profiler.
+   each teacher, and its device time by kernel from torch.profiler; one
+   MSTCT forward on 6,000 frames in each dtype by kernel kind (K7, GEMMs,
+   convolutions, the rest) with the busy share, and by module type.
 
-Phases 5-6 (the student's main path) and phase 7 (the teachers') each
-start with every launch count set to 0 and read them just after, and each
-kernel must have launched on its path; K5's int8 branch runs on no serving
-path (it serves dims >= ``quant_min_dim``, 768, and K5 only dims <= 384),
-so its count is 0 there and only phase 3 launches it. Then one JSON line
+Phases 5-6 (the student's main path), phase 7 (the teachers') and phase 8
+(MS-TCT's) each start with every launch count set to 0 and read them just
+after, and each kernel must have launched on its path; K5's int8 branch
+runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
+only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
 H100's published peak for their type and its bytes at 3.35 TB/s), and the
 last line
@@ -84,6 +98,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -108,6 +123,7 @@ KERNELS = {
     "mlp_block_q8": "computervision_codes_tpu/ops/mlp_block.py:59-71,85-88",
     "swin_block_q8":
         "computervision_codes_tpu/ops/swin_block.py:76-78,94-96,107-111",
+    "attention": "computervision_codes_tpu/ops/attention.py:61",
 }
 # the CUDA source of each (csrc/<source>.cu)
 SOURCES = {name: name.removesuffix("_q8") for name in KERNELS}
@@ -201,6 +217,35 @@ Q1_DENSE = [("stage-3 attn qkv", 16 * 144, 1536, 4608),
             ("Q2L linear2", 16 * 144, 8192, 1536),
             ("decoder q_proj, 6 queries", 16 * 6, 1536, 1536)]
 Q1_DENSE_TIMED = "Q2L linear1"  # the largest (with linear2) by operations
+# K7 (attention): MS-TCT's head dims at its full width (dims 256, 384, 576,
+# 864 over 8 heads), whole videos of these lengths, a batch of training
+# windows (B, H, T), and keys fewer than queries (B, H, Tq, Tk); times at
+# (1, 8, K7_TIME_T, D), the longest bucket of the JAX driver
+K7_DIMS = (32, 48, 72, 108)
+K7_LENGTHS = (1000, 2048, 5400)
+K7_WINDOW = (32, 8, 256)
+K7_RAGGED = (2, 8, 1000, 777)
+K7_TIME_T = 8192
+# the kernel against the plain version in float32, rounded once: 2 bf16
+# ulps of the output's largest magnitude (the kernel rounds its weights to
+# bf16 before the PV product, within about 2^-9 of max|v|), 1e-5 of it in
+# float32 (sums in another order). Against the bf16 plain version, which
+# rounds q * scale and every score to bf16 before the softmax (a score s
+# moves by up to 2^-9 |s|, and each weight exp(s - m) with it), 8 ulps
+K7_BF16_ULPS, K7_F32_REL, K7_PLAIN_BF16_ULPS = 2, 1e-5, 8
+# the SFUs' exp rate (16 per clock per SM, 132 SMs, 1.98 GHz boost; H100
+# SXM data sheet): at D = 32 and 48 the exponentials, not the tensor
+# cores, bound K7
+PEAK_EXP_S = 16 * 132 * 1.98e9
+# MS-TCT at the driver's full width on 1536-d Q2L features: K7 launches per
+# forward (4 stages x 2 blocks), the card-vs-CPU model check's video, and
+# the main path's tree: the nine fold-1 test videos at lengths spread over
+# 1,000-6,000 frames, every other video at 64 (``--dump`` evaluates all)
+MSTCT_IN, MSTCT_LAUNCHES, MSTCT_MODEL_T = 1536, 8, 1800
+MSTCT_TEST_LENGTHS = tuple(int(t) for t in np.linspace(1000, 6000, 9))
+MSTCT_OTHER_LENGTH = 64
+MSTCT_KW = {}  # MSTCT's defaults: the driver's full width
+MSTCT_CLASSES, MSTCT_EMBED = 100, 512
 
 
 def fail(msg: str) -> None:
@@ -276,8 +321,8 @@ def kernel_wrappers() -> dict:
     from computervision_codes_tpu_torch.ops import dilated_conv, quant
     from computervision_codes_tpu_torch.ops import stem_pool
 
-    from computervision_codes_tpu_torch.ops import mlp_block, swin_block
-    from computervision_codes_tpu_torch.ops import window_mhsa
+    from computervision_codes_tpu_torch.ops import attention, mlp_block
+    from computervision_codes_tpu_torch.ops import swin_block, window_mhsa
 
     return {"dilated_residual": dilated_conv.dilated_residual_cuda,
             "stem_pool": stem_pool.stem_pool_cuda,
@@ -287,7 +332,8 @@ def kernel_wrappers() -> dict:
             "swin_block": swin_block.swin_block_cuda,
             "window_mhsa_q8": window_mhsa.window_mhsa_q8_cuda,
             "mlp_block_q8": mlp_block.mlp_block_q8_cuda,
-            "swin_block_q8": swin_block.swin_block_q8_cuda}
+            "swin_block_q8": swin_block.swin_block_q8_cuda,
+            "attention": attention.attention_cuda}
 
 
 def launches() -> dict:
@@ -1489,6 +1535,391 @@ def phase_breakdown(card: str, offline: dict, clips: np.ndarray,
                   f"{sess.streams}: {parts}; {card}")
 
 
+def attention_inputs(b, h, tq, tk, d, dtype, seed):
+    """q (B, H, Tq, D), k and v (B, H, Tk, D), unit normal, made on the
+    card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(b, h, t, d, generator=g, device=DEVICE).to(dtype)
+            for t in (tq, tk, tk)]
+
+
+def attention_bound(b, h, tq, tk, d, dtype) -> dict:
+    """K7's bound: the largest of its products at the tensor-core (bf16) or
+    FMA (float32) peak, its exponentials at the SFU rate, and its bytes (q,
+    k, v read once, the output written once)."""
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    es = 2 if kind == "bf16" else 4
+    times = {"products": 4 * b * h * tq * tk * d / PEAK_OPS_S[kind],
+             "exp": b * h * tq * tk / PEAK_EXP_S,
+             "bytes": es * b * h * d * 2 * (tq + tk) / PEAK_BYTES_S}
+    worst = max(times, key=times.get)
+    return {"bound_ms": round(1e3 * times[worst], 6),
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_detail": f"{worst}: " + ", ".join(
+                f"{k} {1e3 * v:.4f} ms" for k, v in times.items())}
+
+
+def phase_k7(card: str) -> dict:
+    """K7 against the plain version evaluated in float32 and rounded once,
+    and against the plain version in the working dtype, at MS-TCT's shapes;
+    then its time beside the plain version's and SDPA's (the yardstick)."""
+    from computervision_codes_tpu_torch.ops.attention import (
+        attention_cuda, attention_reference)
+
+    cases = [(1, 8, t, t, d) for t in K7_LENGTHS for d in K7_DIMS]
+    cases += [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (d,) for d in K7_DIMS]
+    cases += [K7_RAGGED + (d,) for d in (27, 108)]
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, worst_plain = (-1.0, None), (-1.0, None)
+        for seed, (b, h, tq, tk, d) in enumerate(cases):
+            q, k, v = attention_inputs(b, h, tq, tk, d, dtype, seed)
+            got = attention_cuda(q, k, v)
+            want = attention_reference(q.float(), k.float(), v.float()).to(
+                dtype).float()
+            tag = f"K7 {str(dtype)[6:]} (B, H, Tq, Tk, D) = {(b, h, tq, tk, d)}"
+            check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+            top = want.abs().max().item()
+            err = (got.float() - want).abs().max().item()
+            tol = float(K7_BF16_ULPS * bf16_ulp(top)
+                        if dtype == torch.bfloat16 else K7_F32_REL * top)
+            check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol} "
+                              f"(max|ref| {top})")
+            if err / tol >= worst[0]:
+                worst = (err / tol, ((b, h, tq, tk, d), err, tol))
+            if dtype == torch.bfloat16:
+                plain = attention_reference(q, k, v).float()
+                perr = (got.float() - plain).abs().max().item()
+                ptol = float(K7_PLAIN_BF16_ULPS * bf16_ulp(top))
+                check(perr <= ptol, f"{tag} vs the bf16 plain version: "
+                                    f"max_abs_err {perr} > tol {ptol}")
+                if perr / ptol >= worst_plain[0]:
+                    worst_plain = (perr / ptol, ((b, h, tq, tk, d), perr,
+                                                 ptol))
+                if (b, h) == (1, 8) and tq == tk:
+                    main_err = max(main_err, err)
+            del q, k, v, got, want
+        print(f"[kernels] K7 {str(dtype)[6:]}: {len(cases)} cases within "
+              f"tolerance of the float32 plain version rounded once ("
+              + (f"{K7_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
+                 else f"{K7_F32_REL:g} x") + f" max|ref|); worst "
+              f"((B, H, Tq, Tk, D), err, tol) = {worst[1]}")
+        if dtype == torch.bfloat16:
+            print(f"[kernels] K7 bf16 against the bf16 plain version: "
+                  f"within {K7_PLAIN_BF16_ULPS} ulps of max|ref|; worst "
+                  f"{worst_plain[1]}")
+
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in K7_DIMS:
+            q, k, v = attention_inputs(1, 8, K7_TIME_T, K7_TIME_T, d, dtype,
+                                       99)
+            ms, runs = in_turns(
+                {"kernel": lambda: attention_cuda(q, k, v),
+                 "plain": lambda: attention_reference(q, k, v),
+                 "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)},
+                {"kernel": 10, "plain": 3, "sdpa": 10})
+            bnd = attention_bound(1, 8, K7_TIME_T, K7_TIME_T, d, dtype)
+            times[dtype, d] = ms | bnd
+            flops = 4 * 8 * K7_TIME_T ** 2 * d
+            print(f"[kernels] K7 time {str(dtype)[6:]} (1, 8, {K7_TIME_T}, "
+                  f"{d}): kernel {ms['kernel']:.4f} ms "
+                  f"({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+                  f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
+                  f"{runs}; {card}")
+            del q, k, v
+    forward = {dt: {key: sum(2 * times[dt, d][key] for d in K7_DIMS)
+                    for key in ("kernel", "plain", "sdpa", "bound_ms")}
+               for dt in (torch.bfloat16, torch.float32)}
+    for dt, sums in forward.items():
+        print(f"[kernels] K7 {str(dt)[6:]}, the 8 launches of one MS-TCT "
+              f"forward at T = {K7_TIME_T} (2 per head dim): kernel "
+              f"{sums['kernel']:.4f} ms, plain {sums['plain']:.4f} ms, SDPA "
+              f"{sums['sdpa']:.4f} ms, bound {sums['bound_ms']:.4f} ms; "
+              f"{card}")
+    top = times[torch.bfloat16, K7_DIMS[-1]]
+    return {"max_abs_err": main_err, "ms": top["kernel"],
+            "plain_ms": top["plain"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["sdpa"]}
+
+
+def phase_model_mstct() -> None:
+    """The full-width float32 MSTCT on 1536-d features, on the card against
+    the CPU on one video: K7 launches per forward, and the correlation and
+    max error of the logits and the feature."""
+    from computervision_codes_tpu_torch.models.mstct import MSTCT
+
+    cpu_model = MSTCT(MSTCT_IN, dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0),
+                      **MSTCT_KW).eval()
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, MSTCT_MODEL_T, MSTCT_IN)).astype(np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(x)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(x.to(DEVICE))
+        count = launched_since(before)
+    want_count = dict.fromkeys(KERNELS, 0) | {"attention": MSTCT_LAUNCHES}
+    check(count == want_count, f"MSTCT model launches {count}, want "
+                               f"{want_count}")
+    for k in ("logits", "feature"):
+        g, w = got[k].cpu(), want[k]
+        check(g.shape == w.shape, f"MSTCT model {k}: shape {g.shape}")
+        check(bool(torch.isfinite(g).all()), f"MSTCT model {k}: non-finite")
+        corr = float(np.corrcoef(g.numpy().ravel(), w.numpy().ravel())[0, 1])
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(err <= MODEL_REL_TOL * scale,
+              f"MSTCT model {k}: card vs CPU max_abs_err {err} > "
+              f"{MODEL_REL_TOL} x {scale}")
+        print(f"[model] MSTCT float32 {k} {tuple(g.shape)}: card vs CPU "
+              f"correlation {corr:.8f}, max_abs_err {err:.3e} (max|ref| "
+              f"{scale:.3f}, tol {MODEL_REL_TOL:g} x max|ref|)")
+    print(f"[model] MSTCT launches on the card per forward {count}; CPU "
+          f"forward of {MSTCT_MODEL_T} frames {t_cpu:.2f} s (host clock)")
+
+
+def mstct_tree(root: str) -> tuple:
+    """A CholecT45 tree for the MS-TCT driver, written by the port's
+    ``data.synthetic``: label CSVs of every fold-1 video and random 1536-d
+    features in ``data_feats/run_Q2L/k1_feats.pkl``."""
+    from computervision_codes_tpu_torch.data.feature_store import (
+        FeatureStore)
+    from computervision_codes_tpu_torch.data.splits import resolve_split
+    from computervision_codes_tpu_torch.data.synthetic import (
+        synthetic_feature_dict, write_synthetic_dataset)
+
+    split = resolve_split("cholect45-crossval", 1)
+    lengths = dict.fromkeys(split.all_videos, MSTCT_OTHER_LENGTH)
+    lengths |= dict(zip(split.test, MSTCT_TEST_LENGTHS))
+    counts = [lengths[v] for v in split.all_videos]
+    write_synthetic_dataset(root, split.all_videos, counts)
+    FeatureStore(root + "/data_feats", "Q2L").save(
+        1, "feats", synthetic_feature_dict(split.all_videos, counts,
+                                           MSTCT_IN, seed=6))
+    return split, lengths
+
+
+def phase_mstct(card: str, root: str, split, lengths: dict,
+                dtype: str) -> None:
+    """The port's MS-TCT driver in process, ``-e -d`` at ``dtype`` on the
+    card, from weights made from its seed: ms per video, frames/s over the
+    test videos, K7 launches (8 per video evaluated), peak device memory,
+    the test mAP (random weights: a number, not a bound) and both dumps."""
+    from computervision_codes_tpu_torch.cli import temporal_mstct
+    from computervision_codes_tpu_torch.data.feature_store import (
+        FeatureStore)
+
+    version = f"mstct_{dtype}"
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches()
+    t0 = time.perf_counter()
+    result = temporal_mstct.main(
+        ["--data_dir", root, "--ckpt_root", root + "/ckpt", "--version",
+         version, "--dtype", dtype, "--device", DEVICE, "-e", "-d"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    count = launched_since(before)
+    evaluated = len(split.test) + len(split.all_videos)
+    want = dict.fromkeys(KERNELS, 0) | {
+        "attention": MSTCT_LAUNCHES * evaluated}
+    check(count == want, f"MS-TCT driver {dtype}: launches {count}, want "
+                         f"{want}")
+    test_ms = result["eval_ms"]["test"]
+    frames = sum(lengths[v] for v in split.test)
+    fps = frames / (sum(test_ms.values()) / 1e3)
+    check(np.isfinite(result["test_mAP"]), f"MS-TCT {dtype}: test mAP "
+                                           f"{result['test_mAP']}")
+    store = FeatureStore(root + "/data_feats", version)
+    for kind, width in (("feats", MSTCT_EMBED), ("pred", MSTCT_CLASSES)):
+        dump = store.load(1, kind, task="ivt")
+        check(set(dump) == {v[3:] for v in split.all_videos},
+              f"MS-TCT {dtype} {kind} dump: videos {sorted(dump)}")
+        for v in split.all_videos:
+            a = dump[v[3:]]
+            check(a.shape == (lengths[v], width) and bool(
+                np.isfinite(a).all()), f"MS-TCT {dtype} {kind} {v}: shape "
+                                       f"{a.shape} or non-finite")
+            if kind == "pred":
+                check(bool(((a >= 0) & (a <= 1)).all()),
+                      f"MS-TCT {dtype} pred {v}: outside [0, 1]")
+    print(f"[mstct] driver -e -d --dtype {dtype} on the card: test videos "
+          f"(frames: ms) " + ", ".join(
+              f"{lengths[v]}: {test_ms[v]:.2f}" for v in split.test)
+          + f"; {frames} test frames in {sum(test_ms.values()):.2f} ms = "
+          f"{fps:.1f} frames/s; dump of {len(split.all_videos)} videos in "
+          f"{sum(result['eval_ms']['dump'].values()):.2f} ms; K7 launches "
+          f"{count['attention']} ({MSTCT_LAUNCHES} x {evaluated} videos); "
+          f"device memory: the run adds up to {(peak - resident) / 2**30:.2f}"
+          f" GiB, peak {peak / 2**30:.2f} GiB (the serving sessions of "
+          f"phases 5-7 resident); test mAP[ivt] "
+          f"{result['test_mAP']:.4f} (random weights); dumps k1_ivt_feats "
+          f"(T, {MSTCT_EMBED}) and k1_ivt_pred (T, {MSTCT_CLASSES}) finite "
+          f"for all {len(split.all_videos)} videos; {wall:.2f} s wall with "
+          f"the tree's loading and the pickles; {card}")
+
+
+def kernel_category(name: str) -> str:
+    low = name.lower()
+    if "attn_bf16_kernel" in name or "attn_f32_kernel" in name:
+        return "K7 attention"
+    if "conv" in low:
+        return "depthwise convolutions"
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
+        return "GEMMs (cuBLAS)"
+    return "elementwise and reductions (LayerNorm, GELU, adds, casts)"
+
+
+def phase_mstct_breakdown(card: str) -> None:
+    """One forward of the full-width MSTCT on the longest test video in
+    each dtype: device ms by kernel category and the device busy share
+    from torch.profiler, then ms by module type from CUDA events around
+    each Dense, conv and LayerNorm (with the gaps between their kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from computervision_codes_tpu_torch.models.common import (
+        Dense, LayerNorm, TemporalConv)
+    from computervision_codes_tpu_torch.models.mstct import MSTCT
+
+    t = max(MSTCT_TEST_LENGTHS)
+    x = torch.randn(1, t, MSTCT_IN,
+                    generator=torch.Generator(device=DEVICE).manual_seed(7),
+                    device=DEVICE)
+    kinds = {Dense: "Dense", TemporalConv: "TemporalConv (merge GEMM form, "
+             "depthwise)", LayerNorm: "LayerNorm"}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = f"MSTCT {str(dtype)[6:]} forward of {t} frames"
+        model = MSTCT(MSTCT_IN, dtype=dtype,
+                      generator=torch.Generator().manual_seed(0),
+                      **MSTCT_KW).to(DEVICE).eval()
+        with torch.inference_mode():
+            model(x)  # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        cats, rows = {}, []
+        for evt in prof.key_averages():
+            if not str(evt.device_type).endswith("CUDA"):
+                continue
+            dev_ms = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0)) / 1e3
+            cat = kernel_category(evt.key)
+            cats[cat] = cats.get(cat, 0.0) + dev_ms
+            rows.append((dev_ms, evt.count, evt.key[:70]))
+        busy = sum(cats.values())
+        print(f"[breakdown] {label} under torch.profiler: {wall_ms:.3f} ms "
+              f"wall, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%"
+              f"); device ms by kind: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      cats.items(), key=lambda kv: -kv[1])) + f"; {card}")
+        for dev_ms, count, name in sorted(rows, reverse=True)[:10]:
+            print(f"[breakdown]   {dev_ms:9.3f} ms  x{count:<5d} {name}")
+
+        spans = []  # [kind, start event, end event], in call order
+
+        def pre(mod, args, kind):
+            spans.append([kind, torch.cuda.Event(enable_timing=True), None])
+            spans[-1][1].record()
+
+        def post(mod, args, out):
+            span = next(s for s in reversed(spans) if s[2] is None)
+            span[2] = torch.cuda.Event(enable_timing=True)
+            span[2].record()
+
+        hooks = [h for mod in model.modules() if type(mod) in kinds
+                 for h in (mod.register_forward_pre_hook(functools.partial(
+                     pre, kind=kinds[type(mod)])),
+                           mod.register_forward_hook(post))]
+        with torch.inference_mode():
+            _, fwd_ms = timed_call(lambda: model(x))
+        for h in hooks:
+            h.remove()
+        parts = {}
+        for kind, a, b in spans:
+            parts[kind] = parts.get(kind, 0.0) + a.elapsed_time(b)
+        print(f"[breakdown] {label}: {fwd_ms:.3f} ms (CUDA events, module "
+              f"hooks on); by module type " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in parts.items())
+              + f", everything else (K7 and the GELU and adds between) "
+              f"{fwd_ms - sum(parts.values()):.3f} ms; {card}")
+        del model
+
+
+def host_ms(fn) -> float:
+    """Host-clock ms of one call of ``fn`` up to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_mstct_new_lengths(card: str) -> None:
+    """The fixed cost of a sequence length not seen before, which the
+    driver pays once per video: one MSTCT forward at a new length against
+    the same length again, and the first merge convolution (1536 -> 256,
+    k 3) alone as cuDNN's ``F.conv1d`` and as the port's GEMM form, each at
+    a new length and again (host clock to a synchronise); then the host
+    time by op of a forward at a new length and again (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from computervision_codes_tpu_torch.models.common import TemporalConv
+    from computervision_codes_tpu_torch.models.mstct import MSTCT
+
+    fresh = iter(range(4321, 4400))
+    for dtype in (torch.float32, torch.bfloat16):
+        model = MSTCT(MSTCT_IN, dtype=dtype,
+                      generator=torch.Generator().manual_seed(0),
+                      **MSTCT_KW).to(DEVICE).eval()
+        conv = TemporalConv(MSTCT_IN, 256, 3, dtype=dtype).to(DEVICE)
+        w = conv.weight.to(dtype)
+        readings = {}
+        with torch.inference_mode():
+            model(torch.randn(1, 999, MSTCT_IN, device=DEVICE))  # warm-up
+            for what, fn in (
+                    ("forward", model),
+                    ("merge conv, cuDNN", lambda x: F.conv1d(
+                        x.to(dtype).transpose(1, 2), w, padding=1)),
+                    ("merge conv, GEMM form", conv)):
+                x = torch.randn(1, next(fresh), MSTCT_IN, device=DEVICE)
+                readings[what] = [round(host_ms(lambda: fn(x)), 3)
+                                  for _ in range(2)]
+            x = torch.randn(1, next(fresh), MSTCT_IN, device=DEVICE)
+            host = []
+            for _ in range(2):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    model(x)
+                    torch.cuda.synchronize()
+                rows = sorted(prof.key_averages(),
+                              key=lambda e: -e.self_cpu_time_total)
+                host.append((sum(e.self_cpu_time_total for e in rows) / 1e3,
+                             [(e.key, e.count,
+                               round(e.self_cpu_time_total / 1e3, 3))
+                              for e in rows[:4]]))
+        print(f"[mstct] {str(dtype)[6:]} at a new length, then the same "
+              f"again (ms, host clock): " + ", ".join(
+                  f"{k} {v[0]} then {v[1]}" for k, v in readings.items())
+              + f"; {card}")
+        for label, (total, top) in zip(("new length", "again"), host):
+            print(f"[mstct] {str(dtype)[6:]} forward at {x.shape[1]} "
+                  f"frames, {label}: host time {total:.3f} ms under "
+                  f"torch.profiler; top ops by self host ms (op, calls, ms)"
+                  f" {top}; {card}")
+        del model, conv
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -1506,11 +1937,13 @@ def main() -> None:
                 "window_mhsa": phase_k3(card),
                 "mlp_block": phase_k4(card),
                 "swin_block": phase_k5(card),
-                **phase_q8(card)}
+                **phase_q8(card),
+                "attention": phase_k7(card)}
     measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
     phase_model_int8()
     phase_model_teacher_int8(phase_model_teacher())
+    phase_model_mstct()
 
     # the main path: the serving entry points at the serving geometry,
     # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
@@ -1540,9 +1973,18 @@ def main() -> None:
         "bf16": (TEACHER_LAUNCHES, {}),
         "int8": (TEACHER_Q8_LAUNCHES, {"quantize": True})})
     teacher = launches()
-    total = {name: student[name] + teacher[name] for name in KERNELS}
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        split, lengths = mstct_tree(root)
+        for fn in kernel_wrappers().values():
+            fn.launches = 0  # the MS-TCT driver's main path starts here
+        for dtype in ("float32", "bfloat16"):
+            phase_mstct(card, root, split, lengths, dtype)
+        mstct = launches()
+    total = {name: student[name] + teacher[name] + mstct[name]
+             for name in KERNELS}
     print(f"[main path] launches: student sessions {student}, teacher "
-          f"sessions (creation and predicts) {teacher}")
+          f"sessions (creation and predicts) {teacher}, MS-TCT driver "
+          f"(-e -d, float32 and bfloat16) {mstct}")
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")
@@ -1551,6 +1993,9 @@ def main() -> None:
     phase_breakdown(card, offline, clips, streaming)
     for label, sess in teachers.items():
         teacher_breakdown(card, label, sess, frames)
+    del teachers, offline, streaming
+    phase_mstct_breakdown(card)
+    phase_mstct_new_lengths(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",

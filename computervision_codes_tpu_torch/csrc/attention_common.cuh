@@ -1,0 +1,490 @@
+// Streaming full attention over (B, H, T, D), written by hand for Hopper
+// (sm_90a). K7 (attention.cu) exports it; the streaming forward of the
+// flash-attention kernels (K8) is the same loop with the row logsumexp
+// written out.
+//
+// Replaces the TPU kernel computervision_codes_tpu/ops/attention.py
+// ``attention_pallas`` (``_attn_kernel``): out = softmax((q * D^-1/2) k^T) v
+// with the scores, the softmax and the PV sum in float32 and one rounding to
+// the input dtype at the output; keys at or past Tk are masked. The TPU
+// kernel holds a head's whole K and V in VMEM; here one head's K at
+// T = 8192, D = 108 is 1.7 MB of bf16, far above a block's 227 KB of shared
+// memory. So each block takes BM = 64 query rows of one (batch, head) and
+// streams K and V through shared memory in tiles of BN = 64 keys with an
+// online softmax (running row max and sum in float32): no T x T buffer
+// exists anywhere, and one launch covers every (batch, head).
+//
+// What bounds it on the H100: at D = 32 and 48 the exponentials (one per
+// score, H * Tq * Tk of them, on the SFUs), at larger D in bf16 the tensor
+// cores (4 * Tq * Tk * D operations per head), in float32 the FMA pipes.
+// The bytes (q, k, v read once, the output written once) are far below
+// either. The design keeps the per-score work in registers: no score or
+// weight tile goes through device memory, and in bf16 not even through
+// shared memory.
+//
+// bf16 (attn_bf16_kernel): 4 warps, 16 query rows each. QK^T and PV run on
+// the tensor cores as mma.sync m16n8k16 bf16 x bf16 -> f32, fed by
+// ldmatrix from shared memory (K and V double-buffered through cp.async).
+// The product q.k is exact in float32 and scaled afterwards, (q.k) * s
+// rather than (q * s).k: the two differ by float32 rounding only. The
+// softmax weights exp(s - m) are rounded to bf16 before the PV product (as
+// FlashAttention does; the TPU kernel keeps them in float32), and the row
+// sum adds the rounded weights, so each output is a weighted mean of v
+// with bf16 weights: within about 2^-9 of max|v| of the float32 result.
+// D is zero-padded to a multiple of 16 in shared memory (108 -> 112).
+//
+// float32 (attn_f32_kernel): plain FMA, so float32 stays float32. q is
+// scaled in float32 as the TPU kernel does; each thread holds a 4 x 8 score
+// tile and a 4 x 2*NJ output tile, the weights pass through shared memory
+// between the two products, and K and V are single-buffered (two blocks
+// share an SM, and one's loads overlap the other's products).
+//
+// Loads: rows are read through their strides (the head dim contiguous), in
+// the widest copy that every base address and row stride allows (16, 8 or
+// 4 bytes through cp.async with zero fill past T; bf16 rows of odd length
+// element by element), so a bf16 row of D = 108 (216 bytes, 8-byte
+// aligned) needs no padded copy. Columns D..Dpad of every tile are zero.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace attn {
+
+constexpr int BM = 64;        // query rows per block
+constexpr int BN = 64;        // keys per tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int D_MAX = 128;
+
+struct Strides {
+  long long b, h, t;  // element strides; the head dim is contiguous
+};
+
+struct Problem {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, H, Tq, Tk, D;
+  Strides sq, sk, sv, so;
+  int vb;       // bytes per copy: 16, 8, 4, or 2 (bf16 element by element)
+  float scale;  // D^-1/2
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy one chunk of ``vb`` bytes global -> shared, or zeros when !valid.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, bool valid,
+                                           int vb) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? vb : 0;
+  if (vb == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else if (vb == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else if (vb == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  } else {  // 2 bytes: one bf16, a plain load
+    *reinterpret_cast<uint16_t*>(dst) =
+        valid ? *reinterpret_cast<const uint16_t*>(src) : uint16_t(0);
+  }
+}
+
+// Rows [row0, row0 + 64) of a (rows_total, D) matrix with row stride
+// ``stride`` into shared memory at row stride ``ld``; rows past rows_total
+// are zero. Columns [D, ld) are not touched.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* smem, int ld, const T* base,
+                                          long long stride, int row0,
+                                          int rows_total, int D, int vb) {
+  const int ve = vb / (int)sizeof(T);  // elements per chunk
+  const int cpr = D / ve;              // chunks per row
+  for (int i = threadIdx.x; i < BN * cpr; i += THREADS) {
+    const int r = i / cpr;
+    const int c = (i - r * cpr) * ve;
+    const int row = row0 + r;
+    const bool valid = row < rows_total;
+    copy_chunk(smem + r * ld + c, base + (valid ? row : 0) * stride + c,
+               valid, vb);
+  }
+}
+
+// Zero columns [D, dp) of ``rows`` rows at row stride ``ld``.
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* smem, int ld, int rows, int D,
+                                         int dp) {
+  const int w = dp - D;
+  for (int i = threadIdx.x; i < rows * w; i += THREADS)
+    smem[(i / w) * ld + D + i % w] = from_f<T>(0.0f);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync m16n8k16, DK = Dpad / 16 k-steps of the head dim.
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi,
+                                              float* sum) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  *sum += __low2float(p) + __high2float(p);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int DK>
+struct Bf16Tiles {
+  static constexpr int DP = 16 * DK;
+  static constexpr int LD = DP + 8;  // 16-byte pad: conflict-free ldmatrix
+  static constexpr size_t smem() {   // Q, then (K, V) twice
+    return (size_t)(BM + 4 * BN) * LD * sizeof(__nv_bfloat16);
+  }
+};
+
+template <int DK>
+__global__ void __launch_bounds__(THREADS) attn_bf16_kernel(Problem p) {
+  using T = __nv_bfloat16;
+  using Tiles = Bf16Tiles<DK>;
+  constexpr int LD = Tiles::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  auto Ks = [&](int s) { return Qs + BM * LD + s * 2 * BN * LD; };
+  auto Vs = [&](int s) { return Ks(s) + BN * LD; };
+
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int q0 = blockIdx.x * BM;
+  const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+  T* og = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
+  const int ntiles = (p.Tk + BN - 1) / BN;
+
+  zero_pad(Qs, LD, BM + 4 * BN, p.D, Tiles::DP);
+  load_tile(Qs, LD, qg, p.sq.t, q0, p.Tq, p.D, p.vb);
+  load_tile(Ks(0), LD, kg, p.sk.t, 0, p.Tk, p.D, p.vb);
+  load_tile(Vs(0), LD, vg, p.sv.t, 0, p.Tk, p.D, p.vb);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float sl2 = p.scale * 1.4426950408889634f;  // exp(x) = exp2(x log2e)
+  uint32_t qa[DK][4];
+  float o[2 * DK][4];
+#pragma unroll
+  for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < ntiles) {  // prefetch the next tile into the other buffer
+      load_tile(Ks(cur ^ 1), LD, kg, p.sk.t, (j + 1) * BN, p.Tk, p.D, p.vb);
+      load_tile(Vs(cur ^ 1), LD, vg, p.sv.t, (j + 1) * BN, p.Tk, p.D, p.vb);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the prefetch has landed
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+        ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    const T* Kt = Ks(cur);
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qa[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+      }
+
+    // scale (log2 domain), mask keys past Tk, online softmax
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * BN + n * 8 + 2 * t4 + (e & 1);
+        s[n][e] = col < p.Tk ? s[n][e] * sl2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);  // finite: the tile has a key
+      alpha[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+    }
+    // P = exp2(s - m) rounded to bf16, straight into A fragments of 16 keys
+    uint32_t pa[4][4];
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint32_t lo = pack_bf16(exp2f(s[n][0] - m[0]),
+                                    exp2f(s[n][1] - m[0]), &rs[0]);
+      const uint32_t hi = pack_bf16(exp2f(s[n][2] - m[1]),
+                                    exp2f(s[n][3] - m[1]), &rs[1]);
+      pa[n >> 1][(n & 1) * 2] = lo;
+      pa[n >> 1][(n & 1) * 2 + 1] = hi;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < 2 * DK; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // O += P V
+    const T* Vt = Vs(cur);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int dp = 0; dp < DK; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, Vt + (kc * 16 + ((lane >> 3) & 1) * 8 +
+                                    (lane & 7)) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa[kc], bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa[kc], bv[2], bv[3]);
+      }
+    __syncthreads();  // the buffer is refilled by the next prefetch
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // row sums over the 4 threads of a row
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * DK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = q0 + warp * 16 + g + 8 * (e >> 1);
+      const int col = n * 8 + 2 * t4 + (e & 1);
+      if (row < p.Tq && col < p.D)
+        og[row * p.so.t + col] = from_f<T>(o[n][e] / l[e >> 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMA. NJ = Dpad / 16; thread (ty, tx) = (tid / 8, tid % 8) owns
+// query rows ty + 16 i (i < 4), score columns tx + 8 j (j < 8) and output
+// columns 2 tx + 16 jj + {0, 1} (jj < NJ).
+
+template <int NJ>
+struct F32Tiles {
+  static constexpr int DP = 16 * NJ;
+  static constexpr int LD = DP + 4;   // LD / 4 odd: conflict-free float4 rows
+  static constexpr int LDP = BN + 4;  // the weight tile
+  static constexpr size_t smem() {    // Q, K, V, P
+    return ((size_t)(BM + 2 * BN) * LD + (size_t)BM * LDP) * sizeof(float);
+  }
+};
+
+template <int NJ>
+__global__ void __launch_bounds__(THREADS) attn_f32_kernel(Problem p) {
+  using Tiles = F32Tiles<NJ>;
+  constexpr int LD = Tiles::LD, LDP = Tiles::LDP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + BM * LD;
+  float* Vs = Ks + BN * LD;
+  float* Ps = Vs + BN * LD;
+
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int q0 = blockIdx.x * BM;
+  const float* qg = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
+  float* og = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
+  const int ntiles = (p.Tk + BN - 1) / BN;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+
+  zero_pad(Qs, LD, BM + 2 * BN, p.D, Tiles::DP);
+  load_tile(Qs, LD, qg, p.sq.t, q0, p.Tq, p.D, p.vb);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * p.D; i += THREADS)
+    Qs[(i / p.D) * LD + i % p.D] *= p.scale;  // q * scale in float32
+
+  float o[4][NJ][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) o[i][jj][0] = o[i][jj][1] = 0.0f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+  }
+
+  for (int j = 0; j < ntiles; ++j) {
+    load_tile(Ks, LD, kg, p.sk.t, j * BN, p.Tk, p.D, p.vb);
+    load_tile(Vs, LD, vg, p.sv.t, j * BN, p.Tk, p.D, p.vb);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
+#pragma unroll 2
+    for (int d = 0; d < Tiles::DP; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(Ks + (tx + 8 * c) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][c] = fmaf(qv[i].x, kv.x, s[i][c]);
+          s[i][c] = fmaf(qv[i].y, kv.y, s[i][c]);
+          s[i][c] = fmaf(qv[i].z, kv.z, s[i][c]);
+          s[i][c] = fmaf(qv[i].w, kv.w, s[i][c]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (j * BN + tx + 8 * c >= p.Tk) s[i][c] = -INFINITY;
+        mx = fmaxf(mx, s[i][c]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - mn);
+      m[i] = mn;
+      float rs = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float e = expf(s[i][c] - mn);
+        Ps[(ty + 16 * i) * LDP + tx + 8 * c] = e;
+        rs += e;
+      }
+      l[i] = l[i] * alpha + rs;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        o[i][jj][0] *= alpha;
+        o[i][jj][1] *= alpha;
+      }
+    }
+    __syncthreads();
+
+    // O += P V (keys past Tk have weight 0 and zero rows of V)
+#pragma unroll 1
+    for (int kk = 0; kk < BN; kk += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LDP +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const float2 vv = *reinterpret_cast<const float2*>(
+              Vs + (kk + u) * LD + 2 * tx + 16 * jj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pw = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                           : u == 2 ? pv[i].z : pv[i].w;
+            o[i][jj][0] = fmaf(pw, vv.x, o[i][jj][0]);
+            o[i][jj][1] = fmaf(pw, vv.y, o[i][jj][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // K, V and P are refilled next tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.Tq) continue;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 2 * tx + 16 * jj + e;
+        if (col < p.D) og[row * p.so.t + col] = o[i][jj][e] / l[i];
+      }
+  }
+}
+
+}  // namespace attn

@@ -269,6 +269,10 @@ def test_port_imports_no_jax():
                "models.position_encoding", "models.common",
                "ops.quant", "ops.stem_pool", "ops.dilated_conv",
                "ops.window_mhsa", "ops.mlp_block", "ops.swin_block",
+               "ops.attention", "models.mstct", "cli.common",
+               "cli.temporal_mstct", "data.bank", "data.splits",
+               "data.labels", "data.feature_store", "data.temporal",
+               "data.synthetic", "metrics.recognition",
                "train.checkpoint")
     code = ("import sys; "
             + "; ".join(f"import computervision_codes_tpu_torch.{m}"
