@@ -76,7 +76,8 @@ printing its own lines:
    Swin stage, norm and the Q2L transformer and heads of one predict of
    each teacher, and its device time by kernel from torch.profiler; one
    MSTCT forward on 6,000 frames in each dtype by kernel kind (K7, GEMMs,
-   convolutions, the rest) with the busy share, and by module type.
+   convolutions, the rest) with the busy share, and by module type; and a
+   forward at a length not run before against the same length again.
 
 Phases 5-6 (the student's main path), phase 7 (the teachers') and phase 8
 (MS-TCT's) each start with every launch count set to 0 and read them just
@@ -84,8 +85,9 @@ after, and each kernel must have launched on its path; K5's int8 branch
 runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
-H100's published peak for their type and its bytes at 3.35 TB/s), and the
-last line
+H100's published peak for their type and its bytes at 3.35 TB/s; K7's
+entry is bf16 at (1, 8, 8192, 108), with its float32 readings at that
+shape under ``float32``), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -1639,10 +1641,15 @@ def phase_k7(card: str) -> dict:
               f"{sums['kernel']:.4f} ms, plain {sums['plain']:.4f} ms, SDPA "
               f"{sums['sdpa']:.4f} ms, bound {sums['bound_ms']:.4f} ms; "
               f"{card}")
-    top = times[torch.bfloat16, K7_DIMS[-1]]
-    return {"max_abs_err": main_err, "ms": top["kernel"],
-            "plain_ms": top["plain"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["sdpa"]}
+    # the entry's numbers are bf16 at D = 108; "float32" holds the float32
+    # ones at the same shape (the driver's default dtype)
+    readings = {dt: {"ms": r["kernel"], "plain_ms": r["plain"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["sdpa"]}
+                for dt in (torch.bfloat16, torch.float32)
+                for r in [times[dt, K7_DIMS[-1]]]}
+    return {"max_abs_err": main_err, **readings[torch.bfloat16],
+            "float32": readings[torch.float32]}
 
 
 def phase_model_mstct() -> None:
@@ -1777,11 +1784,22 @@ def kernel_category(name: str) -> str:
     return "elementwise and reductions (LayerNorm, GELU, adds, casts)"
 
 
+def host_ms(fn) -> float:
+    """Host-clock ms of one call of ``fn`` up to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def phase_mstct_breakdown(card: str) -> None:
     """One forward of the full-width MSTCT on the longest test video in
     each dtype: device ms by kernel category and the device busy share
     from torch.profiler, then ms by module type from CUDA events around
-    each Dense, conv and LayerNorm (with the gaps between their kernels)."""
+    each Dense, conv and LayerNorm (with the gaps between their kernels);
+    and the fixed cost of a length not run before, which the driver pays
+    once per video: a forward at such a length, then at it again."""
     from torch.profiler import ProfilerActivity, profile
 
     from computervision_codes_tpu_torch.models.common import (
@@ -1801,6 +1819,8 @@ def phase_mstct_breakdown(card: str) -> None:
                       **MSTCT_KW).to(DEVICE).eval()
         with torch.inference_mode():
             model(x)  # warm-up
+            x_new = x[:, :t - 1]  # a length no earlier phase ran
+            new_ms = [host_ms(lambda: model(x_new)) for _ in range(2)]
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1825,6 +1845,10 @@ def phase_mstct_breakdown(card: str) -> None:
                       cats.items(), key=lambda kv: -kv[1])) + f"; {card}")
         for dev_ms, count, name in sorted(rows, reverse=True)[:10]:
             print(f"[breakdown]   {dev_ms:9.3f} ms  x{count:<5d} {name}")
+        print(f"[breakdown] MSTCT {str(dtype)[6:]} forward at {t - 1} "
+              f"frames, a length not run before: {new_ms[0]:.3f} ms, then "
+              f"{new_ms[1]:.3f} ms at it again (host clock to a "
+              f"synchronise); {card}")
 
         spans = []  # [kind, start event, end event], in call order
 
@@ -1854,70 +1878,6 @@ def phase_mstct_breakdown(card: str) -> None:
               + f", everything else (K7 and the GELU and adds between) "
               f"{fwd_ms - sum(parts.values()):.3f} ms; {card}")
         del model
-
-
-def host_ms(fn) -> float:
-    """Host-clock ms of one call of ``fn`` up to a synchronise."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
-
-
-def phase_mstct_new_lengths(card: str) -> None:
-    """The fixed cost of a sequence length not seen before, which the
-    driver pays once per video: one MSTCT forward at a new length against
-    the same length again, and the first merge convolution (1536 -> 256,
-    k 3) alone as cuDNN's ``F.conv1d`` and as the port's GEMM form, each at
-    a new length and again (host clock to a synchronise); then the host
-    time by op of a forward at a new length and again (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from computervision_codes_tpu_torch.models.common import TemporalConv
-    from computervision_codes_tpu_torch.models.mstct import MSTCT
-
-    fresh = iter(range(4321, 4400))
-    for dtype in (torch.float32, torch.bfloat16):
-        model = MSTCT(MSTCT_IN, dtype=dtype,
-                      generator=torch.Generator().manual_seed(0),
-                      **MSTCT_KW).to(DEVICE).eval()
-        conv = TemporalConv(MSTCT_IN, 256, 3, dtype=dtype).to(DEVICE)
-        w = conv.weight.to(dtype)
-        readings = {}
-        with torch.inference_mode():
-            model(torch.randn(1, 999, MSTCT_IN, device=DEVICE))  # warm-up
-            for what, fn in (
-                    ("forward", model),
-                    ("merge conv, cuDNN", lambda x: F.conv1d(
-                        x.to(dtype).transpose(1, 2), w, padding=1)),
-                    ("merge conv, GEMM form", conv)):
-                x = torch.randn(1, next(fresh), MSTCT_IN, device=DEVICE)
-                readings[what] = [round(host_ms(lambda: fn(x)), 3)
-                                  for _ in range(2)]
-            x = torch.randn(1, next(fresh), MSTCT_IN, device=DEVICE)
-            host = []
-            for _ in range(2):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    model(x)
-                    torch.cuda.synchronize()
-                rows = sorted(prof.key_averages(),
-                              key=lambda e: -e.self_cpu_time_total)
-                host.append((sum(e.self_cpu_time_total for e in rows) / 1e3,
-                             [(e.key, e.count,
-                               round(e.self_cpu_time_total / 1e3, 3))
-                              for e in rows[:4]]))
-        print(f"[mstct] {str(dtype)[6:]} at a new length, then the same "
-              f"again (ms, host clock): " + ", ".join(
-                  f"{k} {v[0]} then {v[1]}" for k, v in readings.items())
-              + f"; {card}")
-        for label, (total, top) in zip(("new length", "again"), host):
-            print(f"[mstct] {str(dtype)[6:]} forward at {x.shape[1]} "
-                  f"frames, {label}: host time {total:.3f} ms under "
-                  f"torch.profiler; top ops by self host ms (op, calls, ms)"
-                  f" {top}; {card}")
-        del model, conv
 
 
 def main() -> None:
@@ -1995,7 +1955,6 @@ def main() -> None:
         teacher_breakdown(card, label, sess, frames)
     del teachers, offline, streaming
     phase_mstct_breakdown(card)
-    phase_mstct_new_lengths(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",

@@ -68,37 +68,38 @@ class Dense(nn.Module):
 class TemporalConv(nn.Module):
     """flax ``nn.Conv(cout, (k,), padding=k // 2, feature_group_count=
     groups)`` over (B, T, C) in the compute dtype: the convolution rounds
-    to the dtype, then the bias is added in it, as flax does. ``weight`` is
-    (Cout, Cin / groups, k), as ``torch.nn.Conv1d``; lecun-normal init with
-    zero bias, as flax's defaults.
+    to the dtype, then the bias is added in it, as flax does. ``kernel`` is
+    (k, Cin / groups, Cout), flax's layout; lecun-normal init with zero
+    bias, as flax's defaults.
 
     A dense convolution (groups 1) runs as one GEMM over the k shifted
-    copies of x side by side, (B, T, k Cin) @ (k Cin, Cout), with the
-    float32 sums a convolution takes: on the card cuBLAS, not cuDNN, which
-    would plan anew for every sequence length. A grouped one (MS-TCT's
-    depthwise ``tc``) runs as ``F.conv1d``."""
+    copies of x side by side, (B, T, k Cin) @ (k Cin, Cout), the kernel's
+    reshape a view, with the float32 sums a convolution takes: on the card
+    cuBLAS, not cuDNN, which plans anew for every sequence length (the
+    driver's every video; ``scripts/mstct_merge_conv_probe.py``). A grouped
+    one (MS-TCT's depthwise ``tc``) runs as ``F.conv1d``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  groups: int = 1, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype, self.groups = dtype, groups
-        w = torch.empty(cout, cin // groups, kernel)
+        w = torch.empty(kernel, cin // groups, cout)
         lecun_normal_(w, kernel * (cin // groups), generator)
-        self.weight = nn.Parameter(w)
+        self.kernel = nn.Parameter(w)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        x, w = x.to(self.dtype), self.weight.to(self.dtype)
-        k = w.shape[-1]
+        x, w = x.to(self.dtype), self.kernel.to(self.dtype)
+        k, cout = w.shape[0], w.shape[-1]
         if self.groups == 1:
             t = x.shape[1]
             xp = F.pad(x, (0, 0, k // 2, k // 2))  # pads time
             cols = torch.cat([xp[:, i:i + t] for i in range(k)], dim=-1)
-            y = cols @ w.permute(2, 1, 0).reshape(-1, w.shape[0])
+            y = cols @ w.reshape(-1, cout)
         else:
-            y = F.conv1d(x.transpose(1, 2), w, padding=k // 2,
-                         groups=self.groups).transpose(1, 2)
+            y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0),
+                         padding=k // 2, groups=self.groups).transpose(1, 2)
         return y + self.bias.to(self.dtype)
 
 

@@ -13,11 +13,10 @@ the flax names its children carry:
 * a conv with a bias (Swin's ``patch_embed``) reads ``bias`` too;
 * 1x1 ``nn.Conv`` over time (``pg_conv_in``, ``latlayer1``, ``head_*``):
   ``kernel`` (1, Cin, Cout) -> weight (Cout, Cin), plus ``bias``;
-* any other 1-D ``nn.Conv`` (MS-TCT's k3 ``merge*/proj`` and depthwise
-  ``lrb/tc``, ``TemporalConv``): ``kernel`` (k, Cin / groups, Cout) ->
-  weight (Cout, Cin / groups, k), plus ``bias``;
 * every other parameter is read by its own name and keeps the JAX layout:
-  ``Dense`` ``kernel`` (in, out) and ``bias``, ``LayerNorm`` ``scale`` and
+  ``Dense`` ``kernel`` (in, out) and ``bias``, any other 1-D ``nn.Conv``
+  (MS-TCT's k3 ``merge*/proj`` and depthwise ``lrb/tc``, ``TemporalConv``)
+  ``kernel`` (k, Cin / groups, Cout) and ``bias``, ``LayerNorm`` ``scale`` and
   ``bias``, the dilated layers' ``w_taps, b1, w2, b2``, and raw params
   such as ``relative_position_bias_table``, ``query_embed_*`` and
   ``fc_*/{W,b}`` (the ``Mlp`` children are named ``Dense_0``/``Dense_1``,
@@ -42,7 +41,6 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .common import TemporalConv
 from .quantized import QConv
 from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
 from .tcn import Conv1x1
@@ -98,13 +96,6 @@ class _Loader:
                 raise ValueError(f"{name}: kernel {kernel.shape} is not a "
                                  f"(1, Cin, Cout) 1x1 conv")
             self.put(module.weight, kernel[0].T, name)
-            self.put(module.bias, self.get("params", p("bias")), name)
-        elif isinstance(module, TemporalConv):
-            kernel = self.get("params", p("kernel"))  # (k, Cin/g, Cout)
-            if kernel.ndim != 3:
-                raise ValueError(f"{name}: kernel {kernel.shape} is not a "
-                                 f"(k, Cin/groups, Cout) 1-D conv")
-            self.put(module.weight, kernel.transpose(2, 1, 0), name)
             self.put(module.bias, self.get("params", p("bias")), name)
         elif isinstance(module, FrozenBatchNorm):
             for dst, key in (("weight", "scale"), ("bias", "bias"),

@@ -69,8 +69,7 @@ class GlobalRelationalBlock(nn.Module):
         def heads(a):  # (B, T, C) -> (B, H, T, D), a view
             return a.reshape(b, t, h, c // h).transpose(1, 2)
 
-        out = multi_head_attention(heads(q), heads(k), heads(v),
-                                   out_layout="bthd")
+        out = multi_head_attention(heads(q), heads(k), heads(v))
         return self.proj(out.transpose(1, 2).reshape(b, t, c))
 
 

@@ -17,8 +17,9 @@ as FMA.
 
 The kernel reads q, k and v through their strides (the head dim must be
 contiguous), so MS-TCT passes its (B, T, H, D) projections as (B, H, T, D)
-views without copies, and ``attention_cuda(..., out_layout="bthd")``
-writes the output so that its transpose back to (B, T, H * D) is a view.
+views without copies, and the kernel writes its (B, H, Tq, D) output into
+(B, Tq, H, D) memory, so that the merge of the heads back to
+(B, Tq, H * D) is a view.
 
 ``multi_head_attention`` dispatches on the device: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel, anything else raises.
@@ -76,14 +77,14 @@ def _vector_bytes(tensors, es: int) -> int:
     return es
 
 
-def attention_cuda(q, k, v, out_layout: str = "bhtd"):
+def attention_cuda(q, k, v):
     """Launch the CUDA kernel on q's device and current stream.
 
     q (B, H, Tq, D), k and v (B, H, Tk, D), float32 or bfloat16, one dtype
     on one CUDA device, any strides with the last dim contiguous; D <= 128.
-    Returns (B, H, Tq, D); with ``out_layout="bthd"`` its memory is
-    (B, Tq, H, D), so ``out.transpose(1, 2)`` is contiguous. ``launches``
-    counts the kernel launches made through this wrapper.
+    Returns (B, H, Tq, D) whose memory is (B, Tq, H, D), so
+    ``out.transpose(1, 2)`` is contiguous. ``launches`` counts the kernel
+    launches made through this wrapper.
     """
     if q.device.type != "cuda":
         raise ValueError(f"attention_cuda needs CUDA tensors, got {q.device}")
@@ -106,15 +107,9 @@ def attention_cuda(q, k, v, out_layout: str = "bhtd"):
     if not 1 <= d <= _D_MAX or tq < 1 or tk < 1:
         raise ValueError(f"attention kernel needs 1 <= D <= {_D_MAX} and "
                          f"T >= 1, got D={d}, Tq={tq}, Tk={tk}")
-    if out_layout not in ("bhtd", "bthd"):
-        raise ValueError(f"out_layout must be 'bhtd' or 'bthd', got "
-                         f"{out_layout!r}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    if out_layout == "bthd":
-        out = torch.empty(b, tq, h, d, dtype=q.dtype,
-                          device=q.device).transpose(1, 2)
-    else:
-        out = torch.empty(b, h, tq, d, dtype=q.dtype, device=q.device)
+    out = torch.empty(b, tq, h, d, dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
     vb = _vector_bytes((q, k, v), q.element_size())
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     fn = _launch_fn()
@@ -133,32 +128,30 @@ def attention_cuda(q, k, v, out_layout: str = "bhtd"):
 attention_cuda.launches = 0
 
 
-def _forward(q, k, v, out_layout):
+def _forward(q, k, v):
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
     if q.device.type == "cuda":
-        return attention_cuda(q, k, v, out_layout)
+        return attention_cuda(q, k, v)
     raise ValueError(f"multi_head_attention runs on CPU (plain version) or "
                      f"CUDA (kernel) tensors, got {q.device}")
 
 
 class _MultiHeadAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, out_layout):
+    def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, out_layout)
+        return _forward(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
         inputs = [a.detach().requires_grad_() for a in ctx.saved_tensors]
         with torch.enable_grad():
             out = attention_reference(*inputs)
-        return (*torch.autograd.grad(out, inputs, g), None)
+        return torch.autograd.grad(out, inputs, g)
 
 
-def multi_head_attention(q, k, v, out_layout: str = "bhtd"):
+def multi_head_attention(q, k, v):
     """Differentiable attention over (B, H, T, D): kernel forward on CUDA,
-    plain forward on CPU, backward through the plain version.
-    ``out_layout`` is the kernel's (the plain version returns a contiguous
-    (B, H, Tq, D))."""
-    return _MultiHeadAttention.apply(q, k, v, out_layout)
+    plain forward on CPU, backward through the plain version."""
+    return _MultiHeadAttention.apply(q, k, v)

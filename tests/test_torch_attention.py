@@ -85,7 +85,7 @@ def test_reference_matches_interpreted_tpu_kernel(rng, tq, tk, d):
 def test_multi_head_attention_cpu_takes_plain_version(rng):
     q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 2, 20, 20, 8))
     before = attention_cuda.launches
-    got = multi_head_attention(q, k, v, out_layout="bthd")
+    got = multi_head_attention(q, k, v)
     assert attention_cuda.launches == before
     torch.testing.assert_close(got, attention_reference(q, k, v), rtol=0,
                                atol=0)
@@ -112,7 +112,7 @@ def test_attention_cuda_rejects_what_it_does_not_take(rng):
     with pytest.raises(ValueError, match="CUDA"):
         attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CPU"):
-        attention._forward(q.to("meta"), q.to("meta"), q.to("meta"), "bhtd")
+        attention._forward(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
 def test_vector_bytes_follows_alignment():

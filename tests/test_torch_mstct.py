@@ -135,14 +135,13 @@ def test_mstct_matches_jax(rng, dtype):
         _close(g, w, rel, f"encoder stage {si}")
     _close(seen["mixer"], inner["mixer"]["__call__"][0], rel, "mixer")
     # every leaf used, every parameter filled (load_jax_variables raises
-    # otherwise), the 1-D conv kernels (k, Cin/g, Cout) -> (Cout, Cin/g, k)
+    # otherwise), the 1-D conv kernels in flax's (k, Cin/g, Cout) layout
     assert len(jax.tree.leaves(variables)) == len(list(tmod.parameters()))
     tc = np.asarray(variables["params"]["encoder"]["stage1_block0"]["lrb"]
                     ["tc"]["kernel"])
     assert tc.shape == (3, 1, 32)  # depthwise over 2 x 16 hidden channels
     np.testing.assert_array_equal(
-        tmod.encoder.stage1_block0.lrb.tc.weight.detach().numpy(),
-        tc.transpose(2, 1, 0))
+        tmod.encoder.stage1_block0.lrb.tc.kernel.detach().numpy(), tc)
     with pytest.raises(ValueError, match="shape"):
         load_jax_variables(mstct.MSTCT(IN_DIM + 1, dtype=tdt, **kw),
                            variables)
