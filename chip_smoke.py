@@ -13,7 +13,8 @@ printing its own lines:
    per source, all started together (timed, with ptxas' register and spill
    lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
    ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block`` (the int8 branches
-   of K3, K4 and K5 live in the same three sources), K7 ``attention``;
+   of K3, K4 and K5 live in the same three sources), K7 ``attention``, K9
+   ``fused_norm``, K10 ``window_attention``;
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -45,6 +46,19 @@ printing its own lines:
      float32 rounded once and (bf16) the plain version in bf16; its time
      at (1, 8, 8192, D) beside the plain version's, SDPA's (the yardstick
      only) and its bound;
+   - K9 (fused scale-bias-act) in bf16 and float32 at each of the seven
+     distinct shapes of TResNet-L-448 at B = 16 and both slopes, at ragged
+     shapes, on an odd-offset view and a channels_last map viewed as NHWC,
+     against the plain version in float32 rounded once (and a strided view
+     must raise); its time at each shape and summed over the 52 launches of
+     a predict, beside the plain version's and the bound;
+   - K10 (window attention) in bf16 and float32 at Swin-L-384's four stage
+     shapes, shifted and not, Swin-L-224's window-7 stage 0 and ragged
+     masks (nW < 8, N = 49), through both TPU entry points, against the
+     plain version in float32 rounded once and in bf16; its time at the
+     stage shapes and summed over the 24 launches of a forward, and in
+     float32 at stage 0, beside the plain version's, SDPA's (the yardstick
+     only) and its bound;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
@@ -53,8 +67,12 @@ printing its own lines:
    Q2L(swin_L_384_22k, "i") on the card against the CPU on one frame, and
    the same Q2L as the int8 teacher (``quant_eval``, ``s2d_embed``, Dense
    layers of >= 512 inputs on Q1, calibrated on the CPU) on the card
-   against the CPU, and the full-width float32 MSTCT on 1536-d features
-   on the card against the CPU on one 1,800-frame video;
+   against the CPU, the full-width float32 MSTCT on 1536-d features
+   on the card against the CPU on one 1,800-frame video, the full-width
+   float32 Q2L(tresnet_l, "i") (BatchNorm drawn from a seed) on one
+   448x448 frame and the full-width float32 Swin-L-384 with
+   ``use_fused_attn`` on one 384x384 frame, each on the card against the
+   CPU;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
@@ -65,7 +83,10 @@ printing its own lines:
    Q2L, bf16) and ``TeacherSession.create(quantize=True)`` (the int8
    teacher), predicting 16 uint8 frames of 384x384 in turns: launches per
    predict (bf16: K3 18, K4 20, K5 4; int8: K5 4, K3 int8 18, K4 int8 20,
-   Q1 26), ms, frames/s, peak device memory;
+   Q1 26), ms, frames/s, peak device memory; then path A,
+   ``TeacherSession(backbone="tresnet_l", img_size=448)`` in bf16 on 16
+   uint8 frames: K9 52 launches per predict and no other kernel, ms,
+   frames/s, device memory;
 8. the MS-TCT driver (``cli.temporal_mstct.main``) in process, ``-e -d``
    at float32 and at bfloat16 on a synthetic CholecT45 tree (the nine
    fold-1 test videos at 1,000-6,000 frames of random 1536-d features, the
@@ -77,11 +98,18 @@ printing its own lines:
    each teacher, and its device time by kernel from torch.profiler; one
    MSTCT forward on 6,000 frames in each dtype by kernel kind (K7, GEMMs,
    convolutions, the rest) with the busy share, and by module type; and a
-   forward at a length not run before against the same length again.
+   forward at a length not run before against the same length again;
+   input, stem, each stage and the Q2L head of one TResNet-L predict, its
+   device time by kernel and K9's share;
+10. path B, a configuration and not a serving path: the bf16 forward of 16
+   frames of 384x384 through ``build_swin("swin_L_384_22k",
+   use_fused_attn=True)``: K10 24 launches and no K3, K4 or K5, ms per
+   forward beside the default plan's at the same weights, in turns.
 
-Phases 5-6 (the student's main path), phase 7 (the teachers') and phase 8
-(MS-TCT's) each start with every launch count set to 0 and read them just
-after, and each kernel must have launched on its path; K5's int8 branch
+Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
+path A), phase 8 (MS-TCT's) and phase 10 (path B) each start with every
+launch count set to 0 and read them just after, and each kernel must have
+launched on its path; K5's int8 branch
 runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
@@ -126,9 +154,13 @@ KERNELS = {
     "swin_block_q8":
         "computervision_codes_tpu/ops/swin_block.py:76-78,94-96,107-111",
     "attention": "computervision_codes_tpu/ops/attention.py:61",
+    "fused_scale_bias_act": "computervision_codes_tpu/ops/fused_norm.py:44",
+    "window_attention":
+        "computervision_codes_tpu/ops/window_attention.py:57 + :107",
 }
 # the CUDA source of each (csrc/<source>.cu)
-SOURCES = {name: name.removesuffix("_q8") for name in KERNELS}
+SOURCES = {name: name.removesuffix("_q8") for name in KERNELS} | {
+    "fused_scale_bias_act": "fused_norm"}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # published H100 SXM peaks (dense): the bound of each kernel's work
 PEAK_BYTES_S = 3.35e12
@@ -248,6 +280,43 @@ MSTCT_TEST_LENGTHS = tuple(int(t) for t in np.linspace(1000, 6000, 9))
 MSTCT_OTHER_LENGTH = 64
 MSTCT_KW = {}  # MSTCT's defaults: the driver's full width
 MSTCT_CLASSES, MSTCT_EMBED = 100, 512
+# path A: TeacherSession(backbone="tresnet_l", img_size=448), bf16, B
+# uint8 frames per predict; K9 runs every activated ABN: 52 per forward
+# (stem 1, nine basic blocks 1 each, 21 bottlenecks 2 each)
+TRESNET, TRESNET_IMG, TRESNET_BATCH = "tresnet_l", 448, 16
+TRESNET_LAUNCHES = {"fused_scale_bias_act": 52}
+# K9 against its plain version evaluated in float32 from the same rounded
+# constants, rounded once: the same float32 operations in the same order
+# (no FMA contraction in the kernel), so bit for bit; the bounds, 1e-6 of
+# max|ref| in float32 and one bf16 ulp of it in bf16, would show a
+# contraction. Ragged shapes (B, H, W, C): C = 3, an odd row count at C =
+# 76, C not a multiple of 8 (20, 6: 8- and 4-byte loads), a thin batch
+K9_F32_REL, K9_BF16_ULPS = 1e-6, 1
+K9_RAGGED = [(3, 7, 5, 3), (1, 13, 11, 76), (2, 9, 7, 20), (2, 5, 3, 6),
+             (4, 3, 3, 608)]
+# path B: build_swin("swin_L_384_22k", use_fused_attn=True), a bf16 eval
+# forward of 16 frames: every block's attention core on K10, 24 launches
+# (2 + 2 + 18 + 2 blocks), no K3, K4 or K5
+SWIN_FUSED_LAUNCHES = {"window_attention": 24}
+SWIN_FUSED_CALLS = 3  # timed forwards of each plan, in turns
+# K10 at Swin-L-384's four stage shapes and Swin-L-224's window-7 stage 0:
+# (what, B, map side, heads, window, blocks of the stage at Swin-L-384);
+# ragged: (what, B*nW, heads, N, nW) with a random 0/-100 mask of nW
+# windows, window w taking mask[w mod nW] (the multi kernel's tiling)
+K10_CASES = [("SwinL-384 stage 0", 16, 96, 6, 12, 2),
+             ("SwinL-384 stage 1", 16, 48, 12, 12, 2),
+             ("SwinL-384 stage 2", 16, 24, 24, 12, 18),
+             ("SwinL-384 stage 3", 16, 12, 48, 12, 2),
+             ("SwinL-224 stage 0, window 7", 16, 56, 6, 7, 0)]
+K10_RAGGED = [("nW 3 of 15 windows, N 49", 15, 2, 49, 3),
+              ("nW 2 of 6 windows, N 144", 6, 4, 144, 2),
+              ("nW 5 of 10 windows, N 16", 10, 3, 16, 5),
+              ("no mask, N 100", 7, 2, 100, 1)]
+# as K7: against the plain version in float32, rounded once, 2 bf16 ulps of
+# max|ref| (P rounded to bf16 before the PV product) and 1e-5 of it in
+# float32; against the bf16 plain version (q * scale and the scores in
+# bf16) 8 ulps
+K10_BF16_ULPS, K10_F32_REL, K10_PLAIN_BF16_ULPS = 2, 1e-5, 8
 
 
 def fail(msg: str) -> None:
@@ -326,6 +395,9 @@ def kernel_wrappers() -> dict:
     from computervision_codes_tpu_torch.ops import attention, mlp_block
     from computervision_codes_tpu_torch.ops import swin_block, window_mhsa
 
+    from computervision_codes_tpu_torch.ops import fused_norm
+    from computervision_codes_tpu_torch.ops import window_attention
+
     return {"dilated_residual": dilated_conv.dilated_residual_cuda,
             "stem_pool": stem_pool.stem_pool_cuda,
             "qconv_bn": quant.qconv_bn_cuda,
@@ -335,7 +407,9 @@ def kernel_wrappers() -> dict:
             "window_mhsa_q8": window_mhsa.window_mhsa_q8_cuda,
             "mlp_block_q8": mlp_block.mlp_block_q8_cuda,
             "swin_block_q8": swin_block.swin_block_q8_cuda,
-            "attention": attention.attention_cuda}
+            "attention": attention.attention_cuda,
+            "fused_scale_bias_act": fused_norm.fused_scale_bias_act_cuda,
+            "window_attention": window_attention.window_attention_cuda}
 
 
 def launches() -> dict:
@@ -1289,21 +1363,21 @@ def phase_model_teacher_int8(float_want: dict) -> None:
           f"of {TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host clock)")
 
 
-def phase_teacher(card: str, configs: dict) -> tuple:
+def phase_teacher(card: str, configs: dict, backbone: str = TEACHER_BACKBONE,
+                  img: int = TEACHER_IMG, b: int = TEACHER_BATCH) -> tuple:
     """``configs``: label -> (launches per predict, ``create`` kwargs).
-    Creates each TeacherSession at its defaults otherwise (Swin-L-384 Q2L,
-    "i") and predicts with them in turns (the order reversed every other
-    round) on uint8 frames: launches of each kernel per predict, ms,
-    frames/s, the device memory a predict adds and its peak."""
+    Creates each TeacherSession of ``backbone`` at ``img`` and batch ``b``,
+    at its defaults otherwise (Q2L "i"), and predicts with them in turns
+    (the order reversed every other round) on uint8 frames: launches of
+    each kernel per predict, ms, frames/s, the device memory a predict adds
+    and its peak."""
     from computervision_codes_tpu_torch.serving import TeacherSession
 
-    b, img = TEACHER_BATCH, TEACHER_IMG
     sessions = {}
     for label, (_, kw) in configs.items():
         t0 = time.perf_counter()
         sessions[label] = TeacherSession.create(
-            batch=b, img_size=img, backbone=TEACHER_BACKBONE, device=DEVICE,
-            **kw)
+            batch=b, img_size=img, backbone=backbone, device=DEVICE, **kw)
         torch.cuda.synchronize()
         print(f"[teacher] {label} TeacherSession created in "
               f"{time.perf_counter() - t0:.2f} s (host clock)")
@@ -1344,7 +1418,7 @@ def phase_teacher(card: str, configs: dict) -> tuple:
         weights = sum(t.numel() * t.element_size() for t in
                       list(sessions[label].model.parameters())
                       + list(sessions[label].model.buffers()))
-        print(f"[teacher] TeacherSession {label} {TEACHER_BACKBONE} Q2L 'i' "
+        print(f"[teacher] TeacherSession {label} {backbone} Q2L 'i' "
               f"{b} frames {img}x{img} uint8: launches per predict "
               f"{configs[label][0]}; ms per predict "
               f"{[round(m, 3) for m in ms[label]]} (first warms up); median "
@@ -1352,7 +1426,8 @@ def phase_teacher(card: str, configs: dict) -> tuple:
               f"frames/s; device memory: the session's weights "
               f"{weights / 2**30:.2f} GiB, a predict adds up to "
               f"{added[label] / 2**30:.2f} GiB, peak in predict "
-              f"{peak[label] / 2**30:.2f} GiB (both sessions resident); "
+              f"{peak[label] / 2**30:.2f} GiB (the sessions still held "
+              f"resident); "
               f"{card}")
     print(f"[teacher] frames/s on one line, sessions in turns: " + ", ".join(
         f"{label} {b / ms_ * 1e3:.1f} ({ms_:.3f} ms)"
@@ -1395,10 +1470,31 @@ def teacher_breakdown(card: str, label: str, sess,
                        lambda: model.head(fmap), 8)
 
 
-def device_profile(card: str, label: str, fn, top: int) -> None:
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of ``fn``: the sum of its CUDA kernels'
+    times under torch.profiler over ``reps`` calls after a warm-up, over
+    ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / reps
+
+
+def device_profile(card: str, label: str, fn, top: int) -> tuple:
     """One call of ``fn`` under torch.profiler after a warm-up: host wall
     time to a synchronise, device busy time (the sum of the kernel and copy
-    rows) and the ``top`` rows by device time."""
+    rows) and the ``top`` rows by device time. Returns (busy ms, every row
+    as (device ms, count, name))."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1425,6 +1521,101 @@ def device_profile(card: str, label: str, fn, top: int) -> None:
           f"{launched} kernel launches from the host; {card}")
     for dev_ms, count, name in rows[:top]:
         print(f"[breakdown]   {dev_ms:9.3f} ms  x{count:<5d} {name}")
+    return busy, rows
+
+
+def tresnet_breakdown(card: str, label: str, sess,
+                      frames: np.ndarray) -> None:
+    """ms of the input, the stem, each TResNet stage and the Q2L transformer
+    and heads of one predict (CUDA events, mean of 3 after a warm-up),
+    then the device time by kernel of one predict from torch.profiler and
+    K9's share of it."""
+    from computervision_codes_tpu_torch.serving import _to_model_input
+
+    model, bb = sess.model, sess.model.backbone
+    with torch.inference_mode():
+        x = _to_model_input(frames, sess.device, torch.bfloat16)
+        maps = [bb.stem(x)]
+        for si in range(len(bb.stage_names)):
+            maps.append(bb.stage(si, maps[-1]))
+        fmap = maps[-1].permute(0, 2, 3, 1)
+        parts = {}
+        for name, fn in (
+                [("input", lambda: _to_model_input(frames, sess.device,
+                                                   torch.bfloat16)),
+                 ("stem", lambda: bb.stem(x))]
+                + [(f"layer{si + 1}", functools.partial(bb.stage, si,
+                                                        maps[si]))
+                   for si in range(len(bb.stage_names))]
+                + [("q2l_head", lambda: model.head(fmap))]):
+            fn()
+            parts[name] = round(cuda_ms(fn, 3), 3)
+    print(f"[breakdown] {label} teacher: ms per predict of "
+          f"{frames.shape[0]} frames {parts}; {card}")
+    busy, rows = device_profile(card, f"{label} teacher predict",
+                                lambda: sess.predict(frames), 16)
+    k9 = [r for r in rows if "fsba_kernel" in r[2]]
+    k9_ms = sum(r[0] for r in k9)
+    print(f"[breakdown] {label} teacher predict: K9 {k9_ms:.3f} ms of "
+          f"{busy:.3f} ms device busy ({100 * k9_ms / max(busy, 1e-9):.1f}%)"
+          f" in "
+          f"{sum(r[1] for r in k9)} launches; {card}")
+    with torch.inference_mode():
+        device_profile(card, f"{label} teacher Q2L transformer and heads",
+                       lambda: model.head(fmap), 8)
+
+
+def phase_swin_fused(card: str) -> dict:
+    """Path B: ``build_swin(swin_L_384_22k, use_fused_attn=True)``, one bf16
+    eval forward of 16 frames with its kernel launches counted (K10 24, the
+    rest 0), then ms per forward beside the default plan's (K5, K3 + K4) at
+    the same weights and input, in turns, and how far the two plans'
+    feature maps are apart. Returns the counted forward's launches."""
+    from computervision_codes_tpu_torch.models.swin import build_swin
+
+    def model(**kw):
+        return build_swin(TEACHER_BACKBONE, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0),
+                          **kw).to(DEVICE).eval()
+
+    fused = model(use_fused_attn=True)
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    frames = torch.randn(TEACHER_BATCH, TEACHER_IMG, TEACHER_IMG, 3,
+                         generator=g, device=DEVICE).bfloat16()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = launches()
+        out, first_ms = timed_call(lambda: fused(frames)["feature_map"])
+        count = launched_since(before)
+    want = dict.fromkeys(KERNELS, 0) | SWIN_FUSED_LAUNCHES
+    check(count == want, f"use_fused_attn forward launches {count}, want "
+                         f"{want}")
+    side = TEACHER_IMG // 32
+    check(tuple(out.shape) == (TEACHER_BATCH, side, side,
+                               fused.num_features)
+          and bool(torch.isfinite(out).all()),
+          f"use_fused_attn forward: shape {tuple(out.shape)} or non-finite")
+    default = model()
+    with torch.inference_mode():
+        ms, runs = in_turns({"use_fused_attn": lambda: fused(frames),
+                             "default plan": lambda: default(frames)},
+                            dict.fromkeys(("use_fused_attn", "default plan"),
+                                          SWIN_FUSED_CALLS))
+        ref = default(frames)["feature_map"].float()
+    got = out.float()
+    corr = float(torch.corrcoef(torch.stack([got.flatten(),
+                                             ref.flatten()]))[0, 1])
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    print(f"[path B] {TEACHER_BACKBONE} use_fused_attn, bf16 forward of "
+          f"{TEACHER_BATCH} frames {TEACHER_IMG}x{TEACHER_IMG}: launches "
+          f"{ {k: v for k, v in count.items() if v} } (first forward "
+          f"{first_ms:.3f} ms); ms per forward {ms['use_fused_attn']:.3f} "
+          f"against the default plan's {ms['default plan']:.3f} (K5 at "
+          f"stages 0-1, K3 + K4 at stage 2, K4 at stage 3), in turns, runs "
+          f"{runs}; the two plans' feature maps: max difference "
+          f"{err:.2e} of max|default|, correlation {corr:.6f}; {card}")
+    del fused, default
+    return count
 
 
 def phase_offline(card: str, configs: dict) -> tuple:
@@ -1652,6 +1843,338 @@ def phase_k7(card: str) -> dict:
             "float32": readings[torch.float32]}
 
 
+def tresnet_k9_launches(width: int, layers, img: int) -> list:
+    """(map side, C, slope) of each K9 launch of one TResNet forward at
+    img x img, in order: the stem's ABN, then each activated ABN, at the
+    side its block's input has (a stride-2 block blurs after them)."""
+    side = img // 4
+    out = [(side, width, 1e-2)]
+    for si, depth in enumerate(layers):
+        filters = width * 2 ** si
+        for bi in range(depth):
+            out += [(side, filters, 1e-3)] * (1 if si < 2 else 2)
+            if si > 0 and bi == 0:
+                side = (side + 1) // 2
+    return out
+
+
+def k9_inputs(shape, dtype, seed):
+    """x of ``shape`` in ``dtype`` and float32 scale and bias like folded
+    BatchNorm constants, made on the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(*shape, generator=g, device=DEVICE).to(dtype)
+    scale = 0.5 + torch.rand(c, generator=g, device=DEVICE)
+    bias = 0.5 * torch.randn(c, generator=g, device=DEVICE)
+    return x, scale, bias
+
+
+def k9_compare(tag: str, got, x, scale, bias, slope, dtype) -> tuple:
+    """K9's output against the plain version evaluated in float32 from the
+    constants rounded to x's dtype (as the wrapper rounds them), rounded
+    once; returns (err, tol, elements that differ, err against the plain
+    version op for op in x's dtype)."""
+    from computervision_codes_tpu_torch.ops.fused_norm import (
+        fused_scale_bias_act_reference)
+
+    s, b = scale.to(dtype), bias.to(dtype)
+    want = fused_scale_bias_act_reference(x.float(), s.float(), b.float(),
+                                          slope).to(dtype)
+    check(got.shape == want.shape and got.stride() == x.stride(),
+          f"{tag}: shape {tuple(got.shape)} strides {got.stride()}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    top = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (K9_F32_REL * top if dtype == torch.float32
+           else K9_BF16_ULPS * bf16_ulp(top))
+    check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol}")
+    plain = fused_scale_bias_act_reference(x, s, b, slope)
+    perr = (got.float() - plain.float()).abs().max().item()
+    return err, tol, int((got != want).sum().item()), perr
+
+
+def phase_k9(card: str) -> dict:
+    """K9 at each distinct TResNet-L-448 shape of path A (B = 16) at both
+    slopes, at ragged shapes, on a misaligned view and on a channels_last
+    map viewed as NHWC (what the ABN passes), in bf16 and float32; then its
+    time at each shape beside the plain version and the bound, and their
+    sums over the 52 launches of one predict."""
+    from computervision_codes_tpu_torch.models.tresnet import VARIANTS
+    from computervision_codes_tpu_torch.ops.fused_norm import (
+        fused_scale_bias_act_cuda, fused_scale_bias_act_reference)
+
+    cfg = VARIANTS[TRESNET]
+    per_forward = tresnet_k9_launches(cfg["width"], cfg["layers"],
+                                      TRESNET_IMG)
+    check(len(per_forward) == TRESNET_LAUNCHES["fused_scale_bias_act"],
+          f"K9 launches per TResNet forward {len(per_forward)}")
+    shapes = sorted({(side, c) for side, c, _ in per_forward},
+                    key=lambda sc: (-sc[0], sc[1]))
+    b = TRESNET_BATCH
+    cases = ([((b, side, side, c), slope) for side, c in shapes
+              for slope in (1e-2, 1e-3)]
+             + [(shape, 1e-3) for shape in K9_RAGGED])
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, exact, worst_plain = (-1.0, None), 0, 0.0
+        for seed, (shape, slope) in enumerate(cases):
+            x, scale, bias = k9_inputs(shape, dtype, seed)
+            tag = f"K9 {str(dtype)[6:]} {shape} slope {slope:g}"
+            err, tol, diff, perr = k9_compare(
+                tag, fused_scale_bias_act_cuda(x, scale, bias, slope), x,
+                scale, bias, slope, dtype)
+            exact += diff == 0
+            worst_plain = max(worst_plain, perr)
+            if err / max(tol, 1e-30) >= worst[0]:
+                worst = (err / max(tol, 1e-30), (shape, slope, err, tol))
+            if dtype == torch.bfloat16 and shape[0] == b:
+                main_err = max(main_err, err)
+            del x
+        # a view at an odd offset (one-element loads) and a channels_last
+        # NCHW map viewed as NHWC, as TResNet's ABN passes it
+        odd = k9_inputs((1 + 2 * 9 * 7 * 76,), dtype, 90)[0][1:].view(
+            2, 9, 7, 76)
+        cl = k9_inputs((b, 152, 28, 28), dtype, 91)[0].contiguous(
+            memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        for what, x in (("odd offset", odd), ("channels_last", cl)):
+            sc, bi = k9_inputs((x.shape[-1],), torch.float32, 92)[1:]
+            err, tol, diff, _ = k9_compare(
+                f"K9 {str(dtype)[6:]} {what}",
+                fused_scale_bias_act_cuda(x, sc, bi, 1e-3), x, sc, bi, 1e-3,
+                dtype)
+            exact += diff == 0
+        try:
+            fused_scale_bias_act_cuda(cl[..., ::2], sc[:76], bi[:76])
+        except ValueError:
+            pass
+        else:
+            fail("K9 took a strided view it cannot read without a copy")
+        print(f"[kernels] K9 {str(dtype)[6:]}: {len(cases) + 2} cases within "
+              f"tolerance of the float32 plain version rounded once ("
+              + (f"{K9_BF16_ULPS} bf16 ulp of" if dtype == torch.bfloat16
+                 else f"{K9_F32_REL:g} x") + f" max|ref|), {exact} of them "
+              f"bit for bit; worst ((shape, slope, err, tol)) = {worst[1]}; "
+              f"against the plain version op for op in "
+              f"{str(dtype)[6:]}: max_abs_err {worst_plain:.3e}; a strided "
+              f"view raises ValueError")
+
+    # device time per call from torch.profiler (below ~40 us a call is
+    # bound by the wrappers' host work, which CUDA events around the calls
+    # measure), and the time per call from CUDA events, in turns
+    es = 2
+    times = {}
+    for side, c in shapes:
+        x, scale, bias = k9_inputs((b, side, side, c), torch.bfloat16, 99)
+        s, bb = scale.bfloat16(), bias.bfloat16()
+        fns = {"kernel": lambda: fused_scale_bias_act_cuda(x, s, bb, 1e-3),
+               "plain": lambda: fused_scale_bias_act_reference(x, s, bb,
+                                                               1e-3)}
+        call, runs = in_turns(fns, {"kernel": 50, "plain": 20})
+        dev = {k: device_ms(fn, 20) for k, fn in fns.items()}
+        n = x.numel()
+        bnd = bound(3 * n, es * (2 * n + 2 * c), "f32")
+        times[side, c] = dev | bnd
+        print(f"[kernels] K9 time bf16 ({b}, {side}, {side}, {c}): device "
+              f"time kernel {dev['kernel']:.4f} ms "
+              f"({2 * es * n / max(dev['kernel'], 1e-9) / 1e6:.1f} GB/s), "
+              f"plain "
+              f"{dev['plain']:.4f} ms (profiler); per call kernel "
+              f"{call['kernel']:.4f} ms, plain {call['plain']:.4f} ms (CUDA "
+              f"events, in turns, runs {runs}); bound {bnd['bound_ms']:.4f} "
+              f"ms ({bnd['bound_by']}); {card}")
+        del x
+    predict = {key: sum(times[side, c][key] for side, c, _ in per_forward)
+               for key in ("kernel", "plain", "bound_ms")}
+    print(f"[kernels] K9 bf16, the {len(per_forward)} launches of one "
+          f"{TRESNET}-{TRESNET_IMG} forward at B = {b}, device time: kernel "
+          f"{predict['kernel']:.4f} ms, plain {predict['plain']:.4f} ms, "
+          f"bound {predict['bound_ms']:.4f} ms (each shape timed alone, warm "
+          f"L2 below 50 MB); {card}")
+    largest = max(shapes, key=lambda sc: sc[0] ** 2 * sc[1])
+    t = times[largest]
+    return {"max_abs_err": main_err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": [b, largest[0], largest[0], largest[1]],
+            "predict_ms": round(predict["kernel"], 4),
+            "predict_plain_ms": round(predict["plain"], 4),
+            "predict_bound_ms": round(predict["bound_ms"], 6)}
+
+
+def k10_inputs(bw, heads, n, dtype, seed):
+    """q, k, v (BW, heads, N, 32) as Swin's WindowAttention cuts them from
+    one qkv tensor (BW, N, 3, heads, 32), and a unit-normal bias (heads, N,
+    N), made on the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    qkv = torch.randn(bw, n, 3, heads, 32, generator=g, device=DEVICE).to(
+        dtype).permute(2, 0, 3, 1, 4)
+    bias = torch.randn(heads, n, n, generator=g, device=DEVICE).to(dtype)
+    return qkv[0], qkv[1], qkv[2], bias
+
+
+def k10_bound(bw, heads, n, nw, masked: bool, dtype) -> dict:
+    """K10's bound: the largest of its products at the tensor-core (bf16) or
+    FMA (float32) peak, its exponentials at the SFU rate, and its bytes (q,
+    k, v, bias and mask read once, the output written once)."""
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    es = 2 if kind == "bf16" else 4
+    times = {"products": 4 * bw * heads * n * n * 32 / PEAK_OPS_S[kind],
+             "exp": bw * heads * n * n / PEAK_EXP_S,
+             "bytes": es * (4 * bw * heads * n * 32 + heads * n * n
+                            + masked * nw * n * n) / PEAK_BYTES_S}
+    worst = max(times, key=times.get)
+    return {"bound_ms": round(1e3 * times[worst], 6),
+            "bound_by": "bytes" if worst == "bytes" else "operations",
+            "bound_detail": f"{worst}: " + ", ".join(
+                f"{k} {1e3 * v:.4f} ms" for k, v in times.items())}
+
+
+def phase_k10(card: str) -> dict:
+    """K10 against the plain version in float32 rounded once and the plain
+    version in the working dtype, through both TPU entry points, at
+    Swin-L-384's four stage shapes (shifted and not), Swin-L-224's window-7
+    stage 0 and ragged masks; then its time at the stage shapes beside the
+    plain version, SDPA (the yardstick only) and the bound, and their sums
+    over the 24 launches of one Swin-L-384 forward."""
+    from computervision_codes_tpu_torch.models.swin import shift_mask
+    from computervision_codes_tpu_torch.ops.window_attention import (
+        window_attention_pallas, window_attention_pallas_multi,
+        window_attention_reference)
+
+    cases = []
+    for what, b, side, heads, w, _ in K10_CASES:
+        nw = (side // w) ** 2
+        for shift in (0, w // 2):
+            mask = (shift_mask(side, side, w, shift, DEVICE, torch.float32)
+                    if shift else None)
+            cases.append((f"{what} shift={shift}", b * nw, heads, w * w,
+                          nw, mask))
+    for what, bw, heads, n, nw in K10_RAGGED:
+        g = torch.Generator(device=DEVICE).manual_seed(bw)
+        mask = None if nw == 1 else -100.0 * (torch.rand(
+            nw, n, n, generator=g, device=DEVICE) < 0.3).float()
+        cases.append((what, bw, heads, n, nw, mask))
+    main_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, worst_plain = (-1.0, None), (-1.0, None)
+        for seed, (what, bw, heads, n, nw, mask) in enumerate(cases):
+            q, k, v, bias = k10_inputs(bw, heads, n, dtype, seed)
+            entry = (window_attention_pallas_multi if seed % 2 == 0
+                     else window_attention_pallas)
+            got = entry(q, k, v, bias, mask, nw)
+            m32 = None if mask is None else mask.to(dtype).float()
+            want = window_attention_reference(
+                q.float(), k.float(), v.float(), bias.float(), m32, nw).to(
+                    dtype).float()
+            tag = f"K10 {str(dtype)[6:]} {what}"
+            check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
+            check(got.transpose(1, 2).is_contiguous(),
+                  f"{tag}: output memory is not (BW, N, H, D)")
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+            top = want.abs().max().item()
+            err = (got.float() - want).abs().max().item()
+            tol = float(K10_BF16_ULPS * bf16_ulp(top)
+                        if dtype == torch.bfloat16 else K10_F32_REL * top)
+            check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol}")
+            if err / tol >= worst[0]:
+                worst = (err / tol, (what, err, tol))
+            if dtype == torch.bfloat16:
+                plain = window_attention_reference(q, k, v, bias, mask,
+                                                   nw).float()
+                perr = (got.float() - plain).abs().max().item()
+                ptol = float(K10_PLAIN_BF16_ULPS * bf16_ulp(top))
+                check(perr <= ptol, f"{tag} vs the bf16 plain version: "
+                                    f"max_abs_err {perr} > tol {ptol}")
+                if perr / ptol >= worst_plain[0]:
+                    worst_plain = (perr / ptol, (what, perr, ptol))
+                if what.startswith("SwinL-384"):
+                    main_err = max(main_err, err)
+            del q, k, v, got, want
+        print(f"[kernels] K10 {str(dtype)[6:]}: {len(cases)} cases within "
+              f"tolerance of the float32 plain version rounded once ("
+              + (f"{K10_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
+                 else f"{K10_F32_REL:g} x") + f" max|ref|), half through "
+              f"each TPU entry point; worst (case, err, tol) = {worst[1]}")
+        if dtype == torch.bfloat16:
+            print(f"[kernels] K10 bf16 against the bf16 plain version: "
+                  f"within {K10_PLAIN_BF16_ULPS} ulps of max|ref|; worst "
+                  f"{worst_plain[1]}")
+
+    # times at the four stage shapes in bf16, shifted at stages 0-2 (the
+    # mask in bf16, as the model passes it), beside the plain version and
+    # SDPA over the same inputs with bias + mask as one (BW, H, N, N) mask
+    times = {}
+    for what, b, side, heads, w, blocks in K10_CASES[:4]:
+        nw, n = (side // w) ** 2, w * w
+        bw = b * nw
+        mask = (shift_mask(side, side, w, w // 2, DEVICE, torch.bfloat16)
+                if side > w else None)
+        q, k, v, bias = k10_inputs(bw, heads, n, torch.bfloat16, 99)
+        full = bias[None].expand(bw, -1, -1, -1).contiguous()
+        if mask is not None:
+            full += mask.repeat(b, 1, 1)[:, None]
+        ms, runs = in_turns(
+            {"kernel": lambda: window_attention_pallas_multi(
+                q, k, v, bias, mask, nw),
+             "plain": lambda: window_attention_reference(q, k, v, bias,
+                                                         mask, nw),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=full, scale=32 ** -0.5)},
+            {"kernel": 20, "plain": 5, "sdpa": 20})
+        bnd = k10_bound(bw, heads, n, nw, mask is not None, torch.bfloat16)
+        times[what] = ms | bnd | {"blocks": blocks}
+        flops = 4 * bw * heads * n * n * 32
+        print(f"[kernels] K10 time bf16 {what} (BW, H, N, D) = ({bw}, "
+              f"{heads}, {n}, 32){' shifted' if mask is not None else ''}: "
+              f"kernel {ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f}"
+              f" TFLOP/s), plain {ms['plain']:.4f} ms, SDPA "
+              f"{ms['sdpa']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_detail']}); runs {runs}; {card}")
+        del q, k, v, full
+    forward = {key: sum(t["blocks"] * t[key] for t in times.values())
+               for key in ("kernel", "plain", "sdpa", "bound_ms")}
+    print(f"[kernels] K10 bf16, the "
+          f"{sum(t['blocks'] for t in times.values())} launches of one "
+          f"{TEACHER_BACKBONE} forward at B = {K10_CASES[0][1]} (every block "
+          f"timed as its stage's shifted one): kernel "
+          f"{forward['kernel']:.4f} ms, plain {forward['plain']:.4f} ms, SDPA "
+          f"{forward['sdpa']:.4f} ms, bound {forward['bound_ms']:.4f} ms; "
+          f"{card}")
+    # float32 at stage 0: the FMA products
+    what, b, side, heads, w, _ = K10_CASES[0]
+    nw, n = (side // w) ** 2, w * w
+    mask = shift_mask(side, side, w, w // 2, DEVICE, torch.float32)
+    q, k, v, bias = k10_inputs(b * nw, heads, n, torch.float32, 98)
+    full = bias[None] + mask.repeat(b, 1, 1)[:, None]
+    f32, runs = in_turns(
+        {"kernel": lambda: window_attention_pallas_multi(q, k, v, bias, mask,
+                                                         nw),
+         "plain": lambda: window_attention_reference(q, k, v, bias, mask,
+                                                     nw),
+         "sdpa": lambda: F.scaled_dot_product_attention(
+             q, k, v, attn_mask=full, scale=32 ** -0.5)},
+        {"kernel": 10, "plain": 5, "sdpa": 10})
+    f32 |= k10_bound(b * nw, heads, n, nw, True, torch.float32)
+    print(f"[kernels] K10 time float32 {what} (BW, H, N, D) = ({b * nw}, "
+          f"{heads}, {n}, 32) shifted: kernel {f32['kernel']:.4f} ms, plain "
+          f"{f32['plain']:.4f} ms, SDPA {f32['sdpa']:.4f} ms, bound "
+          f"{f32['bound_ms']:.4f} ms ({f32['bound_detail']}); runs {runs}; "
+          f"{card}")
+    del q, k, v, full
+    t = times[K10_CASES[0][0]]
+    return {"max_abs_err": main_err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["sdpa"],
+            "float32": {"ms": f32["kernel"], "plain_ms": f32["plain"],
+                        "bound_ms": f32["bound_ms"],
+                        "bound_by": f32["bound_by"],
+                        "library_ms": f32["sdpa"]},
+            "forward_ms": round(forward["kernel"], 4),
+            "forward_plain_ms": round(forward["plain"], 4),
+            "forward_library_ms": round(forward["sdpa"], 4),
+            "forward_bound_ms": round(forward["bound_ms"], 6)}
+
+
 def phase_model_mstct() -> None:
     """The full-width float32 MSTCT on 1536-d features, on the card against
     the CPU on one video: K7 launches per forward, and the correlation and
@@ -1689,6 +2212,103 @@ def phase_model_mstct() -> None:
               f"{scale:.3f}, tol {MODEL_REL_TOL:g} x max|ref|)")
     print(f"[model] MSTCT launches on the card per forward {count}; CPU "
           f"forward of {MSTCT_MODEL_T} frames {t_cpu:.2f} s (host clock)")
+
+
+def randomize_bn(model, seed: int) -> None:
+    """Draw every BatchNorm's affine and statistics from a seed: the
+    TResNet init's zero gamma on each block's last ABN would leave the
+    residual branches out of a card-vs-CPU check."""
+    from computervision_codes_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(0.5 + torch.rand(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+
+
+def card_vs_cpu(what: str, pairs, rel_tol: float) -> None:
+    """Each (name, card tensor, CPU tensor): same shape, finite, max error
+    within ``rel_tol`` of max(1, max|CPU|); prints it with the
+    correlation."""
+    for name, got, want in pairs:
+        g, w = got.float().cpu(), want.float()
+        check(g.shape == w.shape, f"{what} {name}: shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{what} {name}: non-finite")
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        corr = float(np.corrcoef(g.numpy().ravel(), w.numpy().ravel())[0, 1])
+        check(err <= rel_tol * scale, f"{what} {name}: card vs CPU "
+                                      f"max_abs_err {err} > {rel_tol} x "
+                                      f"{scale}")
+        print(f"[model] {what} {name} {tuple(g.shape)}: card vs CPU "
+              f"max_abs_err {err:.3e} = {err / scale:.2e} of max(1, max|ref|)"
+              f" {scale:.3f} (tol {rel_tol:g}), correlation {corr:.8f}")
+
+
+def phase_model_tresnet() -> None:
+    """The full-width float32 Q2L(tresnet_l, "i"), BatchNorm drawn from a
+    seed, on the card against the CPU on one 448x448 frame: 52 K9 launches
+    per forward and no other kernel."""
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+
+    cpu_model = Q2L(backbone=TRESNET, loss_type="i", dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(0)).eval()
+    randomize_bn(cpu_model, 7)
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    frames = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, TRESNET_IMG, TRESNET_IMG, 3)).astype(np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(frames)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(frames.to(DEVICE))
+        count = launched_since(before)
+    want_count = dict.fromkeys(KERNELS, 0) | TRESNET_LAUNCHES
+    check(count == want_count, f"TResNet model launches {count}, want "
+                               f"{want_count}")
+    card_vs_cpu(f"TResNet float32 Q2L({TRESNET}, 'i')",
+                [("logits i", got["logits"]["i"], want["logits"]["i"]),
+                 ("feature", got["feature"], want["feature"])],
+                TEACHER_MODEL_REL_TOL)
+    print(f"[model] TResNet launches on the card per forward {count}; CPU "
+          f"forward of one frame {t_cpu:.2f} s (host clock)")
+    del cpu_model, dev_model
+
+
+def phase_model_swin_fused() -> None:
+    """The full-width float32 Swin-L-384 with ``use_fused_attn`` on the card
+    against the CPU on one 384x384 frame: 24 K10 launches per forward and
+    no other kernel."""
+    from computervision_codes_tpu_torch.models.swin import build_swin
+
+    cpu_model = build_swin(TEACHER_BACKBONE, dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0),
+                           use_fused_attn=True).eval()
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    frames = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, TEACHER_IMG, TEACHER_IMG, 3)).astype(np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(frames)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(frames.to(DEVICE))
+        count = launched_since(before)
+    want_count = dict.fromkeys(KERNELS, 0) | SWIN_FUSED_LAUNCHES
+    check(count == want_count, f"use_fused_attn Swin launches {count}, want "
+                               f"{want_count}")
+    card_vs_cpu(f"float32 {TEACHER_BACKBONE} use_fused_attn",
+                [(k, got[k], want[k]) for k in ("feature_map", "pooled")],
+                TEACHER_MODEL_REL_TOL)
+    print(f"[model] use_fused_attn Swin launches on the card per forward "
+          f"{count}; CPU forward of one frame {t_cpu:.2f} s (host clock)")
+    del cpu_model, dev_model
 
 
 def mstct_tree(root: str) -> tuple:
@@ -1898,12 +2518,16 @@ def main() -> None:
                 "mlp_block": phase_k4(card),
                 "swin_block": phase_k5(card),
                 **phase_q8(card),
-                "attention": phase_k7(card)}
+                "attention": phase_k7(card),
+                "fused_scale_bias_act": phase_k9(card),
+                "window_attention": phase_k10(card)}
     measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
     phase_model_int8()
     phase_model_teacher_int8(phase_model_teacher())
     phase_model_mstct()
+    phase_model_tresnet()
+    phase_model_swin_fused()
 
     # the main path: the serving entry points at the serving geometry,
     # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
@@ -1933,6 +2557,12 @@ def main() -> None:
         "bf16": (TEACHER_LAUNCHES, {}),
         "int8": (TEACHER_Q8_LAUNCHES, {"quantize": True})})
     teacher = launches()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # path A, the TResNet-L teacher, starts here
+    tresnet_sessions, tresnet_frames = phase_teacher(
+        card, {"bf16": (TRESNET_LAUNCHES, {})},
+        TRESNET, TRESNET_IMG, TRESNET_BATCH)
+    tresnet = launches()
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, lengths = mstct_tree(root)
         for fn in kernel_wrappers().values():
@@ -1940,11 +2570,16 @@ def main() -> None:
         for dtype in ("float32", "bfloat16"):
             phase_mstct(card, root, split, lengths, dtype)
         mstct = launches()
-    total = {name: student[name] + teacher[name] + mstct[name]
-             for name in KERNELS}
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # path B, Swin's use_fused_attn, starts here
+    path_b = phase_swin_fused(card)
+    total = {name: student[name] + teacher[name] + tresnet[name]
+             + mstct[name] + path_b[name] for name in KERNELS}
     print(f"[main path] launches: student sessions {student}, teacher "
-          f"sessions (creation and predicts) {teacher}, MS-TCT driver "
-          f"(-e -d, float32 and bfloat16) {mstct}")
+          f"sessions (creation and predicts) {teacher}, the TResNet-L "
+          f"teacher session (path A) {tresnet}, MS-TCT driver (-e -d, "
+          f"float32 and bfloat16) {mstct}, Swin-L-384 use_fused_attn "
+          f"forward (path B, a configuration) {path_b}")
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")
@@ -1953,7 +2588,9 @@ def main() -> None:
     phase_breakdown(card, offline, clips, streaming)
     for label, sess in teachers.items():
         teacher_breakdown(card, label, sess, frames)
-    del teachers, offline, streaming
+    tresnet_breakdown(card, f"{TRESNET} bf16", tresnet_sessions["bf16"],
+                      tresnet_frames)
+    del teachers, offline, streaming, tresnet_sessions
     phase_mstct_breakdown(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

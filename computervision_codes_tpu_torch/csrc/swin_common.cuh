@@ -1,6 +1,8 @@
 // Device phases shared by the Swin kernels, written by hand for Hopper
 // (sm_90a): K3 window_mhsa.cu, K4 mlp_block.cu and K5 swin_block.cu each
-// include this header and export their own C entry point.
+// include this header and export their own C entry point. K10
+// window_attention.cu runs the attention phase's parts (AttnSmem,
+// attn_scores, attn_softmax, attn_pv) over q, k and v it gathers itself.
 //
 // Phases, all over row-major token matrices of one dtype T (float or bf16):
 //
@@ -465,59 +467,36 @@ __device__ void attn_pv(const float* P, const float* Vs, float* /*Os*/,
   }
 }
 
-// qkv (B, Hp, Wp, 3C) holds q | k | v per token; bias (H, N, N) and mask
-// (nW, N, N, or null) in T; out (B, Hp, Wp, C). Window wi of an image is
-// row-major over the (Hp/w, Wp/w) grid, as the shift mask is.
-// wamax (B * nW window absmaxes, float bits, or null): the int8 branch's
-// proj scales, max |out| over the window's tokens and heads, with the
-// padded query of an odd window when pad_query.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-                   const T* __restrict__ mask, T* __restrict__ out,
-                   int* __restrict__ wamax, int Hp, int Wp, int C, int w,
-                   int np, float scale, bool pad_query) {
-  using Tile = AttnTile<T>;
-  constexpr int V = Vec<T>::V, LDQ = Tile::LDQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = reinterpret_cast<T*>(smem + Tile::qkv_bytes(np));
-  T* Vs = reinterpret_cast<T*>(smem + 2 * Tile::qkv_bytes(np));
-  float* S = reinterpret_cast<float*>(smem + 3 * Tile::qkv_bytes(np));
-  T* P = reinterpret_cast<T*>(smem + 3 * Tile::qkv_bytes(np) +
-                              (Tile::p_bytes(np) ? Tile::s_bytes(np) : 0));
-  const int lds = Tile::lds(np);
-  const int ldp = Tile::p_bytes(np) ? Tile::ldp(np) : lds;
-
-  const int n = w * w, nww = Wp / w, nw = (Hp / w) * nww;
-  const int b = blockIdx.x / nw, wi = blockIdx.x % nw;
-  const int wr = wi / nww, wc = wi % nww, h = blockIdx.y;
-  auto token = [&](int r) {  // row of token r of this window in (B*Hp*Wp)
-    return ((size_t)b * Hp + wr * w + r / w) * Wp + wc * w + r % w;
-  };
-
-  // gather q, k, v (padded rows zero)
-  for (int i = threadIdx.x; i < 3 * np * (HD / V); i += THREADS) {
-    const int which = i / (np * (HD / V)), rem = i % (np * (HD / V));
-    const int r = rem / (HD / V), c = (rem % (HD / V)) * V;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      v = *reinterpret_cast<const uint4*>(qkv + token(r) * 3 * C +
-                                          which * C + h * HD + c);
-    T* dst = which == 0 ? Qs : which == 1 ? Ks : Vs;
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
+// The dynamic shared memory of one (window, head) block: q, k, v tiles
+// (np x LDQ), the float32 score tile S (lds), and P (ldp; float32 P is S).
+template <typename T> struct AttnSmem {
+  T *Qs, *Ks, *Vs, *P;
+  float* S;
+  int lds, ldp;
+  __device__ AttnSmem(unsigned char* smem, int np) {
+    using Tile = AttnTile<T>;
+    Qs = reinterpret_cast<T*>(smem);
+    Ks = reinterpret_cast<T*>(smem + Tile::qkv_bytes(np));
+    Vs = reinterpret_cast<T*>(smem + 2 * Tile::qkv_bytes(np));
+    S = reinterpret_cast<float*>(smem + 3 * Tile::qkv_bytes(np));
+    P = reinterpret_cast<T*>(smem + 3 * Tile::qkv_bytes(np) +
+                             (Tile::p_bytes(np) ? Tile::s_bytes(np) : 0));
+    lds = Tile::lds(np);
+    ldp = Tile::p_bytes(np) ? Tile::ldp(np) : lds;
   }
-  __syncthreads();
-  attn_scores(Qs, Ks, S, np, n);
-  __syncthreads();
+};
 
-  // softmax over the n real keys, one warp per row
-  const T* bias_h = bias + (size_t)h * n * n;
-  const T* mask_w = mask ? mask + (size_t)wi * n * n : nullptr;
+// P from S, one warp per row: s = S[i][j] * scale + bias[i][j] (+ mask[i][j])
+// over the n real keys, a float32 softmax with the denominator floored at
+// 1e-30, rounded to T; padded keys and padded query rows of P are zero.
+// bias_h and mask_w (or null) are this head's and this window's (n, n).
+template <typename T>
+__device__ void attn_softmax(const AttnSmem<T>& sm, const T* bias_h,
+                             const T* mask_w, int n, int np, float scale) {
   const int lane = threadIdx.x % 32;
   for (int i = threadIdx.x / 32; i < np; i += THREADS / 32) {
-    float* srow = S + i * lds;
-    T* prow = P + i * ldp;
+    float* srow = sm.S + i * sm.lds;
+    T* prow = sm.P + i * sm.ldp;
     if (i >= n) {
       for (int j = lane; j < np; j += 32) prow[j] = from_f<T>(0.0f);
       continue;
@@ -540,11 +519,54 @@ window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
     for (int j = lane; j < np; j += 32)
       prow[j] = from_f<T>(j < n ? srow[j] * inv : 0.0f);
   }
+}
+
+// qkv (B, Hp, Wp, 3C) holds q | k | v per token; bias (H, N, N) and mask
+// (nW, N, N, or null) in T; out (B, Hp, Wp, C). Window wi of an image is
+// row-major over the (Hp/w, Wp/w) grid, as the shift mask is.
+// wamax (B * nW window absmaxes, float bits, or null): the int8 branch's
+// proj scales, max |out| over the window's tokens and heads, with the
+// padded query of an odd window when pad_query.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+                   const T* __restrict__ mask, T* __restrict__ out,
+                   int* __restrict__ wamax, int Hp, int Wp, int C, int w,
+                   int np, float scale, bool pad_query) {
+  constexpr int V = Vec<T>::V, LDQ = AttnTile<T>::LDQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const AttnSmem<T> sm(smem, np);
+  T *Qs = sm.Qs, *Ks = sm.Ks, *Vs = sm.Vs;
+
+  const int n = w * w, nww = Wp / w, nw = (Hp / w) * nww;
+  const int b = blockIdx.x / nw, wi = blockIdx.x % nw;
+  const int wr = wi / nww, wc = wi % nww, h = blockIdx.y;
+  auto token = [&](int r) {  // row of token r of this window in (B*Hp*Wp)
+    return ((size_t)b * Hp + wr * w + r / w) * Wp + wc * w + r % w;
+  };
+
+  // gather q, k, v (padded rows zero)
+  for (int i = threadIdx.x; i < 3 * np * (HD / V); i += THREADS) {
+    const int which = i / (np * (HD / V)), rem = i % (np * (HD / V));
+    const int r = rem / (HD / V), c = (rem % (HD / V)) * V;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n)
+      v = *reinterpret_cast<const uint4*>(qkv + token(r) * 3 * C +
+                                          which * C + h * HD + c);
+    T* dst = which == 0 ? Qs : which == 1 ? Ks : Vs;
+    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
+  }
+  __syncthreads();
+  attn_scores(Qs, Ks, sm.S, np, n);
+  __syncthreads();
+  attn_softmax(sm, bias + (size_t)h * n * n,
+               mask ? mask + (size_t)wi * n * n : nullptr, n, np, scale);
   __syncthreads();
 
   // bf16 stages O in S, which P no longer needs
   float omax = 0.0f;
-  attn_pv(P, Vs, S, np, n, [&](int r, int d, float o) {
+  const int lane = threadIdx.x % 32;
+  attn_pv(sm.P, Vs, sm.S, np, n, [&](int r, int d, float o) {
     const T ov = from_f<T>(o);
     out[token(r) * C + h * HD + d] = ov;
     omax = fmaxf(omax, fabsf(to_f(ov)));

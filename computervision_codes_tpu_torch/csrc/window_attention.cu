@@ -1,0 +1,172 @@
+// K10: fused window attention over pre-split q, k, v, written by hand for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels
+// computervision_codes_tpu/ops/window_attention.py::window_attention_pallas
+// (its _kernel) and ::window_attention_pallas_multi (its _kernel_multi, G
+// windows per grid step), which Swin reaches through use_fused_attn. Over
+// q, k, v (BW, H, N, D) with BW = B * nW windows, a relative-position bias
+// (H, N, N) and an optional additive mask (nW, N, N):
+//
+//   o[w, h] = softmax(q[w, h] k[w, h]^T * D^-0.5 + bias[h]
+//                     + mask[w mod nW]) v[w, h]
+//
+// The TPU kernel scales q in float32 before the product; this one scales
+// the float32 scores (the same value up to float32 rounding). bf16 products
+// run on the tensor cores (WMMA) with float32 sums, and P is rounded to
+// bf16 before the PV product; float32 runs as FMA.
+//
+// What bounds it on the card: at Swin-L-384 (B = 16, bf16, D = 32, N = 144)
+// the four tensors move 226 / 113 / 56.6 / 28.3 MB per launch at stages 0-3
+// against 16.3 / 8.2 / 4.1 / 2.0 GFLOP of products: bytes (0.068 ms at
+// stage 0 at 3.35 TB/s; the products 0.016 ms at 989 TFLOP/s). What the
+// design does: it is K3's attention phase (swin_common.cuh): one block per
+// (window, head), whose q, k, v tiles and N x N float32 score tile stay in
+// shared memory (160 KB for a 144-token window in bf16), so the scores
+// never reach device memory. q, k and v are read through their strides, in
+// the widest load (16, 8, 4 or 2 bytes) their rows allow, so the views that
+// Swin's WindowAttention cuts from one qkv tensor need no copy; the output
+// goes through its strides too, into the (BW, N, H, D) memory that the
+// proj Dense reads next. The TPU kernels' window blocking (G windows per
+// grid step) amortises grid-step overhead on the TPU and has no
+// counterpart here: every window is a block.
+//
+// Interface: plain C, loaded with ctypes. The launch goes on the caller's
+// stream, never synchronises and allocates nothing; the return value is the
+// CUDA error of the launch (0 on success).
+
+#include "swin_common.cuh"
+
+namespace {
+
+using swin::HD;
+using swin::THREADS;
+
+template <typename T> struct Args {
+  const T *q, *k, *v, *bias, *mask;  // mask may be null
+  T* o;
+  int n, np, nw;
+  long long sq[3], sk[3], sv[3], so[3];  // (window, head, token) strides
+  int vb;                                // bytes per load of a q/k/v row
+  float scale;
+};
+
+// copy one vector of vb bytes (zero when src is null)
+__device__ __forceinline__ void copy_vec(void* dst, const void* src,
+                                         int vb) {
+  switch (vb) {
+    case 16:
+      *static_cast<uint4*>(dst) =
+          src ? *static_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
+      break;
+    case 8:
+      *static_cast<uint2*>(dst) =
+          src ? *static_cast<const uint2*>(src) : make_uint2(0, 0);
+      break;
+    case 4:
+      *static_cast<uint32_t*>(dst) =
+          src ? *static_cast<const uint32_t*>(src) : 0u;
+      break;
+    default:
+      *static_cast<uint16_t*>(dst) =
+          src ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+window_attention_kernel(const Args<T> a) {
+  constexpr int LDQ = swin::AttnTile<T>::LDQ;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const swin::AttnSmem<T> sm(smem, a.np);
+  const int n = a.n, np = a.np;
+  const long long wdw = blockIdx.x, h = blockIdx.y;
+
+  // gather q, k, v of (window, head) through their strides; padded rows
+  // zero
+  const int per = HD * (int)sizeof(T) / a.vb;  // loads per row
+  const int ve = a.vb / (int)sizeof(T);        // elements per load
+  for (int i = threadIdx.x; i < 3 * np * per; i += THREADS) {
+    const int which = i / (np * per), rem = i % (np * per);
+    const int r = rem / per, c = (rem % per) * ve;
+    const T* base = which == 0 ? a.q : which == 1 ? a.k : a.v;
+    const long long* st = which == 0 ? a.sq : which == 1 ? a.sk : a.sv;
+    T* dst = (which == 0 ? sm.Qs : which == 1 ? sm.Ks : sm.Vs) + r * LDQ + c;
+    copy_vec(dst,
+             r < n ? base + wdw * st[0] + h * st[1] + r * st[2] + c : nullptr,
+             a.vb);
+  }
+  __syncthreads();
+  swin::attn_scores(sm.Qs, sm.Ks, sm.S, np, n);
+  __syncthreads();
+  swin::attn_softmax(sm, a.bias + h * n * n,
+                     a.mask ? a.mask + (wdw % a.nw) * n * n : nullptr, n, np,
+                     a.scale);
+  __syncthreads();
+  T* o = a.o + wdw * a.so[0] + h * a.so[1];
+  swin::attn_pv(sm.P, sm.Vs, sm.S, np, n, [&](int r, int d, float v) {
+    o[r * a.so[2] + d] = swin::from_f<T>(v);
+  });
+}
+
+template <typename T>
+cudaError_t launch(const Args<T>& a, int BW, int H, cudaStream_t s) {
+  const size_t smem = swin::AttnTile<T>::smem(a.np);
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_attention_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  window_attention_kernel<T><<<dim3(BW, H), THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* q, const void* k, const void* v, const void* bias,
+        const void* mask, void* o, int BW, int H, int N, int nw,
+        const long long* strides, int vb, float scale, cudaStream_t s) {
+  Args<T> a{static_cast<const T*>(q),    static_cast<const T*>(k),
+            static_cast<const T*>(v),    static_cast<const T*>(bias),
+            static_cast<const T*>(mask), static_cast<T*>(o),
+            N, (N + 15) / 16 * 16, nw};
+  for (int i = 0; i < 3; ++i) {
+    a.sq[i] = strides[i];
+    a.sk[i] = strides[3 + i];
+    a.sv[i] = strides[6 + i];
+    a.so[i] = strides[9 + i];
+  }
+  a.vb = vb;
+  a.scale = scale;
+  return (int)launch(a, BW, H, s);
+}
+
+}  // namespace
+
+// q, k, v and the output o (BW, H, N, 32), each given by its (window, head,
+// token) element strides (the head dim contiguous), in dtype (0 float32,
+// 1 bf16); bias (H, N, N) and mask (nw, N, N, or null) contiguous in dtype.
+// Window w takes mask[w % nw]. vb: bytes per load of a q, k or v row (16,
+// 8, 4, or 2 for bf16), which every row's address must be aligned to;
+// scale: the score scale, D^-0.5.
+extern "C" int window_attention_launch(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* mask, void* o, int BW, int H, int N, int nw,
+    long long sqw, long long sqh, long long sqn, long long skw,
+    long long skh, long long skn, long long svw, long long svh,
+    long long svn, long long sow, long long soh, long long son, int vb,
+    float scale, int dtype, void* stream) {
+  const int es = dtype == 1 ? 2 : 4;
+  if (BW < 1 || H < 1 || H > 65535 || N < 1 ||
+      N > swin::MAX_WINDOW * swin::MAX_WINDOW || nw < 1 ||
+      (dtype != 0 && dtype != 1) ||
+      !(vb == 16 || vb == 8 || vb == 4 || (vb == 2 && dtype == 1)) ||
+      vb < es)
+    return (int)cudaErrorInvalidValue;
+  const long long strides[12] = {sqw, sqh, sqn, skw, skh, skn,
+                                 svw, svh, svn, sow, soh, son};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float>(q, k, v, bias, mask, o, BW, H, N, nw, strides, vb,
+                      scale, s);
+  return run<__nv_bfloat16>(q, k, v, bias, mask, o, BW, H, N, nw, strides,
+                            vb, scale, s);
+}

@@ -6,10 +6,12 @@ collections ``params``, ``batch_stats`` and ``frozen``, with numpy or JAX
 arrays at the leaves) and copies them in, walking the port's module tree by
 the flax names its children carry:
 
-* ``conv*/kernel`` (kh, kw, Cin, Cout) HWIO -> conv weight OIHW;
+* ``conv*/kernel`` (kh, kw, Cin, Cout) HWIO -> conv weight OIHW (TResNet's
+  ``stem_conv``, ``conv1-3`` and ``downsample`` too);
 * ``bn*``: ``params/{scale,bias}`` + ``batch_stats/{mean,var}`` -> BatchNorm
-  ``weight, bias, running_mean, running_var``; a frozen BN reads all four
-  from the ``frozen`` collection;
+  ``weight, bias, running_mean, running_var`` (TResNet's ABN holds its
+  BatchNorm as ``<abn>/bn``); a frozen BN reads all four from the
+  ``frozen`` collection;
 * a conv with a bias (Swin's ``patch_embed``) reads ``bias`` too;
 * 1x1 ``nn.Conv`` over time (``pg_conv_in``, ``latlayer1``, ``head_*``):
   ``kernel`` (1, Cin, Cout) -> weight (Cout, Cin), plus ``bias``;
@@ -20,7 +22,7 @@ the flax names its children carry:
   ``bias``, the dilated layers' ``w_taps, b1, w2, b2``, and raw params
   such as ``relative_position_bias_table``, ``query_embed_*`` and
   ``fc_*/{W,b}`` (the ``Mlp`` children are named ``Dense_0``/``Dense_1``,
-  as flax names them).
+  as flax names them; TResNet's SE ``fc1``/``fc2`` are ``Dense``).
 
 Every leaf of ``variables`` must be used and every parameter filled:
 a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.

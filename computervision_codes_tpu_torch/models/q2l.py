@@ -1,4 +1,5 @@
-"""Query2Label teacher (Swin or ResNet backbone + DETR-style decoder), eval.
+"""Query2Label teacher (Swin, ResNet or TResNet backbone + DETR-style
+decoder), eval.
 
 Counterpart of ``models/q2l.py`` in the JAX package: d_model = the
 backbone's channels, 4 heads, FFN 8192, one post-norm encoder layer and two
@@ -13,9 +14,13 @@ The Swin options (``fused_split``, ``quant_eval``, ``quant_min_dim``,
 ``Q2L(quant_eval=True, s2d_embed=True)`` with its ``Dense`` layers swapped
 for ``models.quant_dense.Int8Dense``.
 
-Not ported yet, and refused: the CvT and TResNet backbones (the zoo slice),
-the KD block (``feat_i``, the training slice) and the Swin options
-``models.swin`` refuses. The JAX ``return_sim_mat`` output is not ported.
+The TResNet backbones (``models.tresnet``) give d_model = width * 8 * 4
+(2432 for TResNet-L), the channels of their last stage; the Swin options do
+not apply to them and are ignored, as the JAX module ignores them.
+
+Not ported yet, and refused: the CvT backbones (the zoo slice), the KD
+block (``feat_i``, the training slice) and the Swin options ``models.swin``
+refuses. The JAX ``return_sim_mat`` output is not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from .resnet import VARIANTS as RESNET_VARIANTS
 from .resnet import build_resnet, feature_dim
 from .swin import VARIANTS as SWIN_VARIANTS
 from .swin import build_swin, swin_feature_dim
+from .tresnet import VARIANTS as TRESNET_VARIANTS
+from .tresnet import build_tresnet
+from .tresnet import feature_dim as tresnet_feature_dim
 
 # the reference transformer (its models/transformer.py:347-359)
 NUM_HEADS, FFN_DIM, ENCODER_LAYERS, DECODER_LAYERS = 4, 8192, 1, 2
@@ -154,7 +162,10 @@ class Q2L(nn.Module):
             self.backbone = build_resnet(backbone, frozen_bn=True, dtype=dtype,
                                          generator=g)
             dim = feature_dim(backbone)
-        elif backbone.startswith(("cvt", "tresnet")):
+        elif backbone in TRESNET_VARIANTS:
+            self.backbone = build_tresnet(backbone, dtype, g)
+            dim = tresnet_feature_dim(backbone)
+        elif backbone.startswith("cvt"):
             raise NotImplementedError(f"backbone {backbone!r} is not ported "
                                       f"yet (the backbone zoo slice)")
         else:

@@ -32,8 +32,15 @@ space-to-depth view, in the model dtype (``swin.py:426-440`` there).
 outside the kernels, as in the JAX module; a block's shift is dropped when
 the map is no larger than its window.
 
-Not ported yet, and refused: ``use_fused_attn`` (K10), ``fused_train`` and
-``remat`` (the training slice).
+``use_fused_attn`` follows the JAX gate (``swin.py:295-297`` there): such a
+block takes the "plain" plan whatever ``fused_eval`` says, and its
+``WindowAttention`` runs the attention core through
+``ops.window_attention.window_attention_fused`` (K10 on the card;
+``fused_block`` windows per TPU grid step, accepted for parity), then the
+plain MLP half. So no K3, K4 or K5 runs.
+
+Not ported yet, and refused: ``fused_train`` and ``remat`` (the training
+slice).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch.nn.functional as F
 
 from ..ops.mlp_block import mlp_block_fused, q8_weight
 from ..ops.swin_block import swin_block_fused
+from ..ops.window_attention import window_attention_fused
 from ..ops.window_mhsa import (window_mhsa_fused, window_partition,
                                window_reverse)
 from .common import Dense, DropPath, LayerNorm, Mlp, lecun_normal_, trunc_normal_
@@ -69,8 +77,7 @@ VARIANTS = {
                          num_heads=(1, 2, 4, 8), window_size=4),
 }
 MLP_RATIO = 4
-NOT_PORTED = {"use_fused_attn": "K10, the per-window attention kernel",
-              "fused_train": "the training slice",
+NOT_PORTED = {"fused_train": "the training slice",
               "remat": "the training slice"}
 
 
@@ -118,13 +125,16 @@ def shift_mask(h: int, wd: int, w: int, shift: int, device: str,
 
 
 class WindowAttention(nn.Module):
-    """Multi-head attention within windows (the JAX XLA path)."""
+    """Multi-head attention within windows: the JAX XLA path, or with
+    ``use_fused_kernel`` the core through ``window_attention_fused``."""
 
     def __init__(self, dim: int, window: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_fused_kernel: bool = False, fused_block: int = 8):
         super().__init__()
         self.window, self.num_heads, self.dtype = window, num_heads, dtype
+        self.use_fused_kernel, self.fused_block = use_fused_kernel, fused_block
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, generator=generator,
                          init="trunc_normal")
         self.relative_position_bias_table = nn.Parameter(trunc_normal_(
@@ -147,6 +157,12 @@ class WindowAttention(nn.Module):
         hd = c // h
         qkv = self.qkv(x).reshape(bw, n, 3, h, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
+        if self.use_fused_kernel:
+            nw = mask.shape[0] if mask is not None else 1
+            out = window_attention_fused(q, k, v,
+                                         self.rel_bias().to(self.dtype),
+                                         mask, nw, self.fused_block)
+            return self.proj(out.transpose(1, 2).reshape(bw, n, c))
         attn = (q * hd ** -0.5) @ k.transpose(-1, -2)
         attn = attn + self.rel_bias()[None].to(attn.dtype)
         if mask is not None:
@@ -165,16 +181,18 @@ class SwinBlock(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
                  fused_split: bool = False, quant_eval: bool = False,
-                 quant_min_dim: int = 768):
+                 quant_min_dim: int = 768, use_fused_attn: bool = False,
+                 fused_block: int = 8):
         super().__init__()
         self.dim, self.num_heads, self.window = dim, num_heads, window
         self.shift, self.fused_eval, self.dtype = shift, fused_eval, dtype
-        self.fused_split = fused_split
+        self.fused_split, self.use_fused_attn = fused_split, use_fused_attn
         self.quant = quant_eval and dim >= quant_min_dim
         self._q8 = (None, None)  # (weights' identity, their Q8Weights)
         g = generator
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = WindowAttention(dim, window, num_heads, dtype, g)
+        self.attn = WindowAttention(dim, window, num_heads, dtype, g,
+                                    use_fused_attn, fused_block)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, MLP_RATIO * dim, dtype, g)
@@ -182,8 +200,9 @@ class SwinBlock(nn.Module):
 
     def plan(self, hgt: int, wid: int) -> str:
         """Which path the block takes on an (hgt, wid) map: "merged" (K5),
-        "split" (K3 + K4), "mlp" (plain attention half + K4) or "plain"."""
-        if self.fused_eval is False:
+        "split" (K3 + K4), "mlp" (plain attention half + K4) or "plain"
+        (with ``use_fused_attn``, K10 inside the plain attention half)."""
+        if self.fused_eval is False or self.use_fused_attn:
             return "plain"
         w = self.window
         if hgt % w == 0 and wid % w == 0 and self.dim <= 768:
@@ -255,7 +274,8 @@ class SwinBlock(nn.Module):
         mask = None
         if shift:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = shift_mask(hp, wp, w, shift, str(x.device), torch.float32)
+            # 0 / -100 in the compute dtype: the value the attention adds
+            mask = shift_mask(hp, wp, w, shift, str(x.device), self.dtype)
         x = self.attn(window_partition(x, w), mask)
         x = window_reverse(x, w, hp, wp)
         if shift:
@@ -331,15 +351,15 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 7, drop_path_rate: float = 0.1,
                  fused_eval: Optional[bool] = None,
-                 use_fused_attn: bool = False, fused_train: bool = False,
+                 use_fused_attn: bool = False, fused_block: int = 8,
+                 fused_train: bool = False,
                  remat: bool = False, fused_split: bool = False,
                  quant_eval: bool = False, quant_min_dim: int = 768,
                  s2d_embed: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_unported(use_fused_attn=use_fused_attn,
-                        fused_train=fused_train, remat=remat)
+        refuse_unported(fused_train=fused_train, remat=remat)
         self.dtype, self.depths = dtype, tuple(depths)
         self.s2d_embed, self.embed_dim = s2d_embed, embed_dim
         g = generator
@@ -354,7 +374,7 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"stage{si}_block{d}", SwinBlock(
                     dim, num_heads[si], window_size, shift, float(dpr[bi]),
                     fused_eval, dtype, g, fused_split, quant_eval,
-                    quant_min_dim))
+                    quant_min_dim, use_fused_attn, fused_block))
                 bi += 1
             if si < len(depths) - 1:
                 self.add_module(f"merge{si}", PatchMerging(dim, dtype, g))

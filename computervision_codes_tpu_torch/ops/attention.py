@@ -62,7 +62,7 @@ def _launch_fn():
     return fn
 
 
-def _vector_bytes(tensors, es: int) -> int:
+def vector_bytes(tensors, es: int) -> int:
     """The widest load (16, 8, 4 or 2 bytes) that every row of every tensor
     allows: base addresses and row strides aligned, the row a whole number
     of vectors."""
@@ -110,7 +110,7 @@ def attention_cuda(q, k, v):
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty(b, tq, h, d, dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    vb = _vector_bytes((q, k, v), q.element_size())
+    vb = vector_bytes((q, k, v), q.element_size())
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     fn = _launch_fn()
     with torch.cuda.device(q.device):

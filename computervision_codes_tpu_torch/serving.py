@@ -17,9 +17,10 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
   ``fused_stem`` runs the stem as one kernel (``ops.stem_pool``);
 * ``from_checkpoint`` serves a checkpoint that the JAX package's
   ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed);
-* ``TeacherSession`` serves the bf16 Q2L teacher (Swin-L-384 by default):
-  frames -> task probabilities and the per-frame feature vector that the
-  cached feature bus carries. ``quantize=True`` serves the int8 teacher
+* ``TeacherSession`` serves the bf16 Q2L teacher (Swin-L-384 by default,
+  or a ResNet or TResNet backbone, e.g. TResNet-L at 448x448): frames ->
+  task probabilities and the per-frame feature vector that the cached
+  feature bus carries. ``quantize=True`` serves the int8 teacher
   of the JAX session: ``Q2L(quant_eval=True, s2d_embed=True)`` (the Swin
   kernels' int8 branches at dims >= 768, the patch embed as a GEMM), with
   every ``Dense`` of at least 512 inputs swapped for an ``Int8Dense`` with
@@ -36,6 +37,7 @@ Usage::
     probs = sess.predict(clips_uint8)       # {task: (B, T, C) numpy}
     teacher = TeacherSession.create(batch=16, img_size=384, device="cuda")
     teacher = TeacherSession.create(quantize=True)   # the int8 teacher
+    teacher = TeacherSession.create(backbone="tresnet_l", img_size=448)
     out = teacher.predict(frames_uint8)     # {task: (B, C), "feature": (B, D)}
 """
 
@@ -313,9 +315,18 @@ class TeacherSession:
         """``variables``: the JAX ``Q2L`` variables to serve; without them,
         weights are drawn from a ``torch.Generator`` seeded with 0.
 
-        ``quantize=True`` serves the int8 teacher. ``calibrate_frames``,
-        normalised (N, H, W, 3) frames, bake the ``Int8Dense`` scales; without
-        them ``_default_calibration`` at (2, img, img, 3) stands in."""
+        ``backbone`` is a Swin, ResNet or TResNet variant of ``Q2L``
+        (``"tresnet_l"`` at ``img_size=448`` is the published TResNet-L
+        teacher; K9 runs every activated ABN on the card).
+
+        ``quantize=True`` serves the int8 teacher (Swin backbones only: the
+        int8 TResNet is not ported yet). ``calibrate_frames``, normalised
+        (N, H, W, 3) frames, bake the ``Int8Dense`` scales; without them
+        ``_default_calibration`` at (2, img, img, 3) stands in."""
+        if quantize and backbone.startswith("tresnet"):
+            raise NotImplementedError("quantize=True with a TResNet backbone "
+                                      "is not ported yet (the int8 TResNet "
+                                      "slice)")
         device = torch.device(device)
         model = Q2L(backbone=backbone, loss_type=loss_type,
                     dtype=torch.bfloat16,

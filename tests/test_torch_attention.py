@@ -122,6 +122,6 @@ def test_vector_bytes_follows_alignment():
         x = torch.zeros(1, 10, 3 * 8 * d, dtype=torch.bfloat16)
         views = [x[..., i * 8 * d:(i + 1) * 8 * d].reshape(1, 10, 8, d)
                  .transpose(1, 2) for i in range(3)]
-        assert attention._vector_bytes(views, 2) == want, d
+        assert attention.vector_bytes(views, 2) == want, d
     f = torch.zeros(1, 8, 10, 27)
-    assert attention._vector_bytes([f], 4) == 4
+    assert attention.vector_bytes([f], 4) == 4

@@ -7,7 +7,10 @@ command a user types, into a feature root of its own. Its dumps and its
 test mAP must equal the JAX ``MSTCT.apply`` at each video's own length.
 Where a video's length is a bucket size (128), they must also equal the
 JAX driver's own dump; at the other length (100) the JAX driver pads to
-128 and its outputs move, which the port does not copy.
+128 and its outputs move, which the port does not copy. Both drivers then
+run ``-e -d --dtype bfloat16`` from the same checkpoint: at the bucket
+length the port's dumps hold the JAX driver's values within bf16 bounds,
+written as float32 where JAX pickles ml_dtypes bfloat16.
 """
 
 import os
@@ -45,6 +48,13 @@ MODEL_FLAGS = ["--inter_channels", "8", "8", "8", "8", "--head", "2",
 # float32 on both sides, the same ops in the same order: the dumps agree to
 # float32 rounding of sums in another order (1e-5 of max(1, max|want|))
 REL = 1e-5
+# bf16 on both sides: the packages round at different points (XLA after
+# its fusions, the port after every op). Features: the whole-model bf16
+# bound of tests/test_torch_mstct.py, 2^-5 of max(1, max|want|) (measured
+# up to 1.2e-2 here); probabilities: the bf16 serving cross-check bound of
+# tests/test_torch_serving.py, max 0.1 (measured up to 0.047); correlation
+# > 0.999 for both
+BF16_FEATS_REL, BF16_PROB_ABS, BF16_CORR = 2.0 ** -5, 0.1, 0.999
 
 
 def _lengths(split):
@@ -95,7 +105,8 @@ def runs(tmp_path_factory):
     def dump(feats_root, kind):
         return FeatureStore(feats_root, "Q2LMSTCT").load(1, kind, task="ivt")
 
-    return {"split": split, "lengths": dict(zip(split.all_videos, lengths)),
+    return {"root": root, "common": common,
+            "split": split, "lengths": dict(zip(split.all_videos, lengths)),
             "natural": natural, "stdout": proc.stdout,
             "natural_mAP": jax_mAP.compute_video_AP()["mAP"],
             "port": {k: dump(port_feats, k) for k in ("feats", "pred")},
@@ -158,3 +169,51 @@ def test_driver_refuses_what_is_not_ported(tmp_path):
                               (["--seq_devices", "2"], "parallel slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             temporal_mstct.main(base + extra)
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(runs):
+    """Both drivers ``-e -d --dtype bfloat16`` from the float32 run's
+    checkpoint, on its tree and features."""
+    root, common = runs["root"], runs["common"]
+    out = {}
+    for side in ("jax", "port"):
+        feats_root = f"{root}/feats_{side}_bf16"
+        shutil.copytree(f"{root}/feats_{side}", feats_root)
+        argv = [*common, "--feats_dir", feats_root, "-e", "-d", "--dtype",
+                "bfloat16"]
+        if side == "jax":
+            jax_driver.main(argv)
+        else:
+            proc = subprocess.run(
+                [sys.executable, "-m", "computervision_codes_tpu_torch.cli."
+                 "temporal_mstct", *argv, "--device", "cpu"],
+                cwd=root, env=dict(os.environ, PYTHONPATH=REPO),
+                capture_output=True, text=True, timeout=300)
+            assert proc.returncode == 0, proc.stderr
+        out[side] = {k: FeatureStore(feats_root, "Q2LMSTCT").load(
+            1, k, task="ivt") for k in ("feats", "pred")}
+    return out
+
+
+def test_bf16_driver_matches_jax_driver_at_bucket_length(runs, bf16_runs):
+    """``--dtype bfloat16``: at a bucket length the two drivers' dumps hold
+    the same values within the bf16 bounds above, compared as float32; the
+    JAX driver pickles ml_dtypes bfloat16 arrays, which need ml_dtypes to
+    read, where the port writes float32 arrays holding bf16 values."""
+    port, jax_dump = bf16_runs["port"], bf16_runs["jax"]
+    at_bucket = [v for v, n in runs["lengths"].items() if n == BUCKET]
+    for v in at_bucket:
+        for kind in ("feats", "pred"):
+            got, want = port[kind][v[3:]], jax_dump[kind][v[3:]]
+            assert want.dtype == jnp.bfloat16, (v, kind)
+            assert got.dtype == np.float32, (v, kind)
+            np.testing.assert_array_equal(
+                got, got.astype(jnp.bfloat16).astype(np.float32))
+            want = want.astype(np.float32)
+            if kind == "feats":
+                assert _err(got, want) <= BF16_FEATS_REL, v
+            else:
+                assert np.abs(got - want).max() < BF16_PROB_ABS, v
+            assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > BF16_CORR, (
+                v, kind)

@@ -88,8 +88,6 @@ def test_position_embedding_matches_jax():
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="zoo"):
         Q2L(backbone="cvt_21_384_22k")
-    with pytest.raises(NotImplementedError, match="zoo"):
-        Q2L(backbone="tresnet_m")
     with pytest.raises(ValueError, match="unknown backbone"):
         Q2L(backbone="vgg16")
     # the int8 teacher's options build: int8 branches from quant_min_dim on

@@ -269,7 +269,8 @@ def test_port_imports_no_jax():
                "models.position_encoding", "models.common",
                "ops.quant", "ops.stem_pool", "ops.dilated_conv",
                "ops.window_mhsa", "ops.mlp_block", "ops.swin_block",
-               "ops.attention", "models.mstct", "cli.common",
+               "ops.attention", "ops.fused_norm", "ops.window_attention",
+               "models.tresnet", "models.mstct", "cli.common",
                "cli.temporal_mstct", "data.bank", "data.splits",
                "data.labels", "data.feature_store", "data.temporal",
                "data.synthetic", "metrics.recognition",

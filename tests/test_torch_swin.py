@@ -5,10 +5,12 @@ same seeded numpy frames go through both. In float32 the port's kernel path
 (``fused_eval=None``: K3/K4/K5's plain versions on the CPU) and its module
 path (``fused_eval=False``) are held to the JAX XLA path, and the kernel
 path also to the JAX fused path (Pallas interpreted), at atol 5e-5 as
-tests/test_ops_kernels.py:385 holds the JAX fused path to its XLA path. In
-bf16 the two packages round at different points (the port where the TPU
-kernels round, the JAX XLA path after every op): the bound is 4% of the
-largest magnitude, with correlation > 0.999.
+tests/test_ops_kernels.py:385 holds the JAX fused path to its XLA path, and
+``use_fused_attn`` (K10's plain version inside the plain attention half) to
+JAX's ``use_fused_attn`` at the same bound. In bf16 the two packages round
+at different points (the port where the TPU kernels round, the JAX XLA
+path after every op): the bound is 4% of the largest magnitude, with
+correlation > 0.999.
 """
 
 import jax
@@ -129,7 +131,35 @@ def test_loader_rejects_missing_and_extra_keys(rng):
         load_jax_variables(build_swin("swin_nano_64"), {"params": params})
 
 
-@pytest.mark.parametrize("flag", ["use_fused_attn", "fused_train", "remat"])
+@pytest.mark.parametrize("cfg,hw", [(JAX_VARIANTS["swin_nano_64"], 64),
+                                    (WIN7, 56)],
+                         ids=["nano", "window7-shifted"])
+def test_fused_attn_matches_jax(rng, cfg, hw):
+    """``use_fused_attn`` against JAX's: every block takes the plain plan
+    (K10 as its attention core on the card, no K3, K4 or K5), whatever
+    ``fused_eval`` says; the window-7 model has a shifted block (a mask of
+    4 windows) and 49-token windows."""
+    frames = rng.standard_normal((2, hw, hw, 3)).astype(np.float32)
+    variables, _ = _jax_forward(cfg, frames)
+    want = JaxSwin(fused_eval=False, use_fused_attn=True, **cfg).apply(
+        variables, jnp.asarray(frames))
+    model = load_jax_variables(SwinTransformer(use_fused_attn=True, **cfg),
+                               variables).eval()
+    with torch.no_grad():
+        x = model.embed(torch.from_numpy(frames))
+        for si, depth in enumerate(model.depths):
+            for d in range(depth):
+                block = getattr(model, f"stage{si}_block{d}")
+                assert block.plan(x.shape[1], x.shape[2]) == "plain", (si, d)
+                assert block.attn.use_fused_kernel
+            x = model.stage(si, x)
+        got = model(torch.from_numpy(frames))
+    for k in ("feature_map", "pooled"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("flag", ["fused_train", "remat"])
 def test_unported_options_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         build_swin("swin_nano_64", **{flag: True})
