@@ -13,8 +13,9 @@ printing its own lines:
    per source, all started together (timed, with ptxas' register and spill
    lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
    ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block`` (the int8 branches
-   of K3, K4 and K5 live in the same three sources), K7 ``attention``, K9
-   ``fused_norm``, K10 ``window_attention``;
+   of K3, K4 and K5 live in the same three sources, and K6's training
+   branches are K3's and K4's float entry points without the residual),
+   K7 ``attention``, K9 ``fused_norm``, K10 ``window_attention``;
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -59,6 +60,14 @@ printing its own lines:
      stage shapes and summed over the 24 launches of a forward, and in
      float32 at stage 0, beside the plain version's, SDPA's (the yardstick
      only) and its bound;
+   - K6 (the training branches ``window_mhsa_branch`` and
+     ``mlp_block_branch``: K3 and K4 at ``res_add=False``) in bf16 and
+     float32 at the Swin-L-384 training step's batch-8 shapes of stages
+     0-2 (the attention branch shifted and not) and a ragged map and token
+     count, against the plain versions at ``res_add=False``; each branch
+     Function's gradients against autograd of the plain version on the
+     card; its time at each stage beside the plain version's and the
+     bound, and summed over the 44 launches of each branch in a step;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
@@ -72,7 +81,10 @@ printing its own lines:
    float32 Q2L(tresnet_l, "i") (BatchNorm drawn from a seed) on one
    448x448 frame and the full-width float32 Swin-L-384 with
    ``use_fused_attn`` on one 384x384 frame, each on the card against the
-   CPU;
+   CPU; one float32 training step of the full-width Q2L(swin_L_384_22k,
+   "i", ``fused_train``, remat "dots") at batch 1 with drop rates 0 on the
+   card (K6) against the CPU: the loss and the gradient norms of one
+   parameter per stage, the head and all;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
@@ -104,18 +116,33 @@ printing its own lines:
 10. path B, a configuration and not a serving path: the bf16 forward of 16
    frames of 384x384 through ``build_swin("swin_L_384_22k",
    use_fused_attn=True)``: K10 24 launches and no K3, K4 or K5, ms per
-   forward beside the default plan's at the same weights, in turns.
+   forward beside the default plan's at the same weights, in turns;
+11. the teacher's training step (``train.make_spatial_train_step``, as
+   ``scripts/train_bench.py`` drives the JAX one) on Q2L(swin_L_384_22k,
+   "i", bf16, remat "dots") at batch 8 of 384x384 seeded frames with
+   seeded multi-hot labels, SGD at lr 1e-2 with weight decay 1e-5: 20
+   steps of the ``fused_train`` plan (K6: 44 launches of each branch per
+   step, the forward and the remat replay) and of the plain plan, in
+   turns, from the same weights and generator seed: launches per step, ms
+   per step (the median of 10 after 2 warm-up steps), frames/s, peak
+   device memory, the losses (finite, falling, the two plans within 8 bf16
+   ulps of each other); then the trained module's eval forward (K5, K3 +
+   K4, no K6) against the plain eval plan, and one step under
+   torch.profiler by kind (K6, cuBLAS GEMMs, the rest) with the busy
+   share.
 
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
-path A), phase 8 (MS-TCT's) and phase 10 (path B) each start with every
-launch count set to 0 and read them just after, and each kernel must have
-launched on its path; K5's int8 branch
-runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
+path A), phase 8 (MS-TCT's), phase 10 (path B) and phase 11 (the
+teacher's training) each start with every launch count set to 0 and read
+them just after, and each kernel must have launched on its path; K5's int8
+branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
 H100's published peak for their type and its bytes at 3.35 TB/s; K7's
 entry is bf16 at (1, 8, 8192, 108), with its float32 readings at that
-shape under ``float32``), and the last line
+shape under ``float32``; K6's two entries are bf16 at Swin-L-384's stage 2
+at batch 8, shifted, with each stage's time and the sums over a training
+step beside), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -157,10 +184,13 @@ KERNELS = {
     "fused_scale_bias_act": "computervision_codes_tpu/ops/fused_norm.py:44",
     "window_attention":
         "computervision_codes_tpu/ops/window_attention.py:57 + :107",
+    "window_mhsa_branch": "computervision_codes_tpu/ops/swin_train.py:33",
+    "mlp_block_branch": "computervision_codes_tpu/ops/swin_train.py:69",
 }
-# the CUDA source of each (csrc/<source>.cu)
-SOURCES = {name: name.removesuffix("_q8") for name in KERNELS} | {
-    "fused_scale_bias_act": "fused_norm"}
+# the CUDA source of each (csrc/<source>.cu); K6's branches are K3's and
+# K4's float entry points without the residual
+SOURCES = {name: name.removesuffix("_q8").removesuffix("_branch")
+           for name in KERNELS} | {"fused_scale_bias_act": "fused_norm"}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # published H100 SXM peaks (dense): the bound of each kernel's work
 PEAK_BYTES_S = 3.35e12
@@ -317,6 +347,51 @@ K10_RAGGED = [("nW 3 of 15 windows, N 49", 15, 2, 49, 3),
 # float32; against the bf16 plain version (q * scale and the scores in
 # bf16) 8 ulps
 K10_BF16_ULPS, K10_F32_REL, K10_PLAIN_BF16_ULPS = 2, 1e-5, 8
+# K6, the training branches (K3 and K4 without the residual), at the
+# shapes of the Swin-L-384 training step at batch 8: (what, B, map side,
+# C, heads, window, blocks of the stage) for the attention branch, shifted
+# and not, and (what, tokens, C, hidden, blocks) for the MLP branch, plus
+# a ragged map and token count; the gradient check at (what, B, side, C,
+# heads, window) and (what, tokens, C, hidden)
+TRAIN_BATCH, TRAIN_IMG = 8, 384
+K6_ATTN_CASES = [("SwinL-384 stage 0, batch 8", 8, 96, 192, 6, 12, 2),
+                 ("SwinL-384 stage 1, batch 8", 8, 48, 384, 12, 12, 2),
+                 ("SwinL-384 stage 2, batch 8", 8, 24, 768, 24, 12, 18),
+                 ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7, 0)]
+K6_MLP_CASES = [("SwinL-384 stage 0, batch 8", 8 * 96 * 96, 192, 768, 2),
+                ("SwinL-384 stage 1, batch 8", 8 * 48 * 48, 384, 1536, 2),
+                ("SwinL-384 stage 2, batch 8", 8 * 24 * 24, 768, 3072, 18),
+                ("ragged tokens", 1000, 192, 768, 0)]
+K6_GRAD_ATTN = ("SwinL-384 stage 2, batch 2", 2, 24, 768, 24, 12)
+K6_GRAD_MLP = ("SwinL-384 stage 2, batch 2", 2 * 24 * 24, 768, 3072)
+# the training step (main path): make_spatial_train_step on Q2L(swin_L_384,
+# "i", bf16, remat "dots", fused_train) at batch 8, SGD lr 1e-2, weight
+# decay 1e-5 (scripts/train_bench.py:92-135); each K6 branch launches once
+# per block of stages 0-2 (22) in the forward and once more in the remat
+# replay; TRAIN_STEPS steps of each plan in turns on one fixed batch, the
+# first TRAIN_WARM warming up and the next TRAIN_TIMED timed
+TRAIN_LAUNCHES = {"window_mhsa_branch": 44, "mlp_block_branch": 44}
+TRAIN_STEPS, TRAIN_WARM, TRAIN_TIMED = 20, 2, 10
+TRAIN_POSITIVE = 0.3  # the share of positive labels, seeded multi-hot
+# the fused and plain plans' losses at the same weights and generator
+# seed: bf16 rounding apart, 8 bf16 ulps of max(1, loss)
+TRAIN_LOSS_REL = REL_TOL[torch.bfloat16]
+# the trained module's eval forward (K5, K3 + K4) against the plain eval
+# plan, bf16: as tests/test_torch_swin.py holds the two packages' bf16
+# paths, 4% of the largest magnitude and a correlation of at least 0.999
+TRAIN_EVAL_REL, TRAIN_EVAL_CORR = 0.04, 0.999
+# the float32 training step, card against CPU: the loss within 1e-4 of
+# max(1, loss) (sums in another order); the gradient norms within 1e-2,
+# relative: a ReLU unit of the Q2L FFN within float32 noise of 0 may flip
+# between the two devices and move its weight row's gradient by a whole
+# term. The parameters: one per Swin stage, the patch embed and the head
+TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 1e-4, 1e-2
+TRAIN_GRAD_PARAMS = (
+    "backbone.patch_embed.weight", "backbone.stage0_block1.attn.qkv.kernel",
+    "backbone.stage1_block0.mlp.Dense_0.kernel",
+    "backbone.stage2_block17.attn.relative_position_bias_table",
+    "backbone.stage3_block1.mlp.Dense_1.kernel",
+    "transformer.encoder0.linear1.kernel", "fc_i.W")
 
 
 def fail(msg: str) -> None:
@@ -395,7 +470,7 @@ def kernel_wrappers() -> dict:
     from computervision_codes_tpu_torch.ops import attention, mlp_block
     from computervision_codes_tpu_torch.ops import swin_block, window_mhsa
 
-    from computervision_codes_tpu_torch.ops import fused_norm
+    from computervision_codes_tpu_torch.ops import fused_norm, swin_train
     from computervision_codes_tpu_torch.ops import window_attention
 
     return {"dilated_residual": dilated_conv.dilated_residual_cuda,
@@ -409,7 +484,9 @@ def kernel_wrappers() -> dict:
             "swin_block_q8": swin_block.swin_block_q8_cuda,
             "attention": attention.attention_cuda,
             "fused_scale_bias_act": fused_norm.fused_scale_bias_act_cuda,
-            "window_attention": window_attention.window_attention_cuda}
+            "window_attention": window_attention.window_attention_cuda,
+            "window_mhsa_branch": swin_train.window_mhsa_branch_cuda,
+            "mlp_block_branch": swin_train.mlp_block_branch_cuda}
 
 
 def launches() -> dict:
@@ -2500,6 +2577,381 @@ def phase_mstct_breakdown(card: str) -> None:
         del model
 
 
+def branch_grads(fn, args, n_grad: int, upstream):
+    """Gradients of sum(fn(*args) * upstream) over the first ``n_grad``
+    arguments, taken at detached copies of them."""
+    leaves = [a.detach().requires_grad_() for a in args[:n_grad]]
+    out = fn(*leaves, *args[n_grad:])
+    return out, torch.autograd.grad(out, leaves, upstream)
+
+
+def phase_k6(card: str) -> tuple:
+    """K6: each training branch (K3 and K4 without the residual) against
+    its plain version at the batch-8 stage shapes of the Swin-L-384
+    training step (the attention branch shifted and not) and a ragged
+    shape, bf16 and float32; each branch Function's gradients on the card
+    against autograd of the plain version at the same inputs; then the
+    kernel's and the plain version's times at each stage, in turns, beside
+    the bound, and their sums over the 44 launches of a training step
+    (22 blocks, forward and remat replay). Returns the kernels' entries."""
+    from computervision_codes_tpu_torch.ops.mlp_block import (
+        mlp_block_reference)
+    from computervision_codes_tpu_torch.ops.swin_train import (
+        make_attn_branch, make_mlp_branch, mlp_block_branch_cuda,
+        window_mhsa_branch_cuda)
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_mhsa_reference)
+
+    def attn_ref(x, *args, **kw):
+        return window_mhsa_reference(x, *args, **kw, res_add=False)
+
+    def mlp_ref(x, *args):
+        return mlp_block_reference(x, *args, res_add=False)
+
+    main_err = {"attn": 0.0, "mlp": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for seed, (what, b, hw, c, heads, w, _) in enumerate(K6_ATTN_CASES):
+            hp, wp = geometry(hw)
+            x, attn, _ = swin_inputs((b, hp, wp), c, 4 * c, heads, w, dtype,
+                                     seed)
+            for shift in (0, w // 2):
+                kw = dict(window=w, num_heads=heads)
+                mask = swin_mask(hp, wp, w, shift)
+                err, tol = compare(
+                    f"K6 attention {str(dtype)[6:]} {what} shift={shift}",
+                    window_mhsa_branch_cuda(x, *attn, mask, **kw),
+                    attn_ref(x, *attn, mask, **kw), dtype)
+                if err / tol >= worst[0]:
+                    worst = (err / tol, ("attention", what, shift, err, tol))
+                if dtype == torch.bfloat16 and isinstance(hw, int):
+                    main_err["attn"] = max(main_err["attn"], err)
+            del x, attn
+        for seed, (what, m, c, hidden, _) in enumerate(K6_MLP_CASES):
+            x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, 10 + seed)
+            err, tol = compare(f"K6 MLP {str(dtype)[6:]} {what}",
+                               mlp_block_branch_cuda(x, *mlp),
+                               mlp_ref(x, *mlp), dtype)
+            if err / tol >= worst[0]:
+                worst = (err / tol, ("MLP", what, err, tol))
+            if dtype == torch.bfloat16 and "stage" in what:
+                main_err["mlp"] = max(main_err["mlp"], err)
+            del x, mlp
+        cases = 2 * len(K6_ATTN_CASES) + len(K6_MLP_CASES)
+        print(f"[kernels] K6 {str(dtype)[6:]}: {cases} cases of the two "
+              f"branches within tolerance ({REL_TOL[dtype]:g} x max(1, "
+              f"max|ref|)) of the plain versions at res_add=False; worst "
+              f"(branch, case, [shift,] err, tol) = {worst[1]}")
+
+        # the Functions' backward against autograd of the plain versions
+        what, b, hw, c, heads, w = K6_GRAD_ATTN
+        x, attn, _ = swin_inputs((b, hw, hw), c, 4 * c, heads, w, dtype, 20)
+        mask = swin_mask(hw, hw, w, w // 2).to(dtype)
+        up = torch.randn(x.shape, device=DEVICE).to(dtype)
+        kw = dict(window=w, num_heads=heads)
+        fn = make_attn_branch(w, heads, True).apply
+        _, got = branch_grads(fn, [x, *attn, mask], 8, up)
+        _, want = branch_grads(lambda *a: attn_ref(*a, **kw),
+                               [x, *attn, mask], 8, up)
+        names = ("x", "gamma", "beta", "wqkv", "bqkv", "wproj", "bproj",
+                 "bias")
+        errs = [compare(f"K6 attention gradient {str(dtype)[6:]} {n}", g_,
+                        w_, dtype)[0] for n, g_, w_ in zip(names, got, want)]
+        x, _, mlp = swin_inputs((K6_GRAD_MLP[1],), K6_GRAD_MLP[2],
+                                K6_GRAD_MLP[3], 1, 1, dtype, 21)
+        up = torch.randn(x.shape, device=DEVICE).to(dtype)
+        _, got = branch_grads(make_mlp_branch().apply, [x, *mlp], 7, up)
+        _, want = branch_grads(mlp_ref, [x, *mlp], 7, up)
+        names = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
+        errs += [compare(f"K6 MLP gradient {str(dtype)[6:]} {n}", g_, w_,
+                         dtype)[0] for n, g_, w_ in zip(names, got, want)]
+        print(f"[kernels] K6 {str(dtype)[6:]} gradients of both branch "
+              f"Functions at {what} (attention shifted; every argument but "
+              f"the mask) against autograd of the plain versions: within "
+              f"{REL_TOL[dtype]:g} x max(1, max|ref|), worst max_abs_err "
+              f"{max(errs):.3e}")
+        del x, attn, mlp, up
+
+    # times in bf16 at the stage shapes (shifted at stages 0-2, as every
+    # other block is), in turns with the plain version, beside the bound
+    times = {"attn": {}, "mlp": {}}
+    for what, b, hw, c, heads, w, blocks in K6_ATTN_CASES[:3]:
+        x, attn, _ = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                                 torch.bfloat16, 99)
+        mask, kw = swin_mask(hw, hw, w, w // 2), dict(window=w,
+                                                      num_heads=heads)
+        ms, runs = in_turns(
+            {"plain": lambda: attn_ref(x, *attn, mask, **kw),
+             "kernel": lambda: window_mhsa_branch_cuda(x, *attn, mask,
+                                                       **kw)},
+            {"plain": 5, "kernel": 10})
+        ops, nbytes = attn_work(b, hw, hw, c, heads, w, True, 2)
+        times["attn"][what] = ms | bound(ops, nbytes, "bf16") | {
+            "blocks": blocks, "ops": ops, "bytes": nbytes}
+        print(f"[kernels] K6 attention time bf16 {what} {hw}x{hw} C={c} "
+              f"heads={heads} shifted: kernel {ms['kernel']:.4f} ms "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"{ms['plain']:.4f} ms, bound "
+              f"{times['attn'][what]['bound_ms']:.4f} ms; runs {runs}; "
+              f"{card}")
+        del x, attn
+    for what, m, c, hidden, blocks in K6_MLP_CASES[:3]:
+        x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, torch.bfloat16, 98)
+        ms, runs = in_turns(
+            {"plain": lambda: mlp_ref(x, *mlp),
+             "kernel": lambda: mlp_block_branch_cuda(x, *mlp)},
+            {"plain": 5, "kernel": 10})
+        ops, nbytes = mlp_work(m, c, hidden, 2)
+        times["mlp"][what] = ms | bound(ops, nbytes, "bf16") | {
+            "blocks": blocks, "ops": ops, "bytes": nbytes}
+        print(f"[kernels] K6 MLP time bf16 {what} {m} x {c}, hidden "
+              f"{hidden}: kernel {ms['kernel']:.4f} ms "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"{ms['plain']:.4f} ms, bound "
+              f"{times['mlp'][what]['bound_ms']:.4f} ms; runs {runs}; {card}")
+        del x, mlp
+    out = []
+    for key, label in (("attn", "attention"), ("mlp", "MLP")):
+        stages = times[key]
+        # per step: each block's branch in the forward and the replay
+        step = {k: 2 * sum(t["blocks"] * t[k] for t in stages.values())
+                for k in ("kernel", "plain", "ops", "bytes")}
+        step_bound = bound(step["ops"], step["bytes"], "bf16")
+        print(f"[kernels] K6 {label} branch, bf16, the "
+              f"{2 * sum(t['blocks'] for t in stages.values())} launches of "
+              f"one training step at batch {TRAIN_BATCH} (every block timed "
+              f"as its stage's shifted one): kernel {step['kernel']:.4f} ms, "
+              f"plain {step['plain']:.4f} ms, bound "
+              f"{step_bound['bound_ms']:.4f} ms; {card}")
+        shape, top = list(stages.items())[2]  # 18 of the 22 blocks
+        out.append({"max_abs_err": main_err[key], "ms": top["kernel"],
+                    "plain_ms": top["plain"], "bound_ms": top["bound_ms"],
+                    "bound_by": top["bound_by"], "library_ms": None,
+                    "shape": shape,
+                    "per_stage_ms": {w_: round(t["kernel"], 4)
+                                     for w_, t in stages.items()},
+                    "step_ms": round(step["kernel"], 4),
+                    "step_plain_ms": round(step["plain"], 4),
+                    "step_bound_ms": step_bound["bound_ms"]})
+    return tuple(out)
+
+
+def train_inputs(b: int, img: int, seed: int) -> dict:
+    """One batch of seeded frames and multi-hot labels, on the card."""
+    rng = np.random.default_rng(seed)
+    batch = {"image": rng.standard_normal((b, img, img, 3)).astype(
+        np.float32)}
+    for k, n in TASK_SIZES.items():
+        batch[f"label_{k}"] = (rng.random((b, n)) < TRAIN_POSITIVE).astype(
+            np.float32)
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def train_setup(fused: bool, dtype, device: str, drop: bool = True):
+    """(state, step) of the teacher's training path: Q2L(swin_L_384, "i",
+    remat "dots"), weights from seed 0, SGD 1e-2 with weight decay 1e-5, the
+    reference's pos-weights; ``drop=False`` sets every drop rate to 0."""
+    from computervision_codes_tpu_torch.losses import (
+        TARGET_POS_WEIGHT, TOOL_POS_WEIGHT, VERB_POS_WEIGHT)
+    from computervision_codes_tpu_torch.models.common import Dropout
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+    from computervision_codes_tpu_torch.train import (
+        build_sgd, create_train_state, make_spatial_train_step)
+
+    model = Q2L(backbone=TEACHER_BACKBONE, loss_type="i", dtype=dtype,
+                remat=True, remat_policy="dots", fused_train=fused,
+                drop_path_rate=0.1 if drop else 0.0,
+                generator=torch.Generator().manual_seed(0))
+    if not drop:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    state = create_train_state(model, build_sgd(1e-2, weight_decay=1e-5),
+                               seed=1, device=device)
+    pw = {"i": TOOL_POS_WEIGHT, "v": VERB_POS_WEIGHT, "t": TARGET_POS_WEIGHT}
+    return state, make_spatial_train_step(model, "i", pos_weights=pw,
+                                          device=device)
+
+
+def phase_model_train() -> None:
+    """One float32 training step of the full-width Q2L(swin_L_384, "i",
+    fused_train, remat "dots") at batch 1, drop rates 0, on the card (K6
+    float32 at stages 0-2) against the same step on the CPU (the plain
+    versions): the loss, the gradient norm of one parameter per stage and
+    of the head, and the global gradient norm."""
+    batch = {k: v.cpu() for k, v in train_inputs(1, TRAIN_IMG, 11).items()}
+    named = TRAIN_GRAD_PARAMS
+    readings = {}
+    for device in ("cpu", DEVICE):
+        state, step = train_setup(True, torch.float32, device, drop=False)
+        before = launches()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        seconds = time.perf_counter() - t0
+        count = launched_since(before)
+        grads = dict(state.model.named_parameters())
+        norms = {n: grads[n].grad.float().norm().item() for n in named}
+        norms["global"] = float(torch.stack([
+            p.grad.float().norm() for p in state.model.parameters()
+            if p.grad is not None]).norm())
+        readings[device] = (loss, norms, count, seconds)
+        del state, step
+    (l_cpu, n_cpu, _, t_cpu), (l_dev, n_dev, count, t_dev) = (
+        readings["cpu"], readings[DEVICE])
+    want = dict.fromkeys(KERNELS, 0) | TRAIN_LAUNCHES
+    check(count == want, f"float32 training step launches {count}, want "
+                         f"{want}")
+    rel = {n: abs(n_dev[n] - n_cpu[n]) / max(n_cpu[n], 1e-12) for n in n_cpu}
+    loss_rel = abs(l_dev - l_cpu) / max(1.0, abs(l_cpu))
+    print(f"[model] float32 training step of Q2L({TEACHER_BACKBONE}, 'i', "
+          f"fused_train, remat 'dots'), full depth and width, batch 1, "
+          f"drop rates 0, card (K6) vs CPU (plain versions): loss "
+          f"{l_dev:.6f} vs {l_cpu:.6f}; gradient norms card / CPU "
+          + ", ".join(f"{n} {n_dev[n]:.6e} / {n_cpu[n]:.6e}" for n in n_cpu)
+          + f"; relative differences: loss {loss_rel:.2e} (tol "
+          f"{TRAIN_F32_LOSS_REL:g}), gradient norms "
+          f"{ {n: float(f'{r:.2e}') for n, r in rel.items()} } (tol "
+          f"{TRAIN_F32_GRAD_REL:g}); launches "
+          f"{ {k: v for k, v in count.items() if v} }; CPU step "
+          f"{t_cpu:.2f} s, card step {t_dev:.2f} s (host clock)")
+    check(loss_rel <= TRAIN_F32_LOSS_REL,
+          f"float32 training step, card vs CPU: loss differs by {loss_rel} "
+          f"> {TRAIN_F32_LOSS_REL}")
+    for name, r in rel.items():
+        check(np.isfinite(r) and r <= TRAIN_F32_GRAD_REL,
+              f"float32 training step, card vs CPU: the gradient norm of "
+              f"{name} differs by {r} (relative) > {TRAIN_F32_GRAD_REL}")
+
+
+def phase_train(card: str) -> tuple:
+    """The main path of training: ``make_spatial_train_step`` on the bf16
+    Swin-L-384 Q2L teacher (remat "dots") with ``fused_train`` (K6) and
+    without it (the plain plan), at batch 8 on one fixed batch of seeded
+    frames and multi-hot labels, the same weights and generator seed,
+    TRAIN_STEPS steps each in turns: launches of each kernel per step, ms
+    per step, frames/s, peak device memory, the losses (finite, falling,
+    the two plans' within TRAIN_LOSS_REL of each other); then the trained
+    module's eval forward through ``make_spatial_eval_step`` (K5, K3 + K4,
+    no K6) against the plain eval plan at the same parameters. Returns the
+    launches of the run, the fused state and the batch."""
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+    from computervision_codes_tpu_torch.train import make_spatial_eval_step
+
+    batch = train_inputs(TRAIN_BATCH, TRAIN_IMG, 12)
+    setups = {"fused_train": train_setup(True, torch.bfloat16, DEVICE),
+              "plain": train_setup(False, torch.bfloat16, DEVICE)}
+    want = {"fused_train": dict.fromkeys(KERNELS, 0) | TRAIN_LAUNCHES,
+            "plain": dict.fromkeys(KERNELS, 0)}
+    labels = list(setups)
+    losses = {label: [] for label in labels}
+    ms = {label: [] for label in labels}
+    peak = dict.fromkeys(labels, 0)
+    for i in range(TRAIN_STEPS):
+        for label in labels if i % 2 == 0 else labels[::-1]:
+            state, step = setups[label]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = launches()
+            (_, metrics), step_ms = timed_call(lambda: step(state, batch))
+            count = launched_since(before)
+            check(count == want[label], f"{label} training step {i}: "
+                                        f"launches {count}, want "
+                                        f"{want[label]}")
+            peak[label] = max(peak[label], torch.cuda.max_memory_allocated())
+            losses[label].append(metrics["loss"].item())
+            check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+                  f"{label} training step {i}: non-finite metrics")
+            ms[label].append(step_ms)
+    timed = slice(TRAIN_WARM, TRAIN_WARM + TRAIN_TIMED)
+    steady = {label: float(np.median(ms[label][timed])) for label in labels}
+    for label in labels:
+        curve = losses[label]
+        check(np.mean(curve[-5:]) < np.mean(curve[:5]),
+              f"{label} training loss does not fall: {curve}")
+        print(f"[train] {label}: Q2L({TEACHER_BACKBONE}, 'i') bf16, remat "
+              f"'dots', batch {TRAIN_BATCH} of {TRAIN_IMG}x{TRAIN_IMG}, SGD "
+              f"1e-2 wd 1e-5: launches per step "
+              f"{ {k: v for k, v in want[label].items() if v} }; ms per step "
+              f"{[round(m, 3) for m in ms[label]]} (the first "
+              f"{TRAIN_WARM} warm up); median of the next {TRAIN_TIMED} "
+              f"{steady[label]:.3f} ms = "
+              f"{TRAIN_BATCH / steady[label] * 1e3:.1f} frames/s; peak "
+              f"device memory {peak[label] / 2**30:.2f} GiB (both plans' "
+              f"states resident); losses {[round(v, 5) for v in curve]}; "
+              f"{card}")
+    diff = [abs(a - b) / max(1.0, abs(b)) for a, b in
+            zip(losses["fused_train"], losses["plain"])]
+    check(max(diff) <= TRAIN_LOSS_REL,
+          f"fused_train and plain losses differ by {max(diff)} of max(1, "
+          f"loss) > {TRAIN_LOSS_REL}")
+    print(f"[train] fused_train against plain, in turns: "
+          f"{steady['fused_train']:.3f} against {steady['plain']:.3f} ms per "
+          f"step; losses within {max(diff):.2e} of max(1, loss) at every "
+          f"step (tol {TRAIN_LOSS_REL:g}); {card}")
+
+    # the trained module in eval: K5, K3 + K4, no K6; against the plain
+    # eval plan (fused_eval=False) holding the same parameters
+    state = setups["fused_train"][0]
+    twin = Q2L(backbone=TEACHER_BACKBONE, loss_type="i",
+               dtype=torch.bfloat16, fused_eval=False).to(DEVICE)
+    before = launches()
+    probs, feat = make_spatial_eval_step(state.model, device=DEVICE)(
+        state, batch["image"])
+    eval_count = launched_since(before)
+    check(eval_count == dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES,
+          f"trained module's eval launches {eval_count}, want "
+          f"{TEACHER_LAUNCHES}")
+    ref_probs, ref_feat = make_spatial_eval_step(twin, device=DEVICE)(
+        state, batch["image"])
+    for name, got, ref in (("probabilities i", probs["i"], ref_probs["i"]),
+                           ("feature", feat, ref_feat)):
+        got, ref = got.float(), ref.float()
+        check(bool(torch.isfinite(got).all()), f"eval {name}: non-finite")
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        corr = float(torch.corrcoef(torch.stack([got.flatten(),
+                                                 ref.flatten()]))[0, 1])
+        check(err <= TRAIN_EVAL_REL and corr >= TRAIN_EVAL_CORR,
+              f"trained module eval {name} vs the plain eval plan: "
+              f"{err:.3e} of max|ref|, correlation {corr:.6f}")
+        print(f"[train] the trained module's eval forward (launches "
+              f"{ {k: v for k, v in eval_count.items() if v} }) against the "
+              f"plain eval plan, {name}: max difference {err:.2e} of "
+              f"max|ref|, correlation {corr:.6f}")
+    del twin, setups["plain"]
+    return launches(), state, batch
+
+
+def train_category(name: str) -> str:
+    if "swin::" in name:
+        return "K6 (the swin:: kernels of both branches)"
+    if any(k in name.lower() for k in ("gemm", "cutlass", "xmma", "nvjet")):
+        return ("GEMMs (cuBLAS: the plain backward, stage 3, the merges "
+                "and the Q2L head)")
+    return "elementwise, reductions and copies"
+
+
+def train_breakdown(card: str, state, batch) -> None:
+    """One fused training step under torch.profiler: device time by kind
+    (K6, cuBLAS GEMMs, the rest) and the busy share."""
+    from computervision_codes_tpu_torch.losses import TOOL_POS_WEIGHT
+    from computervision_codes_tpu_torch.train import make_spatial_train_step
+
+    step = make_spatial_train_step(state.model, "i",
+                                   pos_weights={"i": TOOL_POS_WEIGHT},
+                                   device=DEVICE)
+    busy, rows = device_profile(card, "fused_train training step",
+                                lambda: step(state, batch), 12)
+    kinds = {}
+    for dev_ms, count, name in rows:
+        kind = train_category(name)
+        t, c = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + dev_ms, c + count)
+    for kind, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"[breakdown] training step: {t:9.3f} ms ({100 * t / busy:.1f}"
+              f"% of device busy) in {c} launches: {kind}; {card}")
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -2509,6 +2961,7 @@ def main() -> None:
              "check runs only on the card")
     sys.path.insert(0, str(ROOT))
 
+    started = time.perf_counter()
     card = phase_device()
     phase_build()
     measured = {"dilated_residual": phase_k1(card),
@@ -2521,6 +2974,10 @@ def main() -> None:
                 "attention": phase_k7(card),
                 "fused_scale_bias_act": phase_k9(card),
                 "window_attention": phase_k10(card)}
+    slice_s = time.perf_counter()  # the training slice's phases, summed
+    measured["window_mhsa_branch"], measured["mlp_block_branch"] = \
+        phase_k6(card)
+    slice_s = time.perf_counter() - slice_s
     measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
     phase_model_int8()
@@ -2528,6 +2985,9 @@ def main() -> None:
     phase_model_mstct()
     phase_model_tresnet()
     phase_model_swin_fused()
+    t0 = time.perf_counter()
+    phase_model_train()
+    slice_s += time.perf_counter() - t0
 
     # the main path: the serving entry points at the serving geometry,
     # with cuDNN's TF32 at PyTorch's default (on) as a user runs them. The
@@ -2573,13 +3033,20 @@ def main() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0  # path B, Swin's use_fused_attn, starts here
     path_b = phase_swin_fused(card)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # the teacher's training steps start here
+    t0 = time.perf_counter()
+    train, train_state, train_batch = phase_train(card)
+    slice_s += time.perf_counter() - t0
     total = {name: student[name] + teacher[name] + tresnet[name]
-             + mstct[name] + path_b[name] for name in KERNELS}
+             + mstct[name] + path_b[name] + train[name] for name in KERNELS}
     print(f"[main path] launches: student sessions {student}, teacher "
           f"sessions (creation and predicts) {teacher}, the TResNet-L "
           f"teacher session (path A) {tresnet}, MS-TCT driver (-e -d, "
           f"float32 and bfloat16) {mstct}, Swin-L-384 use_fused_attn "
-          f"forward (path B, a configuration) {path_b}")
+          f"forward (path B, a configuration) {path_b}, the Swin-L-384 "
+          f"teacher's training steps (both plans) and the trained module's "
+          f"eval {train}")
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")
@@ -2592,6 +3059,13 @@ def main() -> None:
                       tresnet_frames)
     del teachers, offline, streaming, tresnet_sessions
     phase_mstct_breakdown(card)
+    t0 = time.perf_counter()
+    train_breakdown(card, train_state, train_batch)
+    slice_s += time.perf_counter() - t0
+    del train_state
+    print(f"[time] {time.perf_counter() - started:.1f} s in all; the "
+          f"training slice's phases (K6, the float32 training step, phase "
+          f"11 and its breakdown) {slice_s:.1f} s of it (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",

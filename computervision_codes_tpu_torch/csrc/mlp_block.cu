@@ -33,6 +33,13 @@
 // bound: 4 M C hidden int8 operations, 0.044 ms at stage 2 at 1,979
 // TOP/s, against x, y and the int8 weights (about 21 MB, 0.006 ms).
 //
+// K6's MLP branch (computervision_codes_tpu/ops/swin_train.py::
+// make_mlp_branch: mlp_block_fused at res_add=False) is the float entry
+// point with res_add = 0: GEMM2 takes the bias-only epilogue, y = T(W2 h +
+// b2) rounded once from the float32 sum, which is what the TPU kernel's
+// float32 accumulator holds at res_add=False; its backward is autograd of
+// the plain version (ops/swin_train.py).
+//
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
 // first CUDA error of the phases' launches (0 on success).
@@ -41,11 +48,12 @@
 
 namespace {
 
-template <typename T>
-int run(const void* x, const void* gamma, const void* beta, const void* w1,
-        const void* b1, const void* w2, const void* b2, void* h, void* stats,
-        void* y, int M, int C, int hidden, cudaStream_t s) {
-  return (int)swin::mlp_half<T>(
+template <typename T, int EPI>
+int run_epi(const void* x, const void* gamma, const void* beta,
+            const void* w1, const void* b1, const void* w2, const void* b2,
+            void* h, void* stats, void* y, int M, int C, int hidden,
+            cudaStream_t s) {
+  return (int)swin::mlp_half<T, EPI>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
@@ -53,26 +61,38 @@ int run(const void* x, const void* gamma, const void* beta, const void* w1,
       static_cast<float2*>(stats), static_cast<T*>(y), M, C, hidden, s);
 }
 
+template <typename T>
+int run(const void* x, const void* gamma, const void* beta, const void* w1,
+        const void* b1, const void* w2, const void* b2, void* h, void* stats,
+        void* y, int M, int C, int hidden, bool res_add, cudaStream_t s) {
+  return res_add ? run_epi<T, swin::EPI_RES_F32>(x, gamma, beta, w1, b1, w2,
+                                                 b2, h, stats, y, M, C,
+                                                 hidden, s)
+                 : run_epi<T, swin::EPI_BIAS>(x, gamma, beta, w1, b1, w2, b2,
+                                              h, stats, y, M, C, hidden, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, y (M, C); gamma, beta (C,) float32;
 // w1 (C, hidden), b1 (hidden,), w2 (hidden, C), b2 (C,) in dtype. Scratch:
-// h (M, hidden) in dtype, stats (M,) float2.
+// h (M, hidden) in dtype, stats (M,) float2. res_add: 1 adds the residual
+// x (K4), 0 returns the branch alone (K6).
 extern "C" int mlp_block_launch(const void* x, const void* gamma,
                                 const void* beta, const void* w1,
                                 const void* b1, const void* w2,
                                 const void* b2, void* h, void* stats, void* y,
-                                int M, int C, int hidden, int dtype,
-                                void* stream) {
+                                int M, int C, int hidden, int res_add,
+                                int dtype, void* stream) {
   if (M <= 0 || C <= 0 || C % 64 || hidden <= 0 || hidden % 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(x, gamma, beta, w1, b1, w2, b2, h, stats, y, M, C,
-                      hidden, s);
+                      hidden, res_add != 0, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, h, stats, y, M,
-                              C, hidden, s);
+                              C, hidden, res_add != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Device phases shared by the Swin kernels, written by hand for Hopper
 // (sm_90a): K3 window_mhsa.cu, K4 mlp_block.cu and K5 swin_block.cu each
-// include this header and export their own C entry point. K10
+// include this header and export their own C entry point (K6, the training
+// branches, is K3's and K4's float entry points without the residual). K10
 // window_attention.cu runs the attention phase's parts (AttnSmem,
 // attn_scores, attn_softmax, attn_pv) over q, k and v it gathers itself.
 //
@@ -636,7 +637,9 @@ inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
          (long long)B * (Hp / w) * (Wp / w) <= 2147483647LL && heads <= 65535;
 }
 
-// K3's phases: y = x + proj(window attention(LN(x))).
+// K3's phases: y = x + proj(window attention(LN(x))), or with res_add
+// false y = proj(window attention(LN(x))), T(acc + bproj) with no residual
+// (EPI_BIAS: the training branch, K6).
 // Scratch: qkv (M, 3C), attn (M, C), stats (M,) with M = B * Hp * Wp.
 template <typename T>
 cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
@@ -644,7 +647,7 @@ cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
                            const T* bproj, const T* bias, const T* mask,
                            T* qkv, T* attn, float2* stats, T* y, int B,
                            int Hp, int Wp, int C, int heads, int w,
-                           float scale, cudaStream_t s) {
+                           float scale, cudaStream_t s, bool res_add = true) {
   const int M = B * Hp * Wp;
   cudaError_t err = ln_stats(x, stats, M, C, s);
   if (err != cudaSuccess) return err;
@@ -654,14 +657,17 @@ cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
   err = window_attention(qkv, bias, mask, attn, B, Hp, Wp, C, heads, w,
                          scale, s);
   if (err != cudaSuccess) return err;
-  return gemm<T, false, EPI_ROUND_RES>(
-      {attn, nullptr, nullptr, nullptr, wproj, bproj, x, y, M, C, C}, s);
+  const GemmArgs<T> proj{attn, nullptr, nullptr, nullptr, wproj, bproj,
+                         res_add ? x : nullptr, y, M, C, C};
+  return res_add ? gemm<T, false, EPI_ROUND_RES>(proj, s)
+                 : gemm<T, false, EPI_BIAS>(proj, s);
 }
 
 // K4's phases: y = x + W2 gelu(W1 LN(x) + b1) + b2, the last sum in float32
 // (EPI_RES_F32), or with W2 h + b2 rounded to T before the residual is
-// added (EPI_ROUND_RES: K5's merged block). Scratch: h (M, hidden), stats
-// (M,).
+// added (EPI_ROUND_RES: K5's merged block), or y = T(W2 h + b2) with no
+// residual (EPI_BIAS: the training branch, K6). Scratch: h (M, hidden),
+// stats (M,).
 template <typename T, int EPI = EPI_RES_F32>
 cudaError_t mlp_half(const T* x, const float* gamma, const float* beta,
                      const T* w1, const T* b1, const T* w2, const T* b2, T* h,

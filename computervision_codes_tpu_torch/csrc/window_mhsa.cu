@@ -38,6 +38,17 @@
 // operations (0.022 ms at 1,979 TOP/s) and the attention core's 4.1 GFLOP
 // of bf16 (0.004 ms at 989 TFLOP/s).
 //
+// K6's attention branch (computervision_codes_tpu/ops/swin_train.py::
+// make_attn_branch: the training forward, window_mhsa_fused at
+// res_add=False) is the float entry point with res_add = 0: the proj GEMM
+// takes the bias-only epilogue, y = T(proj(o) + bproj) with no residual,
+// so the module can put DropPath between the branch and the residual. Its
+// backward is autograd of the plain version (ops/swin_train.py), as the TPU
+// package's is autodiff of its XLA reference. At Swin-L-384's training
+// shapes (batch 8, stages 0-2: 73,728, 18,432 and 4,608 tokens) the grid
+// holds 3,072, 1,536 and 768 (window, head) blocks of the attention phase
+// and up to 576 row tiles of the GEMMs, far inside the grid limits.
+//
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
 // first CUDA error of the phases' launches (0 on success).
@@ -51,7 +62,7 @@ int run(const void* x, const void* gamma, const void* beta, const void* wqkv,
         const void* bqkv, const void* wproj, const void* bproj,
         const void* bias, const void* mask, void* qkv, void* attn,
         void* stats, void* y, int B, int Hp, int Wp, int C, int heads,
-        int window, float scale, cudaStream_t s) {
+        int window, float scale, bool res_add, cudaStream_t s) {
   return (int)swin::attention_half<T>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const T*>(wqkv),
@@ -59,7 +70,7 @@ int run(const void* x, const void* gamma, const void* beta, const void* wqkv,
       static_cast<const T*>(bproj), static_cast<const T*>(bias),
       static_cast<const T*>(mask), static_cast<T*>(qkv),
       static_cast<T*>(attn), static_cast<float2*>(stats), static_cast<T*>(y),
-      B, Hp, Wp, C, heads, window, scale, s);
+      B, Hp, Wp, C, heads, window, scale, s, res_add);
 }
 
 }  // namespace
@@ -68,6 +79,7 @@ int run(const void* x, const void* gamma, const void* beta, const void* wqkv,
 // float32; wqkv (C, 3C), bqkv (3C,), wproj (C, C), bproj (C,), bias
 // (heads, N, N) and mask (nW, N, N, or null) in dtype. Scratch: qkv
 // (B*Hp*Wp, 3C) and attn (B*Hp*Wp, C) in dtype, stats (B*Hp*Wp,) float2.
+// res_add: 1 adds the residual x (K3), 0 returns the branch alone (K6).
 extern "C" int window_mhsa_launch(const void* x, const void* gamma,
                                   const void* beta, const void* wqkv,
                                   const void* bqkv, const void* wproj,
@@ -75,18 +87,18 @@ extern "C" int window_mhsa_launch(const void* x, const void* gamma,
                                   const void* mask, void* qkv, void* attn,
                                   void* stats, void* y, int B, int Hp, int Wp,
                                   int C, int heads, int window, float scale,
-                                  int dtype, void* stream) {
+                                  int res_add, int dtype, void* stream) {
   if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
                       qkv, attn, stats, y, B, Hp, Wp, C, heads, window, scale,
-                      s);
+                      res_add != 0, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                               mask, qkv, attn, stats, y, B, Hp, Wp, C, heads,
-                              window, scale, s);
+                              window, scale, res_add != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -118,8 +118,9 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP (Dense -> exact GELU -> Dense; eval, so no dropout).
-    The children carry flax's auto names ``Dense_0`` and ``Dense_1``."""
+    """Transformer MLP (Dense -> exact GELU -> Dense; no dropout, the Swin
+    models' rate being 0). The children carry flax's auto names
+    ``Dense_0`` and ``Dense_1``."""
 
     def __init__(self, dim: int, hidden: int,
                  dtype: torch.dtype = torch.float32,
@@ -134,19 +135,60 @@ class Mlp(nn.Module):
         return self.Dense_1(F.gelu(self.Dense_0(x)))  # exact (erf) GELU
 
 
+def keep_mask(shape, keep: float, device,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Bernoulli(``keep``) booleans of ``shape`` on ``device``, drawn from
+    ``generator`` (one on ``device``; None draws from PyTorch's default)."""
+    return torch.rand(shape, device=device, generator=generator) < keep
+
+
+def drop(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Tensor:
+    """x / keep where ``mask`` holds, else 0, in x's dtype (flax's
+    ``jnp.where(mask, x / keep, 0)``)."""
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
-    """Stochastic depth. Identity in eval; the training forward comes with
-    the training slice."""
+    """Stochastic depth, as the JAX ``DropPath``: in training one
+    Bernoulli(1 - rate) draw per sample, then x / (1 - rate) or 0; the
+    identity in eval or at rate 0. ``draw`` makes a call's mask and
+    ``forward`` applies it, so that a checkpointed block (Swin's remat)
+    replays with the masks drawn once outside it."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath in training is not ported "
-                                      "yet (the training slice)")
-        return x
+    def draw(self, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> Optional[torch.Tensor]:
+        """The per-sample keep mask (B, 1, ..., 1) of one training call on
+        x, or None where the module is the identity."""
+        if not self.training or self.rate == 0.0:
+            return None
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        return keep_mask(shape, 1.0 - self.rate, x.device, generator)
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        """``mask``: what ``draw`` gave for this call (None: identity)."""
+        return x if mask is None else drop(x, mask, 1.0 - self.rate)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate); the identity in eval
+    or at rate 0. The mask comes from the caller's generator, which
+    ``torch.nn.Dropout`` does not take."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return drop(x, keep_mask(x.shape, keep, x.device, generator), keep)
 
 
 class GroupWiseLinear(nn.Module):

@@ -1,5 +1,5 @@
 """Query2Label teacher (Swin, ResNet or TResNet backbone + DETR-style
-decoder), eval.
+decoder), eval and training forward.
 
 Counterpart of ``models/q2l.py`` in the JAX package: d_model = the
 backbone's channels, 4 heads, FFN 8192, one post-norm encoder layer and two
@@ -9,8 +9,14 @@ every task; per task an ``input_proj`` Dense, query embeddings and a
 memory over positions. Attention products are plain ``torch.matmul`` with a
 float32 softmax, as XLA computed them in the JAX package.
 
+In training (``.train()``) the transformer drops at the JAX rate of 0.1
+(``models/q2l.py:62,89,93,95,119,123,125`` there): the attention weights,
+each residual branch and the FFN's ReLU output, from the ``generator``
+passed to ``forward``, which the Swin backbone's DropPath draws from too.
+
 The Swin options (``fused_split``, ``quant_eval``, ``quant_min_dim``,
-``s2d_embed`` ...) go to the backbone. The int8 teacher is
+``s2d_embed``, ``fused_train``, ``remat``, ``remat_policy`` ...) go to the
+backbone. The int8 teacher is
 ``Q2L(quant_eval=True, s2d_embed=True)`` with its ``Dense`` layers swapped
 for ``models.quant_dense.Int8Dense``.
 
@@ -18,9 +24,9 @@ The TResNet backbones (``models.tresnet``) give d_model = width * 8 * 4
 (2432 for TResNet-L), the channels of their last stage; the Swin options do
 not apply to them and are ignored, as the JAX module ignores them.
 
-Not ported yet, and refused: the CvT backbones (the zoo slice), the KD
-block (``feat_i``, the training slice) and the Swin options ``models.swin``
-refuses. The JAX ``return_sim_mat`` output is not ported.
+Not ported yet, and refused: the CvT backbones (the zoo slice) and the KD
+block (``feat_i``, the student-training slice). The JAX ``return_sim_mat``
+output is not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from .common import Dense, GroupWiseLinear, LayerNorm
+from .common import Dense, Dropout, GroupWiseLinear, LayerNorm
 from .position_encoding import sine_position_embedding
 from .resnet import VARIANTS as RESNET_VARIANTS
 from .resnet import build_resnet, feature_dim
@@ -42,6 +48,7 @@ from .tresnet import feature_dim as tresnet_feature_dim
 
 # the reference transformer (its models/transformer.py:347-359)
 NUM_HEADS, FFN_DIM, ENCODER_LAYERS, DECODER_LAYERS = 4, 8192, 1, 2
+DROPOUT = 0.1  # the JAX Q2LTransformer's rate
 TASK_SIZES = {"i": 6, "v": 10, "t": 15, "ivt": 100}
 
 
@@ -57,8 +64,9 @@ class MultiHeadAttention(nn.Module):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(dim, dim, dtype=dtype,
                                       generator=generator))
+        self.dropout = Dropout(DROPOUT)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, generator=None):
         h = self.num_heads
         hd = self.dim // h
         b, nq, _ = q.shape
@@ -70,6 +78,7 @@ class MultiHeadAttention(nn.Module):
         attn = (split(self.q_proj(q), nq) * hd ** -0.5) @ split(
             self.k_proj(k), nk).transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+        attn = self.dropout(attn, generator)
         out = (attn @ split(self.v_proj(v), nk)).transpose(1, 2)
         return self.out_proj(out.reshape(b, nq, self.dim))
 
@@ -86,11 +95,16 @@ class EncoderLayer(nn.Module):
         self.linear1 = Dense(dim, FFN_DIM, dtype=dtype, generator=g)
         self.linear2 = Dense(FFN_DIM, dim, dtype=dtype, generator=g)
         self.norm2 = LayerNorm(dim, dtype)
+        self.dropout = Dropout(DROPOUT)
 
-    def forward(self, x, pos):
+    def forward(self, x, pos, generator=None):
+        def drop(t):
+            return self.dropout(t, generator)
+
         qk = x + pos
-        x = self.norm1(x + self.self_attn(qk, qk, x))
-        return self.norm2(x + self.linear2(torch.relu(self.linear1(x))))
+        x = self.norm1(x + drop(self.self_attn(qk, qk, x, generator)))
+        ffn = self.linear2(drop(torch.relu(self.linear1(x))))
+        return self.norm2(x + drop(ffn))
 
 
 class DecoderLayer(nn.Module):
@@ -105,11 +119,17 @@ class DecoderLayer(nn.Module):
         self.linear1 = Dense(dim, FFN_DIM, dtype=dtype, generator=g)
         self.linear2 = Dense(FFN_DIM, dim, dtype=dtype, generator=g)
         self.norm3 = LayerNorm(dim, dtype)
+        self.dropout = Dropout(DROPOUT)
 
-    def forward(self, tgt, memory, pos, query_pos):
-        tgt = self.norm2(tgt + self.cross_attn(tgt + query_pos, memory + pos,
-                                               memory))
-        return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+    def forward(self, tgt, memory, pos, query_pos, generator=None):
+        def drop(t):
+            return self.dropout(t, generator)
+
+        attn = self.cross_attn(tgt + query_pos, memory + pos, memory,
+                               generator)
+        tgt = self.norm2(tgt + drop(attn))
+        ffn = self.linear2(drop(torch.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(ffn))
 
 
 class Q2LTransformer(nn.Module):
@@ -127,16 +147,17 @@ class Q2LTransformer(nn.Module):
                                                         generator))
         self.decoder_norm = LayerNorm(dim, dtype)
 
-    def forward(self, src, pos, query_embed):
+    def forward(self, src, pos, query_embed, generator=None):
         """src (B, HW, d), pos (1, HW, d), query_embed (K, d) ->
         (decoded queries (B, K, d), encoder memory (B, HW, d))."""
         memory = src
         for i in range(ENCODER_LAYERS):
-            memory = getattr(self, f"encoder{i}")(memory, pos)
+            memory = getattr(self, f"encoder{i}")(memory, pos, generator)
         query = query_embed[None].expand(src.shape[0], -1, -1).to(self.dtype)
         tgt = torch.zeros_like(query)
         for i in range(DECODER_LAYERS):
-            tgt = getattr(self, f"decoder{i}")(tgt, memory, pos, query)
+            tgt = getattr(self, f"decoder{i}")(tgt, memory, pos, query,
+                                               generator)
         return self.decoder_norm(tgt), memory
 
 
@@ -187,12 +208,15 @@ class Q2L(nn.Module):
         keys = [k for k in ("i", "v", "t") if lt in (k, "all")]
         return keys + (["ivt"] if lt == "all" else [])
 
-    def feature_map(self, images: torch.Tensor) -> torch.Tensor:
+    def feature_map(self, images: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
         if self.backbone_name in SWIN_VARIANTS:
-            return self.backbone(images)["feature_map"]
+            return self.backbone(images, generator)["feature_map"]
         return self.backbone(images)["stages"][-1]
 
-    def head(self, fmap: torch.Tensor) -> Dict:
+    def head(self, fmap: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> Dict:
         """The transformer and the task heads over a (B, h, w, d) map."""
         b, h, w, _ = fmap.shape
         pos = torch.as_tensor(sine_position_embedding(h, w, self.dim // 2))
@@ -204,14 +228,18 @@ class Q2L(nn.Module):
         for key in self.tasks:
             proj = getattr(self, f"input_proj_{key}")(src)
             hs, memory = self.transformer(
-                proj, pos, getattr(self, f"query_embed_{key}"))
+                proj, pos, getattr(self, f"query_embed_{key}"), generator)
             logits[key] = getattr(self, f"fc_{key}")(hs)
             feats[key] = memory.mean(dim=1)
         feature = feats.get("ivt", next(iter(feats.values())))
         return {"logits": logits, "feature": feature, "task_features": feats}
 
-    def forward(self, images, feat_i=None, feat_v=None, feat_t=None) -> Dict:
+    def forward(self, images, feat_i=None, feat_v=None, feat_t=None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """``generator``: where a training call draws its dropout and
+        DropPath masks (one on the model's device; None draws from
+        PyTorch's default generator)."""
         if feat_i is not None:
             raise NotImplementedError("the KD block (feat_i) is not ported "
-                                      "yet (the training slice)")
-        return self.head(self.feature_map(images))
+                                      "yet (the student-training slice)")
+        return self.head(self.feature_map(images, generator), generator)

@@ -1,4 +1,4 @@
-"""Swin Transformer backbone, eval forward.
+"""Swin Transformer backbone, eval and training forward.
 
 Counterpart of ``models/swin.py`` in the JAX package: NHWC maps, windows
 batched over the whole map, the shift mask built with numpy (additive
@@ -6,10 +6,11 @@ batched over the whole map, the shift mask built with numpy (additive
 modules carry the flax names (``patch_embed``, ``stage{s}_block{d}``,
 ``merge{s}``, ``attn/qkv`` ...) for ``models.convert.load_jax_variables``.
 
-Execution plans of a block, with the JAX package's eval gate
-(``models/swin.py:291-331`` there), chosen when ``fused_eval`` is not
-False (None, the default, means: use the kernel functions, which run their
-plain versions on CPU tensors and launch the CUDA kernels on CUDA ones):
+Execution plans of a block in eval (``.eval()``), with the JAX package's
+eval gate (``models/swin.py:291-331`` there, taken when ``deterministic``),
+chosen when ``fused_eval`` is not False (None, the default, means: use the
+kernel functions, which run their plain versions on CPU tensors and launch
+the CUDA kernels on CUDA ones):
 
 * the map divides by the window, dim <= 384, the window is even and not
   ``fused_split``: the whole block through K5 (``ops.swin_block``);
@@ -39,8 +40,27 @@ block takes the "plain" plan whatever ``fused_eval`` says, and its
 ``fused_block`` windows per TPU grid step, accepted for parity), then the
 plain MLP half. So no K3, K4 or K5 runs.
 
-Not ported yet, and refused: ``fused_train`` and ``remat`` (the training
-slice).
+In training (``.train()``) no block takes the eval kernels, and DropPath
+follows each branch (one Bernoulli draw per sample from the ``generator``
+passed to ``forward``; the masks of a block are drawn before it runs). The
+plans, with the JAX gate (``swin.py:296-303`` there):
+
+* ``fused_train``, the map divides by the window, dim <= 768 and not
+  ``use_fused_attn`` (the JAX gate's ``dropout == 0`` always holds: the port
+  has no Swin dropout, which no configuration sets): "fused_train", the
+  attention and MLP branches through K6 (``ops.swin_train``: K3 and K4
+  without the residual on the card, their plain versions on the CPU, the
+  backward through the plain versions), DropPath and the residual after
+  each; at Swin-L-384 stages 0-2;
+* otherwise "plain", the JAX XLA path's modules (stage 3 of Swin-L-384, and
+  every block without ``fused_train``).
+
+``remat`` runs each block of a training forward under
+``torch.utils.checkpoint`` (non-reentrant; the backward replays the block,
+K6 included). ``remat_policy="dots"`` (JAX's
+``dots_with_no_batch_dims_saveable``) keeps the outputs of the unbatched
+matrix products (``aten.mm``, ``aten.addmm``: the Dense layers) and
+replays the rest; ``""`` keeps nothing.
 """
 
 from __future__ import annotations
@@ -52,9 +72,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.mlp_block import mlp_block_fused, q8_weight
 from ..ops.swin_block import swin_block_fused
+from ..ops.swin_train import make_attn_branch, make_mlp_branch
 from ..ops.window_attention import window_attention_fused
 from ..ops.window_mhsa import (window_mhsa_fused, window_partition,
                                window_reverse)
@@ -77,15 +100,10 @@ VARIANTS = {
                          num_heads=(1, 2, 4, 8), window_size=4),
 }
 MLP_RATIO = 4
-NOT_PORTED = {"fused_train": "the training slice",
-              "remat": "the training slice"}
-
-
-def refuse_unported(**flags) -> None:
-    for name, value in flags.items():
-        if value:
-            raise NotImplementedError(f"{name}=True is not ported yet "
-                                      f"({NOT_PORTED[name]})")
+# remat_policy -> the aten ops whose outputs a checkpointed block keeps
+REMAT_SAVED = {"dots": (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default),
+               "": ()}
 
 
 def _relative_position_index(w: int) -> np.ndarray:
@@ -182,11 +200,12 @@ class SwinBlock(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  fused_split: bool = False, quant_eval: bool = False,
                  quant_min_dim: int = 768, use_fused_attn: bool = False,
-                 fused_block: int = 8):
+                 fused_block: int = 8, fused_train: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.window = dim, num_heads, window
         self.shift, self.fused_eval, self.dtype = shift, fused_eval, dtype
         self.fused_split, self.use_fused_attn = fused_split, use_fused_attn
+        self.fused_train = fused_train
         self.quant = quant_eval and dim >= quant_min_dim
         self._q8 = (None, None)  # (weights' identity, their Q8Weights)
         g = generator
@@ -199,13 +218,19 @@ class SwinBlock(nn.Module):
         self.drop_path2 = DropPath(drop_path)
 
     def plan(self, hgt: int, wid: int) -> str:
-        """Which path the block takes on an (hgt, wid) map: "merged" (K5),
-        "split" (K3 + K4), "mlp" (plain attention half + K4) or "plain"
-        (with ``use_fused_attn``, K10 inside the plain attention half)."""
+        """Which path the block takes on an (hgt, wid) map. In eval:
+        "merged" (K5), "split" (K3 + K4), "mlp" (plain attention half + K4)
+        or "plain" (with ``use_fused_attn``, K10 inside the plain attention
+        half). In training: "fused_train" (K6) or "plain"."""
+        w = self.window
+        fits = hgt % w == 0 and wid % w == 0 and self.dim <= 768
+        if self.training:
+            if self.fused_train and fits and not self.use_fused_attn:
+                return "fused_train"
+            return "plain"
         if self.fused_eval is False or self.use_fused_attn:
             return "plain"
-        w = self.window
-        if hgt % w == 0 and wid % w == 0 and self.dim <= 768:
+        if fits:
             if self.fused_split or self.dim > 384 or w % 2:
                 return "split"
             return "merged"
@@ -227,14 +252,15 @@ class SwinBlock(nn.Module):
                                   for k, d in dense.items()})
         return self._q8[1]
 
-    def _attn_args(self, x):
+    def _attn_args(self, x, quant: bool):
         """Shared preamble of the kernel paths: shift gating, the roll, the
-        bias in the compute dtype and the shift mask (or None)."""
+        weights (``Q8Weight``s with ``quant``), the bias in the compute
+        dtype and the shift mask (or None)."""
         _, hgt, wid, _ = x.shape
         w = self.window
         shift = self.shift if min(hgt, wid) > w else 0
         p = self.attn
-        if self.quant:
+        if quant:
             q8 = self.q8_weights()
             wqkv, wproj = q8["qkv"], q8["proj"]
         else:
@@ -249,9 +275,9 @@ class SwinBlock(nn.Module):
             mask = shift_mask(hgt, wid, w, shift, str(x.device), self.dtype)
         return x, args, mask, shift
 
-    def _mlp_args(self):
+    def _mlp_args(self, quant: bool):
         m = self.mlp
-        if self.quant:
+        if quant:
             q8 = self.q8_weights()
             w1, w2 = q8["Dense_0"], q8["Dense_1"]
         else:
@@ -261,7 +287,7 @@ class SwinBlock(nn.Module):
                 m.Dense_0.bias.to(self.dtype), w2,
                 m.Dense_1.bias.to(self.dtype))
 
-    def _plain_attn_half(self, x):
+    def _plain_attn_half(self, x, keep=None):
         shortcut = x
         _, hgt, wid, _ = x.shape
         w = self.window
@@ -282,16 +308,43 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         if ph or pw:
             x = x[:, :hgt, :wid]
-        return shortcut + self.drop_path1(x)
+        return shortcut + self.drop_path1(x, keep)
 
-    def forward(self, x):
+    def _fused_train(self, x, keep1, keep2):
+        """The JAX ``_fused_train_block``: roll, the K6 attention branch
+        (the mask only when shifted), unroll, DropPath and the residual;
+        then the K6 MLP branch, DropPath and the residual."""
+        xr, args, mask, shift = self._attn_args(x, False)
+        fn = make_attn_branch(self.window, self.num_heads, bool(shift))
+        if shift:
+            branch = torch.roll(fn.apply(xr, *args, mask), (shift, shift),
+                                dims=(1, 2))
+        else:
+            branch = fn.apply(xr, *args)
+        x = x + self.drop_path1(branch, keep1)
+        mlp = make_mlp_branch().apply(x, *self._mlp_args(False))
+        return x + self.drop_path2(mlp, keep2)
+
+    def drop_masks(self, x, generator: Optional[torch.Generator] = None):
+        """The two DropPath masks of one call on x (None in eval)."""
+        return (self.drop_path1.draw(x, generator),
+                self.drop_path2.draw(x, generator))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator``: where a training call draws its DropPath masks."""
+        return self.body(x, *self.drop_masks(x, generator))
+
+    def body(self, x, keep1=None, keep2=None):
+        """The block on x with the given DropPath masks (``drop_masks``)."""
         _, hgt, wid, _ = x.shape
         plan = self.plan(hgt, wid)
         w, heads, quant = self.window, self.num_heads, self.quant
+        if plan == "fused_train":
+            return self._fused_train(x, keep1, keep2)
         if plan in ("merged", "split"):
-            xr, args, mask, shift = self._attn_args(x)
+            xr, args, mask, shift = self._attn_args(x, quant)
             if plan == "merged":
-                xr = swin_block_fused(xr, *args, mask, *self._mlp_args(),
+                xr = swin_block_fused(xr, *args, mask, *self._mlp_args(quant),
                                       window=w, num_heads=heads, quant=quant)
             else:
                 xr = window_mhsa_fused(xr, *args, mask, window=w,
@@ -300,11 +353,11 @@ class SwinBlock(nn.Module):
                 xr = torch.roll(xr, (shift, shift), dims=(1, 2))
             if plan == "merged":
                 return xr
-            return mlp_block_fused(xr, *self._mlp_args(), quant=quant)
-        x = self._plain_attn_half(x)
+            return mlp_block_fused(xr, *self._mlp_args(quant), quant=quant)
+        x = self._plain_attn_half(x, keep1)
         if plan == "mlp":
-            return mlp_block_fused(x, *self._mlp_args(), quant=quant)
-        return x + self.drop_path2(self.mlp(self.norm2(x)))
+            return mlp_block_fused(x, *self._mlp_args(quant), quant=quant)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), keep2)
 
 
 class PatchMerging(nn.Module):
@@ -353,13 +406,17 @@ class SwinTransformer(nn.Module):
                  fused_eval: Optional[bool] = None,
                  use_fused_attn: bool = False, fused_block: int = 8,
                  fused_train: bool = False,
-                 remat: bool = False, fused_split: bool = False,
+                 remat: bool = False, remat_policy: str = "dots",
+                 fused_split: bool = False,
                  quant_eval: bool = False, quant_min_dim: int = 768,
                  s2d_embed: bool = False,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        refuse_unported(fused_train=fused_train, remat=remat)
+        if remat_policy not in REMAT_SAVED:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{list(REMAT_SAVED)}, got {remat_policy!r}")
+        self.remat, self.remat_saved = remat, REMAT_SAVED[remat_policy]
         self.dtype, self.depths = dtype, tuple(depths)
         self.s2d_embed, self.embed_dim = s2d_embed, embed_dim
         g = generator
@@ -374,17 +431,29 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"stage{si}_block{d}", SwinBlock(
                     dim, num_heads[si], window_size, shift, float(dpr[bi]),
                     fused_eval, dtype, g, fused_split, quant_eval,
-                    quant_min_dim, use_fused_attn, fused_block))
+                    quant_min_dim, use_fused_attn, fused_block, fused_train))
                 bi += 1
             if si < len(depths) - 1:
                 self.add_module(f"merge{si}", PatchMerging(dim, dtype, g))
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
         self.norm = LayerNorm(self.num_features, dtype)
 
-    def stage(self, si: int, x: torch.Tensor) -> torch.Tensor:
-        """Stage ``si``'s blocks, then its patch merge (if any)."""
+    def _remat_context(self):
+        return create_selective_checkpoint_contexts(list(self.remat_saved))
+
+    def stage(self, si: int, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Stage ``si``'s blocks, then its patch merge (if any).
+        ``generator``: where a training call draws its DropPath masks."""
         for d in range(self.depths[si]):
-            x = getattr(self, f"stage{si}_block{d}")(x)
+            block = getattr(self, f"stage{si}_block{d}")
+            if self.remat and self.training and torch.is_grad_enabled():
+                # the masks are drawn once, outside: the replay reuses them
+                x = checkpoint(block.body, x, *block.drop_masks(x, generator),
+                               use_reentrant=False, preserve_rng_state=False,
+                               context_fn=self._remat_context)
+            else:
+                x = block(x, generator)
         if si < len(self.depths) - 1:
             x = getattr(self, f"merge{si}")(x)
         return x
@@ -405,10 +474,12 @@ class SwinTransformer(nn.Module):
             x = self.patch_embed(x)
         return self.patch_norm(x)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         x = self.embed(images)
         for si in range(len(self.depths)):
-            x = self.stage(si, x)
+            x = self.stage(si, x, generator)
         x = self.norm(x)
         return {"feature_map": x, "pooled": x.mean(dim=(1, 2))}
 

@@ -5,7 +5,9 @@ x (..., C),
 
     y = x + gelu(LN(x) @ w1 + b1) @ w2 + b2       (exact, erf GELU)
 
-with the numerics of the TPU kernel's float path: LayerNorm in float32
+(or, with ``res_add=False`` on the float path, the branch alone,
+T(gelu(...) @ w2 + b2) rounded once, as K6's training forward runs it), with
+the numerics of the TPU kernel's float path: LayerNorm in float32
 (eps 1e-5) rounded to x's dtype, products accumulated in float32, the GELU
 output rounded to x's dtype, and the second product, its bias and the
 residual summed in float32 and rounded once (the hidden-chunked path,
@@ -133,19 +135,31 @@ def mlp_q8_reference(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2,
     return (xb + o).reshape(x.shape)
 
 
+def check_res_add(res_add: bool) -> None:
+    """The int8 branches keep the residual: JAX trains in float only."""
+    if not res_add:
+        raise ValueError("the int8 branch takes res_add=True only (the "
+                         "training branches run the float path)")
+
+
 def mlp_block_reference(x, gamma, beta, w1, b1, w2, b2, *,
-                        quant: bool = False, res_round: bool = False):
+                        quant: bool = False, res_round: bool = False,
+                        res_add: bool = True):
     """Plain PyTorch version, with the kernel's rounding points; mirrors the
-    JAX ``mlp_block_reference`` (float) and ``_kernel`` (``quant``: w1 and
-    w2 are ``Q8Weight``s, one activation scale per ``token_block(T)``
-    tokens). ``res_round`` rounds the float path's ``o + b2`` to x's dtype
-    before the residual is added, as the merged block (K5) does."""
+    JAX ``mlp_block_reference`` (float, with its ``res_add``) and
+    ``_kernel`` (``quant``: w1 and w2 are ``Q8Weight``s, one activation
+    scale per ``token_block(T)`` tokens, with the residual only).
+    ``res_round`` rounds the float path's ``o + b2`` to x's dtype before
+    the residual is added, as the merged block (K5) does."""
     if quant:
+        check_res_add(res_add)
         blk = token_block(x.numel() // x.shape[-1])
         return mlp_q8_reference(x, gamma, beta, w1, b1, w2, b2, blk)
     normed = layer_norm_f32(x, gamma, beta)
     h = F.gelu(mm_f32(normed, w1) + b1.float()).to(x.dtype)  # erf
     o = mm_f32(h, w2) + b2.float()
+    if not res_add:
+        return o.to(x.dtype)
     if res_round:
         return x + o.to(x.dtype)
     return (x.float() + o).to(x.dtype)
@@ -204,19 +218,21 @@ def _launch_fn():
     from ._build import load_library
 
     fn = load_library("mlp_block").mlp_block_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2):
-    """Launch K4 on x's device and current stream.
+def launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool,
+                     counter):
+    """Launch the float path of ``csrc/mlp_block.cu`` on x's device and
+    current stream, with or without the residual, and add one to
+    ``counter.launches`` (K4's or K6's wrapper) when the kernel launches.
 
     x (..., C) float32 or bfloat16 with C % 64 == 0; w1 (C, hidden), b1,
     w2 (hidden, C), b2 in x's dtype, hidden % 64 == 0; gamma, beta (C,) in
-    any float dtype. ``launches`` counts the kernel launches made through
-    this wrapper.
+    any float dtype.
     """
     c = x.shape[-1]
     hidden = w1.shape[-1]
@@ -235,9 +251,17 @@ def mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2):
     h = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
     launch_checked("mlp_block", _launch_fn(), xm, gamma, beta, w1, b1, w2,
-                   b2, h, stats, y, m, c, hidden, DTYPE_CODES[x.dtype])
-    mlp_block_cuda.launches += 1
+                   b2, h, stats, y, m, c, hidden, int(res_add),
+                   DTYPE_CODES[x.dtype])
+    counter.launches += 1
     return y
+
+
+def mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool = True):
+    """Launch K4 (``launch_mlp_block``) on x's device and current stream.
+    ``launches`` counts the kernel launches made through this wrapper."""
+    return launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, res_add=res_add,
+                            counter=mlp_block_cuda)
 
 
 mlp_block_cuda.launches = 0
@@ -310,14 +334,19 @@ def mlp_block_q8_cuda(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2):
 mlp_block_q8_cuda.launches = 0
 
 
-def mlp_block_fused(x, gamma, beta, w1, b1, w2, b2, *, quant: bool = False):
-    """K4 on CUDA tensors, its plain version on CPU tensors. ``quant``:
-    the int8 branch, w1 and w2 as ``Q8Weight``s."""
+def mlp_block_fused(x, gamma, beta, w1, b1, w2, b2, *, quant: bool = False,
+                    res_add: bool = True):
+    """K4 on CUDA tensors, its plain version on CPU tensors. ``quant``: the
+    int8 branch, w1 and w2 as ``Q8Weight``s (with the residual only).
+    ``res_add=False`` returns the branch without the residual."""
     if x.device.type == "cpu":
         return mlp_block_reference(x, gamma, beta, w1, b1, w2, b2,
-                                   quant=quant)
+                                   quant=quant, res_add=res_add)
     if x.device.type == "cuda":
-        fn = mlp_block_q8_cuda if quant else mlp_block_cuda
-        return fn(x, gamma, beta, w1, b1, w2, b2)
+        if quant:
+            check_res_add(res_add)
+            return mlp_block_q8_cuda(x, gamma, beta, w1, b1, w2, b2)
+        return mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2,
+                              res_add=res_add)
     raise ValueError(f"mlp_block_fused runs on CPU (plain version) or CUDA "
                      f"(kernel) tensors, got {x.device}")

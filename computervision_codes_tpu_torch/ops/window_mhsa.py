@@ -6,14 +6,17 @@ Counterpart of ``computervision_codes_tpu/ops/window_mhsa.py``. Over x
 
     y = x + proj(window_MHSA(LN(x)))
 
-where ``bias`` (H, N, N) is the relative-position bias and ``mask``
-(nW, N, N) the additive shift mask (0 / -100) or None; the caller rolls x
+(or, with ``res_add=False`` on the float path, the branch alone, as K6's
+training forward runs it), where ``bias`` (H, N, N) is the
+relative-position bias and ``mask`` (nW, N, N) the additive shift mask
+(0 / -100) or None; the caller rolls x
 for a shifted block, as the JAX module does. Numerics of the TPU kernel's
 float path: LayerNorm in float32 rounded to x's dtype; qkv = LN(x) wqkv +
 bqkv summed in float32 and rounded; scores f32(q.k) * hd^-0.5 + bias
 (+ mask), with bias and mask as held in x's dtype; float32 softmax with the
 denominator floored at 1e-30 and p rounded to x's dtype; p v in float32,
-rounded; proj + bias rounded, then the residual added in x's dtype.
+rounded; proj + bias rounded, then the residual added in x's dtype
+(``res_add=False``: proj + bias rounded, no residual).
 
 The int8 branch (``quant=True``, ``window_mhsa.py:158-203`` there, one
 window row per grid step as the module runs it): ``wqkv`` and ``wproj``
@@ -42,8 +45,9 @@ import functools
 import torch
 
 from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, block_absmax,
-                        check_operands, check_q8, launch_checked,
-                        layer_norm_f32, layer_norm_float32, mm_f32, q8_dot)
+                        check_operands, check_q8, check_res_add,
+                        launch_checked, layer_norm_f32, layer_norm_float32,
+                        mm_f32, q8_dot)
 
 HEAD_DIM = 32  # every Swin variant; the kernel's q/k/v tiles
 MAX_WINDOW = 12  # a 144-token window's float32 score tile is 85 KB
@@ -124,10 +128,12 @@ def window_mhsa_q8_reference(x, gamma, beta, wqkv: Q8Weight, bqkv,
 
 def window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                           mask, *, window: int, num_heads: int,
-                          quant: bool = False):
+                          quant: bool = False, res_add: bool = True):
     """Plain PyTorch version, with the kernel's rounding points; mirrors the
-    JAX ``window_mhsa_reference`` (float) and ``_kernel`` (``quant``)."""
+    JAX ``window_mhsa_reference`` (float, with its ``res_add``) and
+    ``_kernel`` (``quant``, with the residual only)."""
     if quant:
+        check_res_add(res_add)
         return window_mhsa_q8_reference(x, gamma, beta, wqkv, bqkv, wproj,
                                         bproj, bias, mask, window=window,
                                         num_heads=num_heads)
@@ -139,6 +145,8 @@ def window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     o = window_attention_core(qkv, bias, mask, num_heads, x.dtype)
     o = window_reverse(o.flatten(0, 1), window, hp, wp)
     o = (mm_f32(o, wproj) + bproj.float()).to(x.dtype)
+    if not res_add:
+        return o
     return (x.float() + o.float()).to(x.dtype)
 
 
@@ -198,19 +206,22 @@ def _launch_fn():
 
     fn = load_library("window_mhsa").window_mhsa_launch
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
-                     *, window: int, num_heads: int):
-    """Launch K3 on x's device and current stream.
+def launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                       mask, *, window: int, num_heads: int, res_add: bool,
+                       counter):
+    """Launch the float path of ``csrc/window_mhsa.cu`` on x's device and
+    current stream, with or without the residual, and add one to
+    ``counter.launches`` (K3's or K6's wrapper) when the kernel launches.
 
     x (B, Hp, Wp, C) float32 or bfloat16, Hp and Wp multiples of ``window``
     (<= 12), head_dim 32, C % 64 == 0; weights and biases in x's dtype;
     gamma, beta in any float dtype; bias and mask are cast to x's dtype.
-    ``launches`` counts the kernel launches made through this wrapper.
     """
     (x, wqkv, bqkv, wproj, bproj, bias), mask, (gamma, beta) = \
         attention_operands("window_mhsa", x, gamma, beta, wqkv, bqkv, wproj,
@@ -225,10 +236,19 @@ def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
     launch_checked("window_mhsa", _launch_fn(), x, gamma, beta, wqkv, bqkv,
                    wproj, bproj, bias, mask, qkv, attn, stats, y, b, hp, wp,
-                   c, num_heads, window, HEAD_DIM ** -0.5,
+                   c, num_heads, window, HEAD_DIM ** -0.5, int(res_add),
                    DTYPE_CODES[x.dtype])
-    window_mhsa_cuda.launches += 1
+    counter.launches += 1
     return y
+
+
+def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
+                     *, window: int, num_heads: int, res_add: bool = True):
+    """Launch K3 (``launch_window_mhsa``) on x's device and current stream.
+    ``launches`` counts the kernel launches made through this wrapper."""
+    return launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                              mask, window=window, num_heads=num_heads,
+                              res_add=res_add, counter=window_mhsa_cuda)
 
 
 window_mhsa_cuda.launches = 0
@@ -279,16 +299,24 @@ window_mhsa_q8_cuda.launches = 0
 
 
 def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
-                      *, window: int, num_heads: int, quant: bool = False):
+                      *, window: int, num_heads: int, quant: bool = False,
+                      res_add: bool = True):
     """K3 on CUDA tensors, its plain version on CPU tensors. ``quant``: the
-    int8 branch, wqkv and wproj as ``Q8Weight``s."""
+    int8 branch, wqkv and wproj as ``Q8Weight``s (with the residual only).
+    ``res_add=False`` returns the branch without the residual."""
     if x.device.type == "cpu":
         return window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj,
                                      bproj, bias, mask, window=window,
-                                     num_heads=num_heads, quant=quant)
+                                     num_heads=num_heads, quant=quant,
+                                     res_add=res_add)
     if x.device.type == "cuda":
-        fn = window_mhsa_q8_cuda if quant else window_mhsa_cuda
-        return fn(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
-                  window=window, num_heads=num_heads)
+        if quant:
+            check_res_add(res_add)
+            return window_mhsa_q8_cuda(x, gamma, beta, wqkv, bqkv, wproj,
+                                       bproj, bias, mask, window=window,
+                                       num_heads=num_heads)
+        return window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                bias, mask, window=window,
+                                num_heads=num_heads, res_add=res_add)
     raise ValueError(f"window_mhsa_fused runs on CPU (plain version) or CUDA "
                      f"(kernel) tensors, got {x.device}")

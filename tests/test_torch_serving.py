@@ -274,7 +274,9 @@ def test_port_imports_no_jax():
                "cli.temporal_mstct", "data.bank", "data.splits",
                "data.labels", "data.feature_store", "data.temporal",
                "data.synthetic", "metrics.recognition",
-               "train.checkpoint")
+               "train.checkpoint", "ops.swin_train", "losses", "losses.bce",
+               "train", "train.schedule", "train.optim", "train.state",
+               "train.trainer")
     code = ("import sys; "
             + "; ".join(f"import computervision_codes_tpu_torch.{m}"
                         for m in modules)

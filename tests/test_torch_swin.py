@@ -30,6 +30,7 @@ from computervision_codes_tpu_torch.models.swin import (
     build_swin,
     swin_feature_dim,
 )
+from computervision_codes_tpu_torch.train import make_spatial_train_step
 
 ATOL = 5e-5
 BF16_REL, BF16_CORR = 0.04, 0.999
@@ -159,7 +160,16 @@ def test_fused_attn_matches_jax(rng, cfg, hw):
                                    atol=ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("flag", ["fused_train", "remat"])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        build_swin("swin_nano_64", **{flag: True})
+@pytest.mark.parametrize("kwargs, match", [
+    (dict(loss_type="all", rates=(1.0, 0.0, 0.1)), "distillation"),
+    (dict(loss_type="all", rates=(1.0, 0.5, 0.0)), "distillation"),
+    (dict(loss_type="i", sam_rho=0.05), "SAM"),
+    (dict(loss_type="i", qat=True), "qat")],
+    ids=["all-kd-rate", "all-soft-rate", "sam", "qat"])
+def test_unported_options_raise(kwargs, match):
+    """What the teacher's training step still refuses (the student-training
+    slice); the Swin options ``fused_train`` and ``remat`` are ported."""
+    model = build_swin("swin_nano_64", fused_train=True, remat=True)
+    assert model.remat and model.stage0_block0.fused_train
+    with pytest.raises(NotImplementedError, match=match):
+        make_spatial_train_step(model, device="cpu", **kwargs)
