@@ -15,7 +15,8 @@ printing its own lines:
    ``window_mhsa``, K4 ``mlp_block``, K5 ``swin_block`` (the int8 branches
    of K3, K4 and K5 live in the same three sources, and K6's training
    branches are K3's and K4's float entry points without the residual),
-   K7 ``attention``, K9 ``fused_norm``, K10 ``window_attention``;
+   K7 ``attention``, K9 ``fused_norm``, K10 ``window_attention``, K8
+   ``flash_attention`` (its forward, dQ and dK/dV kernels);
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -84,7 +85,10 @@ printing its own lines:
    CPU; one float32 training step of the full-width Q2L(swin_L_384_22k,
    "i", ``fused_train``, remat "dots") at batch 1 with drop rates 0 on the
    card (K6) against the CPU: the loss and the gradient norms of one
-   parameter per stage, the head and all;
+   parameter per stage, the head and all; one float32 training step of the
+   full-width MSTCT (``make_mstct_train_step``) at batch 2 of 256 frames,
+   dropout off, on the card (K7) against the CPU: the loss and the gradient
+   norms;
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
@@ -131,10 +135,27 @@ printing its own lines:
    torch.profiler by kind (K6, cuBLAS GEMMs, the rest) with the busy
    share.
 
+12. K8's op path, as a user calls it: ``flash_attention`` forward and
+   backward at the training window for each D and ``flash_attention_pallas``
+   over a 5,400-frame video, bf16: one forward with the lse, one dQ, one
+   dK/dV and one forward without the lse per D;
+13. MS-TCT training: the driver ``-t --window 256 -b 32`` in process at
+   full width on a tree whose 31 training videos hold 300-2,000 frames (one
+   180, shorter than the window: the short-window path), float32 and bf16,
+   2 epochs, then ``--resume`` for one more: K7 launches (a step forwards
+   its full windows together and the short one alone, 8 launches each;
+   8 per validation video), the steps (2, then 3), the losses, wall time
+   and peak device memory; then, after the main paths, the step on one
+   fixed batch of 32 windows of 256 frames, 20 steps per dtype: ms per step
+   host to host, frames/s, peak device memory, the loss falling, a
+   profiled step by kind, and the checkpoint written, restored into a fresh
+   state and equal.
+
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
-path A), phase 8 (MS-TCT's), phase 10 (path B) and phase 11 (the
-teacher's training) each start with every launch count set to 0 and read
-them just after, and each kernel must have launched on its path; K5's int8
+path A), phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
+training), phase 12 (K8's op path) and phase 13 (MS-TCT training) each
+start with every launch count set to 0 and read them just after, and each
+kernel must have launched on its path; K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
@@ -142,7 +163,11 @@ H100's published peak for their type and its bytes at 3.35 TB/s; K7's
 entry is bf16 at (1, 8, 8192, 108), with its float32 readings at that
 shape under ``float32``; K6's two entries are bf16 at Swin-L-384's stage 2
 at batch 8, shifted, with each stage's time and the sums over a training
-step beside), and the last line
+step beside; K8's three entries are bf16 at (1, 8, 8192, 108) with their
+float32 and training-window readings beside, the backward kernels'
+``plain_ms`` the plain backward that computes dq, dk and dv together and
+their ``library_ms`` null, SDPA's forward + backward beside), and the last
+line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -186,11 +211,16 @@ KERNELS = {
         "computervision_codes_tpu/ops/window_attention.py:57 + :107",
     "window_mhsa_branch": "computervision_codes_tpu/ops/swin_train.py:33",
     "mlp_block_branch": "computervision_codes_tpu/ops/swin_train.py:69",
+    "flash_attention_fwd":
+        "computervision_codes_tpu/ops/attention.py:147 + :351",
+    "flash_attention_dq": "computervision_codes_tpu/ops/attention.py:390",
+    "flash_attention_dkv": "computervision_codes_tpu/ops/attention.py:418",
 }
 # the CUDA source of each (csrc/<source>.cu); K6's branches are K3's and
 # K4's float entry points without the residual
 SOURCES = {name: name.removesuffix("_q8").removesuffix("_branch")
-           for name in KERNELS} | {"fused_scale_bias_act": "fused_norm"}
+           for name in KERNELS} | {"fused_scale_bias_act": "fused_norm"} | {
+    f"flash_attention_{k}": "flash_attention" for k in ("fwd", "dq", "dkv")}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # published H100 SXM peaks (dense): the bound of each kernel's work
 PEAK_BYTES_S = 3.35e12
@@ -392,6 +422,58 @@ TRAIN_GRAD_PARAMS = (
     "backbone.stage2_block17.attn.relative_position_bias_table",
     "backbone.stage3_block1.mlp.Dense_1.kernel",
     "transformer.encoder0.linear1.kernel", "fc_i.W")
+# K8 (flash attention), the JAX package's streaming training op, which no
+# model calls: checked forward (out, lse) and backward (dQ, dK/dV) against
+# the plain versions at MS-TCT's head dims, whole videos, the training
+# window, T = 8192 and ragged Tq != Tk; timed at (1, 8, K8_VIDEO_T, D), the
+# training window and (1, 8, K7_TIME_T, D) for every D, and the ragged
+# shape. Bounds against the float32 plain version rounded once: the output
+# as K7's, 2 bf16 ulps of max|ref| (P rounded to bf16 before PV) and 1e-5
+# of it in float32; the gradients 4 bf16 ulps (P and dS rounded to bf16
+# before their products, sums over up to 8,192 terms) and 1e-5 of max|ref|
+# in float32; the lse absolute, 4e-3 in bf16 (the row sum adds the
+# rounded weights: a relative error of about 2^-9) and 1e-5 in float32
+# (one float32 ulp at lse ~ 9). The autograd Function on the card against
+# autograd of attention_reference in float32: 2e-5 of max|ref|
+K8_CHECK = ([(1, 8, t, t, d) for t in (1000, 5400) for d in K7_DIMS]
+            + [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (d,) for d in K7_DIMS]
+            + [(2, 8, 1000, 777, 27), (2, 8, 777, 1000, 108),
+               (1, 8, K7_TIME_T, K7_TIME_T, 108)])
+K8_VIDEO_T = 2048
+K8_RAGGED = (2, 8, 1000, 777, 27)
+K8_BF16_ULPS, K8_BF16_GRAD_ULPS, K8_F32_REL = 2, 4, 1e-5
+K8_LSE_ATOL = {torch.bfloat16: 4e-3, torch.float32: 1e-5}
+K8_AUTOGRAD_REL = 2e-5
+# the K8 op path: flash_attention forward and backward at the training
+# window (32, 8, 256, D) and flash_attention_pallas over a whole video
+# (1, 8, K8_PATH_T, D), for each D, bf16: per D one forward with lse, one
+# dQ, one dK/dV, and one forward without lse
+K8_PATH_T = 5400
+K8_PATH_LAUNCHES = {"flash_attention_fwd": 2 * len(K7_DIMS),
+                    "flash_attention_dq": len(K7_DIMS),
+                    "flash_attention_dkv": len(K7_DIMS)}
+# MS-TCT training at the driver's full width on 1536-d features: the
+# driver's -t on a tree whose training videos hold full 256-frame windows
+# (one shorter video takes the short-window path), 2 epochs, then
+# --resume for one more, in float32 and bf16; -b 32 over the fold's 31
+# training videos is one step per epoch; K7 runs 8 times per forward of a
+# length group and 8 per validation video. Then the step on one fixed
+# batch of MSTCT_STEP_B windows of 256 frames, MSTCT_STEPS steps per dtype
+# (the first 2 warm up): ms per step host to host, frames/s, peak device
+# memory, the loss falling; a profiled step; the checkpoint round trip.
+# Card against CPU: one float32 step at batch MSTCT_CPU_B, dropout off:
+# the loss within 1e-4 and the gradient norms within 1e-3 (relative;
+# float32 sums over up to 8,192 x 6,912 terms in another order, and no
+# ReLU in MS-TCT to flip)
+MSTCT_WINDOW, MSTCT_STEP_B, MSTCT_STEPS, MSTCT_CPU_B = 256, 32, 20, 2
+MSTCT_TRAIN_LENGTHS = (300, 2000)  # the training videos' spread
+MSTCT_SHORT_LENGTH = 180  # one training video shorter than the window
+MSTCT_TRAIN_LOSS_REL, MSTCT_TRAIN_GRAD_REL = 1e-4, 1e-3
+MSTCT_GRAD_PARAMS = (
+    "encoder.merge1.proj.kernel", "encoder.stage1_block0.grb.q.kernel",
+    "encoder.stage2_block1.lrb.linear1.kernel",
+    "encoder.stage4_block1.grb.kv.kernel", "mixer.linear9.kernel",
+    "classifier.linear_pred.kernel")
 
 
 def fail(msg: str) -> None:
@@ -486,7 +568,10 @@ def kernel_wrappers() -> dict:
             "fused_scale_bias_act": fused_norm.fused_scale_bias_act_cuda,
             "window_attention": window_attention.window_attention_cuda,
             "window_mhsa_branch": swin_train.window_mhsa_branch_cuda,
-            "mlp_block_branch": swin_train.mlp_block_branch_cuda}
+            "mlp_block_branch": swin_train.mlp_block_branch_cuda,
+            "flash_attention_fwd": attention.flash_attention_fwd_cuda,
+            "flash_attention_dq": attention.flash_attention_dq_cuda,
+            "flash_attention_dkv": attention.flash_attention_dkv_cuda}
 
 
 def launches() -> dict:
@@ -1920,6 +2005,249 @@ def phase_k7(card: str) -> dict:
             "float32": readings[torch.float32]}
 
 
+# per K8 kernel: (products x B H Tq Tk D operations, exponentials per
+# score, (Tq rows, Tk rows) of D elements moved, float32 values per query
+# row moved). The forward reads q, k, v and writes out and lse; dQ reads q,
+# dO, k, v, lse and dvec and writes dq; dK/dV reads k, v, q, dO, lse and
+# dvec and writes dk and dv.
+FLASH_WORK = {"fwd": (4, 1, (2, 2), 1), "dq": (6, 1, (3, 2), 2),
+              "dkv": (8, 1, (2, 4), 2)}
+
+
+def flash_bound(b, h, tq, tk, d, dtype, kernels) -> dict:
+    """The bound of the K8 ``kernels`` run one after another: their
+    operations at the tensor-core (bf16) or FMA (float32) peak, their
+    exponentials at the SFU rate, or the bytes each reads once and writes
+    once, whichever total is longest."""
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    es = 2 if kind == "bf16" else 4
+    products = exps = nbytes = 0
+    for kern in kernels:
+        n_prod, n_exp, (q_rows, k_rows), lse_vals = FLASH_WORK[kern]
+        products += n_prod
+        exps += n_exp
+        nbytes += b * h * ((q_rows * tq + k_rows * tk) * d * es
+                           + lse_vals * tq * 4)
+    times = {"products": products * b * h * tq * tk * d / PEAK_OPS_S[kind],
+             "exp": exps * b * h * tq * tk / PEAK_EXP_S,
+             "bytes": nbytes / PEAK_BYTES_S}
+    worst = max(times, key=times.get)
+    return {"bound_ms": round(1e3 * times[worst], 6),
+            "bound_by": "bytes" if worst == "bytes" else "operations"}
+
+
+def flash_case(b, h, tq, tk, d, dtype, seed):
+    """q, k, v and a cotangent g on the card; the kernels' forward (out,
+    lse) and backward (dq, dk, dv) with dvec = rowsum(g * out) as the
+    entry point computes it."""
+    from computervision_codes_tpu_torch.ops import attention as A
+
+    q, k, v = attention_inputs(b, h, tq, tk, d, dtype, seed)
+    g = attention_inputs(b, h, tq, 1, d, dtype, seed + 1000)[0]
+    out, lse = A.flash_attention_fwd_cuda(q, k, v)
+    dvec = (g.float() * out.float()).sum(-1)
+    dq = A.flash_attention_dq_cuda(q, k, v, g, lse, dvec)
+    dk, dv = A.flash_attention_dkv_cuda(q, k, v, g, lse, dvec)
+    return (q, k, v, g), (out, lse, dvec), (dq, dk, dv)
+
+
+def phase_k8(card: str) -> dict:
+    """K8: the forward (out and lse, and without lse) and the dQ and dK/dV
+    kernels against the plain versions in float32 (the kernels' outputs
+    rounded once), bf16 and float32, at K8_CHECK; the autograd Function
+    against autograd of attention_reference in float32; then, in turns,
+    the forward's and the backward kernels' times beside the plain
+    versions', SDPA's forward and forward + backward (the yardstick) and
+    the bounds. Returns the three kernels' entries."""
+    from computervision_codes_tpu_torch.ops import attention as A
+
+    worst = {}  # (dtype, what) -> (err / tol, case, err, tol)
+    err_max = {}  # (dtype, kernel) -> the largest absolute error
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, (b, h, tq, tk, d) in enumerate(K8_CHECK):
+            (q, k, v, g), (out, lse, _), grads = flash_case(
+                b, h, tq, tk, d, dtype, seed)
+            bare, none = A.flash_attention_fwd_cuda(q, k, v, with_lse=False)
+            torch.cuda.synchronize()
+            case = (b, h, tq, tk, d)
+            tag = f"K8 {str(dtype)[6:]} (B, H, Tq, Tk, D) = {case}"
+            check(none is None and torch.equal(bare, out),
+                  f"{tag}: the forward without lse differs")
+            qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+            ref_out, ref_lse = A.flash_attention_reference_fwd(qf, kf, vf)
+            ref_grads = A.flash_attention_reference_bwd(
+                qf, kf, vf, out.float(), ref_lse, gf)
+            pairs = [("fwd", "out", out, ref_out.to(dtype).float(),
+                      K8_BF16_ULPS)]
+            pairs += [(kernel, name, got, ref.to(dtype).float(),
+                       K8_BF16_GRAD_ULPS)
+                      for kernel, name, got, ref in zip(
+                          ("dq", "dkv", "dkv"), ("dq", "dk", "dv"), grads,
+                          ref_grads)]
+            for kernel, name, got, ref, ulps in pairs:
+                check(got.shape == ref.shape and bool(
+                    torch.isfinite(got).all()), f"{tag} {name}: shape "
+                                                f"{tuple(got.shape)} or "
+                                                f"non-finite")
+                top = ref.abs().max().item()
+                err = (got.float() - ref).abs().max().item()
+                tol = float(ulps * bf16_ulp(top) if dtype == torch.bfloat16
+                            else K8_F32_REL * top)
+                check(err <= tol, f"{tag} {name}: max_abs_err {err} > tol "
+                                  f"{tol} (max|ref| {top})")
+                key = (dtype, name)
+                if err / tol >= worst.get(key, (-1.0,))[0]:
+                    worst[key] = (err / tol, case, err, tol)
+                err_max[dtype, kernel] = max(err_max.get((dtype, kernel),
+                                                         0.0), err)
+            lerr, ltol = (lse - ref_lse).abs().max().item(), K8_LSE_ATOL[dtype]
+            check(lerr <= ltol, f"{tag} lse: max_abs_err {lerr} > {ltol}")
+            if lerr / ltol >= worst.get((dtype, "lse"), (-1.0,))[0]:
+                worst[dtype, "lse"] = (lerr / ltol, case, lerr, ltol)
+            del q, k, v, g, out, lse, grads, ref_out, ref_grads, bare
+        print(f"[kernels] K8 {str(dtype)[6:]}: {len(K8_CHECK)} cases within "
+              f"tolerance of the float32 plain versions rounded once; worst "
+              f"(err / tol, (B, H, Tq, Tk, D), err, tol) by output: "
+              + "; ".join(f"{name} {worst[dtype, name]}"
+                          for name in ("out", "lse", "dq", "dk", "dv")))
+    for seed, (b, h, tq, tk, d) in enumerate(
+            [(1, 8, 1000, 1000, 108), K8_RAGGED]):
+        leaves = [t.requires_grad_() for t in attention_inputs(
+            b, h, tq, tk, d, torch.float32, 50 + seed)]
+        torch.sin(A.flash_attention(*leaves)).sum().backward()
+        got = [t.grad for t in leaves]
+        for t in leaves:
+            t.grad = None
+        torch.sin(A.attention_reference(*leaves)).sum().backward()
+        for name, a, t in zip(("dq", "dk", "dv"), got, leaves):
+            err = (a - t.grad).abs().max().item()
+            tol = K8_AUTOGRAD_REL * t.grad.abs().max().item()
+            check(err <= tol, f"K8 autograd {(b, h, tq, tk, d)} {name} vs "
+                              f"autograd of attention_reference: {err} > "
+                              f"{tol}")
+        print(f"[kernels] K8 float32 flash_attention (the autograd Function "
+              f"on the kernels) at {(b, h, tq, tk, d)}: gradients within "
+              f"{K8_AUTOGRAD_REL:g} x max|ref| of autograd of "
+              f"attention_reference on the card")
+        del leaves, got
+
+    times = {}
+    shapes = ([(1, 8, K8_VIDEO_T, K8_VIDEO_T, d) for d in K7_DIMS]
+              + [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (d,) for d in K7_DIMS]
+              + [(1, 8, K7_TIME_T, K7_TIME_T, d) for d in K7_DIMS]
+              + [K8_RAGGED])
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            b, h, tq, tk, d = shape
+            (q, k, v, g), (out, lse, dvec), _ = flash_case(
+                b, h, tq, tk, d, dtype, 77)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(*leaves)
+                o.backward(g)
+
+            ms, runs = in_turns(
+                {"fwd": lambda: A.flash_attention_fwd_cuda(q, k, v),
+                 "dq": lambda: A.flash_attention_dq_cuda(q, k, v, g, lse,
+                                                         dvec),
+                 "dkv": lambda: A.flash_attention_dkv_cuda(q, k, v, g, lse,
+                                                           dvec),
+                 "plain_fwd": lambda: A.flash_attention_reference_fwd(
+                     q, k, v),
+                 "plain_bwd": lambda: A.flash_attention_reference_bwd(
+                     q, k, v, out, lse, g),
+                 "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v),
+                 "sdpa_fwd_bwd": sdpa_fwd_bwd},
+                {"fwd": 5, "dq": 5, "dkv": 5, "plain_fwd": 2,
+                 "plain_bwd": 2, "sdpa_fwd": 5, "sdpa_fwd_bwd": 5})
+            bounds = {kern: flash_bound(*shape, dtype, [kern])
+                      for kern in FLASH_WORK}
+            bounds["bwd"] = flash_bound(*shape, dtype, ["dq", "dkv"])
+            times[dtype, shape] = (ms, bounds)
+            print(f"[kernels] K8 time {str(dtype)[6:]} (B, H, Tq, Tk, D) = "
+                  f"{shape}: forward {ms['fwd']:.4f} ms (bound "
+                  f"{bounds['fwd']['bound_ms']:.4f}), backward dQ + dK/dV "
+                  f"{ms['dq']:.4f} + {ms['dkv']:.4f} = "
+                  f"{ms['dq'] + ms['dkv']:.4f} ms (bound "
+                  f"{bounds['bwd']['bound_ms']:.4f}); plain forward "
+                  f"{ms['plain_fwd']:.4f}, backward {ms['plain_bwd']:.4f} "
+                  f"ms; SDPA forward {ms['sdpa_fwd']:.4f}, forward + "
+                  f"backward {ms['sdpa_fwd_bwd']:.4f} ms; runs {runs}; "
+                  f"{card}")
+            del q, k, v, g, out, lse, dvec, leaves
+
+    def entry(dtype, shape):
+        ms, bounds = times[dtype, shape]
+        plain = {"fwd": ms["plain_fwd"], "dq": ms["plain_bwd"],
+                 "dkv": ms["plain_bwd"]}
+        library = {"fwd": ms["sdpa_fwd"], "dq": None, "dkv": None}
+        return {kern: {"ms": ms[kern], "plain_ms": plain[kern],
+                       **bounds[kern], "library_ms": library[kern]}
+                for kern in ("fwd", "dq", "dkv")} | {
+            "sdpa_fwd_bwd_ms": ms["sdpa_fwd_bwd"]}
+
+    # the entries: bf16 at (1, 8, 8192, 108), as K7's; float32 and the
+    # training window beside them
+    main = (1, 8, K7_TIME_T, K7_TIME_T, K7_DIMS[-1])
+    window = K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (K7_DIMS[-1],)
+    readings = {"bf16": entry(torch.bfloat16, main),
+                "float32": entry(torch.float32, main),
+                "window": entry(torch.bfloat16, window)}
+    out = {}
+    for kern in ("fwd", "dq", "dkv"):
+        out[f"flash_attention_{kern}"] = {
+            "max_abs_err": err_max[torch.bfloat16, kern],
+            **readings["bf16"][kern], "shape": list(main),
+            "float32": readings["float32"][kern],
+            "float32_max_abs_err": err_max[torch.float32, kern],
+            "training_window": {"shape": list(window),
+                                **readings["window"][kern]}}
+        if kern != "fwd":
+            out[f"flash_attention_{kern}"]["plain_covers"] = (
+                "dq, dk and dv (flash_attention_reference_bwd)")
+            out[f"flash_attention_{kern}"]["sdpa_fwd_bwd_ms"] = (
+                readings["bf16"]["sdpa_fwd_bwd_ms"])
+    return out
+
+
+def phase_k8_path(card: str) -> None:
+    """The K8 op path, as a user calls it: ``flash_attention`` forward and
+    backward (a loss of sin of the output) at the training window for each
+    of MS-TCT's head dims, and ``flash_attention_pallas`` over a whole
+    video, bf16; the launches, finite gradients and outputs, ms of each."""
+    from computervision_codes_tpu_torch.ops import (flash_attention,
+                                                    flash_attention_pallas)
+
+    before = launches()
+    ms = {}
+    for seed, d in enumerate(K7_DIMS):
+        b, h, t = K7_WINDOW
+        leaves = [x.requires_grad_() for x in attention_inputs(
+            b, h, t, t, d, torch.bfloat16, 60 + seed)]
+
+        def train():
+            torch.sin(flash_attention(*leaves).float()).sum().backward()
+
+        _, ms[f"flash_attention fwd+bwd {(b, h, t, d)}"] = timed_call(train)
+        for x in leaves:
+            check(x.grad is not None and bool(torch.isfinite(x.grad).all()),
+                  f"K8 path D={d}: gradient missing or non-finite")
+        q, k, v = attention_inputs(1, 8, K8_PATH_T, K8_PATH_T, d,
+                                   torch.bfloat16, 70 + seed)
+        out, ms[f"flash_attention_pallas {(1, 8, K8_PATH_T, d)}"] = (
+            timed_call(lambda: flash_attention_pallas(q, k, v)))
+        check(bool(torch.isfinite(out).all()), f"K8 path D={d}: "
+                                               f"non-finite output")
+        del leaves, q, k, v, out
+    count = launched_since(before)
+    want = dict.fromkeys(KERNELS, 0) | K8_PATH_LAUNCHES
+    check(count == want, f"K8 path launches {count}, want {want}")
+    print(f"[k8 path] launches {K8_PATH_LAUNCHES}; ms (CUDA events, the "
+          f"first call of each shape): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; {card}")
+
+
 def tresnet_k9_launches(width: int, layers, img: int) -> list:
     """(map side, C, slope) of each K9 launch of one TResNet forward at
     img x img, in order: the stem's ABN, then each activated ABN, at the
@@ -2577,6 +2905,253 @@ def phase_mstct_breakdown(card: str) -> None:
         del model
 
 
+def mstct_step_setup(dtype, device: str, drop: bool = True):
+    """(state, step) of the MS-TCT driver's training path at full width:
+    MSTCT on 1536-d features, weights from seed 0, the driver's SGD (its
+    schedule at one step per epoch, weight decay 1e-5), loss "ivt";
+    ``drop=False`` sets both dropout rates to 0."""
+    from computervision_codes_tpu_torch.cli.temporal_mstct import (
+        TASK_INFO, make_mstct_train_step)
+    from computervision_codes_tpu_torch.models.common import Dropout
+    from computervision_codes_tpu_torch.models.mstct import MSTCT
+    from computervision_codes_tpu_torch.train import (
+        build_sgd, create_train_state, reference_warmup_exp_schedule)
+
+    model = MSTCT(MSTCT_IN, dtype=dtype,
+                  generator=torch.Generator().manual_seed(0), **MSTCT_KW)
+    if not drop:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+    sched = reference_warmup_exp_schedule(0.01, 0.1, 58, 0.99,
+                                          steps_per_epoch=1)
+    state = create_train_state(model, build_sgd(sched, 1e-5), seed=1,
+                               device=device)
+    return state, make_mstct_train_step(model, "ivt", TASK_INFO["ivt"][1],
+                                        device)
+
+
+def mstct_batch(b: int, seed: int) -> dict:
+    """b windows of MSTCT_WINDOW frames of seeded 1536-d features and
+    multi-hot labels of the 100 triplets, as the driver passes them to its
+    step: lists of per-window float32 arrays on the host."""
+    rng = np.random.default_rng(seed)
+    return {"features": [rng.standard_normal(
+                (MSTCT_WINDOW, MSTCT_IN)).astype(np.float32)
+                for _ in range(b)],
+            "labels": [(rng.random((MSTCT_WINDOW, MSTCT_CLASSES))
+                        < TRAIN_POSITIVE).astype(np.float32)
+                       for _ in range(b)]}
+
+
+def phase_model_mstct_train() -> None:
+    """One float32 training step of the full-width MSTCT at batch
+    MSTCT_CPU_B of 256-frame windows, dropout off, on the card (K7 forward,
+    plain attention backward) against the same step on the CPU: the loss,
+    the gradient norm of one parameter per stage and of the mixer and the
+    head, and the global gradient norm."""
+    batch = mstct_batch(MSTCT_CPU_B, 13)
+    readings = {}
+    for device in ("cpu", DEVICE):
+        state, step = mstct_step_setup(torch.float32, device, drop=False)
+        before = launches()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        seconds = time.perf_counter() - t0
+        count = launched_since(before)
+        params = dict(state.model.named_parameters())
+        norms = {n: params[n].grad.norm().item() for n in MSTCT_GRAD_PARAMS}
+        norms["global"] = float(torch.stack([
+            p.grad.norm() for p in state.model.parameters()
+            if p.grad is not None]).norm())
+        readings[device] = (loss, norms, count, seconds)
+        del state, step
+    (l_cpu, n_cpu, _, t_cpu), (l_dev, n_dev, count, t_dev) = (
+        readings["cpu"], readings[DEVICE])
+    want = dict.fromkeys(KERNELS, 0) | {"attention": MSTCT_LAUNCHES}
+    check(count == want, f"float32 MS-TCT training step launches {count}, "
+                         f"want {want}")
+    rel = {n: abs(n_dev[n] - n_cpu[n]) / max(n_cpu[n], 1e-12) for n in n_cpu}
+    loss_rel = abs(l_dev - l_cpu) / max(1.0, abs(l_cpu))
+    print(f"[model] float32 MS-TCT training step, full width, batch "
+          f"{MSTCT_CPU_B} x {MSTCT_WINDOW} frames, dropout off, card (K7) vs "
+          f"CPU (plain): loss {l_dev:.6f} vs {l_cpu:.6f}; gradient norms "
+          f"card / CPU " + ", ".join(f"{n} {n_dev[n]:.6e} / {n_cpu[n]:.6e}"
+                                     for n in n_cpu)
+          + f"; relative differences: loss {loss_rel:.2e} (tol "
+          f"{MSTCT_TRAIN_LOSS_REL:g}), gradient norms "
+          f"{ {n: float(f'{r:.2e}') for n, r in rel.items()} } (tol "
+          f"{MSTCT_TRAIN_GRAD_REL:g}); CPU step {t_cpu:.2f} s, card step "
+          f"{t_dev:.2f} s (host clock, the first)")
+    check(loss_rel <= MSTCT_TRAIN_LOSS_REL,
+          f"MS-TCT float32 step, card vs CPU: loss differs by {loss_rel}")
+    for name, r in rel.items():
+        check(np.isfinite(r) and r <= MSTCT_TRAIN_GRAD_REL,
+              f"MS-TCT float32 step, card vs CPU: the gradient norm of "
+              f"{name} differs by {r} (relative) > {MSTCT_TRAIN_GRAD_REL}")
+
+
+def mstct_train_tree(root: str) -> tuple:
+    """A CholecT45 tree for the MS-TCT driver's training: the fold's 31
+    training videos at 300-2,000 frames (one at MSTCT_SHORT_LENGTH, shorter
+    than the window), every other video at MSTCT_OTHER_LENGTH, random
+    1536-d features."""
+    from computervision_codes_tpu_torch.data.feature_store import (
+        FeatureStore)
+    from computervision_codes_tpu_torch.data.splits import resolve_split
+    from computervision_codes_tpu_torch.data.synthetic import (
+        synthetic_feature_dict, write_synthetic_dataset)
+
+    split = resolve_split("cholect45-crossval", 1)
+    rng = np.random.default_rng(15)
+    lengths = dict.fromkeys(split.all_videos, MSTCT_OTHER_LENGTH)
+    lengths |= {v: int(rng.integers(*MSTCT_TRAIN_LENGTHS))
+                for v in split.train}
+    lengths[split.train[0]] = MSTCT_SHORT_LENGTH
+    counts = [lengths[v] for v in split.all_videos]
+    write_synthetic_dataset(root, split.all_videos, counts)
+    FeatureStore(root + "/data_feats", "Q2L").save(
+        1, "feats", synthetic_feature_dict(split.all_videos, counts,
+                                           MSTCT_IN, seed=16))
+    return split, lengths
+
+
+def phase_mstct_train(card: str, root: str, split, dtype: str) -> None:
+    """The port's MS-TCT driver in process, ``-t`` on the card at full
+    width (``--window 256 -b 32``) for 2 epochs, then ``--resume`` for one
+    more: launches of K7 (8 per forward of each window length of a step,
+    8 per validation video), the logged losses, the steps, the wall time
+    of each run and its peak device memory."""
+    from computervision_codes_tpu_torch.cli import temporal_mstct
+    from computervision_codes_tpu_torch.utils.logging import (
+        summarize_events)
+
+    version = f"mstct_train_{dtype}"
+    argv = ["--data_dir", root, "--ckpt_root", root + "/ckpt", "--version",
+            version, "--dtype", dtype, "--device", DEVICE, "-t", "--window",
+            str(MSTCT_WINDOW), "-b", str(MSTCT_STEP_B)]
+    # a step forwards its full windows together and the short one alone
+    per_epoch = MSTCT_LAUNCHES * (2 + len(split.val))
+    for epochs, extra, step in ((2, [], 2), (1, ["--resume"], 3)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        t0 = time.perf_counter()
+        result = temporal_mstct.main(argv + ["--epochs", str(epochs)]
+                                     + extra)
+        wall = time.perf_counter() - t0
+        count = launched_since(before)
+        want = dict.fromkeys(KERNELS, 0) | {"attention": per_epoch * epochs}
+        check(count == want, f"MS-TCT driver -t {dtype} {extra}: launches "
+                             f"{count}, want {want}")
+        check(result["step"] == step, f"MS-TCT driver -t {dtype} {extra}: "
+                                      f"step {result['step']}, want {step}")
+        check(all(np.isfinite(result["train_loss"])),
+              f"MS-TCT driver -t {dtype}: losses {result['train_loss']}")
+        print(f"[mstct train] driver -t --dtype {dtype} --epochs {epochs} "
+              f"{' '.join(extra)} on the card, full width, --window "
+              f"{MSTCT_WINDOW} -b {MSTCT_STEP_B} ({len(split.train)} training "
+              f"videos: one step per epoch; {len(split.val)} validation "
+              f"videos): {wall:.2f} s wall with validation and checkpoints; "
+              f"step {result['step']}; losses {result['train_loss']}; K7 "
+              f"launches {count['attention']}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    events = summarize_events(
+        f"{root}/ckpt/run_{version}/rendezvous_lcholect45-crossval_cholect1"
+        f"_mstct_ivt.events.jsonl", "train/loss")
+    check(len(events) == 3, f"MS-TCT driver {dtype}: {len(events)} loss "
+                            f"records, want 3")
+
+
+def phase_mstct_step(card: str) -> dict:
+    """The MS-TCT training step (``make_mstct_train_step``, as the driver
+    runs it) at full width on one fixed batch of MSTCT_STEP_B windows of
+    256 frames, float32 then bf16: the batch is the driver's lists of
+    per-window host arrays, so each step stacks them on the host and copies
+    them to the card as the driver's do. MSTCT_STEPS steps each, ms per
+    step host to host, frames/s, peak device memory, the loss falling;
+    one step under torch.profiler by kind with the busy share; the
+    checkpoint of the trained state written, restored into a fresh state
+    and equal."""
+    from computervision_codes_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+
+    batch = mstct_batch(MSTCT_STEP_B, 14)
+    frames = MSTCT_STEP_B * MSTCT_WINDOW
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        state, step = mstct_step_setup(dtype, DEVICE)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        ms, losses = [], []
+        for _ in range(MSTCT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())  # waits for the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        count = launched_since(before)
+        want = dict.fromkeys(KERNELS, 0) | {
+            "attention": MSTCT_LAUNCHES * MSTCT_STEPS}
+        check(count == want, f"MS-TCT {name} step launches {count}, want "
+                             f"{want}")
+        check(all(np.isfinite(losses)), f"MS-TCT {name} step: losses "
+                                        f"{losses}")
+        check(np.mean(losses[-5:]) < np.mean(losses[:5]),
+              f"MS-TCT {name} training loss does not fall: {losses}")
+        steady = float(np.median(ms[2:]))
+        out[name] = {"ms": steady, "frames_s": frames / steady * 1e3,
+                     "peak_gib": peak / 2 ** 30}
+        print(f"[mstct step] {name}: make_mstct_train_step at full width, "
+              f"batch {MSTCT_STEP_B} x {MSTCT_WINDOW} frames of {MSTCT_IN}-d "
+              f"features from per-window host arrays, SGD (the driver's schedule, wd 1e-5), dropout "
+              f"0.5: ms per step (host to host) {[round(m, 3) for m in ms]}"
+              f"; median after 2 warm-up {steady:.3f} ms = "
+              f"{frames / steady * 1e3:.1f} frames/s; K7 launches per step "
+              f"{MSTCT_LAUNCHES}; device memory: model and SGD state "
+              f"{resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; "
+              f"losses {[round(v, 5) for v in losses]}; {card}")
+        busy, rows = device_profile(card, f"MS-TCT {name} training step",
+                                    lambda: step(state, batch), 10)
+        kinds = {}
+        for dev_ms, n, kname in rows:
+            kind = kernel_category(kname)
+            t, c = kinds.get(kind, (0.0, 0))
+            kinds[kind] = (t + dev_ms, c + n)
+        for kind, (t, c) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+            print(f"[breakdown] MS-TCT {name} training step: {t:9.3f} ms "
+                  f"({100 * t / busy:.1f}% of device busy) in {c} launches: "
+                  f"{kind}; {card}")
+        with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as d:
+            manager = CheckpointManager(d, f"mstct_{name}")
+            t0 = time.perf_counter()
+            path = manager.save(state, tag="latest")
+            save_s = time.perf_counter() - t0
+            fresh, _ = mstct_step_setup(dtype, DEVICE)
+            with torch.no_grad():
+                for p in fresh.model.parameters():
+                    p.zero_()
+            manager.restore(fresh, tag="latest")
+            same = all(torch.equal(a, b) for a, b in zip(
+                fresh.model.parameters(), state.model.parameters()))
+            check(same and fresh.step == state.step
+                  and fresh.optimizer.count == state.optimizer.count,
+                  f"MS-TCT {name} checkpoint round trip: weights equal "
+                  f"{same}, step {fresh.step} / {state.step}, count "
+                  f"{fresh.optimizer.count} / {state.optimizer.count}")
+            print(f"[mstct step] {name} checkpoint round trip: "
+                  f"{Path(path).stat().st_size / 2**20:.1f} MiB written in "
+                  f"{save_s:.2f} s, restored into a fresh state: weights, "
+                  f"step {fresh.step} and the schedule's count equal")
+        del state, step, fresh
+    return out
+
+
 def branch_grads(fn, args, n_grad: int, upstream):
     """Gradients of sum(fn(*args) * upstream) over the first ``n_grad``
     arguments, taken at detached copies of them."""
@@ -2972,6 +3547,7 @@ def main() -> None:
                 "swin_block": phase_k5(card),
                 **phase_q8(card),
                 "attention": phase_k7(card),
+                **phase_k8(card),
                 "fused_scale_bias_act": phase_k9(card),
                 "window_attention": phase_k10(card)}
     slice_s = time.perf_counter()  # the training slice's phases, summed
@@ -2983,6 +3559,9 @@ def main() -> None:
     phase_model_int8()
     phase_model_teacher_int8(phase_model_teacher())
     phase_model_mstct()
+    mstct_s = time.perf_counter()  # this slice's phases, summed
+    phase_model_mstct_train()
+    mstct_s = time.perf_counter() - mstct_s
     phase_model_tresnet()
     phase_model_swin_fused()
     t0 = time.perf_counter()
@@ -3038,15 +3617,35 @@ def main() -> None:
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
     slice_s += time.perf_counter() - t0
-    total = {name: student[name] + teacher[name] + tresnet[name]
-             + mstct[name] + path_b[name] + train[name] for name in KERNELS}
-    print(f"[main path] launches: student sessions {student}, teacher "
-          f"sessions (creation and predicts) {teacher}, the TResNet-L "
-          f"teacher session (path A) {tresnet}, MS-TCT driver (-e -d, "
-          f"float32 and bfloat16) {mstct}, Swin-L-384 use_fused_attn "
-          f"forward (path B, a configuration) {path_b}, the Swin-L-384 "
-          f"teacher's training steps (both plans) and the trained module's "
-          f"eval {train}")
+    t0 = time.perf_counter()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # K8's op path starts here
+    phase_k8_path(card)
+    k8_path = launches()
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        split, _ = mstct_train_tree(root)
+        for fn in kernel_wrappers().values():
+            fn.launches = 0  # the MS-TCT driver's training starts here
+        for dtype in ("float32", "bfloat16"):
+            phase_mstct_train(card, root, split, dtype)
+        mstct_train = launches()
+    mstct_s += time.perf_counter() - t0
+    paths = {"student sessions": student,
+             "teacher sessions (creation and predicts)": teacher,
+             "the TResNet-L teacher session (path A)": tresnet,
+             "MS-TCT driver (-e -d, float32 and bfloat16)": mstct,
+             "Swin-L-384 use_fused_attn forward (path B, a configuration)":
+                 path_b,
+             "the Swin-L-384 teacher's training steps (both plans) and the "
+             "trained module's eval": train,
+             "K8's op path (flash_attention forward and backward, "
+             "flash_attention_pallas)": k8_path,
+             "MS-TCT driver -t and --resume (float32 and bfloat16)":
+                 mstct_train}
+    total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
+    print("[main path] launches: " + "; ".join(
+        f"{label} { {k: v for k, v in p.items() if v} }"
+        for label, p in paths.items()))
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")
@@ -3063,9 +3662,15 @@ def main() -> None:
     train_breakdown(card, train_state, train_batch)
     slice_s += time.perf_counter() - t0
     del train_state
+    t0 = time.perf_counter()
+    phase_mstct_step(card)
+    mstct_s += time.perf_counter() - t0
     print(f"[time] {time.perf_counter() - started:.1f} s in all; the "
           f"training slice's phases (K6, the float32 training step, phase "
-          f"11 and its breakdown) {slice_s:.1f} s of it (host clock)")
+          f"11 and its breakdown) {slice_s:.1f} s of it; the MS-TCT "
+          f"training slice's (K8's check and time not counted: the float32 "
+          f"step card vs CPU, K8's path, the driver's -t, the fixed-batch "
+          f"step) {mstct_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",

@@ -3,8 +3,8 @@
 The port's copy of what its drivers need from ``cli/common.py`` in the JAX
 package: the reference-compatible flags (``common_parser``, names and
 defaults unchanged), ``build_modelname``, the challenge-protocol table
-(``ignore_null_protocol``) and ``seed_everything``, which seeds ``random``,
-numpy and torch.
+(``ignore_null_protocol``), ``seed_everything``, which seeds ``random``,
+numpy and torch, and ``maybe_resume``.
 """
 
 from __future__ import annotations
@@ -90,6 +90,17 @@ def seed_everything(seed: int) -> torch.Generator:
     np.random.seed(seed)
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def maybe_resume(flags, ckpt, state, logger):
+    """With ``--resume``, restore ``state`` from the ``_latest`` checkpoint
+    when there is one (its weights, step, schedule count and generator),
+    whichever package wrote it."""
+    if getattr(flags, "resume", False) and ckpt.exists("latest"):
+        state = ckpt.restore(state, tag="latest")
+        logger.log(f"Resumed from {ckpt.path('latest')} at step "
+                   f"{state.step}")
+    return state
 
 
 def build_modelname(flags) -> str:

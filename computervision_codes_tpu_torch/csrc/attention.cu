@@ -8,10 +8,11 @@
 // bounds it are in attention_common.cuh; this file is the C entry point
 // that ops/attention.py loads with ctypes.
 //
-// Constraints, checked here: 1 <= D <= 128, Tq, Tk >= 1, B * H <= 65535,
-// vb in {16, 8, 4, 2} (2 for bf16 only), and every row of q, k and v
-// starts at an address aligned to vb with the head dim contiguous (the
-// wrapper picks vb from the pointers and strides it passes).
+// Constraints, checked here: 1 <= D <= 128, Tq, Tk >= 1, at most 65,535
+// query tiles of 64 (grid.y), vb in {16, 8, 4, 2} (2 for bf16 only), and
+// every row of q, k and v starts at an address aligned to vb with the head
+// dim contiguous (the wrapper picks vb from the pointers and strides it
+// passes).
 
 #include "attention_common.cuh"
 
@@ -25,7 +26,7 @@ cudaError_t launch(Kernel kernel, size_t smem, const attn::Problem& p,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((p.Tq + attn::BM - 1) / attn::BM, p.B * p.H);
+  const dim3 grid(p.B * p.H, (p.Tq + attn::BM - 1) / attn::BM);
   kernel<<<grid, attn::THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
@@ -82,7 +83,8 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v,
                                 int vb, int dtype, void* stream) {
   const int es = dtype == 1 ? 2 : 4;
   if (D < 1 || D > attn::D_MAX || Tq < 1 || Tk < 1 || B < 1 || H < 1 ||
-      B * H > 65535 || (dtype != 0 && dtype != 1) ||
+      (long long)B * H > 0x7fffffffLL ||
+      (Tq + attn::BM - 1) / attn::BM > 65535 || (dtype != 0 && dtype != 1) ||
       !(vb == 16 || vb == 8 || vb == 4 || (vb == 2 && dtype == 1)) ||
       D % (vb / es) != 0)
     return (int)cudaErrorInvalidValue;

@@ -1,7 +1,6 @@
 // Streaming full attention over (B, H, T, D), written by hand for Hopper
-// (sm_90a). K7 (attention.cu) exports it; the streaming forward of the
-// flash-attention kernels (K8) is the same loop with the row logsumexp
-// written out.
+// (sm_90a). K7 (attention.cu) exports it; so does K8's forward
+// (flash_attention.cu), the same loop with the row logsumexp written out.
 //
 // Replaces the TPU kernel computervision_codes_tpu/ops/attention.py
 // ``attention_pallas`` (``_attn_kernel``): out = softmax((q * D^-1/2) k^T) v
@@ -12,7 +11,8 @@
 // memory. So each block takes BM = 64 query rows of one (batch, head) and
 // streams K and V through shared memory in tiles of BN = 64 keys with an
 // online softmax (running row max and sum in float32): no T x T buffer
-// exists anywhere, and one launch covers every (batch, head).
+// exists anywhere, and one launch covers every (batch, head): (batch, head)
+// on grid.x, which holds 2^31 - 1 blocks, and query tiles on grid.y.
 //
 // What bounds it on the H100: at D = 32 and 48 the exponentials (one per
 // score, H * Tq * Tk of them, on the SFUs), at larger D in bf16 the tensor
@@ -72,6 +72,9 @@ struct Problem {
   Strides sq, sk, sv, so;
   int vb;       // bytes per copy: 16, 8, 4, or 2 (bf16 element by element)
   float scale;  // D^-1/2
+  // K8 only: the row logsumexp of the scaled scores, float32 (B * H, Tq),
+  // or null
+  float* lse = nullptr;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -196,8 +199,8 @@ __global__ void __launch_bounds__(THREADS) attn_bf16_kernel(Problem p) {
   auto Ks = [&](int s) { return Qs + BM * LD + s * 2 * BN * LD; };
   auto Vs = [&](int s) { return Ks(s) + BN * LD; };
 
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.y * BM;
   const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
   const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
@@ -315,6 +318,10 @@ __global__ void __launch_bounds__(THREADS) attn_bf16_kernel(Problem p) {
   for (int r = 0; r < 2; ++r) {  // row sums over the 4 threads of a row
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (p.lse != nullptr && t4 == 0 && row < p.Tq)  // m is in log2 units
+      p.lse[(long long)bh * p.Tq + row] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int n = 0; n < 2 * DK; ++n)
@@ -352,8 +359,8 @@ __global__ void __launch_bounds__(THREADS) attn_f32_kernel(Problem p) {
   float* Vs = Ks + BN * LD;
   float* Ps = Vs + BN * LD;
 
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int q0 = blockIdx.x * BM;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = blockIdx.y * BM;
   const float* qg = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
   const float* kg = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
   const float* vg = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
@@ -477,6 +484,8 @@ __global__ void __launch_bounds__(THREADS) attn_f32_kernel(Problem p) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
     const int row = q0 + ty + 16 * i;
     if (row >= p.Tq) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(long long)bh * p.Tq + row] = m[i] + logf(l[i]);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll

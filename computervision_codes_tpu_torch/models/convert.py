@@ -27,6 +27,11 @@ the flax names its children carry:
 Every leaf of ``variables`` must be used and every parameter filled:
 a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.
 
+``jax_variables(module)`` goes the other way: the variables of the JAX
+counterpart, as nested dicts of float32 numpy arrays in the JAX layouts
+above, so that ``load_jax_variables`` of the result fills an equal module
+and a flax checkpoint of the port's weights restores in JAX.
+
 ``load_jax_quantized(qmodule, q_backbone)`` does the same for a tree that
 the JAX ``quantize_resnet`` / ``calibrate_resnet`` made: int8 ``w_q`` goes
 from HWIO to the kernel's (Cout, kh, kw, Cin), ``w`` (a float stem) stays
@@ -129,6 +134,51 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
         raise KeyError(f"JAX variables not used by {type(module).__name__}: "
                        f"{extra[:8]}{' ...' if len(extra) > 8 else ''}")
     return module
+
+
+class _Exporter:
+    def __init__(self):
+        self.variables = {}
+
+    def put(self, coll: str, path: Path, value: torch.Tensor) -> None:
+        node = self.variables.setdefault(coll, {})
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value.detach().float().cpu().numpy().copy()
+
+    def export(self, module: nn.Module, path: Path) -> None:
+        def p(*keys: str) -> Path:
+            return path + keys
+
+        if isinstance(module, Conv2d):
+            self.put("params", p("kernel"), module.weight.permute(2, 3, 1, 0))
+            if module.bias is not None:
+                self.put("params", p("bias"), module.bias)
+        elif isinstance(module, Conv1x1):
+            self.put("params", p("kernel"), module.weight.T[None])
+            self.put("params", p("bias"), module.bias)
+        elif isinstance(module, BatchNorm):
+            frozen = isinstance(module, FrozenBatchNorm)
+            for src, coll, key in (("weight", "params", "scale"),
+                                   ("bias", "params", "bias"),
+                                   ("running_mean", "batch_stats", "mean"),
+                                   ("running_var", "batch_stats", "var")):
+                self.put("frozen" if frozen else coll, p(key),
+                         getattr(module, src))
+        else:
+            for key, param in module.named_parameters(recurse=False):
+                self.put("params", p(key), param)
+            for child_name, child in module.named_children():
+                self.export(child, p(child_name))
+
+
+def jax_variables(module: nn.Module):
+    """The variables of ``module``'s JAX counterpart (the inverse of
+    ``load_jax_variables``): ``{"params": ...}``, with ``batch_stats`` and
+    ``frozen`` where the module has such BatchNorms."""
+    exporter = _Exporter()
+    exporter.export(module, ())
+    return exporter.variables
 
 
 def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:

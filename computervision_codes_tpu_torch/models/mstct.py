@@ -1,6 +1,6 @@
 """MS-TCT temporal teacher (multi-scale temporal conv-transformer).
 
-Counterpart of ``models/mstct.py`` in the JAX package, eval forward only.
+Counterpart of ``models/mstct.py`` in the JAX package.
 Defaults are the driver's (Temporal_mstct/run.py:306-313 of MT4MTLKD):
 embed dims (256, 384, 576, 864), 2 GLR blocks per stage, 8 heads,
 mlp_ratio 8, final embedding 512, so head dims 32, 48, 72 and 108.
@@ -15,8 +15,12 @@ multi_head_attention``: the plain version on the CPU, kernel K7 on the
 card, fed the (B, T, H, D) projections as strided (B, H, T, D) views and
 writing its output so that the merge of the heads is a view.
 
-Not ported: ``ring_mesh`` (the parallel slice) and the training forward
-(dropout; the training slice).
+In ``.train()`` the forward applies the JAX model's two ``Dropout(0.5)``,
+on the input and between ``linear_fuse`` and ``linear_pred`` (the LRB's
+dropout is 0 there), with masks drawn from the ``generator`` passed to
+``forward``; attention stays ``multi_head_attention`` (K7's forward on the
+card, the plain backward), as the JAX training step's ``_mha``. Not
+ported: ``ring_mesh`` (the parallel slice).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import multi_head_attention
-from .common import Dense, LayerNorm, TemporalConv, interpolate_1d
+from .common import Dense, Dropout, LayerNorm, TemporalConv, interpolate_1d
 
 
 class TemporalMergingBlock(nn.Module):
@@ -74,8 +78,8 @@ class GlobalRelationalBlock(nn.Module):
 
 
 class LocalRelationalBlock(nn.Module):
-    """linear -> depthwise conv(k3) -> exact GELU -> linear (eval: no
-    dropout)."""
+    """linear -> depthwise conv(k3) -> exact GELU -> linear (its dropout is
+    0 in the JAX model, so none here)."""
 
     def __init__(self, dim: int, hidden_dim: int,
                  dtype: torch.dtype = torch.float32,
@@ -187,7 +191,8 @@ class TemporalMixer(nn.Module):
 
 
 class MSTCTClassifier(nn.Module):
-    """fuse (Dense) -> predict (Dense); eval, so no dropout between."""
+    """fuse (Dense) -> Dropout(0.5) -> predict (Dense); the feature it
+    returns is the dropped one, as the JAX classifier's."""
 
     def __init__(self, in_features: int, embedding_dim: int,
                  num_classes: int, dtype: torch.dtype = torch.float32,
@@ -195,10 +200,11 @@ class MSTCTClassifier(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, generator=generator)
         self.linear_fuse = Dense(in_features, embedding_dim, **kw)
+        self.dropout = Dropout(0.5)
         self.linear_pred = Dense(embedding_dim, num_classes, **kw)
 
-    def forward(self, x):
-        feat = self.linear_fuse(x)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        feat = self.dropout(self.linear_fuse(x), generator)
         return self.linear_pred(feat), feat
 
 
@@ -223,6 +229,7 @@ class MSTCT(nn.Module):
             raise ValueError(f"MSTCT has 4 stages, got embed_dims "
                              f"{tuple(embed_dims)}")
         self.dtype = dtype
+        self.dropout = Dropout(0.5)
         self.encoder = TemporalEncoder(in_features, embed_dims, num_heads,
                                        mlp_ratio, num_blocks, dtype,
                                        generator)
@@ -232,11 +239,11 @@ class MSTCT(nn.Module):
                                           final_embedding_dim, num_classes,
                                           dtype, generator)
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError("the MSTCT training forward (dropout) "
-                                      "is not ported yet (the training "
-                                      "slice); call .eval()")
-        concat = self.mixer(self.encoder(x.to(self.dtype)))
-        logits, feat = self.classifier(concat)
+    def forward(self, x, generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``generator``: where a training call draws its dropout masks (one
+        on the model's device; None draws from PyTorch's default)."""
+        x = self.dropout(x.to(self.dtype), generator)
+        concat = self.mixer(self.encoder(x))
+        logits, feat = self.classifier(concat, generator)
         return {"logits": logits, "feature": feat, "concat_feature": concat}

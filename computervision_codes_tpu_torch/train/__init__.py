@@ -1,5 +1,6 @@
-"""Training-side code of the port: reading JAX checkpoints, the SGD recipe
-and the spatial track's train and eval steps."""
+"""Training-side code of the port: JAX-compatible checkpoints (read and
+written), the SGD recipe and the spatial track's train and eval steps (the
+MS-TCT step is its driver's, ``cli/temporal_mstct.py``)."""
 
 from .optim import build_sgd
 from .schedule import reference_warmup_exp_schedule

@@ -1,10 +1,14 @@
-"""The port's reader of the JAX package's flax-msgpack checkpoints.
+"""The port's reader and writer of the JAX package's flax-msgpack
+checkpoints.
 
 A checkpoint is written by the JAX ``CheckpointManager`` and read back by
 the port in a subprocess in which ``import msgpack`` fails (the GPU machine
 has no msgpack, flax or JAX): params and batch_stats must come back equal.
 Then ``InferenceSession.from_checkpoint`` of both packages serve the same
-file.
+file. The port's msgpack writer gives flax's ``msgpack_serialize`` bytes
+for every kind of object and length a state dict holds, and
+``jax_variables`` inverts ``load_jax_variables`` for every module kind
+(TrainState files of MS-TCT: ``tests/test_torch_mstct_train.py``).
 """
 
 import os
@@ -13,9 +17,12 @@ import sys
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import msgpack
 import numpy as np
 import pytest
+import torch
+from flax import serialization
 
 from computervision_codes_tpu.models.pipeline import (
     EndToEndRecognizer as JaxRecognizer,
@@ -23,9 +30,18 @@ from computervision_codes_tpu.models.pipeline import (
 from computervision_codes_tpu.serving import InferenceSession as JaxSession
 from computervision_codes_tpu.train import build_sgd, create_train_state
 from computervision_codes_tpu.train.checkpoint import CheckpointManager
+from computervision_codes_tpu_torch.models.convert import (
+    jax_variables,
+    load_jax_variables,
+)
+from computervision_codes_tpu_torch.models.pipeline import (
+    EndToEndRecognizer,
+)
 from computervision_codes_tpu_torch.serving import InferenceSession
 from computervision_codes_tpu_torch.train.checkpoint import (
     checkpoint_path,
+    pack_msgpack,
+    read_msgpack,
     restore_variables,
 )
 
@@ -130,3 +146,51 @@ def test_from_checkpoint_matches_jax(tmp_path, rng):
         assert got[k].shape == want[k].shape
         assert np.corrcoef(got[k].ravel(), want[k].ravel())[0, 1] > 0.999
         assert np.abs(got[k] - want[k]).max() < 0.1, k
+
+
+def test_writer_matches_flax_msgpack(tmp_path):
+    """Every header size: maps of <= 15 and more keys, strings of <= 31
+    and more bytes, arrays whose records are fixext, ext8, ext16 and ext32,
+    0-d and empty arrays, bfloat16, a numpy scalar (ext type 3), None."""
+    rng = np.random.default_rng(0)
+    tree = {
+        "step": np.asarray(7, np.int32),
+        "k" * 40: None,
+        "many": {str(i): np.float32(i) for i in range(20)},
+        "params": {
+            "w": rng.standard_normal((3, 5)).astype(np.float32),
+            "big": np.zeros(20000, np.float32),
+            "bf": np.ones(9, ml_dtypes.bfloat16),
+            "empty": np.zeros((0, 4), np.float32),
+            "u": np.arange(2, dtype=np.uint32),
+            "bytes": np.zeros(70000, np.uint8)},
+        "opt": {"0": {}, "1": {"count": np.asarray(3, np.int32)}},
+    }
+    data = pack_msgpack(tree)
+    assert data == serialization.msgpack_serialize(tree)
+    path = tmp_path / "tree.msgpack"
+    path.write_bytes(data)
+    back = read_msgpack(str(path))
+    assert int(back["step"]) == 7 and back["k" * 40] is None
+    np.testing.assert_array_equal(back["params"]["w"], tree["params"]["w"])
+    with pytest.raises(ValueError):
+        pack_msgpack({"x": 1.5})
+
+
+def test_jax_variables_inverts_load():
+    """The student's Conv2d, BatchNorm, 1x1 convolutions and dilated
+    layers: exported, loaded into a module made from another seed, equal."""
+    kw = dict(num_layers_pg=2, num_layers_r=2, num_refinements=1,
+              num_f_maps=8)
+    src = EndToEndRecognizer(generator=torch.Generator().manual_seed(0),
+                             **kw)
+    with torch.no_grad():  # non-trivial BatchNorm statistics
+        for name, buf in src.named_buffers():
+            buf.copy_(torch.rand(buf.shape) + 0.5)
+    variables = jax_variables(src)
+    assert set(variables) == {"params", "batch_stats"}
+    dst = load_jax_variables(EndToEndRecognizer(
+        generator=torch.Generator().manual_seed(1), **kw), variables)
+    want = src.state_dict()
+    for k, v in dst.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)

@@ -1,10 +1,17 @@
 """The port's MS-TCT driver against the JAX package's, end to end on the CPU.
 
-The JAX driver trains one epoch on a tiny synthetic tree (dims 8, 2 heads,
-``--window 16``), then evaluates and dumps (``-t -e -d``). The port's
-driver then runs ``-e -d --device cpu`` from that checkpoint, as the
-command a user types, into a feature root of its own. Its dumps and its
-test mAP must equal the JAX ``MSTCT.apply`` at each video's own length.
+Both drivers train one epoch on a tiny synthetic tree (dims 8, 2 heads,
+``-t --epochs 1 --window 16 -b 8``: four SGD steps on the same windows,
+drawn from the same seed), then evaluate and dump (``-e -d``), each from
+the JAX driver's initial state (``--resume`` from a ``_latest`` holding
+it) and with dropout off (the two packages draw different masks), the
+port in process with ``--device cpu``. Their logged losses, checkpoints,
+dumps and test mAP must agree within float32 bounds; then both resume
+from their own ``_latest`` for one more epoch and must agree again. The
+port's driver then runs ``-e -d --device cpu`` from the JAX driver's
+checkpoint, as the command a user types, into a feature root of its own.
+Its dumps and its test mAP must equal the JAX ``MSTCT.apply`` at each
+video's own length.
 Where a video's length is a bucket size (128), they must also equal the
 JAX driver's own dump; at the other length (100) the JAX driver pads to
 128 and its outputs move, which the port does not copy. Both drivers then
@@ -15,9 +22,11 @@ written as float32 where JAX pickles ml_dtypes bfloat16.
 
 import os
 import shutil
+import signal
 import subprocess
 import sys
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +36,17 @@ from computervision_codes_tpu.cli import temporal_mstct as jax_driver
 from computervision_codes_tpu.data.labels import load_video_labels
 from computervision_codes_tpu.metrics import Recognition as JaxRecognition
 from computervision_codes_tpu.models.mstct import MSTCT as JaxMSTCT
+from computervision_codes_tpu.train import (
+    TrainState,
+    build_sgd,
+    reference_warmup_exp_schedule,
+)
+from computervision_codes_tpu.train.checkpoint import (
+    CheckpointManager as JaxCheckpointManager,
+)
 from computervision_codes_tpu_torch.cli import temporal_mstct
+from computervision_codes_tpu_torch.models import mstct as port_mstct
+from computervision_codes_tpu_torch.models.common import Dropout
 from computervision_codes_tpu_torch.data.feature_store import FeatureStore
 from computervision_codes_tpu_torch.data.splits import resolve_split
 from computervision_codes_tpu_torch.data.synthetic import (
@@ -36,8 +55,11 @@ from computervision_codes_tpu_torch.data.synthetic import (
 )
 from computervision_codes_tpu_torch.train.checkpoint import (
     checkpoint_path,
+    read_msgpack,
     restore_variables,
 )
+from computervision_codes_tpu_torch.utils.logging import summarize_events
+from computervision_codes_tpu_torch.utils.preempt import PreemptionGuard
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IN_DIM = 16
@@ -55,6 +77,54 @@ REL = 1e-5
 # tests/test_torch_serving.py, max 0.1 (measured up to 0.047); correlation
 # > 0.999 for both
 BF16_FEATS_REL, BF16_PROB_ABS, BF16_CORR = 2.0 ** -5, 0.1, 0.999
+MODELNAME = "rendezvous_lcholect45-crossval_cholect1_mstct_ivt"
+TRAIN_FLAGS = ["-t", "--epochs", "1", "--window", "16", "-b", "8",
+               "--resume"]
+# the two drivers' training, float32, dropout off: the same SGD steps with
+# sums in another order. The logged loss at rtol 1e-5; each checkpointed
+# parameter within 1e-6 plus 1% of its largest change in the run (as
+# tests/test_torch_mstct_train.py bounds one step); the dumps after
+# training, 1e-4 of max(1, max|want|) (four steps of rounding differences
+# through the model); the test mAP within 1e-3 (a ranking over the test
+# frames: a near-tie may swap)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_REL = 1e-5, 1e-6, 1e-2
+TRAIN_DUMP_REL, TRAIN_MAP_ABS = 1e-4, 1e-3
+
+
+def _init_latest(ckpt_roots):
+    """The JAX driver's initial state (its seed, model and optimizer) as
+    ``_latest`` in each checkpoint root, for ``--resume``; returns its
+    params."""
+    model = JaxMSTCT(embed_dims=(8, 8, 8, 8), num_blocks=1, num_heads=2,
+                     mlp_ratio=2.0, final_embedding_dim=8, num_classes=100)
+    sched = reference_warmup_exp_schedule(0.01, 0.1, 58, 0.99,
+                                          steps_per_epoch=4)
+    # create_train_state's state, its init jitted (an eager flax init of
+    # MSTCT takes seconds)
+    key = jax.random.PRNGKey(47)
+    variables = jax.jit(model.init)(key, jnp.zeros((1, 16, IN_DIM)))
+    state = TrainState.create(apply_fn=model.apply,
+                              params=variables["params"],
+                              tx=build_sgd(sched, 1e-5),
+                              rng=jax.random.fold_in(key, 1))
+    for root in ckpt_roots:
+        path = JaxCheckpointManager(root + "/run_", MODELNAME).save(
+            state, tag="latest")
+    return read_msgpack(path)["params"]
+
+
+def _train_both(jax_argv, port_argv):
+    """The JAX driver, then the port's in process, with every dropout rate
+    0 (the flax ``Dropout`` and the port's swapped for the length of the
+    runs)."""
+    flax_dropout = flax.linen.Dropout
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen, "Dropout",
+                   lambda rate, **kw: flax_dropout(0.0, **kw))
+        mp.setattr(port_mstct, "Dropout", lambda rate: Dropout(0.0))
+        jax_result = jax_driver.main(jax_argv)
+        port_result = temporal_mstct.main(port_argv + ["--device", "cpu"])
+    return jax_result, port_result
 
 
 def _lengths(split):
@@ -75,8 +145,15 @@ def runs(tmp_path_factory):
     shutil.copytree(jax_feats, port_feats)
     common = ["--data_dir", root, "--ckpt_root", root + "/ckpt",
               *MODEL_FLAGS]
-    jax_driver.main([*common, "--feats_dir", jax_feats, "-t", "--epochs",
-                     "1", "--window", "16", "-e", "-d"])
+    # both drivers train from the same state; the port into roots of its
+    # own, then the port evaluates the JAX driver's checkpoint
+    shutil.copytree(jax_feats, root + "/feats_port_train")
+    init_params = _init_latest([root + "/ckpt", root + "/ckpt_port"])
+    jax_train, port_train = _train_both(
+        [*common, "--feats_dir", jax_feats, *TRAIN_FLAGS, "-e", "-d"],
+        ["--data_dir", root, "--ckpt_root", root + "/ckpt_port",
+         *MODEL_FLAGS, "--feats_dir", root + "/feats_port_train",
+         *TRAIN_FLAGS, "-e", "-d"])
     proc = subprocess.run(
         [sys.executable, "-m", "computervision_codes_tpu_torch.cli."
          "temporal_mstct", *common, "--feats_dir", port_feats, "-e", "-d",
@@ -105,7 +182,11 @@ def runs(tmp_path_factory):
     def dump(feats_root, kind):
         return FeatureStore(feats_root, "Q2LMSTCT").load(1, kind, task="ivt")
 
-    return {"root": root, "common": common,
+    return {"root": root, "common": common, "feats_jax": jax_feats,
+            "init_params": init_params,
+            "jax_train": jax_train, "port_train": port_train,
+            "port_train_dump": {k: dump(root + "/feats_port_train", k)
+                                for k in ("feats", "pred")},
             "split": split, "lengths": dict(zip(split.all_videos, lengths)),
             "natural": natural, "stdout": proc.stdout,
             "natural_mAP": jax_mAP.compute_video_AP()["mAP"],
@@ -161,14 +242,102 @@ def test_padding_to_a_bucket_moves_the_jax_outputs(runs):
         assert _err(runs["port"]["feats"][v[3:]], natural[v][1]) <= REL, v
 
 
-def test_driver_refuses_what_is_not_ported(tmp_path):
-    base = ["--data_dir", str(tmp_path)]
-    for extra, slice_name in ((["-t"], "training slice"),
-                              (["--resume"], "training slice"),
-                              (["--log_train_map"], "training slice"),
-                              (["--seq_devices", "2"], "parallel slice")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            temporal_mstct.main(base + extra)
+def _ckpt(root, tag):
+    return read_msgpack(checkpoint_path(root + "/run_", MODELNAME, tag))
+
+
+def _losses(root):
+    return [r["values"]["loss"] for r in summarize_events(
+        f"{root}/run_/{MODELNAME}.events.jsonl", "train/loss")]
+
+
+def _assert_same_training(jax_root, port_root, init):
+    """The two drivers' logged losses and ``_latest`` checkpoints agree."""
+    np.testing.assert_allclose(_losses(port_root), _losses(jax_root),
+                               rtol=TRAIN_LOSS_RTOL)
+    got, want = _ckpt(port_root, "latest"), _ckpt(jax_root, "latest")
+    assert int(got["step"]) == int(want["step"])
+    assert int(got["opt_state"]["1"]["1"]["count"]) == int(
+        want["opt_state"]["1"]["1"]["count"]) == int(want["step"])
+    for g, w, o in zip(jax.tree.leaves(got["params"]),
+                       jax.tree.leaves(want["params"]),
+                       jax.tree.leaves(init["params"])):
+        tol = TRAIN_PARAM_ATOL + TRAIN_PARAM_REL * float(np.abs(w - o).max())
+        assert float(np.abs(g - w).max()) <= tol
+
+
+def test_training_matches_jax_driver(runs):
+    """``-t -e -d`` of both drivers from the same state on the same
+    windows: the loss, the checkpoints, then the dumps and the test mAP
+    from each driver's best checkpoint (JAX's as ``MSTCT.apply`` at each
+    video's own length)."""
+    root = runs["root"]
+    init = {"params": runs["init_params"]}
+    _assert_same_training(root + "/ckpt", root + "/ckpt_port", init)
+    assert runs["port_train"]["step"] == 4
+    best_port = _ckpt(root + "/ckpt_port", "")
+    assert int(best_port["step"]) == 4
+    dump, natural = runs["port_train_dump"], runs["natural"]
+    for v in runs["split"].all_videos:
+        assert _err(dump["pred"][v[3:]], natural[v][0]) <= TRAIN_DUMP_REL, v
+        assert _err(dump["feats"][v[3:]], natural[v][1]) <= TRAIN_DUMP_REL, v
+    assert abs(runs["port_train"]["test_mAP"] - runs["natural_mAP"]) <= \
+        TRAIN_MAP_ABS
+
+
+def test_training_resumes_like_jax_driver(runs, tmp_path):
+    """Both drivers ``--resume`` from their own ``_latest`` (copies) for one
+    more epoch: step 8 on both, the same loss and weights."""
+    root = runs["root"]
+    for side in ("ckpt", "ckpt_port"):
+        shutil.copytree(f"{root}/{side}", f"{tmp_path}/{side}")
+    init = {"params": _ckpt(root + "/ckpt", "latest")["params"]}
+    tail = ["--feats_dir", runs["feats_jax"], *MODEL_FLAGS, *TRAIN_FLAGS]
+    _train_both(["--data_dir", root, "--ckpt_root", f"{tmp_path}/ckpt",
+                 *tail],
+                ["--data_dir", root, "--ckpt_root", f"{tmp_path}/ckpt_port",
+                 *tail])
+    assert int(_ckpt(f"{tmp_path}/ckpt_port", "latest")["step"]) == 8
+    _assert_same_training(f"{tmp_path}/ckpt", f"{tmp_path}/ckpt_port", init)
+
+
+def test_driver_runs_training_flags_and_refuses_seq_devices(runs, tmp_path,
+                                                            monkeypatch):
+    """``--train``, ``--resume`` and ``--log_train_map`` run (dropout on);
+    a preemption signal saves ``_latest`` and stops; ``--seq_devices 2``
+    is still refused (the parallel slice)."""
+    base = ["--data_dir", runs["root"], "--feats_dir", runs["feats_jax"],
+            "--ckpt_root", str(tmp_path), *MODEL_FLAGS, "--window", "16",
+            "-b", "16", "--device", "cpu", "-t", "--log_train_map",
+            "--resume"]
+    handlers = [signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)]
+    result = temporal_mstct.main(base + ["--epochs", "2"])
+    assert result["train_epochs"] == 2 and result["step"] == 4
+    # the preemption guard gives the signals back when training ends
+    assert [signal.getsignal(s)
+            for s in (signal.SIGTERM, signal.SIGINT)] == handlers
+    records = summarize_events(
+        f"{tmp_path}/run_/{MODELNAME}.events.jsonl", "train/loss")
+    assert [r["step"] for r in records] == [0, 1]
+    for r in records:
+        assert np.isfinite(r["values"]["loss"])
+        assert 0.0 <= r["values"]["train_mAP"] <= 1.0
+    result = temporal_mstct.main(base + ["--epochs", "1"])
+    assert result["step"] == 6  # resumed at step 4
+    log = open(f"{tmp_path}/run_/{MODELNAME}.log").read()
+    assert "Resumed from" in log and "at step 4" in log
+
+    class Requested(PreemptionGuard):
+        def __enter__(self):
+            self.requested = True
+            return self
+
+    monkeypatch.setattr(temporal_mstct, "PreemptionGuard", Requested)
+    result = temporal_mstct.main(base + ["--epochs", "1"])
+    assert result["preempted"] and int(_ckpt(str(tmp_path), "latest")[
+        "step"]) == 6
+    with pytest.raises(NotImplementedError, match="parallel slice"):
+        temporal_mstct.main(base + ["--seq_devices", "2"])
 
 
 @pytest.fixture(scope="module")

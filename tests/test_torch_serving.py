@@ -262,25 +262,14 @@ def test_receptive_field_and_context_warning():
 def test_port_imports_no_jax():
     """The GPU machine has no JAX, flax or msgpack: no module of the port
     may import them, nor the JAX package (whose data/__init__ imports
-    JAX)."""
-    modules = ("serving", "models.quantized", "models.convert",
-               "models.resnet", "models.pipeline", "models.swin",
-               "models.q2l", "models.quant_dense",
-               "models.position_encoding", "models.common",
-               "ops.quant", "ops.stem_pool", "ops.dilated_conv",
-               "ops.window_mhsa", "ops.mlp_block", "ops.swin_block",
-               "ops.attention", "ops.fused_norm", "ops.window_attention",
-               "models.tresnet", "models.mstct", "cli.common",
-               "cli.temporal_mstct", "data.bank", "data.splits",
-               "data.labels", "data.feature_store", "data.temporal",
-               "data.synthetic", "metrics.recognition",
-               "train.checkpoint", "ops.swin_train", "losses", "losses.bce",
-               "train", "train.schedule", "train.optim", "train.state",
-               "train.trainer")
-    code = ("import sys; "
-            + "; ".join(f"import computervision_codes_tpu_torch.{m}"
-                        for m in modules)
-            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+    JAX). Every module of the package is imported, found by walking it."""
+    code = ("import pkgutil, sys, importlib; "
+            "import computervision_codes_tpu_torch as pkg; "
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]; "
+            "assert len(names) >= 50, names; "
+            "[importlib.import_module(n) for n in names]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'msgpack', "
             "'computervision_codes_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
