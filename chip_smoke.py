@@ -16,7 +16,9 @@ printing its own lines:
    of K3, K4 and K5 live in the same three sources, and K6's training
    branches are K3's and K4's float entry points without the residual),
    K7 ``attention``, K9 ``fused_norm``, K10 ``window_attention``, K8
-   ``flash_attention`` (its forward, dQ and dK/dV kernels);
+   ``flash_attention`` (its forward, dQ and dK/dV kernels), P1
+   ``int8_kernel_probe`` (its bf16, int8w and int8 GEMMs) and P2
+   ``swin_pack_probe`` (its pack<g> and batched attention);
 3. kernels: each kernel against its plain PyTorch version on the card:
    - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
      C=512, in bf16 and float32, plus ragged shapes; its time beside the
@@ -69,6 +71,15 @@ printing its own lines:
      Function's gradients against autograd of the plain version on the
      card; its time at each stage beside the plain version's and the
      bound, and summed over the 44 launches of each branch in a step;
+   - P1 (the int8 kernel probe's bf16, int8w and int8 GEMMs) at the
+     probe's twelve Swin-L shapes and ragged ones, int8 bit for bit, the
+     others within REL_TOL of the plain version; M % blk != 0 and
+     N % 64 != 0 refused;
+   - P2 (the head-grouping probe's pack<g> and batched) at its stage-1 and
+     stage-3 shapes and a window of 7, each with relative-position tables
+     of std 0.02 and 0.5: the attention half alone (``res_add=False``) and
+     the whole output, against the plain version's and K3's; a group not
+     dividing the heads refused;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
@@ -149,12 +160,18 @@ printing its own lines:
    fixed batch of 32 windows of 256 frames, 20 steps per dtype: ms per step
    host to host, frames/s, peak device memory, the loss falling, a
    profiled step by kind, and the checkpoint written, restored into a fresh
-   state and equal.
+   state and equal;
+14. the probe drivers, as a user runs them: ``main()`` of
+   ``computervision_codes_tpu_torch.scripts.int8_kernel_probe`` (P1 at
+   the JAX probe's twelve shapes, each variant beside its plain version,
+   ``torch.matmul`` / ``torch._int_mm`` and its bound) and of
+   ``scripts.swin_pack_probe`` (K3's loop, each pack<g> and batched at
+   stages 1 and 3), every row held to its plain version.
 
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
 path A), phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
-training), phase 12 (K8's op path) and phase 13 (MS-TCT training) each
-start with every launch count set to 0 and read them just after, and each
+training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
+14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
 kernel must have launched on its path; K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
@@ -166,8 +183,11 @@ at batch 8, shifted, with each stage's time and the sums over a training
 step beside; K8's three entries are bf16 at (1, 8, 8192, 108) with their
 float32 and training-window readings beside, the backward kernels'
 ``plain_ms`` the plain backward that computes dq, dk and dv together and
-their ``library_ms`` null, SDPA's forward + backward beside), and the last
-line
+their ``library_ms`` null, SDPA's forward + backward beside; P1's three
+entries at MLP1 s3 (9216 x 768 x 3072), ``library_ms`` ``torch.matmul``
+or ``torch._int_mm``, with every shape's ms beside; P2's two entries,
+pack2 and batched at stage 1, ``library_ms`` null, with every stage's
+formulations beside), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -190,6 +210,14 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "computervision_codes_tpu_torch"
+sys.path.insert(0, str(ROOT))
+try:  # the card's published peaks and the event timer, shared with the probes
+    from computervision_codes_tpu_torch.utils.timing import (
+        PEAK_BYTES_S, PEAK_OPS_S, bound, bound_mixed, cuda_ms)
+except ImportError:
+    print(f"FAIL: {PACKAGE}/ not found beside {Path(__file__).name}: run "
+          f"from a checkout of the repository", file=sys.stderr)
+    sys.exit(1)
 DEVICE = "cuda"
 # name -> the TPU kernel (or, for Q1, the XLA op and epilogue) it replaces;
 # the "_q8" names are the int8 branches of K3, K4 and K5
@@ -215,16 +243,21 @@ KERNELS = {
         "computervision_codes_tpu/ops/attention.py:147 + :351",
     "flash_attention_dq": "computervision_codes_tpu/ops/attention.py:390",
     "flash_attention_dkv": "computervision_codes_tpu/ops/attention.py:418",
+    "probe_gemm_bf16": "scripts/int8_kernel_probe.py:78",
+    "probe_gemm_int8w": "scripts/int8_kernel_probe.py:80",
+    "probe_gemm_int8": "scripts/int8_kernel_probe.py:83",
+    "mhsa_pack": "scripts/swin_pack_probe.py:177",
+    "mhsa_batched": "scripts/swin_pack_probe.py:198",
 }
 # the CUDA source of each (csrc/<source>.cu); K6's branches are K3's and
 # K4's float entry points without the residual
 SOURCES = {name: name.removesuffix("_q8").removesuffix("_branch")
            for name in KERNELS} | {"fused_scale_bias_act": "fused_norm"} | {
-    f"flash_attention_{k}": "flash_attention" for k in ("fwd", "dq", "dkv")}
+    f"flash_attention_{k}": "flash_attention" for k in ("fwd", "dq", "dkv")
+} | {f"probe_gemm_{k}": "int8_kernel_probe"
+     for k in ("bf16", "int8w", "int8")} | {
+    k: "swin_pack_probe" for k in ("mhsa_pack", "mhsa_batched")}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
-# published H100 SXM peaks (dense): the bound of each kernel's work
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # the int8 branches against their plain versions: an int8 code of an input
 # can move by one where the kernel's float32 sums (LayerNorm statistics,
 # epilogues, expf) differ in the last bits from the plain version's; that
@@ -474,6 +507,20 @@ MSTCT_GRAD_PARAMS = (
     "encoder.stage2_block1.lrb.linear1.kernel",
     "encoder.stage4_block1.grb.kv.kernel", "mixer.linear9.kernel",
     "classifier.linear_pred.kernel")
+# P1 (the int8 kernel probe's GEMMs) and P2 (the window-MHSA head-grouping
+# probe): besides the probes' own shapes, ragged (M, K, N, blk) for P1 (M
+# not a multiple of the 128-row tile; N must be one of the 64-column tile)
+# and a window of 7 (N = 49) for P2, as (what, B, H = W, C, heads, groups,
+# w). P2 runs every case with the probe's relative-position table (std
+# 0.02, a bias too small to show in the output) and with one of std 0.5, as
+# the CPU test draws it. The kernels line reads P1 at P1_TIMED and P2 at
+# stage 1 (pack2, batched)
+P1_RAGGED = [(100, 64, 64, 50), (300, 96, 128, 100), (200, 160, 192, 40)]
+P1_REFUSED_N = 48  # the kernels take N % 64 == 0 only
+P1_TIMED = "MLP1 s3 (9216x768x3072)"
+P2_RAGGED = ("SwinL-224 stage 0, window 7", 2, 56, 192, 6, (2, 3, 6), 7)
+P2_TABLE_STDS = (0.02, 0.5)
+P2_TIMED = ("MHSA stage1 (96^2, c=192, h=6)", "pack2")
 
 
 def fail(msg: str) -> None:
@@ -484,18 +531,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, from CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def in_turns(fns: dict, reps: dict) -> tuple:
@@ -554,6 +589,8 @@ def kernel_wrappers() -> dict:
 
     from computervision_codes_tpu_torch.ops import fused_norm, swin_train
     from computervision_codes_tpu_torch.ops import window_attention
+    from computervision_codes_tpu_torch.scripts import int8_kernel_probe
+    from computervision_codes_tpu_torch.scripts import swin_pack_probe
 
     return {"dilated_residual": dilated_conv.dilated_residual_cuda,
             "stem_pool": stem_pool.stem_pool_cuda,
@@ -571,7 +608,12 @@ def kernel_wrappers() -> dict:
             "mlp_block_branch": swin_train.mlp_block_branch_cuda,
             "flash_attention_fwd": attention.flash_attention_fwd_cuda,
             "flash_attention_dq": attention.flash_attention_dq_cuda,
-            "flash_attention_dkv": attention.flash_attention_dkv_cuda}
+            "flash_attention_dkv": attention.flash_attention_dkv_cuda,
+            "probe_gemm_bf16": int8_kernel_probe.gemm_bf16_cuda,
+            "probe_gemm_int8w": int8_kernel_probe.gemm_int8w_cuda,
+            "probe_gemm_int8": int8_kernel_probe.gemm_int8_cuda,
+            "mhsa_pack": swin_pack_probe.mhsa_pack_cuda,
+            "mhsa_batched": swin_pack_probe.mhsa_batched_cuda}
 
 
 def launches() -> dict:
@@ -581,22 +623,6 @@ def launches() -> dict:
 def launched_since(before: dict) -> dict:
     now = launches()
     return {name: now[name] - before[name] for name in now}
-
-
-def bound(ops: float, nbytes: float, kind: str) -> dict:
-    """The least time the card could take for work of ``ops`` operations
-    of ``kind`` moving ``nbytes`` (each input read once, each output written
-    once): the larger of the two times at the published peaks."""
-    return bound_mixed({kind: ops}, nbytes)
-
-
-def bound_mixed(ops: dict, nbytes: float) -> dict:
-    """``bound`` for work of several kinds (kind -> operations): the
-    operations' times at their peaks add up."""
-    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
-    t_bytes = nbytes / PEAK_BYTES_S
-    return {"bound_ms": round(1e3 * max(t_ops, t_bytes), 6),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_device() -> str:
@@ -3527,6 +3553,197 @@ def train_breakdown(card: str, state, batch) -> None:
               f"% of device busy) in {c} launches: {kind}; {card}")
 
 
+def refused(fn, error, msg: str) -> None:
+    """Checks that ``fn()`` raises ``error`` (a refused input)."""
+    try:
+        fn()
+    except error:
+        return
+    fail(msg)
+
+
+def phase_p1(card: str) -> None:
+    """P1: the int8 kernel probe's three kernels against their plain
+    versions on the card at the probe's twelve shapes and ragged ones, int8
+    bit for bit, bf16 and int8w within REL_TOL; an M that ``blk`` does not
+    divide and an N % 64 != 0 are refused."""
+    from computervision_codes_tpu_torch.ops.mlp_block import Q8Weight
+    from computervision_codes_tpu_torch.scripts import int8_kernel_probe as p1
+
+    cases = list(p1.SHAPES) + [(f"ragged {m}x{k}x{n} blk {blk}", m, k, n, blk)
+                               for m, k, n, blk in P1_RAGGED]
+    worst = {"bf16": (-1.0, None), "int8w": (-1.0, None)}
+    for seed, (what, m, k, n, blk) in enumerate(cases):
+        x, w, wq, s = p1.probe_inputs(m, k, n, DEVICE, seed)
+        w8 = Q8Weight(wq.t().contiguous(), s)
+        for tag, got, want in (
+                ("bf16", p1.gemm_bf16_cuda(x, w),
+                 p1.gemm_bf16_reference(x, w)),
+                ("int8w", p1.gemm_int8w_cuda(x, wq, s),
+                 p1.gemm_int8w_reference(x, wq, s))):
+            err, tol = compare(f"P1 {tag} {what}", got, want, torch.bfloat16)
+            if err / tol >= worst[tag][0]:
+                worst[tag] = (err / tol, (what, err, tol))
+        got = p1.gemm_int8_cuda(x, w8, blk)
+        want = p1.gemm_int8_reference(x, w8, blk)
+        check(torch.equal(got, want),
+              f"P1 int8 {what}: {int((got != want).sum())} outputs differ "
+              f"from the plain version, by up to "
+              f"{(got.float() - want.float()).abs().max().item()}")
+    x, w, wq, s = p1.probe_inputs(64, 64, 64, DEVICE)
+    w8 = Q8Weight(wq.t().contiguous(), s)
+    refused(lambda: p1.gemm_int8_cuda(x, w8, 24), ValueError,
+            "P1 int8 took M = 64 with blk = 24")
+    refused(lambda: p1.gemm_int8(x, w8, 24), ValueError,
+            "P1's gemm_int8 took M = 64 with blk = 24")
+    x, w, wq, s = p1.probe_inputs(64, 64, P1_REFUSED_N, DEVICE)
+    w8 = Q8Weight(wq.t().contiguous(), s)
+    for fn in (lambda: p1.gemm_bf16_cuda(x, w),
+               lambda: p1.gemm_int8w_cuda(x, wq, s),
+               lambda: p1.gemm_int8_cuda(x, w8, 32)):
+        refused(fn, ValueError, f"P1 took N = {P1_REFUSED_N}")
+    print(f"[kernels] P1 (int8 kernel probe) at the probe's "
+          f"{len(p1.SHAPES)} shapes and {len(P1_RAGGED)} ragged ones "
+          f"{P1_RAGGED}: int8 equal to the plain version bit for bit; bf16 "
+          f"and int8w within {REL_TOL[torch.bfloat16]:g} x max|ref|, worst "
+          f"(case, err, tol) bf16 {worst['bf16'][1]}, int8w "
+          f"{worst['int8w'][1]}; M % blk != 0 and N = {P1_REFUSED_N} raise "
+          f"ValueError; {card}")
+
+
+def phase_p2(card: str) -> None:
+    """P2: pack<g> and batched on the card at the probe's two stages and a
+    window of 7, each with relative-position tables of std 0.02 and 0.5.
+    The attention half alone (``res_add=False``) is held to the plain
+    version's and to K3's within REL_TOL of its own largest magnitude: in
+    the whole output the residual, tens of times larger, would hide a
+    dropped bias or an unmasked key inside the tolerance. The whole output
+    is held to theirs too. A group that does not divide the heads and a
+    float32 x are refused."""
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_mhsa_cuda, window_mhsa_reference)
+    from computervision_codes_tpu_torch.scripts import swin_pack_probe as p2
+
+    cases = [(what, b, hw, c, heads, groups, p2.WINDOW)
+             for what, b, hw, c, heads, groups in p2.STAGES] + [P2_RAGGED]
+    worst = {"branch": (-1.0, None), "y": (-1.0, None)}
+    seed = 0
+    for what, b, hw, c, heads, groups, w in cases:
+        for std in P2_TABLE_STDS:
+            seed += 1
+            x, args = p2.stage_inputs(b, hw, c, heads, w, DEVICE, seed,
+                                      table_std=std)
+            kw = dict(window=w, num_heads=heads)
+            for part, res_add in (("branch", False), ("y", True)):
+                want = window_mhsa_reference(x, *args, None, res_add=res_add,
+                                             **kw).float()
+                k3 = window_mhsa_cuda(x, *args, None, res_add=res_add,
+                                      **kw).float()
+                tol = REL_TOL[torch.bfloat16] * want.abs().max().item()
+                outs = {f"pack{g}": p2.mhsa_pack_cuda(
+                    x, *args, group=g, res_add=res_add, **kw)
+                    for g in groups}
+                outs["batched"] = p2.mhsa_batched_cuda(
+                    x, *args, res_add=res_add, **kw)
+                for tag, got in outs.items():
+                    got = got.float()
+                    tagged = f"P2 {tag} {part} {what}, table std {std}"
+                    check(bool(torch.isfinite(got).all()),
+                          f"{tagged}: non-finite output")
+                    err = (got - want).abs().max().item()
+                    err_k3 = (got - k3).abs().max().item()
+                    check(err <= tol and err_k3 <= tol,
+                          f"{tagged}: max_abs_err {err} from the plain "
+                          f"version, {err_k3} from K3's > tol {tol}")
+                    if err / tol >= worst[part][0]:
+                        worst[part] = (err / tol, (what, std, tag, err,
+                                                   err_k3, tol))
+        del x, args, want, k3, outs
+    what, b, hw, c, heads, groups, w = cases[0]
+    x, args = p2.stage_inputs(1, w, c, heads, w, DEVICE)
+    kw = dict(window=w, num_heads=heads)
+    refused(lambda: p2.mhsa_pack(x, *args, group=4, **kw), ValueError,
+            f"P2 took group 4 of {heads} heads")
+    refused(lambda: p2.mhsa_pack_cuda(x.float(), *(a.float() for a in args),
+                                      group=2, **kw),
+            TypeError, "P2 took a float32 x")
+    # the kernel's chunks: six heads' q, k, v (34,560 bytes each at w = 12)
+    # fit the H100's 227 KB a block, twelve at w = 7 (N pads to 64)
+    chunks = {(g, w): p2.staged_heads(g, w)
+              for g, w in ((2, 12), (3, 12), (6, 12), (8, 12), (24, 12),
+                           (24, 7))}
+    check(list(chunks.values()) == [2, 3, 6, 4, 6, 12],
+          f"P2 staged heads (group, window) -> chunk: {chunks}")
+    print(f"[kernels] P2 (window-MHSA head grouping) at "
+          f"{[case[0] for case in cases]} with relative-position tables of "
+          f"std {P2_TABLE_STDS}, each pack<g> and batched: the attention "
+          f"half (res_add=False) and the whole output within "
+          f"{REL_TOL[torch.bfloat16]:g} x max|ref| of the plain version's "
+          f"and of K3's; worst (case, std, tag, err, err against K3, tol) "
+          f"half {worst['branch'][1]}, whole {worst['y'][1]}; a group not "
+          f"dividing the heads raises ValueError, a float32 x TypeError; "
+          f"heads staged at once (group, window) -> chunk {chunks}; {card}")
+
+
+def phase_probes(card: str) -> tuple:
+    """The probe drivers as a user runs them: ``main()`` of
+    ``int8_kernel_probe`` and of ``swin_pack_probe`` at their own shapes on
+    the card, each row's output held to its plain version (int8 bit for
+    bit, the rest within REL_TOL). Returns the rows of each."""
+    from computervision_codes_tpu_torch.scripts import int8_kernel_probe
+    from computervision_codes_tpu_torch.scripts import swin_pack_probe
+
+    rows = {}
+    for name, probe, want in (("int8_kernel_probe", int8_kernel_probe,
+                               3 * len(int8_kernel_probe.SHAPES)),
+                              ("swin_pack_probe", swin_pack_probe,
+                               sum(len(stage[-1]) + 2
+                                   for stage in swin_pack_probe.STAGES))):
+        t0 = time.perf_counter()
+        rows[name] = probe.main([])
+        check(len(rows[name]) == want, f"{name}: {len(rows[name])} rows")
+        for r in rows[name]:
+            tol = REL_TOL[torch.bfloat16] * max(1.0, r["max_abs_ref"])
+            if r["metric"].endswith(" int8"):
+                tol = 0.0
+            check(np.isfinite(r["ms"]) and r["ms"] > 0,
+                  f"{name} {r['metric']}: ms {r['ms']}")
+            check(r["max_abs_err"] <= tol, f"{name} {r['metric']}: "
+                  f"max_abs_err {r['max_abs_err']} > tol {tol}")
+        print(f"[probes] {name}.main(): {len(rows[name])} rows, each within "
+              f"tolerance of its plain version (int8 rows bit for bit), "
+              f"{time.perf_counter() - t0:.1f} s; {card}")
+    return rows["int8_kernel_probe"], rows["swin_pack_probe"]
+
+
+def probe_entries(p1_rows: list, p2_rows: list) -> dict:
+    """The kernels line's P1 and P2 entries, from the probe drivers' rows:
+    P1 at P1_TIMED, P2 at stage 1 (pack2 and batched), each with its times
+    at the other shapes beside."""
+    def entry(r, library):
+        return {"shape": r["metric"], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library}
+
+    out = {}
+    by = {r["metric"]: r for r in p1_rows}
+    for tag in ("bf16", "int8w", "int8"):
+        r = by[f"{P1_TIMED} {tag}"]
+        out[f"probe_gemm_{tag}"] = entry(r, r["lib_ms"]) | {
+            "library": "torch._int_mm on the codes (the GEMM alone)"
+            if tag == "int8" else "torch.matmul, bf16",
+            "ms_by_shape": {q["metric"]: [q["ms"], q["lib_ms"]]
+                            for q in p1_rows
+                            if q["metric"].endswith(f" {tag}")}}
+    by = {r["metric"]: r for r in p2_rows}
+    stage, pack = P2_TIMED
+    for name, tag in (("mhsa_pack", pack), ("mhsa_batched", "batched")):
+        out[name] = entry(by[f"{stage} {tag}"], None) | {
+            "ms_by_stage": {q["metric"]: q["ms"] for q in p2_rows}}
+    return out
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -3534,7 +3751,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False); this "
              "check runs only on the card")
-    sys.path.insert(0, str(ROOT))
 
     started = time.perf_counter()
     card = phase_device()
@@ -3554,6 +3770,10 @@ def main() -> None:
     measured["window_mhsa_branch"], measured["mlp_block_branch"] = \
         phase_k6(card)
     slice_s = time.perf_counter() - slice_s
+    probe_s = time.perf_counter()  # the probes' phases, summed
+    phase_p1(card)
+    phase_p2(card)
+    probe_s = time.perf_counter() - probe_s
     measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
     phase_model_int8()
@@ -3630,6 +3850,12 @@ def main() -> None:
             phase_mstct_train(card, root, split, dtype)
         mstct_train = launches()
     mstct_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0  # the probe drivers start here
+    measured |= probe_entries(*phase_probes(card))
+    probes = launches()
+    probe_s += time.perf_counter() - t0
     paths = {"student sessions": student,
              "teacher sessions (creation and predicts)": teacher,
              "the TResNet-L teacher session (path A)": tresnet,
@@ -3641,7 +3867,9 @@ def main() -> None:
              "K8's op path (flash_attention forward and backward, "
              "flash_attention_pallas)": k8_path,
              "MS-TCT driver -t and --resume (float32 and bfloat16)":
-                 mstct_train}
+                 mstct_train,
+             "the probe drivers (int8_kernel_probe and swin_pack_probe "
+             "main())": probes}
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     print("[main path] launches: " + "; ".join(
         f"{label} { {k: v for k, v in p.items() if v} }"
@@ -3670,7 +3898,8 @@ def main() -> None:
           f"11 and its breakdown) {slice_s:.1f} s of it; the MS-TCT "
           f"training slice's (K8's check and time not counted: the float32 "
           f"step card vs CPU, K8's path, the driver's -t, the fixed-batch "
-          f"step) {mstct_s:.1f} s (host clock)")
+          f"step) {mstct_s:.1f} s; the probes' (P1's and P2's checks, both "
+          f"drivers' main()) {probe_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",

@@ -4,6 +4,10 @@
 // branches, is K3's and K4's float entry points without the residual). K10
 // window_attention.cu runs the attention phase's parts (AttnSmem,
 // attn_scores, attn_softmax, attn_pv) over q, k and v it gathers itself.
+// The probes time these phases as they are: P1 int8_kernel_probe.cu runs
+// the two GEMMs (with the weight-only-int8 loader and the bias-free scale
+// epilogues below, which only it instantiates) and P2 swin_pack_probe.cu
+// runs K3's LN, QKV and proj phases around its own attention phase.
 //
 // Phases, all over row-major token matrices of one dtype T (float or bf16):
 //
@@ -13,10 +17,12 @@
 //                     with LN, LayerNorm(x) applied while the A tile is
 //                     loaded (float32 math, rounded to T: the operand the
 //                     TPU kernel feeds its MXU); W is (K, N) row-major, the
-//                     flax kernel layout; the float32 sum goes through one
-//                     of four epilogues (bias; bias + exact-erf GELU; bias,
-//                     rounded, + a residual in T; bias + residual summed in
-//                     float32), rounded to T once;
+//                     flax kernel layout, or (K, N) int8 codes widened to
+//                     bf16 on load (P1's weight-only int8); the float32 sum
+//                     goes through one of five epilogues (bias; bias +
+//                     exact-erf GELU; bias, rounded, + a residual in T;
+//                     bias + residual summed in float32; a float32 scale
+//                     per column and no bias), rounded to T once;
 //   window_attn_kernel one block per (window, head): q, k, v of one window
 //                     (N = w*w tokens, head_dim 32) gathered from the qkv
 //                     matrix into shared memory, S = q k^T in float32, then
@@ -48,7 +54,9 @@
 //                     m16n8k32 s8 x s8 -> s32; the int32 sum is dequantized
 //                     as (float)acc * ((amax / 127) * scale[n]), the bias
 //                     added, then T(v), or gelu_as(v) into a float32 matrix
-//                     with its per-block absmax, or T(res + T(v));
+//                     with its per-block absmax, or T(res + T(v)); or (P1)
+//                     as (float)acc * ((amax * float32(1/127)) * scale[n])
+//                     with no bias, rounded to T;
 //   window_attn_kernel with a window absmax: max |output| of each window
 //                     (all heads), and for an odd window the output of a
 //                     padded query of the TPU kernel's (w+1)^2 geometry
@@ -150,18 +158,21 @@ enum Epilogue {
   EPI_BIAS_GELU = 1,   // out = T(gelu_erf(acc + b))
   EPI_ROUND_RES = 2,   // out = T(res + T(acc + b)): K3's proj + residual
   EPI_RES_F32 = 3,     // out = T(acc + b + res): K4's float32 sum
+  EPI_SCALE = 4,       // out = T(acc * scale[n]), no bias: P1's int8w
 };
 
-template <typename T> struct GemmArgs {
+// W: the weight's element type, T or (T = bf16 only) int8_t codes
+template <typename T, typename W = T> struct GemmArgs {
   const T* a;          // (M, K)
   const float2* stats; // (M,) LayerNorm statistics of a, or null
   const float* gamma;  // (K,) LayerNorm scale, float32
   const float* beta;   // (K,) LayerNorm shift, float32
-  const T* w;          // (K, N)
-  const T* bias;       // (N,)
+  const W* w;          // (K, N)
+  const T* bias;       // (N,), or null (EPI_SCALE)
   const T* res;        // (M, N) residual, or null
   T* out;              // (M, N)
   int M, N, K;
+  const float* scale;  // (N,) float32, EPI_SCALE only
 };
 
 // (BM x BN) float32 accumulators of As (BM x BK, stride lda) times
@@ -268,11 +279,17 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
 }
 
-template <typename T, bool LN, int EPI>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> p) {
+template <typename T, bool LN, int EPI, typename W = T>
+__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
   using Tile = GemmTile<T>;
   using Mma = typename MmaFor<T>::type;
   constexpr int V = Tile::V;
+  // int8 weight codes: 16 a vector, read by the first BK * BN / 16 threads
+  // and widened to bf16 (exact for |code| <= 256) when stashed
+  constexpr bool W8 = sizeof(W) == 1;
+  constexpr int W8_VECS = BK * BN / 16;
+  static_assert(!W8 || (sizeof(T) == 2 && Tile::NB == 1),
+                "int8 weights are widened to bf16 only");
   __shared__ __align__(128) unsigned char smem[Tile::SMEM];
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = reinterpret_cast<T*>(smem + Tile::A_BYTES);
@@ -292,12 +309,19 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> p) {
         ra[i] = *reinterpret_cast<const uint4*>(
             p.a + (size_t)(m0 + r) * p.K + k0 + c);
     }
+    if constexpr (W8) {
+      const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
+      if (tid < W8_VECS)
+        rb[0] = *reinterpret_cast<const uint4*>(
+            p.w + (size_t)(k0 + r) * p.N + n0 + c);
+    } else {
 #pragma unroll
-    for (int i = 0; i < Tile::NB; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BN / V), c = (v % (BN / V)) * V;
-      rb[i] = *reinterpret_cast<const uint4*>(
-          p.w + (size_t)(k0 + r) * p.N + n0 + c);
+      for (int i = 0; i < Tile::NB; ++i) {
+        const int v = tid + i * THREADS;
+        const int r = v / (BN / V), c = (v % (BN / V)) * V;
+        rb[i] = *reinterpret_cast<const uint4*>(
+            p.w + (size_t)(k0 + r) * p.N + n0 + c);
+      }
     }
   };
   auto stash = [&](int k0) {
@@ -322,11 +346,28 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> p) {
         *reinterpret_cast<uint4*>(dst) = ra[i];
       }
     }
+    if constexpr (W8) {
+      if (tid < W8_VECS) {
+        const int r = tid / (BN / 16), c = (tid % (BN / 16)) * 16;
+        const int8_t* e = reinterpret_cast<const int8_t*>(&rb[0]);
+        uint32_t wide[8];
 #pragma unroll
-    for (int i = 0; i < Tile::NB; ++i) {
-      const int v = tid + i * THREADS;
-      const int r = v / (BN / V), c = (v % (BN / V)) * V;
-      *reinterpret_cast<uint4*>(Bs + r * Tile::LDB + c) = rb[i];
+        for (int j = 0; j < 8; ++j) {
+          const __nv_bfloat162 two =
+              __floats2bfloat162_rn((float)e[2 * j], (float)e[2 * j + 1]);
+          wide[j] = *reinterpret_cast<const uint32_t*>(&two);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(Bs + r * Tile::LDB + c);
+        dst[0] = make_uint4(wide[0], wide[1], wide[2], wide[3]);
+        dst[1] = make_uint4(wide[4], wide[5], wide[6], wide[7]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < Tile::NB; ++i) {
+        const int v = tid + i * THREADS;
+        const int r = v / (BN / V), c = (v % (BN / V)) * V;
+        *reinterpret_cast<uint4*>(Bs + r * Tile::LDB + c) = rb[i];
+      }
     }
   };
 
@@ -347,6 +388,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T> p) {
     const int r = i / BN, c = i % BN;
     if (m0 + r >= p.M) continue;
     const size_t o = (size_t)(m0 + r) * p.N + n0 + c;
+    if constexpr (EPI == EPI_SCALE) {
+      p.out[o] = from_f<T>(__fmul_rn(Cs[r * LDC + c], p.scale[n0 + c]));
+      continue;
+    }
     const float v = Cs[r * LDC + c] + to_f(p.bias[n0 + c]);
     float out;
     if (EPI == EPI_BIAS) {
@@ -605,12 +650,12 @@ cudaError_t ln_stats(const T* x, float2* stats, int M, int C,
   return cudaGetLastError();
 }
 
-template <typename T, bool LN, int EPI>
-cudaError_t gemm(const GemmArgs<T>& p, cudaStream_t s) {
+template <typename T, bool LN, int EPI, typename W = T>
+cudaError_t gemm(const GemmArgs<T, W>& p, cudaStream_t s) {
   if (p.M <= 0 || p.K % BK || p.N % BN || (p.M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<T, LN, EPI><<<grid, THREADS, 0, s>>>(p);
+  gemm_kernel<T, LN, EPI, W><<<grid, THREADS, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -767,6 +812,8 @@ enum Q8Epilogue {
   Q8E_BIAS = 0,       // out = T(v)
   Q8E_GELU_AMAX = 1,  // out = gelu_as(v) in float32, and its block absmax
   Q8E_ROUND_RES = 2,  // out = T(res + T(v))
+  Q8E_SCALE = 3,      // out = T(acc * ((amax * float32(1/127)) * scale)),
+                      // no bias: P1's int8 (XLA's order for amax / 127)
 };
 
 template <typename T> struct Q8Args {
@@ -778,7 +825,7 @@ template <typename T> struct Q8Args {
   ScaleMap a_map;
   const int8_t* w;      // (N, K) int8 codes
   const float* wscale;  // (N,) float32
-  const T* bias;        // (N,)
+  const T* bias;        // (N,), or null (Q8E_SCALE)
   const T* res;         // (M, N), Q8E_ROUND_RES
   void* out;            // (M, N): float32 for Q8E_GELU_AMAX, else T
   int* out_amax;        // Q8E_GELU_AMAX: per-block max |out|, contiguous
@@ -788,6 +835,7 @@ template <typename T> struct Q8Args {
 };
 
 constexpr int Q8_LDS = BK + 16;  // 48-byte rows: conflict-free fragments
+constexpr float Q8_INV127 = 0.007874015718698502f;  // float32(1 / 127)
 
 __device__ __forceinline__ uint32_t q8_code(float v, float inv) {
   float q = rintf(__fmul_rn(v, inv));
@@ -939,7 +987,9 @@ __global__ void __launch_bounds__(THREADS) gemm_q8_kernel(Q8Args<T> p) {
       const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
       float rmax = 0.0f;
       if (m < p.M) {
-        const float as = __fdiv_rn(block_amax(p.a_amax, p.a_map(m)), 127.0f);
+        const float amax = block_amax(p.a_amax, p.a_map(m));
+        const float as = EPI == Q8E_SCALE ? __fmul_rn(amax, Q8_INV127)
+                                          : __fdiv_rn(amax, 127.0f);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int n = n0 + wn * 32 + j * 8 + tig * 2;
@@ -947,10 +997,10 @@ __global__ void __launch_bounds__(THREADS) gemm_q8_kernel(Q8Args<T> p) {
           float v[2];
 #pragma unroll
           for (int cc = 0; cc < 2; ++cc) {
-            v[cc] = __fadd_rn(
-                __fmul_rn(__int2float_rn(acc[i][j][2 * h + cc]),
-                          __fmul_rn(as, p.wscale[n + cc])),
-                to_f(p.bias[n + cc]));
+            v[cc] = __fmul_rn(__int2float_rn(acc[i][j][2 * h + cc]),
+                              __fmul_rn(as, p.wscale[n + cc]));
+            if (EPI != Q8E_SCALE)
+              v[cc] = __fadd_rn(v[cc], to_f(p.bias[n + cc]));
             if (EPI == Q8E_GELU_AMAX) {
               v[cc] = gelu_as(v[cc]);
               rmax = fmaxf(rmax, fabsf(v[cc]));
