@@ -27,10 +27,14 @@ printing its own lines:
      at the JAX kernel test's ragged shapes and batch sizes; its time at
      N = 64 and 1024;
    - Q1 at each of ResNet18's 19 int8 convolutions at 256x448 (N = 2
-     frames), the 3-channel 7x7/2 stem and odd sizes at stride 2: its
-     int8 codes, its int32 sums and its outputs equal the exact plain
-     version's bit for bit; its time beside the plain version's and the
-     bf16 cuDNN convolution's at N = 64;
+     frames), the 3-channel 7x7/2 stem and odd sizes at stride 2, through
+     both paths (the quantize pass + wgmma where Cin % 16 == 0, which
+     must be every ResNet18 shape, and the loop at every shape): the
+     quantize pass's codes, the int8 codes, the int32 sums and the outputs
+     equal the exact plain version's bit for bit, each call on the path
+     ``qconv_path`` names; both paths' times (and device times) beside the
+     plain version's and the bf16 cuDNN convolution's at N = 64, in turns,
+     and the 19 convolutions' total beside the bound;
    - K3 (window attention half), shifted and not, at the SwinL-384 stage-2
      shape, the SwinL-224 window-7 stage-0 shape and a ragged map; K4 (MLP
      half) at the stage-2 and stage-3 shapes and a ragged token count; K5
@@ -42,8 +46,9 @@ printing its own lines:
      from the plain version's, the max error and the correlation; times
      beside the plain versions' and the float kernels';
    - Q1 as the int8 teacher's Dense layers (1x1 over (M, 1, 1, K)) at
-     their shapes, equal to its plain version bit for bit; its time at the
-     largest beside the plain version's and ``torch._int_mm``'s;
+     their shapes, both paths (the wgmma one with its TMA producer) equal
+     to the plain version bit for bit; at each shape the new path's, the
+     loop's, the plain version's and ``torch._int_mm``'s times in turns;
    - K7 (full attention) in bf16 and float32 at MS-TCT's (1, 8, T, D) for
      D = 32, 48, 72, 108 and T = 1000, 2048, 5400, a batch of training
      windows (32, 8, 256, D) and Tq != Tk, against the plain version in
@@ -103,14 +108,17 @@ printing its own lines:
 5. offline serving at 4 x 256 frames of 256x448, uint8 in: the bf16
    InferenceSession, the int8 one (``quantize=True``) with its float stem,
    and the int8 one with the fused stem: launches of each kernel per
-   predict, ms, frames/s, peak device memory;
+   predict (Q1 19 per int8 predict, each a quantize pass and the
+   cp.async-fed wgmma, no loop), ms, frames/s, peak device memory;
 6. streaming at context 256, streams 1 and 16: the bf16 StreamingSession
-   and the int8 one with the fused stem, launches per push and ms;
+   and the int8 one with the fused stem, launches per push (Q1 as in 5)
+   and ms;
 7. teacher serving: ``TeacherSession.create()`` at its defaults (Swin-L-384
    Q2L, bf16) and ``TeacherSession.create(quantize=True)`` (the int8
    teacher), predicting 16 uint8 frames of 384x384 in turns: launches per
    predict (bf16: K3 18, K4 20, K5 4; int8: K5 4, K3 int8 18, K4 int8 20,
-   Q1 26), ms, frames/s, peak device memory; then path A,
+   Q1 26, each a quantize pass and the TMA-fed wgmma, no loop), ms,
+   frames/s, peak device memory; then path A,
    ``TeacherSession(backbone="tresnet_l", img_size=448)`` in bf16 on 16
    uint8 frames: K9 52 launches per predict and no other kernel, ms,
    frames/s, device memory;
@@ -172,11 +180,15 @@ Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
 path A), phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
 training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
-kernel must have launched on its path; K5's int8
+kernel must have launched on its path (Q1's per path too: on the student's
+paths the cp.async-fed wgmma, on the teacher's the TMA-fed one, each after
+a quantize pass, and the loop on none); K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
-H100's published peak for their type and its bytes at 3.35 TB/s; K7's
+H100's published peak for their type and its bytes at 3.35 TB/s; Q1's
+entry is the new path's 19-convolution total at N = 64 with the loop's,
+the device times, ``launches_by_path`` and the Dense readings beside; K7's
 entry is bf16 at (1, 8, 8192, 108), with its float32 readings at that
 shape under ``float32``; K6's two entries are bf16 at Swin-L-384's stage 2
 at batch 8, shifted, with each stage's time and the sums over a training
@@ -344,6 +356,7 @@ Q1_DENSE = [("stage-3 attn qkv", 16 * 144, 1536, 4608),
             ("Q2L linear2", 16 * 144, 8192, 1536),
             ("decoder q_proj, 6 queries", 16 * 6, 1536, 1536)]
 Q1_DENSE_TIMED = "Q2L linear1"  # the largest (with linear2) by operations
+Q1_HOST_CALLS = 500  # calls timed on the host clock at the smallest Dense
 # K7 (attention): MS-TCT's head dims at its full width (dims 256, 384, 576,
 # 864 over 8 heads), whole videos of these lengths, a batch of training
 # windows (B, H, T), and keys fewer than queries (B, H, Tq, Tk); times at
@@ -620,6 +633,16 @@ def launches() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def q1_counts() -> dict:
+    """Q1's count per path, as "qconv_bn <path>"."""
+    return {f"qconv_bn {name}": n for name, n in q1_launches().items()}
+
+
+def path_launches() -> dict:
+    """Every kernel's count and Q1's per path."""
+    return launches() | q1_counts()
+
+
 def launched_since(before: dict) -> dict:
     now = launches()
     return {name: now[name] - before[name] for name in now}
@@ -811,15 +834,57 @@ def qconv_inputs(n, cin, cout, k, h, w, dtype, seed):
     return x, w_q, mult, bias
 
 
+def q1_path_wrappers() -> dict:
+    """Q1's paths -> the wrapper whose ``launches`` counts that kernel:
+    the quantize pass and the wgmma GEMM with each producer (the new path)
+    and the loop."""
+    from computervision_codes_tpu_torch.ops import quant
+
+    return {"quantize": quant.quantize_codes_cuda,
+            "gemm": quant.qconv_gemm_cuda, "conv": quant.qconv_conv_cuda,
+            "loop": quant.qconv_loop_cuda}
+
+
+def q1_launches() -> dict:
+    return {name: fn.launches for name, fn in q1_path_wrappers().items()}
+
+
+def q1_want(calls: int, path: str) -> dict:
+    """Q1's path launches of ``calls`` calls that all take ``path``."""
+    want = dict.fromkeys(q1_path_wrappers(), 0)
+    want[path] += calls
+    if path != "loop":
+        want["quantize"] += calls
+    return want
+
+
+def check_q1_paths(before: dict, calls: int, path: str, what: str) -> None:
+    now = q1_launches()
+    count = {name: now[name] - before[name] for name in now}
+    want = q1_want(calls, path)
+    check(count == want, f"{what}: Q1 path launches {count}, want {want}")
+
+
+def reset_launches() -> None:
+    """Every kernel's count, and Q1's per path, to 0."""
+    for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values()):
+        fn.launches = 0
+
+
 def phase_q1(card: str) -> dict:
+    """Q1 as ResNet18's convolutions: both paths (the wgmma path where
+    ``qconv_path`` sends a shape, and the loop at every shape) bit for bit
+    against the plain version, then their times in turns."""
     from computervision_codes_tpu_torch.ops.quant import (
         activation_scale, conv_i8, qconv_bn_cuda, qconv_bn_reference,
+        qconv_loop_cuda, qconv_path, quantize_codes_cuda,
         quantize_with_scale)
 
     h, w = OFFLINE[2:]
     cases = resnet18_convs(h, w)
     check(len(cases) == INT8_CONVS, f"{len(cases)} ResNet18 int8 convs")
     cases = cases + Q1_EXTRA
+    paths = {"new": qconv_bn_cuda, "loop": qconv_loop_cuda}
     for dtype in (torch.bfloat16, torch.float32):
         for seed, (what, cin, cout, k, s, p, hi, wi) in enumerate(cases):
             tag = f"Q1 {str(dtype)[6:]} {what} {cin}->{cout} {k}x{k}/{s}"
@@ -827,46 +892,64 @@ def phase_q1(card: str) -> dict:
                                               wi, dtype, seed)
             s_act = activation_scale(x).reshape(1)
             pad = ((p, p), (p, p))
+            path = qconv_path(cin, k, k, s, pad)
+            check(path == ("loop" if cin % 16 else "conv"),
+                  f"{tag}: takes the {path} path")
+            want_codes = quantize_with_scale(x, s_act)
+            check(torch.equal(quantize_codes_cuda(x, s_act), want_codes),
+                  f"{tag}: the quantize pass's codes differ")
             ones = torch.ones(cin, device=DEVICE)
             # codes: a 1x1 identity convolution at unit mult gives
             # code * s_act, so equal outputs mean equal codes
             eye = torch.eye(cin, device=DEVICE).to(torch.int8)[:, None, None]
-            got = qconv_bn_cuda(x, s_act, eye, ones, 0 * ones, 1, "VALID",
-                                dtype=torch.float32)
-            want = quantize_with_scale(x, s_act).float() * s_act
-            check(torch.equal(got, want), f"{tag}: int8 codes differ")
             # int32 sums: integer-valued input at unit scales gives the sum
             # itself in float32, exact below 2**24
             codes = torch.randint(-127, 128, x.shape, device=DEVICE).to(dtype)
             one = torch.ones(1, device=DEVICE)
             acc = conv_i8(codes.to(torch.int8), w_q, s, pad)
             check(acc.abs().max().item() < 2 ** 24, f"{tag}: sums too large")
-            got = qconv_bn_cuda(codes, one, w_q, torch.ones(cout, device=DEVICE),
-                                torch.zeros(cout, device=DEVICE), s, pad,
-                                dtype=torch.float32)
-            check(torch.equal(got, acc.float()), f"{tag}: int32 sums differ")
             # outputs: bit for bit, the epilogue with and without ReLU
             relu = seed % 2 == 0
-            got = qconv_bn_cuda(x, s_act, w_q, mult, bias, s, pad, relu=relu,
-                                dtype=dtype)
             want = qconv_bn_reference(x, s_act, w_q, mult, bias, s, pad,
                                       relu=relu, dtype=dtype)
-            check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
-            check(torch.equal(got, want),
-                  f"{tag}: output differs by "
-                  f"{(got.float() - want.float()).abs().max().item()}")
+            for name, fn in paths.items():
+                got = fn(x, s_act, eye, ones, 0 * ones, 1, "VALID",
+                         dtype=torch.float32)
+                check(torch.equal(got, want_codes.float() * s_act),
+                      f"{tag} {name}: int8 codes differ")
+                got = fn(codes, one, w_q, torch.ones(cout, device=DEVICE),
+                         torch.zeros(cout, device=DEVICE), s, pad,
+                         dtype=torch.float32)
+                check(torch.equal(got, acc.float()),
+                      f"{tag} {name}: int32 sums differ")
+                before = q1_launches()
+                got = fn(x, s_act, w_q, mult, bias, s, pad, relu=relu,
+                         dtype=dtype)
+                check_q1_paths(before, 1, path if name == "new" else "loop",
+                               f"{tag} {name}")
+                check(got.shape == want.shape,
+                      f"{tag} {name}: shape {tuple(got.shape)}")
+                check(torch.equal(got, want),
+                      f"{tag} {name}: output differs by "
+                      f"{(got.float() - want.float()).abs().max().item()}")
         print(f"[kernels] Q1 {str(dtype)[6:]} in and out: {len(cases)} "
               f"shapes (ResNet18's {INT8_CONVS} at {h}x{w}, N={Q1_CHECK_N}, "
-              f"and {len(Q1_EXTRA)} more): codes, int32 sums and outputs "
-              f"equal bit for bit")
+              f"and {len(Q1_EXTRA)} more), the new path (quantize pass + "
+              f"wgmma, cp.async producer) where Cin % 16 == 0 and the loop "
+              f"at every shape: the quantize pass's codes, codes, int32 sums "
+              f"and outputs equal bit for bit")
 
     # times at N = 64 frames, bf16 in and out, static scale, each distinct
-    # shape once; the forward's total weights each by its count
+    # shape once, in turns: new, loop, plain and (a yardstick of another
+    # function) the bf16 cuDNN convolution; the forward's total weights
+    # each by its count. Device times (torch.profiler) of the new path's
+    # two kernels and the loop's beside them
     shapes = {}
     for what, cin, cout, k, s, p, hi, wi in cases[:INT8_CONVS] + Q1_EXTRA[:1]:
         key = (cin, cout, k, s, p, hi, wi)
         shapes.setdefault(key, [what, 0])[1] += 1
-    total = {"kernel": 0.0, "plain": 0.0, "cudnn_bf16": 0.0}
+    total = {"new": 0.0, "loop": 0.0, "plain": 0.0, "cudnn_bf16": 0.0,
+             "new_device": 0.0, "loop_device": 0.0}
     work = {"ops": 0, "bytes": 0}  # of the 19 convs, for the bound
     for (cin, cout, k, s, p, hi, wi), (what, count) in shapes.items():
         x, w_q, mult, bias = qconv_inputs(Q1_TIME_N, cin, cout, k, hi, wi,
@@ -876,40 +959,60 @@ def phase_q1(card: str) -> dict:
         xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         wc = w_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
-        ms, runs = in_turns(
-            {"cudnn_bf16": lambda: F.conv2d(xc, wc, None, s, p),
-             "plain": lambda: qconv_bn_reference(x, s_act, w_q, mult, bias,
-                                                 s, pad, relu=True),
-             "kernel": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, s,
-                                             pad, relu=True)},
-            {"cudnn_bf16": 20, "plain": 3, "kernel": 20})
+        fns = {"cudnn_bf16": lambda: F.conv2d(xc, wc, None, s, p),
+               "plain": lambda: qconv_bn_reference(x, s_act, w_q, mult, bias,
+                                                   s, pad, relu=True),
+               "new": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, s,
+                                            pad, relu=True),
+               "loop": lambda: qconv_loop_cuda(x, s_act, w_q, mult, bias, s,
+                                               pad, relu=True)}
+        if "stem" in what:  # Cin = 3: the loop's shape only
+            del fns["new"]
+        ms, runs = in_turns(fns, {"cudnn_bf16": 20, "plain": 3, "new": 20,
+                                  "loop": 20})
+        dev = {name: device_ms(fns[name], 10)
+               for name in ("new", "loop") if name in fns}
         ho, wo = (hi + 2 * p - k) // s + 1, (wi + 2 * p - k) // s + 1
         macs = Q1_TIME_N * ho * wo * cout * k * k * cin
         if "stem" not in what:
-            for name in total:
+            for name in ("new", "loop", "plain", "cudnn_bf16"):
                 total[name] += count * ms[name]
+            for name in ("new", "loop"):
+                total[f"{name}_device"] += count * dev[name]
             # bf16 in, int8 weights, bf16 out, float32 mult and bias
             work["ops"] += count * 2 * macs
             work["bytes"] += count * (2 * Q1_TIME_N * hi * wi * cin
                                       + cout * k * k * cin
                                       + 2 * Q1_TIME_N * ho * wo * cout
                                       + 8 * cout)
+        shown = (f"new {ms['new']:.4f} ms ({2 * macs / ms['new'] / 1e9:.1f} "
+                 f"TOP/s; device {dev['new']:.4f}), " if "new" in ms else "")
         print(f"[kernels] Q1 time N={Q1_TIME_N} {what} {cin}->{cout} "
-              f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward): kernel "
-              f"{ms['kernel']:.4f} ms ({2 * macs / ms['kernel'] / 1e9:.1f} "
-              f"TOP/s), plain {ms['plain']:.4f} ms, bf16 cuDNN convolution "
-              f"alone (labelled cudnn_bf16) {ms['cudnn_bf16']:.4f} ms; runs "
-              f"{runs}; {card}")
+              f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward): {shown}"
+              f"loop {ms['loop']:.4f} ms "
+              f"({2 * macs / ms['loop'] / 1e9:.1f} TOP/s; device "
+              f"{dev['loop']:.4f}), plain {ms['plain']:.4f} ms, bf16 cuDNN "
+              f"convolution alone (labelled cudnn_bf16) "
+              f"{ms['cudnn_bf16']:.4f} ms; runs {runs}; {card}")
         del x, xc, wc
+    b = bound(work["ops"], work["bytes"], "int8")
+    rate = {name: work["ops"] / total[name] / 1e9
+            for name in ("new", "loop", "new_device")}
     print(f"[kernels] Q1 per ResNet18 forward of {Q1_TIME_N} frames "
-          f"({INT8_CONVS} convs): kernel {total['kernel']:.4f} ms, plain "
-          f"{total['plain']:.4f} ms, bf16 cuDNN {total['cudnn_bf16']:.4f} "
-          f"ms; {card}")
-    return {"max_abs_err": 0.0, "ms": round(total["kernel"], 4),
-            "plain_ms": round(total["plain"], 4),
-            "cudnn_bf16_ms": round(total["cudnn_bf16"], 4),
-            **bound(work["ops"], work["bytes"], "int8"),
-            "library_ms": None}
+          f"({INT8_CONVS} convs), in turns: new {total['new']:.4f} ms "
+          f"({rate['new']:.1f} TOP/s, {b['bound_ms'] / total['new']:.1%} of "
+          f"the {b['bound_ms']:.4f} ms bound, by {b['bound_by']}; device "
+          f"{total['new_device']:.4f} ms, {rate['new_device']:.1f} TOP/s), "
+          f"loop {total['loop']:.4f} ms ({rate['loop']:.1f} TOP/s, "
+          f"{b['bound_ms'] / total['loop']:.1%}; device "
+          f"{total['loop_device']:.4f}), plain {total['plain']:.4f} ms, bf16 "
+          f"cuDNN {total['cudnn_bf16']:.4f} ms; {card}")
+    return {"max_abs_err": 0.0, "ms": round(total["new"], 4),
+            "plain_ms": round(total["plain"], 4), **b, "library_ms": None,
+            "device_ms": round(total["new_device"], 4),
+            "loop_ms": round(total["loop"], 4),
+            "loop_device_ms": round(total["loop_device"], 4),
+            "cudnn_bf16_ms": round(total["cudnn_bf16"], 4)}
 
 
 def swin_inputs(lead, c, hidden, heads, w, dtype, seed):
@@ -1319,56 +1422,105 @@ def phase_q8(card: str) -> dict:
 
 
 def phase_q1_dense(card: str) -> dict:
-    """Q1 as the int8 teacher's Dense layers: bit for bit against its plain
-    version at their shapes, then its time at the largest beside the plain
-    version's and torch._int_mm's (the int8 product alone, from codes
-    already made)."""
+    """Q1 as the int8 teacher's Dense layers: both paths bit for bit against
+    the plain version at their shapes, then at each shape the new path's,
+    the loop's, the plain version's and torch._int_mm's (the int8 product
+    alone, from codes already made) times in turns."""
     from computervision_codes_tpu_torch.ops.quant import (
-        qconv_bn_cuda, qconv_bn_reference, quantize_with_scale)
+        qconv_bn_cuda, qconv_bn_reference, qconv_loop_cuda,
+        quantize_with_scale)
 
+    paths = {"new": qconv_bn_cuda, "loop": qconv_loop_cuda}
     for seed, (what, m, k, n) in enumerate(Q1_DENSE):
         x, w_q, mult, bias = qconv_inputs(1, k, n, 1, m, 1, torch.bfloat16,
                                           seed)
         x = x.reshape(m, 1, 1, k)
         s_act = torch.tensor([0.03], device=DEVICE)
         for dtype in (torch.bfloat16, torch.float32):
-            got = qconv_bn_cuda(x, s_act, w_q, mult, bias, 1, "VALID",
-                                dtype=dtype)
             want = qconv_bn_reference(x, s_act, w_q, mult, bias, 1, "VALID",
                                       dtype=dtype)
-            check(torch.equal(got, want),
-                  f"Q1 Dense {what} {m}x{k}->{n} out {dtype}: differs by "
-                  f"{(got.float() - want.float()).abs().max().item()}")
+            for name, fn in paths.items():
+                before = q1_launches()
+                got = fn(x, s_act, w_q, mult, bias, 1, "VALID", dtype=dtype)
+                check_q1_paths(before, 1, "gemm" if name == "new" else "loop",
+                               f"Q1 Dense {what} {name}")
+                check(torch.equal(got, want),
+                      f"Q1 Dense {what} {m}x{k}->{n} {name} out {dtype}: "
+                      f"differs by "
+                      f"{(got.float() - want.float()).abs().max().item()}")
         del x, w_q, got, want
     print(f"[kernels] Q1 as the int8 Dense, bf16 in, bf16 and float32 out, "
           f"{len(Q1_DENSE)} shapes (M, K, N) "
-          f"{[(m, k, n) for _, m, k, n in Q1_DENSE]}: equal to the plain "
+          f"{[(m, k, n) for _, m, k, n in Q1_DENSE]}, the new path (quantize "
+          f"pass + wgmma, TMA producer) and the loop: equal to the plain "
           f"version bit for bit")
-    what, m, k, n = next(c for c in Q1_DENSE if c[0] == Q1_DENSE_TIMED)
-    x, w_q, mult, bias = qconv_inputs(1, k, n, 1, m, 1, torch.bfloat16, 99)
-    x = x.reshape(m, 1, 1, k)
-    s_act = torch.tensor([0.03], device=DEVICE)
-    a8 = quantize_with_scale(x, s_act).reshape(m, k)
-    b8 = w_q.reshape(n, k).t()  # (K, N), column-major
-    fns = {"plain": lambda: qconv_bn_reference(x, s_act, w_q, mult, bias, 1,
-                                               "VALID"),
-           "kernel": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, 1,
-                                           "VALID")}
-    try:
-        torch._int_mm(a8, b8)
-        fns["int_mm"] = lambda: torch._int_mm(a8, b8)
-    except RuntimeError as err:
-        print(f"[kernels] torch._int_mm at {m}x{k}->{n} unavailable: {err}")
-    ms, runs = in_turns(fns, {"plain": 5, "kernel": 20, "int_mm": 20})
-    ops = 2 * m * k * n
-    print(f"[kernels] Q1 Dense time {what} bf16 {m}x{k}->{n}: kernel "
-          f"{ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} TOP/s), "
-          f"plain {ms['plain']:.4f} ms, torch._int_mm (int8 product alone) "
-          f"{ms.get('int_mm', float('nan')):.4f} ms; runs {runs}; {card}")
-    return {"dense_shape": [m, k, n], "dense_ms": ms["kernel"],
-            "dense_plain_ms": ms["plain"], "dense_int_mm_ms": ms.get("int_mm"),
-            "dense_bound": bound(ops, 2 * m * k + k * n + 2 * m * n + 8 * n,
-                                 "int8")}
+    out = {}
+    for what, m, k, n in Q1_DENSE:
+        x, w_q, mult, bias = qconv_inputs(1, k, n, 1, m, 1, torch.bfloat16,
+                                          99)
+        x = x.reshape(m, 1, 1, k)
+        s_act = torch.tensor([0.03], device=DEVICE)
+        a8 = quantize_with_scale(x, s_act).reshape(m, k)
+        b8 = w_q.reshape(n, k).t()  # (K, N), column-major
+        fns = {"plain": lambda: qconv_bn_reference(x, s_act, w_q, mult,
+                                                   bias, 1, "VALID"),
+               "new": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, 1,
+                                            "VALID"),
+               "loop": lambda: qconv_loop_cuda(x, s_act, w_q, mult, bias, 1,
+                                               "VALID")}
+        try:
+            torch._int_mm(a8, b8)
+            fns["int_mm"] = lambda: torch._int_mm(a8, b8)
+        except RuntimeError as err:
+            print(f"[kernels] torch._int_mm at {m}x{k}->{n} unavailable: "
+                  f"{err}")
+        ms, runs = in_turns(fns, {"plain": 5, "new": 20, "loop": 20,
+                                  "int_mm": 20})
+        dev = {name: device_ms(fns[name], 10) for name in fns
+               if name != "plain"}
+        ops = 2 * m * k * n
+        b = bound(ops, 2 * m * k + k * n + 2 * m * n + 8 * n, "int8")
+        print(f"[kernels] Q1 Dense time {what} bf16 {m}x{k}->{n}: new "
+              f"{ms['new']:.4f} ms ({ops / ms['new'] / 1e9:.1f} TOP/s; device "
+              f"{dev['new']:.4f}), loop {ms['loop']:.4f} ms (device "
+              f"{dev['loop']:.4f}), plain {ms['plain']:.4f} ms, torch._int_mm "
+              f"(int8 product alone) {ms.get('int_mm', float('nan')):.4f} ms "
+              f"(device {dev.get('int_mm', float('nan')):.4f}); bound "
+              f"{b['bound_ms']:.4f} ms by {b['bound_by']}; runs {runs}; "
+              f"{card}")
+        out[what] = {"shape": [m, k, n], "ms": ms["new"],
+                     "device_ms": round(dev["new"], 4), "loop_ms": ms["loop"],
+                     "plain_ms": ms["plain"], "int_mm_ms": ms.get("int_mm"),
+                     **b}
+        if m < 1024:  # host-bound: the host's cost of one call, each path
+            host = {}
+            for name in ("new", "loop"):
+                fns[name]()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(Q1_HOST_CALLS):
+                    fns[name]()
+                host[name] = (time.perf_counter() - t0) / Q1_HOST_CALLS * 1e6
+                torch.cuda.synchronize()
+            print(f"[kernels] Q1 Dense host cost of a call at {m}x{k}->{n}: "
+                  f"new {host['new']:.1f} us (quantize pass + wgmma, two "
+                  f"launches), loop {host['loop']:.1f} us (one launch); "
+                  f"mean of {Q1_HOST_CALLS} calls, host clock; {card}")
+            out[what]["host_us"] = {k_: round(v, 1) for k_, v in host.items()}
+        del x, w_q, a8, b8
+    timed = out[Q1_DENSE_TIMED]
+    return {"dense_shape": timed["shape"], "dense_ms": timed["ms"],
+            "dense_device_ms": timed["device_ms"],
+            "dense_loop_ms": timed["loop_ms"],
+            "dense_plain_ms": timed["plain_ms"],
+            "dense_int_mm_ms": timed["int_mm_ms"],
+            "dense_bound": {"bound_ms": timed["bound_ms"],
+                            "bound_by": timed["bound_by"]},
+            "dense_ms_by_shape": {what: [r["ms"], r["loop_ms"],
+                                         r["int_mm_ms"]]
+                                  for what, r in out.items()},
+            "dense_host_us": {what: r["host_us"] for what, r in out.items()
+                              if "host_us" in r}}
 
 
 def phase_model() -> None:
@@ -1423,7 +1575,7 @@ def phase_model_int8() -> None:
         t0 = time.perf_counter()
         want = cpu_model(clip)
         t_cpu = time.perf_counter() - t0
-        before = launches()
+        before, q1_before = launches(), q1_launches()
         got = {k: v.cpu() for k, v in dev_model(clip.to(DEVICE)).items()}
         count = launched_since(before)
     want_count = dict.fromkeys(KERNELS, 0) | {
@@ -1431,6 +1583,7 @@ def phase_model_int8() -> None:
         "qconv_bn": INT8_CONVS}
     check(count == want_count, f"int8 model launches {count}, want "
                                f"{want_count}")
+    check_q1_paths(q1_before, INT8_CONVS, "conv", "int8 model")
     for k in ("ivt", "i", "v", "t", "features"):
         g, w = got[k].float(), want[k].float()
         check(g.shape == w.shape, f"int8 model {k}: shape {g.shape}")
@@ -1516,12 +1669,14 @@ def phase_model_teacher_int8(float_want: dict) -> None:
         t0 = time.perf_counter()
         want = cpu_model(frames)
         t_cpu = time.perf_counter() - t0
-        before = launches()
+        before, q1_before = launches(), q1_launches()
         got = dev_model(frames.to(DEVICE))
         count = launched_since(before)
     want_count = dict.fromkeys(KERNELS, 0) | TEACHER_Q8_LAUNCHES
     check(count == want_count, f"int8 teacher model launches {count}, want "
                                f"{want_count}")
+    check_q1_paths(q1_before, TEACHER_Q8_LAUNCHES["qconv_bn"], "gemm",
+                   "int8 teacher model")
     pairs = [("logits i", got["logits"]["i"], want["logits"]["i"],
               float_want["logits"]["i"]),
              ("feature", got["feature"], want["feature"],
@@ -1582,7 +1737,7 @@ def phase_teacher(card: str, configs: dict, backbone: str = TEACHER_BACKBONE,
             torch.cuda.synchronize()
             resident = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            before = launches()
+            before, q1_before = launches(), q1_launches()
             out, call_ms = timed_call(lambda: sess.predict(frames))
             top = torch.cuda.max_memory_allocated()
             peak[label] = max(peak[label], top)
@@ -1591,6 +1746,8 @@ def phase_teacher(card: str, configs: dict, backbone: str = TEACHER_BACKBONE,
             count = launched_since(before)
             check(count == want, f"{label} teacher predict {call}: launches "
                                  f"{count}, want {want}")
+            check_q1_paths(q1_before, want["qconv_bn"], "gemm",
+                           f"{label} teacher predict {call}")
             check(set(out) == {"i", "feature"},
                   f"{label} teacher outputs {set(out)}")
             p, feat = out["i"], out["feature"]
@@ -1826,13 +1983,15 @@ def phase_offline(card: str, configs: dict) -> tuple:
         for label in labels if call % 2 == 0 else labels[::-1]:
             want, sess = configs[label][0], sessions[label]
             torch.cuda.reset_peak_memory_stats()
-            before = launches()
+            before, q1_before = launches(), q1_launches()
             probs, call_ms = timed_call(lambda: sess.predict(clips))
             peak[label] = max(peak[label], torch.cuda.max_memory_allocated())
             ms[label].append(call_ms)
             count = launched_since(before)
             check(count == want, f"{label} predict {call}: launches {count},"
                                  f" want {want}")
+            check_q1_paths(q1_before, want["qconv_bn"], "conv",
+                           f"{label} predict {call}")
             check_probs(probs, (b, t), f"{label} predict {call}")
     steady = {label: float(np.median(ms[label][1:])) for label in labels}
     for label in labels:
@@ -1863,12 +2022,14 @@ def phase_streaming(card: str, label: str, want: dict, **session_kw) -> list:
                               dtype=np.uint8)
         ms = []
         for i in range(PUSHES):
-            before = launches()
+            before, q1_before = launches(), q1_launches()
             probs, push_ms = timed_call(lambda: sess.push(frames[i]))
             ms.append(push_ms)
             count = launched_since(before)
             check(count == want, f"{label} push {i}: launches {count}, want "
                                  f"{want}")
+            check_q1_paths(q1_before, want["qconv_bn"], "conv",
+                           f"{label} push {i}")
             check_probs(probs, (streams,) if streams > 1 else (),
                         f"{label} push {i} streams={streams}")
         check(sess.frames_seen == PUSHES, f"frames_seen {sess.frames_seen}")
@@ -3797,8 +3958,7 @@ def main() -> None:
         "dilated_residual": LAYERS_PER_FORWARD}
     int8_fused = k1_only | {"stem_pool": 1, "qconv_bn": INT8_CONVS}
     int8_float_stem = dict(int8_fused, stem_pool=0)
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # the student's main path starts here
+    reset_launches()  # the student's main path starts here
     offline, clips = phase_offline(card, {
         "bf16": (k1_only, {}),
         "int8 float stem": (int8_float_stem, {"quantize": True}),
@@ -3809,52 +3969,45 @@ def main() -> None:
         "int8 fused stem": phase_streaming(card, "int8 fused stem",
                                            int8_fused, quantize=True,
                                            fused_stem=True)}
-    student = launches()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # the teachers' main path starts here
+    student = path_launches()
+    reset_launches()  # the teachers' main path starts here
     teachers, frames = phase_teacher(card, {
         "bf16": (TEACHER_LAUNCHES, {}),
         "int8": (TEACHER_Q8_LAUNCHES, {"quantize": True})})
-    teacher = launches()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # path A, the TResNet-L teacher, starts here
+    teacher = path_launches()
+    reset_launches()  # path A, the TResNet-L teacher, starts here
     tresnet_sessions, tresnet_frames = phase_teacher(
         card, {"bf16": (TRESNET_LAUNCHES, {})},
         TRESNET, TRESNET_IMG, TRESNET_BATCH)
-    tresnet = launches()
+    tresnet = path_launches()
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, lengths = mstct_tree(root)
-        for fn in kernel_wrappers().values():
-            fn.launches = 0  # the MS-TCT driver's main path starts here
+        reset_launches()  # the MS-TCT driver's main path starts here
         for dtype in ("float32", "bfloat16"):
             phase_mstct(card, root, split, lengths, dtype)
-        mstct = launches()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # path B, Swin's use_fused_attn, starts here
-    path_b = phase_swin_fused(card)
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # the teacher's training steps start here
+        mstct = path_launches()
+    reset_launches()  # path B, Swin's use_fused_attn, starts here
+    path_b = phase_swin_fused(card) | q1_counts()
+    reset_launches()  # the teacher's training steps start here
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
+    train |= q1_counts()
     slice_s += time.perf_counter() - t0
     t0 = time.perf_counter()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # K8's op path starts here
+    reset_launches()  # K8's op path starts here
     phase_k8_path(card)
-    k8_path = launches()
+    k8_path = path_launches()
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, _ = mstct_train_tree(root)
-        for fn in kernel_wrappers().values():
-            fn.launches = 0  # the MS-TCT driver's training starts here
+        reset_launches()  # the MS-TCT driver's training starts here
         for dtype in ("float32", "bfloat16"):
             phase_mstct_train(card, root, split, dtype)
-        mstct_train = launches()
+        mstct_train = path_launches()
     mstct_s += time.perf_counter() - t0
     t0 = time.perf_counter()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0  # the probe drivers start here
+    reset_launches()  # the probe drivers start here
     measured |= probe_entries(*phase_probes(card))
-    probes = launches()
+    probes = path_launches()
     probe_s += time.perf_counter() - t0
     paths = {"student sessions": student,
              "teacher sessions (creation and predicts)": teacher,
@@ -3874,6 +4027,16 @@ def main() -> None:
     print("[main path] launches: " + "; ".join(
         f"{label} { {k: v for k, v in p.items() if v} }"
         for label, p in paths.items()))
+    # Q1: the student's convolutions take the cp.async producer, the
+    # teacher's Dense layers the TMA one, and no serving path the loop
+    for label, p in paths.items():
+        form = "gemm" if label.startswith("teacher") else "conv"
+        got = {k: p[f"qconv_bn {k}"] for k in q1_path_wrappers()}
+        check(got == q1_want(p["qconv_bn"], form),
+              f"{label}: Q1 path launches {got} for {p['qconv_bn']} calls")
+    measured["qconv_bn"]["launches_by_path"] = {
+        k: sum(p[f"qconv_bn {k}"] for p in paths.values())
+        for k in q1_path_wrappers()}
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")

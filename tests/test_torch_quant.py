@@ -111,18 +111,33 @@ def test_quantized_conv_bn_matches_jax(rng, mode, k, stride, dtype):
 
 
 def test_int8_wrapper_rejects_cpu_and_meta(rng):
-    """The kernel wrapper never runs the plain version in its place, and
-    the dispatch raises on a device that is neither CPU nor CUDA."""
-    _, td = _qw(rng, "dynamic", 3, 8, 12)
-    x = torch.from_numpy(rng.standard_normal((1, 6, 6, 8)).astype(
+    """No kernel wrapper of Q1 (the dispatch, the quantize pass, the wgmma
+    kernel with either producer, the loop) runs the plain version in its
+    place, and the dispatch raises on a device that is neither CPU nor
+    CUDA."""
+    _, td = _qw(rng, "dynamic", 3, 16, 12)
+    x = torch.from_numpy(rng.standard_normal((1, 6, 6, 16)).astype(
         np.float32))
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        pq.qconv_bn_cuda(x, pq.activation_scale(x), td["w_q"], td["mult"],
-                         td["bias"], 1, "SAME")
+    s = pq.activation_scale(x)
+    codes = pq.quantize_with_scale(x, s)
+    w1 = td["w_q"][:, :1, :1].contiguous()
+    calls = {
+        "qconv_bn_cuda": lambda: pq.qconv_bn_cuda(
+            x, s, td["w_q"], td["mult"], td["bias"], 1, "SAME"),
+        "quantize_codes_cuda": lambda: pq.quantize_codes_cuda(x, s),
+        "qconv_gemm_cuda": lambda: pq.qconv_gemm_cuda(
+            codes, s, w1, td["mult"], td["bias"], 1, "VALID"),
+        "qconv_conv_cuda": lambda: pq.qconv_conv_cuda(
+            codes, s, td["w_q"], td["mult"], td["bias"], 1, "SAME"),
+        "qconv_loop_cuda": lambda: pq.qconv_loop_cuda(
+            x, s, td["w_q"], td["mult"], td["bias"], 1, "SAME")}
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match=f"{name} needs CUDA tensors"):
+            call()
     meta = {k: v.to("meta") for k, v in td.items()}
     with pytest.raises(ValueError, match="CPU .* or CUDA"):
         pq.quantized_conv_bn(x.to("meta"), {**meta, "act_scale":
                                             torch.tensor(0.1, device="meta")})
-    before = pq.qconv_bn_cuda.launches
+    before = {name: getattr(pq, name).launches for name in calls}
     pq.quantized_conv_bn(x, td)
-    assert pq.qconv_bn_cuda.launches == before
+    assert {name: getattr(pq, name).launches for name in calls} == before
