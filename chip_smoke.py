@@ -307,6 +307,9 @@ STEM_CASES = ([(4, 256, 448), (1024, 256, 448)]
               + [(n, 16, 16) for n in (9, 10, 11, 16, 22)])
 STEM_TIME_N = (64, 1024)
 Q1_CHECK_N, Q1_TIME_N = 2, 64
+# the wgmma path's persistent walk, bit for bit: each case at the frames
+# that give every resident block at least this many output tiles
+Q1_WALK_TILES = 3
 # Q1 beyond ResNet18's block convs: (what, Cin, Cout, k, stride, pad, H, W)
 Q1_EXTRA = [("stem 7x7/2 Cin=3", 3, 64, 7, 2, 3, 256, 448),
             ("odd 7x7/2 Cin=3", 3, 64, 7, 2, 3, 17, 29),
@@ -871,6 +874,16 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def q1_walk_frames(ho: int, wo: int, cout: int) -> int:
+    """Frames at which each resident block of Q1's wgmma kernel walks at
+    least ``Q1_WALK_TILES`` output tiles, whichever tile it picks: tiles are
+    counted at its largest, 256 x 128, and blocks at its most, two an SM."""
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    n_tiles = -(-cout // 128)
+    rows = -(-Q1_WALK_TILES * 2 * sms // n_tiles) * 256
+    return -(-rows // (ho * wo))
+
+
 def phase_q1(card: str) -> dict:
     """Q1 as ResNet18's convolutions: both paths (the wgmma path where
     ``qconv_path`` sends a shape, and the loop at every shape) bit for bit
@@ -939,6 +952,40 @@ def phase_q1(card: str) -> dict:
               f"at every shape: the quantize pass's codes, codes, int32 sums "
               f"and outputs equal bit for bit")
 
+    # the persistent walk: at N = 2 no block takes a second tile, so each
+    # wgmma case again at frames where every block walks several tiles
+    # (the ring's stage and phase, and each tile's rows and taps, carried
+    # from one tile to the next), bit for bit against the plain version
+    walked = []
+    for seed, (what, cin, cout, k, s, p, hi, wi) in enumerate(cases):
+        pad = ((p, p), (p, p))
+        if qconv_path(cin, k, k, s, pad) == "loop":
+            continue
+        ho, wo = (hi + 2 * p - k) // s + 1, (wi + 2 * p - k) // s + 1
+        n = q1_walk_frames(ho, wo, cout)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"Q1 walk {str(dtype)[6:]} {what} {cin}->{cout} N={n}"
+            x, w_q, mult, bias = qconv_inputs(n, cin, cout, k, hi, wi, dtype,
+                                              seed)
+            s_act = activation_scale(x).reshape(1)
+            relu = seed % 2 == 0
+            want = qconv_bn_reference(x, s_act, w_q, mult, bias, s, pad,
+                                      relu=relu, dtype=dtype)
+            before = q1_launches()
+            got = qconv_bn_cuda(x, s_act, w_q, mult, bias, s, pad, relu=relu,
+                                dtype=dtype)
+            check_q1_paths(before, 1, "conv", tag)
+            check(torch.equal(got, want),
+                  f"{tag}: output differs by "
+                  f"{(got.float() - want.float()).abs().max().item()} at "
+                  f"{int((got != want).sum())} of {got.numel()}")
+            del x, got, want
+        walked.append(n)
+    print(f"[kernels] Q1 the wgmma path's persistent walk: {len(walked)} "
+          f"shapes at N={walked} frames (each resident block at least "
+          f"{Q1_WALK_TILES} tiles), bf16 and float32: outputs equal bit for "
+          f"bit")
+
     # times at N = 64 frames, bf16 in and out, static scale, each distinct
     # shape once, in turns: new, loop, plain and (a yardstick of another
     # function) the bf16 cuDNN convolution; the forward's total weights
@@ -968,6 +1015,15 @@ def phase_q1(card: str) -> dict:
                                                pad, relu=True)}
         if "stem" in what:  # Cin = 3: the loop's shape only
             del fns["new"]
+        # the main path's size, bit for bit
+        want = fns["plain"]()
+        for name in ("new", "loop"):
+            if name in fns:
+                got = fns[name]()
+                check(torch.equal(got, want),
+                      f"Q1 N={Q1_TIME_N} {what} {name}: output differs by "
+                      f"{(got.float() - want.float()).abs().max().item()}")
+        del got, want
         ms, runs = in_turns(fns, {"cudnn_bf16": 20, "plain": 3, "new": 20,
                                   "loop": 20})
         dev = {name: device_ms(fns[name], 10)
@@ -988,7 +1044,8 @@ def phase_q1(card: str) -> dict:
         shown = (f"new {ms['new']:.4f} ms ({2 * macs / ms['new'] / 1e9:.1f} "
                  f"TOP/s; device {dev['new']:.4f}), " if "new" in ms else "")
         print(f"[kernels] Q1 time N={Q1_TIME_N} {what} {cin}->{cout} "
-              f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward): {shown}"
+              f"{k}x{k}/{s} at {hi}x{wi} (x{count} per forward; outputs "
+              f"equal to plain bit for bit): {shown}"
               f"loop {ms['loop']:.4f} ms "
               f"({2 * macs / ms['loop'] / 1e9:.1f} TOP/s; device "
               f"{dev['loop']:.4f}), plain {ms['plain']:.4f} ms, bf16 cuDNN "
@@ -1818,21 +1875,31 @@ def teacher_breakdown(card: str, label: str, sess,
 def device_ms(fn, reps: int) -> float:
     """Mean device time of one call of ``fn``: the sum of its CUDA kernels'
     times under torch.profiler over ``reps`` calls after a warm-up, over
-    ``reps``."""
+    ``reps``. The tracer can drop records (often one a trace, at times
+    most), so the time is the mean record's times the records of one call
+    (``records / reps`` rounded); a trace that kept fewer than half a
+    call's records per call is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) for e in rows)
+        records = sum(e.count for e in rows)
+        per_call = round(records / reps)
+        if per_call:
+            return us / records * per_call / 1e3
+    print(f"[profiler] {records} device records over {reps} calls in each "
+          f"of three traces: no device time")
+    return 0.0
 
 
 def device_profile(card: str, label: str, fn, top: int) -> tuple:

@@ -29,7 +29,8 @@
 //   dynamic shared memory beyond 48 KB needs cudaFuncSetAttribute.
 // - Tensor maps. cuTensorMapEncodeTiled is a driver API: it is taken
 //   through the runtime's driver entry point (no -lcuda), and the map is
-//   passed to the kernel as a const __grid_constant__ CUtensorMap.
+//   passed to the kernel as a const __grid_constant__ CUtensorMap. Maps
+//   are cached by (base, shape, box), which is all a map holds.
 
 #pragma once
 
@@ -275,6 +276,36 @@ inline int encode_u8_sw128(CUtensorMap* map, const void* base,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// encode_u8_sw128 through a per-thread cache. A map holds only the base,
+// the shape and the box, never the bytes, so a cached map of the same four
+// is the map the encoder would write: a weight's (and an activation
+// buffer's that the allocator hands out again) is encoded once.
+inline int encode_u8_sw128_cached(CUtensorMap* map, const void* base,
+                                  long long rows, long long cols,
+                                  int box_rows) {
+  struct Entry {
+    const void* base;
+    long long rows, cols;
+    int box_rows;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 128;  // beyond the 45 of the int8 student + teacher
+  thread_local Entry cache[SLOTS] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.base == base && e.rows == rows && e.cols == cols &&
+        e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  const int err = encode_u8_sw128(map, base, rows, cols, box_rows);
+  if (err == 0) {
+    cache[next] = Entry{base, rows, cols, box_rows, *map};
+    next = (next + 1) % SLOTS;
+  }
+  return err;
 }
 
 }  // namespace hopper

@@ -34,10 +34,10 @@
 //    N block and per tap). Bandwidth-bound; folding it into the previous
 //    layer's epilogue is later work.
 // 2. qconv_wgmma_kernel: output tiles of 64 CW rows by BN columns (128 x 64
-//    for Cout <= 64, 256 x 128 above, 128 x 128 for a GEMM of M < 1024).
+//    for Cout <= 64, 256 x 128 above).
 //    Warpgroup 0 produces; each of the CW consumer warpgroups runs wgmma
 //    m64nBNk32 s8 over its 64 rows with the int32 sums in registers. The
-//    operands pass through a ring of 4-6 shared-memory stages of 128
+//    operands pass through a ring of 4 shared-memory stages of 128
 //    bytes of K each (128-byte swizzle), handed back and forth by
 //    full/empty mbarriers, so the consumers do not wait on device memory
 //    while later stages load. The block is persistent (one or two an SM,
@@ -201,10 +201,9 @@ constexpr int FORM_GEMM = 0, FORM_CONV = 1;
 template <int BN, int CW> struct WgTile {
   static constexpr int BM = 64 * CW;
   static constexpr int THREADS = 128 * (CW + 1);  // + the producer
-  // (BN, CW) = (64, 2): 4 x 24 KB, two blocks an SM; (128, 2): 6 x 32 KB;
-  // (128, 4): 4 x 48 KB
-  static constexpr int STAGES = BN == 64 ? 4 : CW == 2 ? 6 : 4;
-  static constexpr int MIN_BLOCKS = BN == 64 && CW == 2 ? 2 : 1;
+  // (BN, CW) = (64, 2): 4 x 24 KB, two blocks an SM; (128, 4): 4 x 48 KB
+  static constexpr int STAGES = 4;
+  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;
   static constexpr int A_BYTES = BM * WG_BK, B_BYTES = BN * WG_BK;
   // 1024 for aligning the ring by hand, then the ring, then 2 x STAGES
   // mbarriers
@@ -412,10 +411,10 @@ int launch_wgmma(const void* xq, const void* s_act, const void* wq,
                  cudaStream_t stream) {
   using T = WgTile<BN, CW>;
   CUtensorMap tm_a, tm_b;
-  int err = hopper::encode_u8_sw128(&tm_b, wq, p.Cout, p.K, BN);
+  int err = hopper::encode_u8_sw128_cached(&tm_b, wq, p.Cout, p.K, BN);
   if (err != 0) return err;
   if (FORM == FORM_GEMM) {
-    err = hopper::encode_u8_sw128(&tm_a, xq, p.M, p.K, T::BM);
+    err = hopper::encode_u8_sw128_cached(&tm_a, xq, p.M, p.K, T::BM);
     if (err != 0) return err;
   } else {
     tm_a = tm_b;  // unused
@@ -704,21 +703,18 @@ extern "C" int qconv_wgmma_launch(const void* xq, const void* s_act,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // tiles: 128 x 64 for Cout <= 64; else 256 x 128 (three quarters of
-  // the operand bytes per product of 128 x 128), or 128 x 128 for a GEMM of
-  // M < 1024
+  // the operand bytes per product of 128 x 128)
   if (Cout <= 64)
     return form == FORM_GEMM
                ? launch_wgmma_out<64, 2, FORM_GEMM>(out_dtype, xq, s_act, wq,
                                                     mult, bias, y, p, s)
                : launch_wgmma_out<64, 2, FORM_CONV>(out_dtype, xq, s_act, wq,
                                                     mult, bias, y, p, s);
-  if (form == FORM_GEMM)
-    return p.M >= 1024 ? launch_wgmma_out<128, 4, FORM_GEMM>(
-                             out_dtype, xq, s_act, wq, mult, bias, y, p, s)
-                       : launch_wgmma_out<128, 2, FORM_GEMM>(
-                             out_dtype, xq, s_act, wq, mult, bias, y, p, s);
-  return launch_wgmma_out<128, 4, FORM_CONV>(out_dtype, xq, s_act, wq, mult,
-                                             bias, y, p, s);
+  return form == FORM_GEMM
+             ? launch_wgmma_out<128, 4, FORM_GEMM>(out_dtype, xq, s_act, wq,
+                                                   mult, bias, y, p, s)
+             : launch_wgmma_out<128, 4, FORM_CONV>(out_dtype, xq, s_act, wq,
+                                                   mult, bias, y, p, s);
 }
 
 // The loop path over x (N, H, W, Cin) in in_dtype, quantized on load; any
