@@ -38,13 +38,18 @@ printing its own lines:
    - K3 (window attention half), shifted and not, at the SwinL-384 stage-2
      shape, the SwinL-224 window-7 stage-0 shape and a ragged map; K4 (MLP
      half) at the stage-2 and stage-3 shapes and a ragged token count; K5
-     (whole block) at stages 0 and 1, shifted and not; bf16 and float32;
-     times beside the plain versions' (K5 also beside K3 then K4);
+     (whole block) at stages 0 and 1, shifted and not; bf16 and float32,
+     their products on the Swin GEMM core (``swin_gemm.cuh``: a LayerNorm
+     pass, then the TMA-fed wgmma GEMM); in bf16 also the outputs in which
+     the core and the loop it replaced (the ``*_loop_cuda`` wrappers)
+     differ, counted with the largest difference; times of the kernel, the
+     loop and the plain version in turns (K5 also beside K3 then K4);
    - the int8 branches of K3 (stage 2, shifted and not, and the window-7
      shape), K4 (stages 2 and 3) and K5 (stages 0 and 1, shifted and not)
      in bf16 and float32: the share of outputs more than one int8 step
-     from the plain version's, the max error and the correlation; times
-     beside the plain versions' and the float kernels';
+     from the plain version's, the max error and the correlation, and
+     every output equal to the ``mma.sync`` loop's bit for bit; times
+     beside the loop's, the plain versions' and the float kernels';
    - Q1 as the int8 teacher's Dense layers (1x1 over (M, 1, 1, K)) at
      their shapes, both paths (the wgmma one with its TMA producer) equal
      to the plain version bit for bit; at each shape the new path's, the
@@ -72,19 +77,28 @@ printing its own lines:
      ``mlp_block_branch``: K3 and K4 at ``res_add=False``) in bf16 and
      float32 at the Swin-L-384 training step's batch-8 shapes of stages
      0-2 (the attention branch shifted and not) and a ragged map and token
-     count, against the plain versions at ``res_add=False``; each branch
-     Function's gradients against autograd of the plain version on the
-     card; its time at each stage beside the plain version's and the
+     count, against the plain versions at ``res_add=False`` (bf16 also
+     against the loop, the differences counted); each branch Function's
+     gradients against autograd of the plain version on the card; its
+     time at each stage beside the loop's, the plain version's and the
      bound, and summed over the 44 launches of each branch in a step;
    - P1 (the int8 kernel probe's bf16, int8w and int8 GEMMs) at the
-     probe's twelve Swin-L shapes and ragged ones, int8 bit for bit, the
-     others within REL_TOL of the plain version; M % blk != 0 and
-     N % 64 != 0 refused;
+     probe's twelve Swin-L shapes and ragged ones, int8 bit for bit
+     against the plain version and the loop, the others within REL_TOL
+     of the plain version (bf16's differences from the loop counted);
+     M % blk != 0 and N % 64 != 0 refused; then at each of the twelve
+     shapes bf16 and int8 on the Swin GEMM core and on the loop,
+     ``torch.matmul`` and ``torch._int_mm`` in turns;
    - P2 (the head-grouping probe's pack<g> and batched) at its stage-1 and
      stage-3 shapes and a window of 7, each with relative-position tables
      of std 0.02 and 0.5: the attention half alone (``res_add=False``) and
      the whole output, against the plain version's and K3's; a group not
-     dividing the heads refused;
+     dividing the heads refused; pack2 and batched at stage 1 and pack4
+     at stage 3 with their products on the core and on the loop, in turns;
+   - the Swin GEMM core's persistent walk: each epilogue (bias, bias +
+     GELU, rounded residual, float32 residual, scale; the int8 ones with
+     them) is held above at a product where every resident block walks at
+     least 3 output tiles;
 4. model: the full-width float32 EndToEndRecognizer (ResNet18, 11 + 3x10
    TCN layers, 512 maps) on the card against the same module on the CPU,
    the full-width int8 recognizer (``make_int8_e2e``, fused stem, bf16) on
@@ -182,7 +196,10 @@ training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
 kernel must have launched on its path (Q1's per path too: on the student's
 paths the cp.async-fed wgmma, on the teacher's the TMA-fed one, each after
-a quantize pass, and the loop on none); K5's int8
+a quantize pass, and the loop on none; the Swin GEMM core's products per
+path: on the teachers and the training steps wgmma only, none on the
+loops or the FMA loop, and each library's C counts equal to the counts
+``ops/swin_gemm.py``'s rule gives its wrappers); K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
@@ -199,7 +216,11 @@ their ``library_ms`` null, SDPA's forward + backward beside; P1's three
 entries at MLP1 s3 (9216 x 768 x 3072), ``library_ms`` ``torch.matmul``
 or ``torch._int_mm``, with every shape's ms beside; P2's two entries,
 pack2 and batched at stage 1, ``library_ms`` null, with every stage's
-formulations beside), and the last line
+formulations beside; K3-K6's, P1's and P2's entries with the loop's time
+as ``loop_ms``; ``swin_gemm``, the Swin GEMM core: bf16 at MLP1 s3 beside
+``torch.matmul``, int8 beside ``torch._int_mm``, its times at every P1
+shape, K3/K4/K5/K6 against the loop and its products per path on each
+main path), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -260,6 +281,9 @@ KERNELS = {
     "probe_gemm_int8": "scripts/int8_kernel_probe.py:83",
     "mhsa_pack": "scripts/swin_pack_probe.py:177",
     "mhsa_batched": "scripts/swin_pack_probe.py:198",
+    "swin_gemm": "computervision_codes_tpu/ops/window_mhsa.py:273, "
+                 "ops/mlp_block.py:201, ops/swin_block.py:187 (the products "
+                 "inside them); scripts/int8_kernel_probe.py:78,83",
 }
 # the CUDA source of each (csrc/<source>.cu); K6's branches are K3's and
 # K4's float entry points without the residual
@@ -269,6 +293,9 @@ SOURCES = {name: name.removesuffix("_q8").removesuffix("_branch")
 } | {f"probe_gemm_{k}": "int8_kernel_probe"
      for k in ("bf16", "int8w", "int8")} | {
     k: "swin_pack_probe" for k in ("mhsa_pack", "mhsa_batched")}
+# the Swin GEMM core is a header that K3, K4, K5 (K6), P1 and P2 include;
+# its launches are its wgmma products, counted per path by ops/swin_gemm.py
+HEADERS = {"swin_gemm": "swin_gemm.cuh"}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # the int8 branches against their plain versions: an int8 code of an input
 # can move by one where the kernel's float32 sums (LayerNorm statistics,
@@ -329,6 +356,12 @@ TEACHER_LAUNCHES = {"window_mhsa": 18, "mlp_block": 20, "swin_block": 4}
 # layer and 12 in the two decoder layers)
 TEACHER_Q8_LAUNCHES = {"swin_block": 4, "window_mhsa_q8": 18,
                        "mlp_block_q8": 20, "qconv_bn": 26}
+# the Swin GEMM core's wgmma products per predict of either teacher (4 per
+# K5 launch, 2 per K3 and K4: 16 + 36 + 40) and of the float32 int8
+# teacher (its int8 K3 and K4 only: K5's float32 products take the FMA
+# loop)
+TEACHER_GEMMS = {"swin_gemm": 92}
+TEACHER_Q8_F32_GEMMS = {"swin_gemm": 76}
 TEACHER_CALLS = 6  # the first warms up
 TEACHER_MODEL_FRAMES = 1  # full-width float32 Q2L, card vs CPU
 TEACHER_MODEL_REL_TOL = 1e-3  # 24 blocks and the decoder, sums reordered
@@ -450,6 +483,7 @@ K6_GRAD_MLP = ("SwinL-384 stage 2, batch 2", 2 * 24 * 24, 768, 3072)
 # replay; TRAIN_STEPS steps of each plan in turns on one fixed batch, the
 # first TRAIN_WARM warming up and the next TRAIN_TIMED timed
 TRAIN_LAUNCHES = {"window_mhsa_branch": 44, "mlp_block_branch": 44}
+TRAIN_GEMMS = {"swin_gemm": 176}  # bf16: 2 products a branch launch
 TRAIN_STEPS, TRAIN_WARM, TRAIN_TIMED = 20, 2, 10
 TRAIN_POSITIVE = 0.3  # the share of positive labels, seeded multi-hot
 # the fused and plain plans' losses at the same weights and generator
@@ -537,6 +571,20 @@ P1_TIMED = "MLP1 s3 (9216x768x3072)"
 P2_RAGGED = ("SwinL-224 stage 0, window 7", 2, 56, 192, 6, (2, 3, 6), 7)
 P2_TABLE_STDS = (0.02, 0.5)
 P2_TIMED = ("MHSA stage1 (96^2, c=192, h=6)", "pack2")
+# the Swin GEMM core (swin_gemm.cuh) against the loops it replaced on the
+# main path (the "_loop" wrappers): int8 bit for bit, bf16 within REL_TOL
+# of the plain version with the outputs where new and old differ counted.
+# Its persistent walk: each epilogue held at a product where every resident
+# block takes at least GEMM_WALK_TILES tiles (those shapes, bf16 and int8:
+# (what, M, K, N, epilogue)); the kernels line reads the core at P1_TIMED
+GEMM_WALK_TILES = 3
+GEMM_WALK = [("K3 stage 2 QKV", 16 * 24 * 24, 768, 2304, "bias"),
+             ("K3 stage 2 proj", 16 * 24 * 24, 768, 768, "round_res"),
+             ("K4 stage 2 fc1", 16 * 24 * 24, 768, 3072, "bias_gelu"),
+             ("K4 stage 2 fc2", 16 * 24 * 24, 3072, 768, "res_f32"),
+             ("K6 stage 0 fc2", 8 * 96 * 96, 768, 192, "bias"),
+             ("K5 stage 0 fc2", 16 * 96 * 96, 768, 192, "round_res"),
+             ("P1 MLP1 s3", 9216, 768, 3072, "scale")]
 
 
 def fail(msg: str) -> None:
@@ -632,8 +680,33 @@ def kernel_wrappers() -> dict:
             "mhsa_batched": swin_pack_probe.mhsa_batched_cuda}
 
 
+def gemm_counts() -> dict:
+    """The Swin GEMM core's products per path, summed over the libraries
+    that include it (the wrappers' counts by ops/swin_gemm.py's rule)."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+
+    return {path: sum(c[path] for c in swin_gemm.launches.values())
+            for path in swin_gemm.PATHS}
+
+
 def launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Every kernel's launches; the Swin GEMM core's are its wgmma
+    products."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()} | {
+        "swin_gemm": gemm_counts()["wgmma"]}
+
+
+def check_gemm_counts(what: str) -> dict:
+    """The C libraries' own counts per path equal the wrappers' counts by
+    the rule; returns the summed counts."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+
+    for lib in swin_gemm.LIBRARIES:
+        got = swin_gemm.library_launches(lib)
+        check(got == swin_gemm.launches[lib],
+              f"{what}: {lib}'s C library counts {got}, the rule "
+              f"{swin_gemm.launches[lib]}")
+    return gemm_counts()
 
 
 def q1_counts() -> dict:
@@ -642,8 +715,10 @@ def q1_counts() -> dict:
 
 
 def path_launches() -> dict:
-    """Every kernel's count and Q1's per path."""
-    return launches() | q1_counts()
+    """Every kernel's count, Q1's per path and the Swin GEMM core's per
+    path (as "swin_gemm <path>")."""
+    return launches() | q1_counts() | {
+        f"swin_gemm {path}": n for path, n in gemm_counts().items()}
 
 
 def launched_since(before: dict) -> dict:
@@ -672,7 +747,8 @@ def phase_device() -> str:
 def phase_build() -> None:
     from computervision_codes_tpu_torch.ops import _build
 
-    sources = list(dict.fromkeys(SOURCES.values()))
+    sources = list(dict.fromkeys(v for k, v in SOURCES.items()
+                                 if k not in HEADERS))
     t0 = time.perf_counter()
     seconds = _build.build(sources)
     print(f"[build] {len(sources)} sources, one nvcc each, in parallel: "
@@ -869,9 +945,13 @@ def check_q1_paths(before: dict, calls: int, path: str, what: str) -> None:
 
 
 def reset_launches() -> None:
-    """Every kernel's count, and Q1's per path, to 0."""
+    """Every kernel's count, Q1's per path and the Swin GEMM core's per
+    path (the wrappers' and the C libraries'), to 0."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+
     for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values()):
         fn.launches = 0
+    swin_gemm.reset_launches()
 
 
 def q1_walk_frames(ho: int, wo: int, cout: int) -> int:
@@ -1104,6 +1184,24 @@ def compare(tag: str, got, want, dtype) -> tuple:
     return err, tol
 
 
+def new_vs_old(new, old) -> tuple:
+    """(outputs in which the Swin GEMM core's and the loop's outputs
+    differ, the largest difference)."""
+    d = (new.float() - old.float()).abs()
+    return int((d > 0).sum()), d.max().item()
+
+
+def gemm_tiles_per_block(m: int, n: int) -> float:
+    """Output tiles each resident block of the wgmma GEMM walks at (M, N):
+    128 x tile_n(N) tiles over the SMs, two blocks an SM at the 64-column
+    tile (its ring fits twice), one otherwise."""
+    from computervision_codes_tpu_torch.ops.swin_gemm import tile_n
+
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
+    blocks = sms * (2 if tile_n(n) == 64 else 1)
+    return -(-m // 128) * (n // tile_n(n)) / blocks
+
+
 def attn_work(b, hp, wp, c, heads, w, shifted: bool, es: int) -> tuple:
     """(operations, bytes) of one attention half-block: QKV, scores, P V
     and proj products; x in, y out, weights, biases, rel-pos bias and the
@@ -1132,12 +1230,15 @@ def geometry(hw) -> tuple:
 
 
 def phase_k3(card: str) -> dict:
+    """K3 (its products on the Swin GEMM core) against the plain version;
+    in bf16 also against the loop (``window_mhsa_loop_cuda``: the outputs
+    that differ counted), then kernel, loop and plain in turns."""
     from computervision_codes_tpu_torch.ops.window_mhsa import (
-        window_mhsa_cuda, window_mhsa_reference)
+        window_mhsa_cuda, window_mhsa_loop_cuda, window_mhsa_reference)
 
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        worst = (-1.0, None)
+        worst, differ = (-1.0, None), {}
         for seed, (what, b, hw, c, heads, w) in enumerate(K3_CASES):
             hp, wp = geometry(hw)
             x, attn, _ = swin_inputs((b, hp, wp), c, 4 * c, heads, w, dtype,
@@ -1145,18 +1246,23 @@ def phase_k3(card: str) -> dict:
             for shift in (0, w // 2):
                 kw = dict(window=w, num_heads=heads)
                 mask = swin_mask(hp, wp, w, shift)
+                got = window_mhsa_cuda(x, *attn, mask, **kw)
                 err, tol = compare(
-                    f"K3 {str(dtype)[6:]} {what} shift={shift}",
-                    window_mhsa_cuda(x, *attn, mask, **kw),
+                    f"K3 {str(dtype)[6:]} {what} shift={shift}", got,
                     window_mhsa_reference(x, *attn, mask, **kw), dtype)
                 if err / tol >= worst[0]:
                     worst = (err / tol, (what, shift, err, tol))
-                if dtype == torch.bfloat16 and seed == 0:
-                    main_err = max(main_err, err)
+                if dtype == torch.bfloat16:
+                    differ[f"{what} shift={shift}"] = new_vs_old(
+                        got, window_mhsa_loop_cuda(x, *attn, mask, **kw))
+                    if seed == 0:
+                        main_err = max(main_err, err)
             del x, attn
         print(f"[kernels] K3 {str(dtype)[6:]}: {2 * len(K3_CASES)} cases "
               f"within tolerance ({REL_TOL[dtype]:g} x max|ref|); worst "
-              f"(case, shift, err, tol) = {worst[1]}")
+              f"(case, shift, err, tol) = {worst[1]}"
+              + (f"; against the loop (outputs that differ, largest "
+                 f"difference) {differ}" if differ else ""))
     what, b, hw, c, heads, w = K3_CASES[0]
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1164,95 +1270,118 @@ def phase_k3(card: str) -> dict:
         for shift in (0, w // 2):
             mask, kw = swin_mask(hw, hw, w, shift), dict(window=w,
                                                          num_heads=heads)
-            ms, runs = in_turns(
-                {"plain": lambda: window_mhsa_reference(x, *attn, mask, **kw),
-                 "kernel": lambda: window_mhsa_cuda(x, *attn, mask, **kw)},
-                {"plain": 10, "kernel": 20})
+            fns = {"plain": lambda: window_mhsa_reference(x, *attn, mask,
+                                                          **kw),
+                   "kernel": lambda: window_mhsa_cuda(x, *attn, mask, **kw),
+                   "loop": lambda: window_mhsa_loop_cuda(x, *attn, mask,
+                                                         **kw)}
+            if dtype == torch.float32:  # both are the FMA loop
+                del fns["loop"]
+            ms, runs = in_turns(fns, {"plain": 10, "kernel": 20, "loop": 20})
             times[dtype, shift] = ms
             ops, _ = attn_work(b, hw, hw, c, heads, w, bool(shift), 2)
+            shown = (f", loop {ms['loop']:.4f} ms" if "loop" in ms else "")
             print(f"[kernels] K3 time {str(dtype)[6:]} {what} B={b} {hw}x{hw}"
                   f" C={c} heads={heads} w={w} shift={shift}: kernel "
                   f"{ms['kernel']:.4f} ms ({ops / ms['kernel'] / 1e9:.1f} "
-                  f"TFLOP/s), plain {ms['plain']:.4f} ms; runs {runs}; "
-                  f"{card}")
+                  f"TFLOP/s){shown}, plain {ms['plain']:.4f} ms; runs "
+                  f"{runs}; {card}")
         del x, attn
     ms = times[torch.bfloat16, w // 2]
     return {"max_abs_err": main_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"],
             **bound(*attn_work(b, hw, hw, c, heads, w, True, 2), "bf16"),
-            "library_ms": None}
+            "library_ms": None, "loop_ms": ms["loop"]}
 
 
 def phase_k4(card: str) -> dict:
+    """K4 (its products on the Swin GEMM core) against the plain version;
+    in bf16 also against the loop, then kernel, loop and plain in
+    turns."""
     from computervision_codes_tpu_torch.ops.mlp_block import (
-        mlp_block_cuda, mlp_block_reference)
+        mlp_block_cuda, mlp_block_loop_cuda, mlp_block_reference)
 
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        worst = (-1.0, None)
+        worst, differ = (-1.0, None), {}
         for seed, (what, m, c, hidden) in enumerate(K4_CASES):
             x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, seed)
-            err, tol = compare(f"K4 {str(dtype)[6:]} {what}",
-                               mlp_block_cuda(x, *mlp),
+            got = mlp_block_cuda(x, *mlp)
+            err, tol = compare(f"K4 {str(dtype)[6:]} {what}", got,
                                mlp_block_reference(x, *mlp), dtype)
             if err / tol >= worst[0]:
                 worst = (err / tol, (what, err, tol))
-            if dtype == torch.bfloat16 and seed == 0:
-                main_err = err
+            if dtype == torch.bfloat16:
+                differ[what] = new_vs_old(got, mlp_block_loop_cuda(x, *mlp))
+                if seed == 0:
+                    main_err = err
             del x, mlp
         print(f"[kernels] K4 {str(dtype)[6:]}: {len(K4_CASES)} cases within "
               f"tolerance ({REL_TOL[dtype]:g} x max|ref|); worst (case, err,"
-              f" tol) = {worst[1]}")
+              f" tol) = {worst[1]}"
+              + (f"; against the loop (outputs that differ, largest "
+                 f"difference) {differ}" if differ else ""))
     times = {}
     for what, m, c, hidden in K4_CASES[:2]:
         for dtype in (torch.bfloat16, torch.float32):
             x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, 99)
-            ms, runs = in_turns(
-                {"plain": lambda: mlp_block_reference(x, *mlp),
-                 "kernel": lambda: mlp_block_cuda(x, *mlp)},
-                {"plain": 10, "kernel": 20})
+            fns = {"plain": lambda: mlp_block_reference(x, *mlp),
+                   "kernel": lambda: mlp_block_cuda(x, *mlp),
+                   "loop": lambda: mlp_block_loop_cuda(x, *mlp)}
+            if dtype == torch.float32:  # both are the FMA loop
+                del fns["loop"]
+            ms, runs = in_turns(fns, {"plain": 10, "kernel": 20, "loop": 20})
             times[what, dtype] = ms
+            shown = (f", loop {ms['loop']:.4f} ms" if "loop" in ms else "")
             print(f"[kernels] K4 time {str(dtype)[6:]} {what} {m} x {c}, "
                   f"hidden {hidden}: kernel {ms['kernel']:.4f} ms "
-                  f"({4 * m * c * hidden / ms['kernel'] / 1e9:.1f} TFLOP/s),"
-                  f" plain {ms['plain']:.4f} ms; runs {runs}; {card}")
+                  f"({4 * m * c * hidden / ms['kernel'] / 1e9:.1f} TFLOP/s)"
+                  f"{shown}, plain {ms['plain']:.4f} ms; runs {runs}; {card}")
             del x, mlp
     what, m, c, hidden = K4_CASES[0]
     ms = times[what, torch.bfloat16]
     return {"max_abs_err": main_err, "ms": ms["kernel"],
             "plain_ms": ms["plain"], **bound(*mlp_work(m, c, hidden, 2),
                                              "bf16"),
-            "library_ms": None}
+            "library_ms": None, "loop_ms": ms["loop"],
+            "stage3_ms": times[K4_CASES[1][0], torch.bfloat16]}
 
 
 def phase_k5(card: str) -> dict:
     from computervision_codes_tpu_torch.ops.mlp_block import mlp_block_cuda
     from computervision_codes_tpu_torch.ops.swin_block import (
-        swin_block_cuda, swin_block_reference)
+        swin_block_cuda, swin_block_loop_cuda, swin_block_reference)
     from computervision_codes_tpu_torch.ops.window_mhsa import (
         window_mhsa_cuda)
 
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        worst = (-1.0, None)
+        worst, differ = (-1.0, None), {}
         for seed, (what, b, hw, c, heads, w) in enumerate(K5_CASES):
             x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
                                        dtype, seed)
             for shift in (0, w // 2):
                 kw = dict(window=w, num_heads=heads)
                 mask = swin_mask(hw, hw, w, shift)
+                got = swin_block_cuda(x, *attn, mask, *mlp, **kw)
                 err, tol = compare(
-                    f"K5 {str(dtype)[6:]} {what} shift={shift}",
-                    swin_block_cuda(x, *attn, mask, *mlp, **kw),
+                    f"K5 {str(dtype)[6:]} {what} shift={shift}", got,
                     swin_block_reference(x, *attn, mask, *mlp, **kw), dtype)
                 if err / tol >= worst[0]:
                     worst = (err / tol, (what, shift, err, tol))
-                if dtype == torch.bfloat16 and seed == 0:
-                    main_err = max(main_err, err)
+                if dtype == torch.bfloat16:
+                    differ[f"{what} shift={shift}"] = new_vs_old(
+                        got, swin_block_loop_cuda(x, *attn, mask, *mlp,
+                                                  **kw))
+                    if seed == 0:
+                        main_err = max(main_err, err)
+                del got
             del x, attn, mlp
         print(f"[kernels] K5 {str(dtype)[6:]}: {2 * len(K5_CASES)} cases "
               f"within tolerance ({REL_TOL[dtype]:g} x max|ref|); worst "
-              f"(case, shift, err, tol) = {worst[1]}")
+              f"(case, shift, err, tol) = {worst[1]}"
+              + (f"; against the loop (outputs that differ, largest "
+                 f"difference) {differ}" if differ else ""))
     # K5 against its plain version and against K3 then K4 (what a merged
     # block has to beat), bf16, shifted
     times = {}
@@ -1265,15 +1394,18 @@ def phase_k5(card: str) -> dict:
             {"plain": lambda: swin_block_reference(x, *attn, mask, *mlp,
                                                    **kw),
              "kernel": lambda: swin_block_cuda(x, *attn, mask, *mlp, **kw),
+             "loop": lambda: swin_block_loop_cuda(x, *attn, mask, *mlp,
+                                                  **kw),
              "k3_then_k4": lambda: mlp_block_cuda(
                  window_mhsa_cuda(x, *attn, mask, **kw), *mlp)},
-            {"plain": 5, "kernel": 20, "k3_then_k4": 20})
+            {"plain": 5, "kernel": 20, "loop": 20, "k3_then_k4": 20})
         times[what] = ms
         ops = (attn_work(b, hw, hw, c, heads, w, True, 2)[0]
                + mlp_work(b * hw * hw, c, 4 * c, 2)[0])
         print(f"[kernels] K5 time bf16 {what} B={b} {hw}x{hw} C={c} "
               f"heads={heads} w={w} shifted: kernel {ms['kernel']:.4f} ms "
-              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), K3 then K4 "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), loop "
+              f"{ms['loop']:.4f} ms, K3 then K4 "
               f"{ms['k3_then_k4']:.4f} ms, plain {ms['plain']:.4f} ms; runs "
               f"{runs}; {card}")
         del x, attn, mlp
@@ -1287,7 +1419,8 @@ def phase_k5(card: str) -> dict:
             "plain_ms": ms["plain"],
             **bound(a_ops + m_ops, a_bytes + m_bytes - 2 * es * m * c,
                     "bf16"),
-            "library_ms": None}
+            "library_ms": None, "loop_ms": ms["loop"],
+            "stage1_ms": times[K5_CASES[1][0]]}
 
 
 def q8_compare(tag: str, got, want) -> dict:
@@ -1335,14 +1468,22 @@ def q8_summary(kernel: str, dtype, readings: list) -> None:
           + f"; worst {worst[0]}")
 
 
+def same_as_loop(tag: str, got, old) -> None:
+    """The Swin GEMM core's int8 output equals the loop's bit for bit."""
+    check(torch.equal(got, old),
+          f"{tag}: {int((got != old).sum())} outputs differ from the loop's, "
+          f"by up to {(got.float() - old.float()).abs().max().item()}")
+
+
 def phase_q8(card: str) -> dict:
-    """The int8 branches of K3, K4 and K5 against their plain versions,
-    then their times beside the plain versions' and the float kernels'."""
+    """The int8 branches of K3, K4 and K5 against their plain versions and
+    (bit for bit) against the loop they ran on before, then their times
+    beside the loop's, the plain versions' and the float kernels'."""
     from computervision_codes_tpu_torch.ops import mlp_block as k4
     from computervision_codes_tpu_torch.ops import swin_block as k5
     from computervision_codes_tpu_torch.ops import window_mhsa as k3
 
-    main = {}
+    main, equal = {}, 0
     for dtype in (torch.bfloat16, torch.float32):
         readings = []
         for seed, (what, b, hw, c, heads, w) in enumerate(K3_Q8_CASES):
@@ -1353,11 +1494,14 @@ def phase_q8(card: str) -> dict:
                 kw = dict(window=w, num_heads=heads)
                 mask = swin_mask(hw, hw, w, shift)
                 tag = f"{what} shift={shift}"
+                got = k3.window_mhsa_q8_cuda(x, *qa, mask, **kw)
                 readings.append((tag, q8_compare(
-                    f"K3 int8 {str(dtype)[6:]} {tag}",
-                    k3.window_mhsa_q8_cuda(x, *qa, mask, **kw),
+                    f"K3 int8 {str(dtype)[6:]} {tag}", got,
                     k3.window_mhsa_reference(x, *qa, mask, quant=True,
                                              **kw))))
+                same_as_loop(f"K3 int8 {str(dtype)[6:]} {tag}", got,
+                             k3.window_mhsa_q8_loop_cuda(x, *qa, mask, **kw))
+                equal += 1
             del x, attn, qa
         q8_summary("K3", dtype, readings)
         if dtype == torch.bfloat16:
@@ -1367,10 +1511,13 @@ def phase_q8(card: str) -> dict:
         for seed, (what, m, c, hidden) in enumerate(K4_Q8_CASES):
             x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, seed)
             (qm,) = q8_args(mlp=mlp)
+            got = k4.mlp_block_q8_cuda(x, *qm)
             readings.append((what, q8_compare(
-                f"K4 int8 {str(dtype)[6:]} {what}",
-                k4.mlp_block_q8_cuda(x, *qm),
+                f"K4 int8 {str(dtype)[6:]} {what}", got,
                 k4.mlp_block_reference(x, *qm, quant=True))))
+            same_as_loop(f"K4 int8 {str(dtype)[6:]} {what}", got,
+                         k4.mlp_block_q8_loop_cuda(x, *qm))
+            equal += 1
             del x, mlp, qm
         q8_summary("K4", dtype, readings)
         if dtype == torch.bfloat16:
@@ -1384,16 +1531,24 @@ def phase_q8(card: str) -> dict:
                 kw = dict(window=w, num_heads=heads)
                 mask = swin_mask(hw, hw, w, shift)
                 tag = f"{what} shift={shift}"
+                got = k5.swin_block_q8_cuda(x, *qa, mask, *qm, **kw)
                 readings.append((tag, q8_compare(
-                    f"K5 int8 {str(dtype)[6:]} {tag}",
-                    k5.swin_block_q8_cuda(x, *qa, mask, *qm, **kw),
+                    f"K5 int8 {str(dtype)[6:]} {tag}", got,
                     k5.swin_block_reference(x, *qa, mask, *qm, quant=True,
                                             **kw))))
+                same_as_loop(f"K5 int8 {str(dtype)[6:]} {tag}", got,
+                             k5.swin_block_q8_loop_cuda(x, *qa, mask, *qm,
+                                                        **kw))
+                equal += 1
+                del got
             del x, attn, mlp, qa, qm
         q8_summary("K5", dtype, readings)
         if dtype == torch.bfloat16:
             main["swin_block_q8"] = max(r["max_abs_err"]
                                         for _, r in readings[:2])
+    print(f"[kernels] K3, K4 and K5 int8 on the Swin GEMM core (quantize "
+          f"pass + s8 wgmma) against the mma.sync loop: all {equal} cases "
+          f"above, x in bf16 and float32, equal bit for bit; {card}")
 
     # times, bf16, at the main shapes: K3 stage 2 shifted, K4 stage 2 (and
     # stage 3), K5 stage 0 shifted; int8 kernel, plain version and the
@@ -1408,8 +1563,9 @@ def phase_q8(card: str) -> dict:
         {"plain": lambda: k3.window_mhsa_reference(x, *qa, mask, quant=True,
                                                    **kw),
          "kernel": lambda: k3.window_mhsa_q8_cuda(x, *qa, mask, **kw),
+         "loop": lambda: k3.window_mhsa_q8_loop_cuda(x, *qa, mask, **kw),
          "float_kernel": lambda: k3.window_mhsa_cuda(x, *attn, mask, **kw)},
-        {"plain": 5, "kernel": 20, "float_kernel": 20})
+        {"plain": 5, "kernel": 20, "loop": 20, "float_kernel": 20})
     m, n = b * hw * hw, w * w
     int8_ops, bf16_ops = 8 * m * c * c, 4 * m * n * c
     # x in, y out, int8 weights, float32 scales and LN vectors, biases,
@@ -1417,12 +1573,14 @@ def phase_q8(card: str) -> dict:
     nbytes = (es * (2 * m * c + 4 * c + heads * n * n
                     + (hw // w) ** 2 * n * n) + 4 * c * c + 24 * c)
     out["window_mhsa_q8"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                             "loop_ms": ms["loop"],
                              "float_kernel_ms": ms["float_kernel"],
                              **bound_mixed({"int8": int8_ops,
                                             "bf16": bf16_ops}, nbytes)}
     print(f"[kernels] K3 int8 time bf16 {what} B={b} {hw}x{hw} C={c} w={w} "
           f"shifted: kernel {ms['kernel']:.4f} ms "
-          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), float "
+          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), loop "
+          f"{ms['loop']:.4f} ms, float "
           f"kernel {ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
           f"runs {runs}; {card}")
     del x, attn, qa
@@ -1432,19 +1590,22 @@ def phase_q8(card: str) -> dict:
         ms, runs = in_turns(
             {"plain": lambda: k4.mlp_block_reference(x, *qm, quant=True),
              "kernel": lambda: k4.mlp_block_q8_cuda(x, *qm),
+             "loop": lambda: k4.mlp_block_q8_loop_cuda(x, *qm),
              "float_kernel": lambda: k4.mlp_block_cuda(x, *mlp)},
-            {"plain": 5, "kernel": 20, "float_kernel": 20})
+            {"plain": 5, "kernel": 20, "loop": 20, "float_kernel": 20})
         ops = 4 * m * c * hidden
         if i == 0:
             out["mlp_block_q8"] = {
                 "ms": ms["kernel"], "plain_ms": ms["plain"],
+                "loop_ms": ms["loop"],
                 "float_kernel_ms": ms["float_kernel"],
                 **bound(ops, es * 2 * m * c + 2 * c * hidden
                         + 4 * (hidden + c) + es * (hidden + c) + 8 * c,
                         "int8")}
         print(f"[kernels] K4 int8 time bf16 {what} {m} x {c}, hidden "
               f"{hidden}: kernel {ms['kernel']:.4f} ms "
-              f"({ops / ms['kernel'] / 1e9:.1f} TOP/s), float kernel "
+              f"({ops / ms['kernel'] / 1e9:.1f} TOP/s), loop "
+              f"{ms['loop']:.4f} ms, float kernel "
               f"{ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
               f"runs {runs}; {card}")
         del x, mlp, qm
@@ -1457,25 +1618,46 @@ def phase_q8(card: str) -> dict:
         {"plain": lambda: k5.swin_block_reference(x, *qa, mask, *qm,
                                                   quant=True, **kw),
          "kernel": lambda: k5.swin_block_q8_cuda(x, *qa, mask, *qm, **kw),
+         "loop": lambda: k5.swin_block_q8_loop_cuda(x, *qa, mask, *qm,
+                                                    **kw),
          "float_kernel": lambda: k5.swin_block_cuda(x, *attn, mask, *mlp,
                                                     **kw)},
-        {"plain": 3, "kernel": 10, "float_kernel": 10})
+        {"plain": 3, "kernel": 10, "loop": 10, "float_kernel": 10})
     m, n = b * hw * hw, w * w
     int8_ops, bf16_ops = 8 * m * c * c + 4 * m * c * 4 * c, 4 * m * n * c
     nbytes = (es * (2 * m * c + 9 * c + heads * n * n
                     + (hw // w) ** 2 * n * n) + 12 * c * c + 52 * c)
     out["swin_block_q8"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                            "loop_ms": ms["loop"],
                             "float_kernel_ms": ms["float_kernel"],
                             **bound_mixed({"int8": int8_ops,
                                            "bf16": bf16_ops}, nbytes)}
     print(f"[kernels] K5 int8 time bf16 {what} B={b} {hw}x{hw} C={c} w={w} "
           f"shifted: kernel {ms['kernel']:.4f} ms "
-          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), float "
+          f"({(int8_ops + bf16_ops) / ms['kernel'] / 1e9:.1f} TOP/s), loop "
+          f"{ms['loop']:.4f} ms, float "
           f"kernel {ms['float_kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
           f"runs {runs}; {card}")
     del x, attn, mlp, qa, qm
     return {name: {"max_abs_err": main[name], **out[name],
                    "library_ms": None} for name in out}
+
+
+def phase_gemm_walk(card: str) -> None:
+    """The Swin GEMM core's persistent walk: each epilogue (bf16 and int8)
+    is held, by the phases above and phase_p1, at a product where every
+    resident block walks at least GEMM_WALK_TILES output tiles (the ring's
+    stage and phase carried across them)."""
+    tiles = {what: gemm_tiles_per_block(m, n)
+             for what, m, _, n, _ in GEMM_WALK}
+    for what, t in tiles.items():
+        check(t >= GEMM_WALK_TILES,
+              f"swin_gemm walk {what}: {t:.2f} tiles per resident block")
+    print(f"[kernels] swin_gemm persistent walk: tiles per resident block at "
+          + ", ".join(f"{what} ({epi}) {tiles[what]:.2f}"
+                      for what, _, _, _, epi in GEMM_WALK)
+          + f" (>= {GEMM_WALK_TILES}); these products' outputs are held bf16 "
+          f"within REL_TOL and int8 bit for bit above; {card}")
 
 
 def phase_q1_dense(card: str) -> dict:
@@ -1672,12 +1854,16 @@ def phase_model_teacher() -> dict:
         t0 = time.perf_counter()
         want = cpu_model(frames)
         t_cpu = time.perf_counter() - t0
-        before = launches()
+        before, gemms = launches(), gemm_counts()
         got = dev_model(frames.to(DEVICE))
         count = launched_since(before)
+        gemms = {k: n - gemms[k] for k, n in gemm_counts().items()}
     want_count = dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
     check(count == want_count, f"teacher model launches {count}, want "
                                f"{want_count}")
+    # float32 stays on the FMA loop: the 92 products of a predict
+    check(gemms == {"wgmma": 0, "loop": 0, "fma": TEACHER_GEMMS["swin_gemm"]},
+          f"float32 teacher model: Swin GEMM products per path {gemms}")
     for k, g, w in (("logits i", got["logits"]["i"], want["logits"]["i"]),
                     ("feature", got["feature"], want["feature"])):
         g = g.cpu()
@@ -1691,9 +1877,9 @@ def phase_model_teacher() -> dict:
         print(f"[model] teacher float32 Q2L({TEACHER_BACKBONE}, 'i') {k} "
               f"{tuple(g.shape)}: card vs CPU max_abs_err {err:.3e} (max|ref|"
               f" {scale:.3f}, tol {TEACHER_MODEL_REL_TOL:g} x max|ref|)")
-    print(f"[model] teacher launches on the card per forward {count}; CPU "
-          f"forward of {TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host "
-          f"clock)")
+    print(f"[model] teacher launches on the card per forward {count}, "
+          f"Swin GEMM products per path {gemms}; CPU forward of "
+          f"{TEACHER_MODEL_FRAMES} frame(s) {t_cpu:.2f} s (host clock)")
     return want
 
 
@@ -1729,7 +1915,8 @@ def phase_model_teacher_int8(float_want: dict) -> None:
         before, q1_before = launches(), q1_launches()
         got = dev_model(frames.to(DEVICE))
         count = launched_since(before)
-    want_count = dict.fromkeys(KERNELS, 0) | TEACHER_Q8_LAUNCHES
+    want_count = (dict.fromkeys(KERNELS, 0) | TEACHER_Q8_LAUNCHES
+                  | TEACHER_Q8_F32_GEMMS)
     check(count == want_count, f"int8 teacher model launches {count}, want "
                                f"{want_count}")
     check_q1_paths(q1_before, TEACHER_Q8_LAUNCHES["qconv_bn"], "gemm",
@@ -3424,12 +3611,18 @@ def phase_k6(card: str) -> tuple:
     the bound, and their sums over the 44 launches of a training step
     (22 blocks, forward and remat replay). Returns the kernels' entries."""
     from computervision_codes_tpu_torch.ops.mlp_block import (
-        mlp_block_reference)
+        mlp_block_loop_cuda, mlp_block_reference)
     from computervision_codes_tpu_torch.ops.swin_train import (
         make_attn_branch, make_mlp_branch, mlp_block_branch_cuda,
         window_mhsa_branch_cuda)
     from computervision_codes_tpu_torch.ops.window_mhsa import (
-        window_mhsa_reference)
+        window_mhsa_loop_cuda, window_mhsa_reference)
+
+    def attn_loop(x, *args, **kw):
+        return window_mhsa_loop_cuda(x, *args, **kw, res_add=False)
+
+    def mlp_loop(x, *args):
+        return mlp_block_loop_cuda(x, *args, res_add=False)
 
     def attn_ref(x, *args, **kw):
         return window_mhsa_reference(x, *args, **kw, res_add=False)
@@ -3439,7 +3632,7 @@ def phase_k6(card: str) -> tuple:
 
     main_err = {"attn": 0.0, "mlp": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        worst = (-1.0, None)
+        worst, differ = (-1.0, None), {}
         for seed, (what, b, hw, c, heads, w, _) in enumerate(K6_ATTN_CASES):
             hp, wp = geometry(hw)
             x, attn, _ = swin_inputs((b, hp, wp), c, 4 * c, heads, w, dtype,
@@ -3447,10 +3640,13 @@ def phase_k6(card: str) -> tuple:
             for shift in (0, w // 2):
                 kw = dict(window=w, num_heads=heads)
                 mask = swin_mask(hp, wp, w, shift)
+                got = window_mhsa_branch_cuda(x, *attn, mask, **kw)
                 err, tol = compare(
                     f"K6 attention {str(dtype)[6:]} {what} shift={shift}",
-                    window_mhsa_branch_cuda(x, *attn, mask, **kw),
-                    attn_ref(x, *attn, mask, **kw), dtype)
+                    got, attn_ref(x, *attn, mask, **kw), dtype)
+                if dtype == torch.bfloat16:
+                    differ[f"attention {what} shift={shift}"] = new_vs_old(
+                        got, attn_loop(x, *attn, mask, **kw))
                 if err / tol >= worst[0]:
                     worst = (err / tol, ("attention", what, shift, err, tol))
                 if dtype == torch.bfloat16 and isinstance(hw, int):
@@ -3458,9 +3654,11 @@ def phase_k6(card: str) -> tuple:
             del x, attn
         for seed, (what, m, c, hidden, _) in enumerate(K6_MLP_CASES):
             x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, dtype, 10 + seed)
-            err, tol = compare(f"K6 MLP {str(dtype)[6:]} {what}",
-                               mlp_block_branch_cuda(x, *mlp),
+            got = mlp_block_branch_cuda(x, *mlp)
+            err, tol = compare(f"K6 MLP {str(dtype)[6:]} {what}", got,
                                mlp_ref(x, *mlp), dtype)
+            if dtype == torch.bfloat16:
+                differ[f"MLP {what}"] = new_vs_old(got, mlp_loop(x, *mlp))
             if err / tol >= worst[0]:
                 worst = (err / tol, ("MLP", what, err, tol))
             if dtype == torch.bfloat16 and "stage" in what:
@@ -3470,7 +3668,9 @@ def phase_k6(card: str) -> tuple:
         print(f"[kernels] K6 {str(dtype)[6:]}: {cases} cases of the two "
               f"branches within tolerance ({REL_TOL[dtype]:g} x max(1, "
               f"max|ref|)) of the plain versions at res_add=False; worst "
-              f"(branch, case, [shift,] err, tol) = {worst[1]}")
+              f"(branch, case, [shift,] err, tol) = {worst[1]}"
+              + (f"; against the loop (outputs that differ, largest "
+                 f"difference) {differ}" if differ else ""))
 
         # the Functions' backward against autograd of the plain versions
         what, b, hw, c, heads, w = K6_GRAD_ATTN
@@ -3512,14 +3712,16 @@ def phase_k6(card: str) -> tuple:
         ms, runs = in_turns(
             {"plain": lambda: attn_ref(x, *attn, mask, **kw),
              "kernel": lambda: window_mhsa_branch_cuda(x, *attn, mask,
-                                                       **kw)},
-            {"plain": 5, "kernel": 10})
+                                                       **kw),
+             "loop": lambda: attn_loop(x, *attn, mask, **kw)},
+            {"plain": 5, "kernel": 10, "loop": 10})
         ops, nbytes = attn_work(b, hw, hw, c, heads, w, True, 2)
         times["attn"][what] = ms | bound(ops, nbytes, "bf16") | {
             "blocks": blocks, "ops": ops, "bytes": nbytes}
         print(f"[kernels] K6 attention time bf16 {what} {hw}x{hw} C={c} "
               f"heads={heads} shifted: kernel {ms['kernel']:.4f} ms "
-              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), loop "
+              f"{ms['loop']:.4f} ms, plain "
               f"{ms['plain']:.4f} ms, bound "
               f"{times['attn'][what]['bound_ms']:.4f} ms; runs {runs}; "
               f"{card}")
@@ -3528,14 +3730,16 @@ def phase_k6(card: str) -> tuple:
         x, _, mlp = swin_inputs((m,), c, hidden, 1, 1, torch.bfloat16, 98)
         ms, runs = in_turns(
             {"plain": lambda: mlp_ref(x, *mlp),
-             "kernel": lambda: mlp_block_branch_cuda(x, *mlp)},
-            {"plain": 5, "kernel": 10})
+             "kernel": lambda: mlp_block_branch_cuda(x, *mlp),
+             "loop": lambda: mlp_loop(x, *mlp)},
+            {"plain": 5, "kernel": 10, "loop": 10})
         ops, nbytes = mlp_work(m, c, hidden, 2)
         times["mlp"][what] = ms | bound(ops, nbytes, "bf16") | {
             "blocks": blocks, "ops": ops, "bytes": nbytes}
         print(f"[kernels] K6 MLP time bf16 {what} {m} x {c}, hidden "
               f"{hidden}: kernel {ms['kernel']:.4f} ms "
-              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+              f"({ops / ms['kernel'] / 1e9:.1f} TFLOP/s), loop "
+              f"{ms['loop']:.4f} ms, plain "
               f"{ms['plain']:.4f} ms, bound "
               f"{times['mlp'][what]['bound_ms']:.4f} ms; runs {runs}; {card}")
         del x, mlp
@@ -3544,22 +3748,27 @@ def phase_k6(card: str) -> tuple:
         stages = times[key]
         # per step: each block's branch in the forward and the replay
         step = {k: 2 * sum(t["blocks"] * t[k] for t in stages.values())
-                for k in ("kernel", "plain", "ops", "bytes")}
+                for k in ("kernel", "loop", "plain", "ops", "bytes")}
         step_bound = bound(step["ops"], step["bytes"], "bf16")
         print(f"[kernels] K6 {label} branch, bf16, the "
               f"{2 * sum(t['blocks'] for t in stages.values())} launches of "
               f"one training step at batch {TRAIN_BATCH} (every block timed "
               f"as its stage's shifted one): kernel {step['kernel']:.4f} ms, "
-              f"plain {step['plain']:.4f} ms, bound "
+              f"loop {step['loop']:.4f} ms, plain {step['plain']:.4f} ms, "
+              f"bound "
               f"{step_bound['bound_ms']:.4f} ms; {card}")
         shape, top = list(stages.items())[2]  # 18 of the 22 blocks
         out.append({"max_abs_err": main_err[key], "ms": top["kernel"],
                     "plain_ms": top["plain"], "bound_ms": top["bound_ms"],
                     "bound_by": top["bound_by"], "library_ms": None,
                     "shape": shape,
+                    "loop_ms": top["loop"],
                     "per_stage_ms": {w_: round(t["kernel"], 4)
                                      for w_, t in stages.items()},
+                    "per_stage_loop_ms": {w_: round(t["loop"], 4)
+                                          for w_, t in stages.items()},
                     "step_ms": round(step["kernel"], 4),
+                    "step_loop_ms": round(step["loop"], 4),
                     "step_plain_ms": round(step["plain"], 4),
                     "step_bound_ms": step_bound["bound_ms"]})
     return tuple(out)
@@ -3670,7 +3879,8 @@ def phase_train(card: str) -> tuple:
     batch = train_inputs(TRAIN_BATCH, TRAIN_IMG, 12)
     setups = {"fused_train": train_setup(True, torch.bfloat16, DEVICE),
               "plain": train_setup(False, torch.bfloat16, DEVICE)}
-    want = {"fused_train": dict.fromkeys(KERNELS, 0) | TRAIN_LAUNCHES,
+    want = {"fused_train": dict.fromkeys(KERNELS, 0) | TRAIN_LAUNCHES
+            | TRAIN_GEMMS,
             "plain": dict.fromkeys(KERNELS, 0)}
     labels = list(setups)
     losses = {label: [] for label in labels}
@@ -3728,9 +3938,10 @@ def phase_train(card: str) -> tuple:
     probs, feat = make_spatial_eval_step(state.model, device=DEVICE)(
         state, batch["image"])
     eval_count = launched_since(before)
-    check(eval_count == dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES,
+    check(eval_count == dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
+          | TEACHER_GEMMS,
           f"trained module's eval launches {eval_count}, want "
-          f"{TEACHER_LAUNCHES}")
+          f"{TEACHER_LAUNCHES | TEACHER_GEMMS}")
     ref_probs, ref_feat = make_spatial_eval_step(twin, device=DEVICE)(
         state, batch["image"])
     for name, got, ref in (("probabilities i", probs["i"], ref_probs["i"]),
@@ -3790,17 +4001,24 @@ def refused(fn, error, msg: str) -> None:
     fail(msg)
 
 
-def phase_p1(card: str) -> None:
+def phase_p1(card: str) -> dict:
     """P1: the int8 kernel probe's three kernels against their plain
     versions on the card at the probe's twelve shapes and ragged ones, int8
-    bit for bit, bf16 and int8w within REL_TOL; an M that ``blk`` does not
-    divide and an N % 64 != 0 are refused."""
+    bit for bit, bf16 and int8w within REL_TOL; bf16 and int8 (the Swin
+    GEMM core) against the loops they ran on before, int8 bit for bit and
+    bf16 with the outputs that differ counted; an M that ``blk`` does not
+    divide and an N % 64 != 0 are refused. Then at each of the twelve
+    shapes bf16 and int8 on the core and on the loop, ``torch.matmul`` and
+    ``torch._int_mm`` (the int8 product alone, from codes) in turns, with
+    the plain versions at P1_TIMED. Returns the kernels line's swin_gemm
+    readings."""
     from computervision_codes_tpu_torch.ops.mlp_block import Q8Weight
     from computervision_codes_tpu_torch.scripts import int8_kernel_probe as p1
 
     cases = list(p1.SHAPES) + [(f"ragged {m}x{k}x{n} blk {blk}", m, k, n, blk)
                                for m, k, n, blk in P1_RAGGED]
     worst = {"bf16": (-1.0, None), "int8w": (-1.0, None)}
+    differ, timed_err = {}, 0.0
     for seed, (what, m, k, n, blk) in enumerate(cases):
         x, w, wq, s = p1.probe_inputs(m, k, n, DEVICE, seed)
         w8 = Q8Weight(wq.t().contiguous(), s)
@@ -3812,12 +4030,18 @@ def phase_p1(card: str) -> None:
             err, tol = compare(f"P1 {tag} {what}", got, want, torch.bfloat16)
             if err / tol >= worst[tag][0]:
                 worst[tag] = (err / tol, (what, err, tol))
+            if tag == "bf16":
+                differ[what] = new_vs_old(got, p1.gemm_bf16_loop_cuda(x, w))
+                if what == P1_TIMED:
+                    timed_err = err
         got = p1.gemm_int8_cuda(x, w8, blk)
         want = p1.gemm_int8_reference(x, w8, blk)
         check(torch.equal(got, want),
               f"P1 int8 {what}: {int((got != want).sum())} outputs differ "
               f"from the plain version, by up to "
               f"{(got.float() - want.float()).abs().max().item()}")
+        same_as_loop(f"P1 int8 {what}", got,
+                     p1.gemm_int8_loop_cuda(x, w8, blk))
     x, w, wq, s = p1.probe_inputs(64, 64, 64, DEVICE)
     w8 = Q8Weight(wq.t().contiguous(), s)
     refused(lambda: p1.gemm_int8_cuda(x, w8, 24), ValueError,
@@ -3836,10 +4060,52 @@ def phase_p1(card: str) -> None:
           f"and int8w within {REL_TOL[torch.bfloat16]:g} x max|ref|, worst "
           f"(case, err, tol) bf16 {worst['bf16'][1]}, int8w "
           f"{worst['int8w'][1]}; M % blk != 0 and N = {P1_REFUSED_N} raise "
-          f"ValueError; {card}")
+          f"ValueError; int8 on the Swin GEMM core equal to the mma.sync "
+          f"loop's bit for bit; bf16 against the WMMA loop (outputs that "
+          f"differ, largest difference) {differ}; {card}")
+
+    # times at the twelve shapes, core and loop in turns with the library
+    rows = {}
+    for what, m, k, n, blk in p1.SHAPES:
+        x, w, wq, s = p1.probe_inputs(m, k, n, DEVICE, 99)
+        w8 = Q8Weight(wq.t().contiguous(), s)
+        codes = p1.quantize_blocks(x, blk)[0]
+        fns = {"bf16": lambda: p1.gemm_bf16_cuda(x, w),
+               "bf16_loop": lambda: p1.gemm_bf16_loop_cuda(x, w),
+               "matmul": lambda: torch.matmul(x, w),
+               "int8": lambda: p1.gemm_int8_cuda(x, w8, blk),
+               "int8_loop": lambda: p1.gemm_int8_loop_cuda(x, w8, blk),
+               "int_mm": lambda: torch._int_mm(codes, w8.codes.t())}
+        if what == P1_TIMED:
+            fns["plain"] = lambda: p1.gemm_bf16_reference(x, w)
+            fns["int8_plain"] = lambda: p1.gemm_int8_reference(x, w8, blk)
+        ms, runs = in_turns(fns, dict.fromkeys(fns, 10))
+        rows[what] = ms
+        print(f"[kernels] swin_gemm time {what}: bf16 {ms['bf16']:.4f} ms "
+              f"(loop {ms['bf16_loop']:.4f}, torch.matmul "
+              f"{ms['matmul']:.4f}), int8 {ms['int8']:.4f} ms, the amax and "
+              f"quantize passes included (loop {ms['int8_loop']:.4f}, "
+              f"torch._int_mm {ms['int_mm']:.4f}); runs {runs}; {card}")
+        del x, w, wq, w8, codes
+    what, m, k, n, blk = next(s for s in p1.SHAPES if s[0] == P1_TIMED)
+    top = rows[what]
+    ops = 2 * m * k * n
+    int8_bound = bound(ops, m * k * 2 + k * n + 4 * n + 2 * m * n, "int8")
+    return {"shape": what, "max_abs_err": timed_err, "ms": top["bf16"],
+            "plain_ms": top["plain"],
+            **bound(ops, 2 * m * k + 2 * k * n + 2 * m * n, "bf16"),
+            "library_ms": top["matmul"], "library": "torch.matmul, bf16",
+            "loop_ms": top["bf16_loop"],
+            "int8": {"max_abs_err": 0.0, "ms": top["int8"],
+                     "plain_ms": top["int8_plain"],
+                     "loop_ms": top["int8_loop"], **int8_bound,
+                     "library_ms": top["int_mm"],
+                     "library": "torch._int_mm on the codes"},
+            "ms_by_shape": {w_: {k_: round(v, 4) for k_, v in r.items()}
+                            for w_, r in rows.items()}}
 
 
-def phase_p2(card: str) -> None:
+def phase_p2(card: str) -> dict:
     """P2: pack<g> and batched on the card at the probe's two stages and a
     window of 7, each with relative-position tables of std 0.02 and 0.5.
     The attention half alone (``res_add=False``) is held to the plain
@@ -3847,7 +4113,9 @@ def phase_p2(card: str) -> None:
     the whole output the residual, tens of times larger, would hide a
     dropped bias or an unmasked key inside the tolerance. The whole output
     is held to theirs too. A group that does not divide the heads and a
-    float32 x are refused."""
+    float32 x are refused. Then pack2 and batched at stage 1 and pack4 at
+    stage 3 with their QKV and proj products on the Swin GEMM core and on
+    the loop, in turns; returns those times."""
     from computervision_codes_tpu_torch.ops.window_mhsa import (
         window_mhsa_cuda, window_mhsa_reference)
     from computervision_codes_tpu_torch.scripts import swin_pack_probe as p2
@@ -3912,6 +4180,24 @@ def phase_p2(card: str) -> None:
           f"dividing the heads raises ValueError, a float32 x TypeError; "
           f"heads staged at once (group, window) -> chunk {chunks}; {card}")
 
+    loops = {}
+    for (what, b, hw, c, heads, _), g in ((p2.STAGES[0], 2),
+                                          (p2.STAGES[0], 0),
+                                          (p2.STAGES[1], 4)):
+        x, args = p2.stage_inputs(b, hw, c, heads, p2.WINDOW, DEVICE)
+        tag, g = (f"pack{g}", g) if g else ("batched", heads)
+        kw = dict(window=p2.WINDOW, num_heads=heads, group=g)
+        ms, runs = in_turns(
+            {"kernel": lambda: p2.mhsa_pack_cuda(x, *args, **kw),
+             "loop": lambda: p2.mhsa_pack_loop_cuda(x, *args, **kw)},
+            {"kernel": 20, "loop": 20})
+        loops[f"{what} {tag}"] = ms
+        print(f"[kernels] P2 time {what} {tag}: its products on the Swin "
+              f"GEMM core {ms['kernel']:.4f} ms, on the loop "
+              f"{ms['loop']:.4f} ms; runs {runs}; {card}")
+        del x, args
+    return loops
+
 
 def phase_probes(card: str) -> tuple:
     """The probe drivers as a user runs them: ``main()`` of
@@ -3944,10 +4230,12 @@ def phase_probes(card: str) -> tuple:
     return rows["int8_kernel_probe"], rows["swin_pack_probe"]
 
 
-def probe_entries(p1_rows: list, p2_rows: list) -> dict:
+def probe_entries(p1_rows: list, p2_rows: list, p1_loops: dict,
+                  p2_loops: dict) -> dict:
     """The kernels line's P1 and P2 entries, from the probe drivers' rows:
     P1 at P1_TIMED, P2 at stage 1 (pack2 and batched), each with its times
-    at the other shapes beside."""
+    at the other shapes beside, and the loop's times from phase_p1 and
+    phase_p2 (another call of the same shape)."""
     def entry(r, library):
         return {"shape": r["metric"], "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -3964,11 +4252,15 @@ def probe_entries(p1_rows: list, p2_rows: list) -> dict:
             "ms_by_shape": {q["metric"]: [q["ms"], q["lib_ms"]]
                             for q in p1_rows
                             if q["metric"].endswith(f" {tag}")}}
+        if tag != "int8w":  # int8w stays on the loop
+            out[f"probe_gemm_{tag}"]["loop_ms"] = \
+                p1_loops[P1_TIMED][f"{tag}_loop"]
     by = {r["metric"]: r for r in p2_rows}
     stage, pack = P2_TIMED
     for name, tag in (("mhsa_pack", pack), ("mhsa_batched", "batched")):
         out[name] = entry(by[f"{stage} {tag}"], None) | {
-            "ms_by_stage": {q["metric"]: q["ms"] for q in p2_rows}}
+            "ms_by_stage": {q["metric"]: q["ms"] for q in p2_rows},
+            "loop_ms": p2_loops[f"{stage} {tag}"]["loop"]}
     return out
 
 
@@ -3999,8 +4291,9 @@ def main() -> None:
         phase_k6(card)
     slice_s = time.perf_counter() - slice_s
     probe_s = time.perf_counter()  # the probes' phases, summed
-    phase_p1(card)
-    phase_p2(card)
+    measured["swin_gemm"] = phase_p1(card)
+    p2_loops = phase_p2(card)
+    phase_gemm_walk(card)
     probe_s = time.perf_counter() - probe_s
     measured["qconv_bn"] |= phase_q1_dense(card)
     phase_model()
@@ -4039,8 +4332,9 @@ def main() -> None:
     student = path_launches()
     reset_launches()  # the teachers' main path starts here
     teachers, frames = phase_teacher(card, {
-        "bf16": (TEACHER_LAUNCHES, {}),
-        "int8": (TEACHER_Q8_LAUNCHES, {"quantize": True})})
+        "bf16": (TEACHER_LAUNCHES | TEACHER_GEMMS, {}),
+        "int8": (TEACHER_Q8_LAUNCHES | TEACHER_GEMMS, {"quantize": True})})
+    check_gemm_counts("teacher sessions")
     teacher = path_launches()
     reset_launches()  # path A, the TResNet-L teacher, starts here
     tresnet_sessions, tresnet_frames = phase_teacher(
@@ -4058,7 +4352,8 @@ def main() -> None:
     reset_launches()  # the teacher's training steps start here
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
-    train |= q1_counts()
+    check_gemm_counts("training steps")
+    train = path_launches()
     slice_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     reset_launches()  # K8's op path starts here
@@ -4073,7 +4368,9 @@ def main() -> None:
     mstct_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     reset_launches()  # the probe drivers start here
-    measured |= probe_entries(*phase_probes(card))
+    measured |= probe_entries(*phase_probes(card),
+                              measured["swin_gemm"]["ms_by_shape"], p2_loops)
+    check_gemm_counts("probe drivers")
     probes = path_launches()
     probe_s += time.perf_counter() - t0
     paths = {"student sessions": student,
@@ -4104,6 +4401,30 @@ def main() -> None:
     measured["qconv_bn"]["launches_by_path"] = {
         k: sum(p[f"qconv_bn {k}"] for p in paths.values())
         for k in q1_path_wrappers()}
+    # the Swin GEMM core: every bf16 and int8 product of the teachers and
+    # the training steps on wgmma, none on the loops
+    from computervision_codes_tpu_torch.ops.swin_gemm import PATHS
+    for label in ("teacher sessions (creation and predicts)",
+                  "the Swin-L-384 teacher's training steps (both plans) and "
+                  "the trained module's eval"):
+        got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
+        check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
+              f"{label}: Swin GEMM products per path {got}")
+    by_path = {label: {k: p.get(f"swin_gemm {k}", 0) for k in PATHS}
+               for label, p in paths.items()}
+    measured["swin_gemm"]["launches_by_path"] = {
+        label: n for label, n in by_path.items() if any(n.values())}
+    measured["swin_gemm"]["times"] = {
+        "K3 stage 2 bf16 shifted": {k: measured["window_mhsa"][k]
+                                    for k in ("ms", "loop_ms")},
+        "K4 stage 2 bf16": {k: measured["mlp_block"][k]
+                            for k in ("ms", "loop_ms")},
+        "K5 stage 0 bf16 shifted": {k: measured["swin_block"][k]
+                                    for k in ("ms", "loop_ms")},
+        "K6 per training step": {
+            k: round(measured["window_mhsa_branch"][k]
+                     + measured["mlp_block_branch"][k], 4)
+            for k in ("step_ms", "step_loop_ms")}}
     for name in KERNELS:
         if name in OFF_MAIN_PATH:
             check(total[name] == 0, f"{name} launched on a serving path")
@@ -4132,7 +4453,8 @@ def main() -> None:
           f"drivers' main()) {probe_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"{PACKAGE}/csrc/{SOURCES[name]}.cu",
+         "source": f"{PACKAGE}/csrc/"
+                   f"{HEADERS.get(name, SOURCES[name] + '.cu')}",
          "replaces": replaces, "launches": total[name],
          **({"on_main_path": False} if name in OFF_MAIN_PATH else {}),
          **measured[name]}

@@ -15,43 +15,45 @@
 //          probe's (K, N) codes once, outside any timed call).
 //
 // The probe exists to time the GEMM core that the port's Swin kernels ship,
-// so each variant launches swin_common.cuh's own kernels, not a copy:
+// so each variant launches swin_gemm.cuh's own products, not a copy:
 //
-//   bf16   swin::gemm<bf16, false, EPI_BIAS> with a zero bias (the
-//          instantiation K6's proj runs; acc + 0 rounds as acc does);
-//   int8w  swin::gemm<bf16, false, EPI_SCALE, int8_t>: the same tile loop
-//          (128 x 64 x 32 tiles, 8 warps of WMMA 16x16x16 bf16, the next
-//          tile read into registers while the current one is multiplied)
-//          with the int8 weight loader and the bias-free scale epilogue;
-//   int8   swin::gemm_q8<bf16, Q8_T, Q8E_SCALE>: gemm_q8_kernel, the A tile
-//          quantized on load, mma.sync m16n8k32 s8 x s8 -> s32, with the
-//          bias-free epilogue in the JAX order.
+//   bf16   swin::gemm_any<bf16, EPI_BIAS> with a zero bias (the product
+//          K6's proj runs; acc + 0 rounds as acc does): the TMA-fed wgmma
+//          GEMM, A read in place, w (K, N) as the MN-major operand;
+//   int8w  swin::gemm<bf16, false, EPI_SCALE, int8_t>: swin_common.cuh's
+//          WMMA tile loop (128 x 64 x 32 tiles, the next tile read into
+//          registers while the current one is multiplied) with the int8
+//          weight loader and the bias-free scale epilogue (wgmma cannot
+//          widen int8 operands, so this variant stays on the loop);
+//   int8   swin::gemm_q8_any<bf16, Q8_T, Q8E_SCALE>: the quantize pass
+//          into a codes scratch, then the s8 wgmma GEMM with the bias-free
+//          epilogue in the JAX order.
 //
-// So N must be a multiple of 64 and K of 32 (the shipped tiles); M may be
-// anything. The int8 variant's scale needs a whole row block before any of
-// its products, so a reduction pass runs first (probe_amax_kernel, the only
-// kernel of this file: one warp per row, atomicMax of the float bits into
-// its block's slot; non-negative floats order like their bits as
-// integers), after a memset of the slots. The arithmetic follows the JAX
-// kernel body as XLA runs it: 127 / amax divided and rounded, q = rintf
-// (half to even, as jnp.round), then (amax / 127) * s, which XLA's
-// simplifier turns into amax * float32(1/127) (a division by a constant
-// becomes a multiply by its reciprocal). The _rn intrinsics keep nvcc from
-// contracting any of it into an FMA, so the output equals the plain
-// version bit for bit.
+// The "_loop" entry points run bf16 and int8 on swin_common.cuh's loops
+// (WMMA, and mma.sync quantizing A on load): the parent that chip_smoke.py
+// compares against. The entry points take N a multiple of 64 and K of 32
+// (the loops' tiles); M may be anything. The int8 variant's scale needs a
+// whole row block before any of its products, so a reduction pass runs
+// first (probe_amax_kernel, the only kernel of this file: one warp per row,
+// atomicMax of the float bits into its block's slot; non-negative floats
+// order like their bits as integers), after a memset of the slots. The
+// arithmetic follows the JAX kernel body as XLA runs it: 127 / amax
+// divided and rounded, q = rintf (half to even, as jnp.round), then
+// (amax / 127) * s, which XLA's simplifier turns into amax * float32(1/127)
+// (a division by a constant becomes a multiply by its reciprocal). The _rn
+// intrinsics keep nvcc from contracting any of it into an FMA, so the
+// output equals the plain version bit for bit.
 //
 // What bounds it on the card: at the stage-3 MLP shape (9216 x 768 x 3072)
 // 43.5 G operations, 0.044 ms at 989 TFLOP/s in bf16 and 0.022 ms at 1,979
 // TOP/s in int8, against 73-76 MB of traffic (0.022 ms at 3.35 TB/s); at
-// the stage-1 and stage-2 QKV shapes the bytes bound it. The shipped loops
-// keep one tile in flight on WMMA / mma.sync, not wgmma fed by TMA, so they
-// run far from either bound: the probe measures how far.
+// the stage-1 and stage-2 QKV shapes the bytes bound it.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
 // first CUDA error of the launches (0 on success).
 
-#include "swin_common.cuh"
+#include "swin_gemm.cuh"
 
 namespace {
 
@@ -78,39 +80,27 @@ probe_amax_kernel(const bf16* __restrict__ x, int* __restrict__ amax, int M,
   if (lane == 0) atomicMax(amax + row / blk, __float_as_int(m));
 }
 
-}  // namespace
 
-// x (M, K), w (K, N), zero (N,), out (M, N), all bf16; K % 32 == 0,
-// N % 64 == 0.
-extern "C" int probe_gemm_bf16_launch(const void* x, const void* w,
-                                      const void* zero, void* out, int M,
-                                      int N, int K, void* stream) {
-  return (int)swin::gemm<bf16, false, swin::EPI_BIAS>(
+bool shape_ok(int M, int N, int K) {
+  return M > 0 && K > 0 && K % swin::BK == 0 && N > 0 && N % swin::BN == 0;
+}
+
+template <bool LOOP>
+int launch_bf16(const void* x, const void* w, const void* zero, void* out,
+                int M, int N, int K, void* stream) {
+  if (!shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+  return (int)swin::gemm_any<bf16, swin::EPI_BIAS>(
       {static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
        static_cast<const bf16*>(w), static_cast<const bf16*>(zero), nullptr,
        static_cast<bf16*>(out), M, N, K},
-      static_cast<cudaStream_t>(stream));
+      false, nullptr, nullptr, LOOP, static_cast<cudaStream_t>(stream));
 }
 
-// x (M, K) bf16, w (K, N) int8 codes, s (N,) float32, out (M, N) bf16.
-extern "C" int probe_gemm_int8w_launch(const void* x, const void* w,
-                                       const void* s, void* out, int M, int N,
-                                       int K, void* stream) {
-  return (int)swin::gemm<bf16, false, swin::EPI_SCALE, int8_t>(
-      {static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-       static_cast<const int8_t*>(w), nullptr, nullptr,
-       static_cast<bf16*>(out), M, N, K, static_cast<const float*>(s)},
-      static_cast<cudaStream_t>(stream));
-}
-
-// x (M, K) bf16, w (N, K) int8 codes, s (N,) float32, amax scratch of
-// M / blk int32, out (M, N) bf16; M % blk == 0.
-extern "C" int probe_gemm_int8_launch(const void* x, const void* w,
-                                      const void* s, void* amax, void* out,
-                                      int M, int N, int K, int blk,
-                                      void* stream) {
-  if (M <= 0 || K <= 0 || K % swin::BK || N <= 0 || N % swin::BN ||
-      blk <= 0 || M % blk)
+template <bool LOOP>
+int launch_int8(const void* x, const void* w, const void* s, void* amax,
+                void* codes, void* out, int M, int N, int K, int blk,
+                void* stream) {
+  if (!shape_ok(M, N, K) || blk <= 0 || M % blk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(int) * (M / blk), st);
@@ -128,5 +118,55 @@ extern "C" int probe_gemm_int8_launch(const void* x, const void* w,
   q.wscale = static_cast<const float*>(s);
   q.out = out;
   q.M = M, q.N = N, q.K = K;
-  return (int)swin::gemm_q8<bf16, swin::Q8_T, swin::Q8E_SCALE>(q, st);
+  return (int)swin::gemm_q8_any<bf16, swin::Q8_T, swin::Q8E_SCALE>(
+      q, static_cast<int8_t*>(codes), LOOP, st);
+}
+
+}  // namespace
+
+// x (M, K), w (K, N), zero (N,), out (M, N), all bf16; K % 32 == 0,
+// N % 64 == 0.
+extern "C" int probe_gemm_bf16_launch(const void* x, const void* w,
+                                      const void* zero, void* out, int M,
+                                      int N, int K, void* stream) {
+  return launch_bf16<false>(x, w, zero, out, M, N, K, stream);
+}
+
+// probe_gemm_bf16_launch on the WMMA loop
+extern "C" int probe_gemm_bf16_loop_launch(const void* x, const void* w,
+                                           const void* zero, void* out, int M,
+                                           int N, int K, void* stream) {
+  return launch_bf16<true>(x, w, zero, out, M, N, K, stream);
+}
+
+// x (M, K) bf16, w (K, N) int8 codes, s (N,) float32, out (M, N) bf16.
+extern "C" int probe_gemm_int8w_launch(const void* x, const void* w,
+                                       const void* s, void* out, int M, int N,
+                                       int K, void* stream) {
+  if (!shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = swin::gemm<bf16, false, swin::EPI_SCALE, int8_t>(
+      {static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
+       static_cast<const int8_t*>(w), nullptr, nullptr,
+       static_cast<bf16*>(out), M, N, K, static_cast<const float*>(s)},
+      static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) ++swin::gemm_launch_counts[swin::PATH_LOOP];
+  return (int)err;
+}
+
+// x (M, K) bf16, w (N, K) int8 codes, s (N,) float32, amax scratch of
+// M / blk int32, codes scratch of M x K int8, out (M, N) bf16; M % blk == 0.
+extern "C" int probe_gemm_int8_launch(const void* x, const void* w,
+                                      const void* s, void* amax, void* codes,
+                                      void* out, int M, int N, int K, int blk,
+                                      void* stream) {
+  return launch_int8<false>(x, w, s, amax, codes, out, M, N, K, blk, stream);
+}
+
+// probe_gemm_int8_launch on the mma.sync loop (codes unused)
+extern "C" int probe_gemm_int8_loop_launch(const void* x, const void* w,
+                                           const void* s, void* amax,
+                                           void* codes, void* out, int M,
+                                           int N, int K, int blk,
+                                           void* stream) {
+  return launch_int8<true>(x, w, s, amax, codes, out, M, N, K, blk, stream);
 }

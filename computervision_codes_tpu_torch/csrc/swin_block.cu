@@ -20,9 +20,9 @@
 // but at C = 384 a window's y (110 KB) and its float32 MLP accumulator
 // (221 KB) do not fit together in a block's 227 KB of shared memory. So
 // this entry point runs K3's device phases and then K4's on one stream
-// (swin_common.cuh), with y in a device scratch: one call from the host,
-// seven launches, and y's round trip through device memory (2 x 9.4 MB at
-// stage 1). It computes the chain of K3 and K4 but for that last rounding.
+// (swin_gemm.cuh: in bf16 each product a LayerNorm pass or none, then the
+// TMA-fed wgmma GEMM), with y in a device scratch: one call from the host
+// and y's round trip through device memory (2 x 9.4 MB at stage 1). It computes the chain of K3 and K4 but for that last rounding.
 // A block that keeps y on chip is later work; whether it pays is measured
 // against this one.
 //
@@ -35,15 +35,21 @@
 // width; at the native Swin sizes it does not (about 7 MB at stage 0 and
 // 10 MB at stage 1 against its 13 MB), so no chunk loop is ported.
 //
+// The "_loop" entry points run every product on swin_common.cuh's loops
+// (WMMA / mma.sync), the parent that chip_smoke.py compares against; no
+// main path calls them.
+//
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
 // first CUDA error of the phases' launches (0 on success).
 
-#include "swin_common.cuh"
+#include "swin_gemm.cuh"
 
 namespace {
 
-template <typename T>
+// attn holds LN1(x) for the QKV product, the attention output, then LN2(y)
+// for GEMM1 (the proj product has read it by then)
+template <typename T, bool LOOP>
 int run(const void* x, const void* g1, const void* be1, const void* wqkv,
         const void* bqkv, const void* wproj, const void* bproj,
         const void* bias, const void* mask, const void* g2, const void* be2,
@@ -51,7 +57,7 @@ int run(const void* x, const void* g1, const void* be1, const void* wqkv,
         void* qkv, void* attn, void* ybuf, void* h, void* stats, void* out,
         int B, int Hp, int Wp, int C, int heads, int window, int hidden,
         float scale, cudaStream_t s) {
-  cudaError_t err = swin::attention_half<T>(
+  cudaError_t err = swin::attention_half<T, LOOP>(
       static_cast<const T*>(x), static_cast<const float*>(g1),
       static_cast<const float*>(be1), static_cast<const T*>(wqkv),
       static_cast<const T*>(bqkv), static_cast<const T*>(wproj),
@@ -60,13 +66,84 @@ int run(const void* x, const void* g1, const void* be1, const void* wqkv,
       static_cast<T*>(attn), static_cast<float2*>(stats),
       static_cast<T*>(ybuf), B, Hp, Wp, C, heads, window, scale, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)swin::mlp_half<T, swin::EPI_ROUND_RES>(
+  return (int)swin::mlp_half<T, swin::EPI_ROUND_RES, LOOP>(
       static_cast<const T*>(ybuf), static_cast<const float*>(g2),
       static_cast<const float*>(be2), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<T*>(h),
-      static_cast<float2*>(stats), static_cast<T*>(out), B * Hp * Wp, C,
-      hidden, s);
+      static_cast<float2*>(stats), static_cast<T*>(attn),
+      static_cast<T*>(out), B * Hp * Wp, C, hidden, s);
+}
+
+template <bool LOOP>
+int launch(const void* x, const void* g1, const void* be1, const void* wqkv,
+           const void* bqkv, const void* wproj, const void* bproj,
+           const void* bias, const void* mask, const void* g2,
+           const void* be2, const void* w1, const void* b1, const void* w2,
+           const void* b2, void* qkv, void* attn, void* ybuf, void* h,
+           void* stats, void* out, int B, int Hp, int Wp, int C, int heads,
+           int window, int hidden, float scale, int dtype, void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
+      hidden % 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return run<float, LOOP>(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask,
+                            g2, be2, w1, b1, w2, b2, qkv, attn, ybuf, h,
+                            stats, out, B, Hp, Wp, C, heads, window, hidden,
+                            scale, s);
+  if (dtype == 1)
+    return run<__nv_bfloat16, LOOP>(x, g1, be1, wqkv, bqkv, wproj, bproj,
+                                    bias, mask, g2, be2, w1, b1, w2, b2, qkv,
+                                    attn, ybuf, h, stats, out, B, Hp, Wp, C,
+                                    heads, window, hidden, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool LOOP>
+int launch_q8(const void* x, const void* g1, const void* be1,
+              const void* wqkv, const void* sqkv, const void* bqkv,
+              const void* wproj, const void* sproj, const void* bproj,
+              const void* bias, const void* mask, const void* g2,
+              const void* be2, const void* w1, const void* s1,
+              const void* b1, const void* w2, const void* s2, const void* b2,
+              void* qkv, void* attn, void* ybuf, void* h, void* stats,
+              void* amax, void* codes, void* out, int B, int Hp, int Wp,
+              int C, int heads, int window, int hidden, float scale,
+              int dtype, void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
+      hidden % 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int strips = B * (Hp / window);
+  auto run_q8 = [&](auto zero) {
+    using T = decltype(zero);
+    cudaError_t err = swin::attention_half_q8<T, LOOP>(
+        static_cast<const T*>(x), static_cast<const float*>(g1),
+        static_cast<const float*>(be1), static_cast<const int8_t*>(wqkv),
+        static_cast<const float*>(sqkv), static_cast<const T*>(bqkv),
+        static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
+        static_cast<const T*>(bproj), static_cast<const T*>(bias),
+        static_cast<const T*>(mask), static_cast<T*>(qkv),
+        static_cast<T*>(attn), static_cast<float2*>(stats),
+        static_cast<int*>(amax), static_cast<int8_t*>(codes),
+        static_cast<T*>(ybuf), B, Hp, Wp, C, heads, window, scale, true, s);
+    if (err != cudaSuccess) return (int)err;
+    // the MLP's two block absmaxes follow the attention half's
+    return (int)swin::mlp_half_q8<T, LOOP>(
+        static_cast<const T*>(ybuf), static_cast<const float*>(g2),
+        static_cast<const float*>(be2), static_cast<const int8_t*>(w1),
+        static_cast<const float*>(s1), static_cast<const T*>(b1),
+        static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+        static_cast<const T*>(b2), static_cast<float*>(h),
+        static_cast<float2*>(stats),
+        static_cast<int*>(amax) + strips * (1 + Wp / window),
+        static_cast<int8_t*>(codes), static_cast<T*>(out), B * Hp * Wp, C,
+        hidden, window * Wp, true, s);
+  };
+  if (dtype == 0) return run_q8(0.0f);
+  if (dtype == 1) return run_q8(__nv_bfloat16());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -83,65 +160,56 @@ extern "C" int swin_block_launch(
     const void* b1, const void* w2, const void* b2, void* qkv, void* attn,
     void* ybuf, void* h, void* stats, void* out, int B, int Hp, int Wp, int C,
     int heads, int window, int hidden, float scale, int dtype, void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
-      hidden % 64)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
+  return launch<false>(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
+                       be2, w1, b1, w2, b2, qkv, attn, ybuf, h, stats, out, B,
+                       Hp, Wp, C, heads, window, hidden, scale, dtype, stream);
+}
+
+// swin_block_launch with every product on the loop of swin_common.cuh
+extern "C" int swin_block_loop_launch(
+    const void* x, const void* g1, const void* be1, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* mask, const void* g2, const void* be2, const void* w1,
+    const void* b1, const void* w2, const void* b2, void* qkv, void* attn,
+    void* ybuf, void* h, void* stats, void* out, int B, int Hp, int Wp, int C,
+    int heads, int window, int hidden, float scale, int dtype, void* stream) {
+  return launch<true>(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
                       be2, w1, b1, w2, b2, qkv, attn, ybuf, h, stats, out, B,
-                      Hp, Wp, C, heads, window, hidden, scale, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x, g1, be1, wqkv, bqkv, wproj, bproj, bias,
-                              mask, g2, be2, w1, b1, w2, b2, qkv, attn, ybuf,
-                              h, stats, out, B, Hp, Wp, C, heads, window,
-                              hidden, scale, s);
-  return (int)cudaErrorInvalidValue;
+                      Hp, Wp, C, heads, window, hidden, scale, dtype, stream);
 }
 
 // The int8 branch. As swin_block_launch, but wqkv (3C, C), wproj (C, C), w1
 // (hidden, C) and w2 (C, hidden) int8 codes, one output channel per row,
 // with float32 scales sqkv, sproj, s1, s2; h (M, hidden) float32; amax
-// scratch of B * Hp / window * (3 + Wp / window) int32.
+// scratch of B * Hp / window * (3 + Wp / window) int32; codes scratch of
+// M x max(C, hidden) int8.
 extern "C" int swin_block_q8_launch(
     const void* x, const void* g1, const void* be1, const void* wqkv,
     const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
     const void* bproj, const void* bias, const void* mask, const void* g2,
     const void* be2, const void* w1, const void* s1, const void* b1,
     const void* w2, const void* s2, const void* b2, void* qkv, void* attn,
-    void* ybuf, void* h, void* stats, void* amax, void* out, int B, int Hp,
-    int Wp, int C, int heads, int window, int hidden, float scale, int dtype,
-    void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
-      hidden % 64)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int strips = B * (Hp / window);
-  auto run_q8 = [&](auto zero) {
-    using T = decltype(zero);
-    cudaError_t err = swin::attention_half_q8<T>(
-        static_cast<const T*>(x), static_cast<const float*>(g1),
-        static_cast<const float*>(be1), static_cast<const int8_t*>(wqkv),
-        static_cast<const float*>(sqkv), static_cast<const T*>(bqkv),
-        static_cast<const int8_t*>(wproj), static_cast<const float*>(sproj),
-        static_cast<const T*>(bproj), static_cast<const T*>(bias),
-        static_cast<const T*>(mask), static_cast<T*>(qkv),
-        static_cast<T*>(attn), static_cast<float2*>(stats),
-        static_cast<int*>(amax), static_cast<T*>(ybuf), B, Hp, Wp, C, heads,
-        window, scale, true, s);
-    if (err != cudaSuccess) return (int)err;
-    // the MLP's two block absmaxes follow the attention half's
-    return (int)swin::mlp_half_q8<T>(
-        static_cast<const T*>(ybuf), static_cast<const float*>(g2),
-        static_cast<const float*>(be2), static_cast<const int8_t*>(w1),
-        static_cast<const float*>(s1), static_cast<const T*>(b1),
-        static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-        static_cast<const T*>(b2), static_cast<float*>(h),
-        static_cast<float2*>(stats),
-        static_cast<int*>(amax) + strips * (1 + Wp / window),
-        static_cast<T*>(out), B * Hp * Wp, C, hidden, window * Wp, true, s);
-  };
-  if (dtype == 0) return run_q8(0.0f);
-  if (dtype == 1) return run_q8(__nv_bfloat16());
-  return (int)cudaErrorInvalidValue;
+    void* ybuf, void* h, void* stats, void* amax, void* codes, void* out,
+    int B, int Hp, int Wp, int C, int heads, int window, int hidden,
+    float scale, int dtype, void* stream) {
+  return launch_q8<false>(x, g1, be1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
+                          bias, mask, g2, be2, w1, s1, b1, w2, s2, b2, qkv,
+                          attn, ybuf, h, stats, amax, codes, out, B, Hp, Wp,
+                          C, heads, window, hidden, scale, dtype, stream);
+}
+
+// swin_block_q8_launch with every product on the mma.sync loop
+extern "C" int swin_block_q8_loop_launch(
+    const void* x, const void* g1, const void* be1, const void* wqkv,
+    const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
+    const void* bproj, const void* bias, const void* mask, const void* g2,
+    const void* be2, const void* w1, const void* s1, const void* b1,
+    const void* w2, const void* s2, const void* b2, void* qkv, void* attn,
+    void* ybuf, void* h, void* stats, void* amax, void* codes, void* out,
+    int B, int Hp, int Wp, int C, int heads, int window, int hidden,
+    float scale, int dtype, void* stream) {
+  return launch_q8<true>(x, g1, be1, wqkv, sqkv, bqkv, wproj, sproj, bproj,
+                         bias, mask, g2, be2, w1, s1, b1, w2, s2, b2, qkv,
+                         attn, ybuf, h, stats, amax, codes, out, B, Hp, Wp, C,
+                         heads, window, hidden, scale, dtype, stream);
 }

@@ -1,13 +1,16 @@
 // Device phases shared by the Swin kernels, written by hand for Hopper
-// (sm_90a): K3 window_mhsa.cu, K4 mlp_block.cu and K5 swin_block.cu each
-// include this header and export their own C entry point (K6, the training
-// branches, is K3's and K4's float entry points without the residual). K10
-// window_attention.cu runs the attention phase's parts (AttnSmem,
-// attn_scores, attn_softmax, attn_pv) over q, k and v it gathers itself.
-// The probes time these phases as they are: P1 int8_kernel_probe.cu runs
-// the two GEMMs (with the weight-only-int8 loader and the bias-free scale
-// epilogues below, which only it instantiates) and P2 swin_pack_probe.cu
-// runs K3's LN, QKV and proj phases around its own attention phase.
+// (sm_90a). swin_gemm.cuh builds on this header: its wgmma GEMM runs every
+// bf16 and int8 product of K3 window_mhsa.cu, K4 mlp_block.cu, K5
+// swin_block.cu (and K6, the training branches: K3's and K4's float entry
+// points without the residual), P1 int8_kernel_probe.cu and P2
+// swin_pack_probe.cu, and it chains their phases; those sources include it.
+// Here are the float32 path (the FMA loop below), the loops that the bf16
+// and int8 products ran before (kept for the shapes the path rule sends
+// them, P1's weight-only int8, and as the parent that chip_smoke.py times
+// and compares against through the "_loop" entry points), the LayerNorm
+// and absmax passes and the attention phase. K10 window_attention.cu runs
+// the attention phase's parts (AttnSmem, attn_scores, attn_softmax,
+// attn_pv) over q, k and v it gathers itself.
 //
 // Phases, all over row-major token matrices of one dtype T (float or bf16):
 //
@@ -31,11 +34,13 @@
 //                     rounded to T, O = P v in float32, rounded to T and
 //                     written at the tokens' own rows.
 //
-// bf16 products run on tensor cores through WMMA (mma.sync underneath)
-// with float32 accumulation; float32 products use plain FMA so float32
-// stays float32. The GEMM keeps one tile in flight: the next A/B tile is
-// read into registers while the current one is multiplied. TMA, wgmma and
-// deeper pipelines are later work.
+// In the loop, bf16 products run on tensor cores through WMMA (mma.sync
+// underneath) with float32 accumulation; float32 products use plain FMA so
+// float32 stays float32. It keeps one tile in flight: the next A/B tile is
+// read into registers while the current one is multiplied. The LayerNorm
+// applied on load is ln_row_stats' statistics and ln_affine, which
+// swin_gemm.cuh's LayerNorm pass shares, so both paths feed the same bf16
+// operand.
 //
 // The int8 branch (the TPU kernels' ``quant``) adds, after the float
 // phases below:
@@ -67,7 +72,7 @@
 // FMA contraction), in the JAX code's order of operations.
 //
 // Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
-// for the GEMM (C % 64 == 0 for the blocks); head_dim 32; window <= 12
+// for the loops (C % 64 == 0 for the blocks); head_dim 32; window <= 12
 // (the score tile of a 144-token window is 85 KB of float32, and q, k, v,
 // S and P together 160 KB of the 227 KB a block may use).
 
@@ -130,6 +135,31 @@ __device__ __forceinline__ float warp_max(float v) {
 // ---------------------------------------------------------------------------
 // LayerNorm statistics: stats[r] = (mean, rsqrt(var + eps)) of row r of the
 // (M, C) matrix x, in float32, the variance from a second pass.
+
+// (mean, rsqrt(var + eps)) of one row xr of C values, reduced over the 32
+// lanes of a warp (each lane takes columns lane, lane + 32, ...): the
+// bf16 GEMM's LayerNorm, shared by the loop's statistics pass and the
+// wgmma path's LayerNorm pass so that both normalise with the same bits
+template <typename T>
+__device__ __forceinline__ float2 ln_row_stats(const T* xr, int C, int lane) {
+  float s = 0.0f;
+  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
+  const float mu = warp_sum(s) / C;
+  float q = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f(xr[c]) - mu;
+    q = fmaf(d, d, q);
+  }
+  return make_float2(mu, rsqrtf(warp_sum(q) / C + LN_EPS));
+}
+
+// LayerNorm of one value with its row's statistics: (v - mu) * rstd, then
+// the affine as one FMA (the contraction nvcc makes of nv * g + b)
+__device__ __forceinline__ float ln_affine(float v, float2 st, float g,
+                                           float b) {
+  return fmaf(__fmul_rn(__fsub_rn(v, st.x), st.y), g, b);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int M,
@@ -137,17 +167,8 @@ ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int M,
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   if (row >= M) return;
-  const T* xr = x + (size_t)row * C;
-  float s = 0.0f;
-  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float q = 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = to_f(xr[c]) - mu;
-    q += d * d;
-  }
-  const float var = warp_sum(q) / C;
-  if (lane == 0) stats[row] = make_float2(mu, rsqrtf(var + LN_EPS));
+  const float2 st = ln_row_stats(x + (size_t)row * C, C, lane);
+  if (lane == 0) stats[row] = st;
 }
 
 // ---------------------------------------------------------------------------
@@ -336,12 +357,11 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
         float2 st = make_float2(0.0f, 0.0f);
         if (m0 + r < p.M) st = p.stats[m0 + r];
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float nv = (to_f(e[j]) - st.x) * st.y;
-          dst[j] = from_f<T>(m0 + r < p.M
-                                 ? nv * p.gamma[k0 + c + j] + p.beta[k0 + c + j]
-                                 : 0.0f);
-        }
+        for (int j = 0; j < V; ++j)
+          dst[j] = from_f<T>(m0 + r < p.M ? ln_affine(to_f(e[j]), st,
+                                                      p.gamma[k0 + c + j],
+                                                      p.beta[k0 + c + j])
+                                          : 0.0f);
       } else {
         *reinterpret_cast<uint4*>(dst) = ra[i];
       }
@@ -682,51 +702,6 @@ inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
          (long long)B * (Hp / w) * (Wp / w) <= 2147483647LL && heads <= 65535;
 }
 
-// K3's phases: y = x + proj(window attention(LN(x))), or with res_add
-// false y = proj(window attention(LN(x))), T(acc + bproj) with no residual
-// (EPI_BIAS: the training branch, K6).
-// Scratch: qkv (M, 3C), attn (M, C), stats (M,) with M = B * Hp * Wp.
-template <typename T>
-cudaError_t attention_half(const T* x, const float* gamma, const float* beta,
-                           const T* wqkv, const T* bqkv, const T* wproj,
-                           const T* bproj, const T* bias, const T* mask,
-                           T* qkv, T* attn, float2* stats, T* y, int B,
-                           int Hp, int Wp, int C, int heads, int w,
-                           float scale, cudaStream_t s, bool res_add = true) {
-  const int M = B * Hp * Wp;
-  cudaError_t err = ln_stats(x, stats, M, C, s);
-  if (err != cudaSuccess) return err;
-  err = gemm<T, true, EPI_BIAS>(
-      {x, stats, gamma, beta, wqkv, bqkv, nullptr, qkv, M, 3 * C, C}, s);
-  if (err != cudaSuccess) return err;
-  err = window_attention(qkv, bias, mask, attn, B, Hp, Wp, C, heads, w,
-                         scale, s);
-  if (err != cudaSuccess) return err;
-  const GemmArgs<T> proj{attn, nullptr, nullptr, nullptr, wproj, bproj,
-                         res_add ? x : nullptr, y, M, C, C};
-  return res_add ? gemm<T, false, EPI_ROUND_RES>(proj, s)
-                 : gemm<T, false, EPI_BIAS>(proj, s);
-}
-
-// K4's phases: y = x + W2 gelu(W1 LN(x) + b1) + b2, the last sum in float32
-// (EPI_RES_F32), or with W2 h + b2 rounded to T before the residual is
-// added (EPI_ROUND_RES: K5's merged block), or y = T(W2 h + b2) with no
-// residual (EPI_BIAS: the training branch, K6). Scratch: h (M, hidden),
-// stats (M,).
-template <typename T, int EPI = EPI_RES_F32>
-cudaError_t mlp_half(const T* x, const float* gamma, const float* beta,
-                     const T* w1, const T* b1, const T* w2, const T* b2, T* h,
-                     float2* stats, T* y, int M, int C, int hidden,
-                     cudaStream_t s) {
-  cudaError_t err = ln_stats(x, stats, M, C, s);
-  if (err != cudaSuccess) return err;
-  err = gemm<T, true, EPI_BIAS_GELU>(
-      {x, stats, gamma, beta, w1, b1, nullptr, h, M, hidden, C}, s);
-  if (err != cudaSuccess) return err;
-  return gemm<T, false, EPI>(
-      {h, nullptr, nullptr, nullptr, w2, b2, x, y, M, C, hidden}, s);
-}
-
 // ---------------------------------------------------------------------------
 // The int8 branch.
 
@@ -1049,63 +1024,6 @@ cudaError_t gemm_q8(const Q8Args<T>& p, cudaStream_t s) {
   const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
   gemm_q8_kernel<T, SRC, EPI><<<grid, THREADS, 0, s>>>(p);
   return cudaGetLastError();
-}
-
-// K3's int8 branch: y = x + T(q8(proj) + bproj) over the attention of
-// T(q8(qkv) + bqkv). QKV scales per window-row strip (w * Wp tokens), proj
-// scales per window. Scratch: qkv (M, 3C), attn (M, C), stats (M,), amax
-// (B * Hp / w + B * nW ints), M = B * Hp * Wp.
-template <typename T>
-cudaError_t attention_half_q8(const T* x, const float* gamma,
-                              const float* beta, const int8_t* wqkv,
-                              const float* sqkv, const T* bqkv,
-                              const int8_t* wproj, const float* sproj,
-                              const T* bproj, const T* bias, const T* mask,
-                              T* qkv, T* attn, float2* stats, int* amax, T* y,
-                              int B, int Hp, int Wp, int C, int heads, int w,
-                              float scale, bool ln_round, cudaStream_t s) {
-  const int M = B * Hp * Wp, strips = B * (Hp / w);
-  int* wamax = amax + strips;
-  cudaError_t err = cudaMemsetAsync(
-      amax, 0, sizeof(int) * (strips + strips * (Wp / w)), s);
-  if (err != cudaSuccess) return err;
-  err = ln_stats_amax(x, gamma, beta, stats, amax, M, C, w * Wp, ln_round,
-                      s);
-  if (err != cudaSuccess) return err;
-  Q8Args<T> q{x, stats, gamma, beta, amax, {w * Wp, 0, 0, 0}, wqkv, sqkv,
-              bqkv, nullptr, qkv, nullptr, 1, M, 3 * C, C, ln_round};
-  err = gemm_q8<T, Q8_LN, Q8E_BIAS>(q, s);
-  if (err != cudaSuccess) return err;
-  err = window_attention(qkv, bias, mask, attn, B, Hp, Wp, C, heads, w,
-                         scale, s, wamax);
-  if (err != cudaSuccess) return err;
-  Q8Args<T> pr{attn, nullptr, nullptr, nullptr, wamax, {1, Hp, Wp, w},
-               wproj, sproj, bproj, x, y, nullptr, 1, M, C, C, false};
-  return gemm_q8<T, Q8_T, Q8E_ROUND_RES>(pr, s);
-}
-
-// K4's int8 branch: y = x + T(q8(h) W2 + b2) with h = gelu_as(q8(LN(x)) W1
-// + b1) in float32, both scales per block of blk tokens. Scratch: h (M,
-// hidden) float32, stats (M,), amax (2 * ceil(M / blk) ints).
-template <typename T>
-cudaError_t mlp_half_q8(const T* x, const float* gamma, const float* beta,
-                        const int8_t* w1, const float* s1, const T* b1,
-                        const int8_t* w2, const float* s2, const T* b2,
-                        float* h, float2* stats, int* amax, T* y, int M,
-                        int C, int hidden, int blk, bool ln_round,
-                        cudaStream_t s) {
-  const int blocks = (M + blk - 1) / blk;
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(int) * 2 * blocks, s);
-  if (err != cudaSuccess) return err;
-  err = ln_stats_amax(x, gamma, beta, stats, amax, M, C, blk, ln_round, s);
-  if (err != cudaSuccess) return err;
-  Q8Args<T> g1{x, stats, gamma, beta, amax, {blk, 0, 0, 0}, w1, s1, b1,
-               nullptr, h, amax + blocks, blk, M, hidden, C, ln_round};
-  err = gemm_q8<T, Q8_LN, Q8E_GELU_AMAX>(g1, s);
-  if (err != cudaSuccess) return err;
-  Q8Args<T> g2{h, nullptr, nullptr, nullptr, amax + blocks, {blk, 0, 0, 0},
-               w2, s2, b2, x, y, nullptr, 1, M, C, hidden, false};
-  return gemm_q8<T, Q8_F32, Q8E_ROUND_RES>(g2, s);
 }
 
 }  // namespace swin

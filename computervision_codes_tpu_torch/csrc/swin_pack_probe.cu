@@ -17,8 +17,9 @@
 // The probe asks how much of a window's attention one program should own:
 // one head (K3's "loop"), a group of g heads (pack<g>), or every head
 // (batched). Only the attention phase differs between those, so this runs
-// K3's phases from swin_common.cuh unchanged (ln_stats, the LN-on-load QKV
-// GEMM, the proj GEMM with bias and residual) around a new attention phase,
+// K3's products from swin_gemm.cuh unchanged (LN(x), the QKV GEMM, the
+// proj GEMM with bias and residual; the "_loop" entry point runs them on
+// swin_common.cuh's WMMA loop, the parent) around a new attention phase,
 // group_attn_kernel: one block per (window, group of g heads), 8 warps;
 // batched is the same kernel with g = heads. The block stages q, k and v of
 // its heads for the window in shared memory once (3 x N x 32 bf16 a head,
@@ -68,7 +69,7 @@
 // first CUDA error of the phases' launches (0 on success).
 
 #include "attention_common.cuh"
-#include "swin_common.cuh"
+#include "swin_gemm.cuh"
 
 namespace {
 
@@ -275,6 +276,43 @@ int chunk_of(int group, int window) {
   return 0;
 }
 
+template <bool LOOP>
+int launch(const void* x, const void* gamma, const void* beta,
+           const void* wqkv, const void* bqkv, const void* wproj,
+           const void* bproj, const void* bias, void* qkv, void* attn,
+           void* stats, void* y, int B, int Hp, int Wp, int C, int heads,
+           int window, int group, float scale, int res_add, void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || group <= 0 ||
+      heads % group)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = chunk_of(group, window);
+  if (chunk < 0) return -chunk;
+  if (chunk == 0) return (int)cudaErrorInvalidValue;
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xt = static_cast<const bf16*>(x);
+  bf16* qkvt = static_cast<bf16*>(qkv);
+  bf16* attnt = static_cast<bf16*>(attn);
+  const int M = B * Hp * Wp;
+  // attn holds LN(x) for the wgmma QKV product before the attention writes
+  cudaError_t err = swin::gemm_any<bf16, swin::EPI_BIAS>(
+      {xt, nullptr, static_cast<const float*>(gamma),
+       static_cast<const float*>(beta), static_cast<const bf16*>(wqkv),
+       static_cast<const bf16*>(bqkv), nullptr, qkvt, M, 3 * C, C},
+      true, static_cast<float2*>(stats), attnt, LOOP, s);
+  if (err != cudaSuccess) return (int)err;
+  err = group_attention(qkvt, static_cast<const bf16*>(bias), attnt, B, Hp,
+                        Wp, C, heads, window, group, chunk, scale, s);
+  if (err != cudaSuccess) return (int)err;
+  const swin::GemmArgs<bf16> proj{
+      attnt, nullptr, nullptr, nullptr, static_cast<const bf16*>(wproj),
+      static_cast<const bf16*>(bproj), xt, static_cast<bf16*>(y), M, C, C};
+  return (int)(res_add ? swin::gemm_any<bf16, swin::EPI_ROUND_RES>(
+                             proj, false, nullptr, nullptr, LOOP, s)
+                       : swin::gemm_any<bf16, swin::EPI_BIAS>(
+                             proj, false, nullptr, nullptr, LOOP, s));
+}
+
 }  // namespace
 
 // The heads a block of ``group`` heads stages at once at this window on the
@@ -299,33 +337,21 @@ extern "C" int swin_pack_launch(const void* x, const void* gamma,
                                 int B, int Hp, int Wp, int C, int heads,
                                 int window, int group, float scale,
                                 int res_add, void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || group <= 0 ||
-      heads % group)
-    return (int)cudaErrorInvalidValue;
-  const int chunk = chunk_of(group, window);
-  if (chunk < 0) return -chunk;
-  if (chunk == 0) return (int)cudaErrorInvalidValue;
+  return launch<false>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, qkv,
+                       attn, stats, y, B, Hp, Wp, C, heads, window, group,
+                       scale, res_add, stream);
+}
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xt = static_cast<const bf16*>(x);
-  bf16* qkvt = static_cast<bf16*>(qkv);
-  bf16* attnt = static_cast<bf16*>(attn);
-  float2* st = static_cast<float2*>(stats);
-  const int M = B * Hp * Wp;
-  cudaError_t err = swin::ln_stats(xt, st, M, C, s);
-  if (err != cudaSuccess) return (int)err;
-  err = swin::gemm<bf16, true, swin::EPI_BIAS>(
-      {xt, st, static_cast<const float*>(gamma),
-       static_cast<const float*>(beta), static_cast<const bf16*>(wqkv),
-       static_cast<const bf16*>(bqkv), nullptr, qkvt, M, 3 * C, C},
-      s);
-  if (err != cudaSuccess) return (int)err;
-  err = group_attention(qkvt, static_cast<const bf16*>(bias), attnt, B, Hp,
-                        Wp, C, heads, window, group, chunk, scale, s);
-  if (err != cudaSuccess) return (int)err;
-  const swin::GemmArgs<bf16> proj{
-      attnt, nullptr, nullptr, nullptr, static_cast<const bf16*>(wproj),
-      static_cast<const bf16*>(bproj), xt, static_cast<bf16*>(y), M, C, C};
-  return (int)(res_add ? swin::gemm<bf16, false, swin::EPI_ROUND_RES>(proj, s)
-                       : swin::gemm<bf16, false, swin::EPI_BIAS>(proj, s));
+// swin_pack_launch with the QKV and proj products on the WMMA loop
+extern "C" int swin_pack_loop_launch(const void* x, const void* gamma,
+                                     const void* beta, const void* wqkv,
+                                     const void* bqkv, const void* wproj,
+                                     const void* bproj, const void* bias,
+                                     void* qkv, void* attn, void* stats,
+                                     void* y, int B, int Hp, int Wp, int C,
+                                     int heads, int window, int group,
+                                     float scale, int res_add, void* stream) {
+  return launch<true>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, qkv,
+                      attn, stats, y, B, Hp, Wp, C, heads, window, group,
+                      scale, res_add, stream);
 }

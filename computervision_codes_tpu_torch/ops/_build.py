@@ -88,6 +88,12 @@ def build(names) -> Dict[str, float]:
     return seconds
 
 
+def loaded(name: str):
+    """``csrc/<name>.cu``'s library if this process has loaded it, else
+    None."""
+    return _loaded.get(name)
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     if name in _loaded:

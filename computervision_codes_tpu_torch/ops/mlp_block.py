@@ -25,8 +25,9 @@ float32 (the A-S erf GELU of ``_gelu_exact``, not ``F.gelu``), and
 dtype.
 
 ``mlp_block_fused`` dispatches on the tensor's device: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel (``csrc/mlp_block.cu``),
-anything else raises.
+the plain version, a CUDA tensor launches the kernel (``csrc/mlp_block.cu``;
+its two products on the Swin GEMM core, ``ops/swin_gemm.py``), anything
+else raises.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import swin_gemm
 from .quant import quantize_weight
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -178,8 +180,7 @@ def check_operands(what: str, x, named: dict, vectors: dict):
     ``named``: name -> (tensor, shape) held in x's dtype; ``vectors``:
     LayerNorm parameters, any float dtype (passed on as float32). Returns
     the aligned matrices and the float32 vectors, in the given order."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {x.device}")
+    on_card(what, x)
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -198,41 +199,60 @@ def check_operands(what: str, x, named: dict, vectors: dict):
     return mats, vecs
 
 
+def on_card(what: str, x) -> None:
+    """The kernels take CUDA tensors only; raises ValueError."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {x.device}")
+
+
+def run_entry(fn, device, *args) -> int:
+    """Call a C entry point with each tensor as its pointer and the current
+    stream of ``device`` last; returns its CUDA error code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        return fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                    for a in args), stream)
+
+
 def launch_checked(what: str, fn, *args) -> None:
     """Call a C entry point on the current stream of the first tensor's
     device; raise on the CUDA error it returns."""
     dev = next(a for a in args if isinstance(a, torch.Tensor)).device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                for a in args]
-        err = fn(*conv, stream)
+    err = run_entry(fn, dev, *args)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 @functools.cache
-def _launch_fn():
+def _launch_fn(loop: bool = False):
     """The C entry point of ``csrc/mlp_block.cu`` (built on first use),
-    with its argument types declared."""
+    with its argument types declared; ``loop``: its ``_loop`` twin."""
     from ._build import load_library
 
-    fn = load_library("mlp_block").mlp_block_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    lib = load_library("mlp_block")
+    fn = lib.mlp_block_loop_launch if loop else lib.mlp_block_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def mlp_products(c: int, hidden: int) -> list:
+    """(K, N) of the MLP half's two products: fc1 and fc2."""
+    return [(c, hidden), (hidden, c)]
+
+
 def launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool,
-                     counter):
+                     counter, loop: bool = False):
     """Launch the float path of ``csrc/mlp_block.cu`` on x's device and
     current stream, with or without the residual, and add one to
-    ``counter.launches`` (K4's or K6's wrapper) when the kernel launches.
+    ``counter.launches`` (K4's or K6's wrapper) when the kernel launches,
+    and its two products to ``swin_gemm.launches`` by path. ``loop``: both
+    products on the loop (the parent's entry point).
 
     x (..., C) float32 or bfloat16 with C % 64 == 0; w1 (C, hidden), b1,
     w2 (hidden, C), b2 in x's dtype, hidden % 64 == 0; gamma, beta (C,) in
-    any float dtype.
+    any float dtype. In bf16 a normed scratch (M, C) takes LN(x).
     """
     c = x.shape[-1]
     hidden = w1.shape[-1]
@@ -250,10 +270,14 @@ def launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool,
         return y
     h = torch.empty(m, hidden, dtype=x.dtype, device=x.device)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
-    launch_checked("mlp_block", _launch_fn(), xm, gamma, beta, w1, b1, w2,
-                   b2, h, stats, y, m, c, hidden, int(res_add),
+    normed = (torch.empty(m, c, dtype=x.dtype, device=x.device)
+              if x.dtype == torch.bfloat16 else None)
+    launch_checked("mlp_block", _launch_fn(loop), xm, gamma, beta, w1, b1,
+                   w2, b2, h, stats, normed, y, m, c, hidden, int(res_add),
                    DTYPE_CODES[x.dtype])
     counter.launches += 1
+    swin_gemm.count("mlp_block", swin_gemm.operand_kind(x.dtype),
+                    mlp_products(c, hidden), loop)
     return y
 
 
@@ -265,6 +289,17 @@ def mlp_block_cuda(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool = True):
 
 
 mlp_block_cuda.launches = 0
+
+
+def mlp_block_loop_cuda(x, gamma, beta, w1, b1, w2, b2, *,
+                        res_add: bool = True):
+    """K4 (or, with ``res_add=False``, K6's branch) with both products on
+    the loop: the parent that ``chip_smoke.py`` compares against."""
+    return launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, res_add=res_add,
+                            counter=mlp_block_loop_cuda, loop=True)
+
+
+mlp_block_loop_cuda.launches = 0
 
 
 def check_q8(what: str, x, weights: dict) -> list:
@@ -289,22 +324,25 @@ def check_q8(what: str, x, weights: dict) -> list:
 
 
 @functools.cache
-def _launch_q8_fn():
-    """The int8 branch's C entry point in ``csrc/mlp_block.cu``."""
+def _launch_q8_fn(loop: bool = False):
+    """The int8 branch's C entry point in ``csrc/mlp_block.cu`` (``loop``:
+    its ``_loop`` twin)."""
     from ._build import load_library
 
-    fn = load_library("mlp_block").mlp_block_q8_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+    lib = load_library("mlp_block")
+    fn = lib.mlp_block_q8_loop_launch if loop else lib.mlp_block_q8_launch
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def mlp_block_q8_cuda(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2):
-    """Launch K4's int8 branch on x's device and current stream: as
-    ``mlp_block_cuda``, with w1 and w2 as ``Q8Weight``s and one activation
-    scale per ``token_block(T)`` tokens. ``launches`` counts the launches
-    made through this wrapper."""
+def launch_mlp_block_q8(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2,
+                        *, counter, loop: bool = False):
+    """Launch K4's int8 branch (``loop``: on the ``mma.sync`` loop) on x's
+    device and current stream; add one to ``counter.launches`` and the two
+    products to ``swin_gemm.launches``. Scratch: h (M, hidden) float32, the
+    block absmaxes and the A codes (M, max(C, hidden)) int8."""
     c = x.shape[-1]
     hidden = w1.codes.shape[0]
     (xm, b1, b2), (gamma, beta) = check_operands(
@@ -324,14 +362,35 @@ def mlp_block_q8_cuda(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2):
     h = torch.empty(m, hidden, dtype=torch.float32, device=x.device)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
     amax = torch.empty(2 * (m // blk), dtype=torch.int32, device=x.device)
-    launch_checked("mlp_block", _launch_q8_fn(), xm, gamma, beta, w1c, s1,
-                   b1, w2c, s2, b2, h, stats, amax, y, m, c, hidden, blk,
-                   DTYPE_CODES[x.dtype])
-    mlp_block_q8_cuda.launches += 1
+    codes = torch.empty(m, max(c, hidden), dtype=torch.int8, device=x.device)
+    launch_checked("mlp_block", _launch_q8_fn(loop), xm, gamma, beta, w1c, s1,
+                   b1, w2c, s2, b2, h, stats, amax, codes, y, m, c, hidden,
+                   blk, DTYPE_CODES[x.dtype])
+    counter.launches += 1
+    swin_gemm.count("mlp_block", "int8", mlp_products(c, hidden), loop)
     return y
 
 
+def mlp_block_q8_cuda(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2):
+    """Launch K4's int8 branch on x's device and current stream: as
+    ``mlp_block_cuda``, with w1 and w2 as ``Q8Weight``s and one activation
+    scale per ``token_block(T)`` tokens. ``launches`` counts the launches
+    made through this wrapper."""
+    return launch_mlp_block_q8(x, gamma, beta, w1, b1, w2, b2,
+                               counter=mlp_block_q8_cuda)
+
+
 mlp_block_q8_cuda.launches = 0
+
+
+def mlp_block_q8_loop_cuda(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight,
+                           b2):
+    """K4's int8 branch on the ``mma.sync`` loop: the parent."""
+    return launch_mlp_block_q8(x, gamma, beta, w1, b1, w2, b2,
+                               counter=mlp_block_q8_loop_cuda, loop=True)
+
+
+mlp_block_q8_loop_cuda.launches = 0
 
 
 def mlp_block_fused(x, gamma, beta, w1, b1, w2, b2, *, quant: bool = False,

@@ -7,9 +7,10 @@ Counterpart of ``computervision_codes_tpu/ops/swin_block.py``: over x
 
 with K3's numerics for the attention half and K4's for the MLP half. The
 CUDA entry point (``csrc/swin_block.cu``) runs both halves' device phases
-from one call, with y in a device scratch; its plain version is the chain
-of theirs, which is what the JAX ``swin_block_reference`` is, but for the
-last rounding below.
+from one call (the four products on the Swin GEMM core,
+``ops/swin_gemm.py``), with y in a device scratch; its plain version is
+the chain of theirs, which is what the JAX ``swin_block_reference`` is, but
+for the last rounding below.
 
 The merged TPU kernel rounds ``o + b2`` to x's dtype before it adds y
 (``swin_block.py:121-124`` there, one hidden chunk, as at every native
@@ -37,10 +38,11 @@ import functools
 
 import torch
 
+from . import swin_gemm
 from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, check_operands,
                         check_q8, launch_checked, mlp_block_reference,
-                        mlp_q8_reference)
-from .window_mhsa import (HEAD_DIM, attention_operands,
+                        mlp_products, mlp_q8_reference)
+from .window_mhsa import (HEAD_DIM, attention_operands, attn_products,
                           window_mhsa_q8_reference, window_mhsa_reference)
 
 
@@ -65,23 +67,31 @@ def swin_block_reference(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask,
 
 
 @functools.cache
-def _launch_fn():
+def _launch_fn(loop: bool = False):
     """The C entry point of ``csrc/swin_block.cu`` (built on first use),
-    with its argument types declared."""
+    with its argument types declared; ``loop``: its ``_loop`` twin."""
     from ._build import load_library
 
-    fn = load_library("swin_block").swin_block_launch
+    lib = load_library("swin_block")
+    fn = lib.swin_block_loop_launch if loop else lib.swin_block_launch
     fn.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def swin_block_cuda(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
-                    be2, w1, b1, w2, b2, *, window: int, num_heads: int):
-    """Launch K5 on x's device and current stream. Takes what
-    ``window_mhsa_cuda`` and ``mlp_block_cuda`` take together.
-    ``launches`` counts the kernel launches made through this wrapper."""
+def block_products(c: int, hidden: int) -> list:
+    """(K, N) of a block's four products: QKV, proj, fc1, fc2."""
+    return attn_products(c) + mlp_products(c, hidden)
+
+
+def launch_swin_block(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
+                      be2, w1, b1, w2, b2, *, window: int, num_heads: int,
+                      counter, loop: bool = False):
+    """Launch K5's float path (``loop``: every product on the loop) on x's
+    device and current stream; add one to ``counter.launches`` and the four
+    products to ``swin_gemm.launches``. In bf16 the attn scratch holds
+    LN1(x), the attention output, then LN2(y)."""
     (x, wqkv, bqkv, wproj, bproj, bias), mask, (g1, be1) = \
         attention_operands("swin_block", x, g1, be1, wqkv, bqkv, wproj,
                            bproj, bias, mask, window, num_heads)
@@ -102,35 +112,65 @@ def swin_block_cuda(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
     new = functools.partial(torch.empty, dtype=x.dtype, device=x.device)
     qkv, attn, ybuf, h = new(m, 3 * c), new(m, c), new(m, c), new(m, hidden)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
-    launch_checked("swin_block", _launch_fn(), x, g1, be1, wqkv, bqkv, wproj,
-                   bproj, bias, mask, g2, be2, w1, b1, w2, b2, qkv, attn,
-                   ybuf, h, stats, out, b, hp, wp, c, num_heads, window,
+    launch_checked("swin_block", _launch_fn(loop), x, g1, be1, wqkv, bqkv,
+                   wproj, bproj, bias, mask, g2, be2, w1, b1, w2, b2, qkv,
+                   attn, ybuf, h, stats, out, b, hp, wp, c, num_heads, window,
                    hidden, HEAD_DIM ** -0.5, DTYPE_CODES[x.dtype])
-    swin_block_cuda.launches += 1
+    counter.launches += 1
+    swin_gemm.count("swin_block", swin_gemm.operand_kind(x.dtype),
+                    block_products(c, hidden), loop)
     return out
+
+
+def swin_block_cuda(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
+                    be2, w1, b1, w2, b2, *, window: int, num_heads: int):
+    """Launch K5 on x's device and current stream. Takes what
+    ``window_mhsa_cuda`` and ``mlp_block_cuda`` take together.
+    ``launches`` counts the kernel launches made through this wrapper."""
+    return launch_swin_block(x, g1, be1, wqkv, bqkv, wproj, bproj, bias,
+                             mask, g2, be2, w1, b1, w2, b2, window=window,
+                             num_heads=num_heads, counter=swin_block_cuda)
 
 
 swin_block_cuda.launches = 0
 
 
+def swin_block_loop_cuda(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask,
+                         g2, be2, w1, b1, w2, b2, *, window: int,
+                         num_heads: int):
+    """K5 with every product on the loop: the parent that
+    ``chip_smoke.py`` compares against."""
+    return launch_swin_block(x, g1, be1, wqkv, bqkv, wproj, bproj, bias,
+                             mask, g2, be2, w1, b1, w2, b2, window=window,
+                             num_heads=num_heads,
+                             counter=swin_block_loop_cuda, loop=True)
+
+
+swin_block_loop_cuda.launches = 0
+
+
 @functools.cache
-def _launch_q8_fn():
-    """The int8 branch's C entry point in ``csrc/swin_block.cu``."""
+def _launch_q8_fn(loop: bool = False):
+    """The int8 branch's C entry point in ``csrc/swin_block.cu`` (``loop``:
+    its ``_loop`` twin)."""
     from ._build import load_library
 
-    fn = load_library("swin_block").swin_block_q8_launch
-    fn.argtypes = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 7
+    lib = load_library("swin_block")
+    fn = lib.swin_block_q8_loop_launch if loop else lib.swin_block_q8_launch
+    fn.argtypes = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def swin_block_q8_cuda(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
-                       bproj, bias, mask, g2, be2, w1: Q8Weight, b1,
-                       w2: Q8Weight, b2, *, window: int, num_heads: int):
-    """Launch K5's int8 branch on x's device and current stream: as
-    ``swin_block_cuda``, with the four weights as ``Q8Weight``s.
-    ``launches`` counts the launches made through this wrapper."""
+def launch_swin_block_q8(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
+                         bproj, bias, mask, g2, be2, w1: Q8Weight, b1,
+                         w2: Q8Weight, b2, *, window: int, num_heads: int,
+                         counter, loop: bool = False):
+    """Launch K5's int8 branch (``loop``: on the ``mma.sync`` loop); add one
+    to ``counter.launches`` and the four products to
+    ``swin_gemm.launches``. The A codes scratch is (M, max(C, hidden))
+    int8, shared by the four products in turn."""
     mats, mask, (g1, be1) = attention_operands(
         "swin_block", x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask,
         window, num_heads, quant=True)
@@ -156,16 +196,44 @@ def swin_block_q8_cuda(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
     strips = b * (hp // window)
     amax = torch.empty(strips * (3 + wp // window), dtype=torch.int32,
                        device=x.device)
-    launch_checked("swin_block", _launch_q8_fn(), x, g1, be1, wq, sq, bqkv,
-                   wpc, sp, bproj, bias, mask, g2, be2, w1c, s1, b1, w2c, s2,
-                   b2, qkv, attn, ybuf, h, stats, amax, out, b, hp, wp, c,
-                   num_heads, window, hidden, HEAD_DIM ** -0.5,
+    codes = torch.empty(m, max(c, hidden), dtype=torch.int8, device=x.device)
+    launch_checked("swin_block", _launch_q8_fn(loop), x, g1, be1, wq, sq,
+                   bqkv, wpc, sp, bproj, bias, mask, g2, be2, w1c, s1, b1,
+                   w2c, s2, b2, qkv, attn, ybuf, h, stats, amax, codes, out,
+                   b, hp, wp, c, num_heads, window, hidden, HEAD_DIM ** -0.5,
                    DTYPE_CODES[x.dtype])
-    swin_block_q8_cuda.launches += 1
+    counter.launches += 1
+    swin_gemm.count("swin_block", "int8", block_products(c, hidden), loop)
     return out
 
 
+def swin_block_q8_cuda(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
+                       bproj, bias, mask, g2, be2, w1: Q8Weight, b1,
+                       w2: Q8Weight, b2, *, window: int, num_heads: int):
+    """Launch K5's int8 branch on x's device and current stream: as
+    ``swin_block_cuda``, with the four weights as ``Q8Weight``s.
+    ``launches`` counts the launches made through this wrapper."""
+    return launch_swin_block_q8(x, g1, be1, wqkv, bqkv, wproj, bproj, bias,
+                                mask, g2, be2, w1, b1, w2, b2, window=window,
+                                num_heads=num_heads,
+                                counter=swin_block_q8_cuda)
+
+
 swin_block_q8_cuda.launches = 0
+
+
+def swin_block_q8_loop_cuda(x, g1, be1, wqkv: Q8Weight, bqkv,
+                            wproj: Q8Weight, bproj, bias, mask, g2, be2,
+                            w1: Q8Weight, b1, w2: Q8Weight, b2, *,
+                            window: int, num_heads: int):
+    """K5's int8 branch on the ``mma.sync`` loop: the parent."""
+    return launch_swin_block_q8(x, g1, be1, wqkv, bqkv, wproj, bproj, bias,
+                                mask, g2, be2, w1, b1, w2, b2, window=window,
+                                num_heads=num_heads,
+                                counter=swin_block_q8_loop_cuda, loop=True)
+
+
+swin_block_q8_loop_cuda.launches = 0
 
 
 def swin_block_fused(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,

@@ -34,7 +34,8 @@ the kernel include that row.
 
 ``window_mhsa_fused`` dispatches on the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel
-(``csrc/window_mhsa.cu``), anything else raises.
+(``csrc/window_mhsa.cu``; its QKV and proj products on the Swin GEMM core,
+``ops/swin_gemm.py``), anything else raises.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import functools
 
 import torch
 
+from . import swin_gemm
 from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, block_absmax,
                         check_operands, check_q8, check_res_add,
                         launch_checked, layer_norm_f32, layer_norm_float32,
@@ -199,12 +201,14 @@ def attention_operands(what, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
 
 
 @functools.cache
-def _launch_fn():
+def _launch_fn(loop: bool = False):
     """The C entry point of ``csrc/window_mhsa.cu`` (built on first use),
-    with its argument types declared."""
+    with its argument types declared; ``loop``: its ``_loop`` twin, every
+    product on the loop."""
     from ._build import load_library
 
-    fn = load_library("window_mhsa").window_mhsa_launch
+    lib = load_library("window_mhsa")
+    fn = lib.window_mhsa_loop_launch if loop else lib.window_mhsa_launch
     fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
@@ -212,16 +216,24 @@ def _launch_fn():
     return fn
 
 
+def attn_products(c: int) -> list:
+    """(K, N) of the attention half's two products: QKV and proj."""
+    return [(c, 3 * c), (c, c)]
+
+
 def launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                        mask, *, window: int, num_heads: int, res_add: bool,
-                       counter):
+                       counter, loop: bool = False):
     """Launch the float path of ``csrc/window_mhsa.cu`` on x's device and
     current stream, with or without the residual, and add one to
-    ``counter.launches`` (K3's or K6's wrapper) when the kernel launches.
+    ``counter.launches`` (K3's or K6's wrapper) when the kernel launches,
+    and its two products to ``swin_gemm.launches`` by path. ``loop``: every
+    product on the loop (the parent's entry point).
 
     x (B, Hp, Wp, C) float32 or bfloat16, Hp and Wp multiples of ``window``
     (<= 12), head_dim 32, C % 64 == 0; weights and biases in x's dtype;
     gamma, beta in any float dtype; bias and mask are cast to x's dtype.
+    In bf16 the attn scratch holds LN(x) for the QKV product first.
     """
     (x, wqkv, bqkv, wproj, bproj, bias), mask, (gamma, beta) = \
         attention_operands("window_mhsa", x, gamma, beta, wqkv, bqkv, wproj,
@@ -234,11 +246,13 @@ def launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     qkv = torch.empty(m, 3 * c, dtype=x.dtype, device=x.device)
     attn = torch.empty(m, c, dtype=x.dtype, device=x.device)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
-    launch_checked("window_mhsa", _launch_fn(), x, gamma, beta, wqkv, bqkv,
-                   wproj, bproj, bias, mask, qkv, attn, stats, y, b, hp, wp,
-                   c, num_heads, window, HEAD_DIM ** -0.5, int(res_add),
+    launch_checked("window_mhsa", _launch_fn(loop), x, gamma, beta, wqkv,
+                   bqkv, wproj, bproj, bias, mask, qkv, attn, stats, y, b, hp,
+                   wp, c, num_heads, window, HEAD_DIM ** -0.5, int(res_add),
                    DTYPE_CODES[x.dtype])
     counter.launches += 1
+    swin_gemm.count("window_mhsa", swin_gemm.operand_kind(x.dtype),
+                    attn_products(c), loop)
     return y
 
 
@@ -254,24 +268,41 @@ def window_mhsa_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
 window_mhsa_cuda.launches = 0
 
 
+def window_mhsa_loop_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                          mask, *, window: int, num_heads: int,
+                          res_add: bool = True):
+    """K3 (or, with ``res_add=False``, K6's branch) with both products on
+    the loop: the parent that ``chip_smoke.py`` compares against."""
+    return launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                              mask, window=window, num_heads=num_heads,
+                              res_add=res_add, counter=window_mhsa_loop_cuda,
+                              loop=True)
+
+
+window_mhsa_loop_cuda.launches = 0
+
+
 @functools.cache
-def _launch_q8_fn():
-    """The int8 branch's C entry point in ``csrc/window_mhsa.cu``."""
+def _launch_q8_fn(loop: bool = False):
+    """The int8 branch's C entry point in ``csrc/window_mhsa.cu`` (``loop``:
+    its ``_loop`` twin)."""
     from ._build import load_library
 
-    fn = load_library("window_mhsa").window_mhsa_q8_launch
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+    lib = load_library("window_mhsa")
+    fn = lib.window_mhsa_q8_loop_launch if loop else lib.window_mhsa_q8_launch
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def window_mhsa_q8_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
-                        wproj: Q8Weight, bproj, bias, mask, *, window: int,
-                        num_heads: int):
-    """Launch K3's int8 branch on x's device and current stream: as
-    ``window_mhsa_cuda``, with wqkv and wproj as ``Q8Weight``s.
-    ``launches`` counts the launches made through this wrapper."""
+def launch_window_mhsa_q8(x, gamma, beta, wqkv: Q8Weight, bqkv,
+                          wproj: Q8Weight, bproj, bias, mask, *, window: int,
+                          num_heads: int, counter, loop: bool = False):
+    """Launch K3's int8 branch (``loop``: on the ``mma.sync`` loop) on x's
+    device and current stream; add one to ``counter.launches`` and the two
+    products to ``swin_gemm.launches``. Scratch beside the float path's: the
+    strip and window absmaxes (int32) and the A codes (M, C) int8."""
     mats, mask, (gamma, beta) = attention_operands(
         "window_mhsa", x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
         window, num_heads, quant=True)
@@ -287,15 +318,42 @@ def window_mhsa_q8_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
     amax = torch.empty(strips * (1 + wp // window), dtype=torch.int32,
                        device=x.device)
-    launch_checked("window_mhsa", _launch_q8_fn(), x, gamma, beta, wq, sq,
-                   bqkv, wpc, sp, bproj, bias, mask, qkv, attn, stats, amax,
-                   y, b, hp, wp, c, num_heads, window, HEAD_DIM ** -0.5,
-                   DTYPE_CODES[x.dtype])
-    window_mhsa_q8_cuda.launches += 1
+    codes = torch.empty(m, c, dtype=torch.int8, device=x.device)
+    launch_checked("window_mhsa", _launch_q8_fn(loop), x, gamma, beta, wq,
+                   sq, bqkv, wpc, sp, bproj, bias, mask, qkv, attn, stats,
+                   amax, codes, y, b, hp, wp, c, num_heads, window,
+                   HEAD_DIM ** -0.5, DTYPE_CODES[x.dtype])
+    counter.launches += 1
+    swin_gemm.count("window_mhsa", "int8", attn_products(c), loop)
     return y
 
 
+def window_mhsa_q8_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
+                        wproj: Q8Weight, bproj, bias, mask, *, window: int,
+                        num_heads: int):
+    """Launch K3's int8 branch on x's device and current stream: as
+    ``window_mhsa_cuda``, with wqkv and wproj as ``Q8Weight``s.
+    ``launches`` counts the launches made through this wrapper."""
+    return launch_window_mhsa_q8(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                 bias, mask, window=window,
+                                 num_heads=num_heads,
+                                 counter=window_mhsa_q8_cuda)
+
+
 window_mhsa_q8_cuda.launches = 0
+
+
+def window_mhsa_q8_loop_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
+                             wproj: Q8Weight, bproj, bias, mask, *,
+                             window: int, num_heads: int):
+    """K3's int8 branch on the ``mma.sync`` loop: the parent."""
+    return launch_window_mhsa_q8(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                 bias, mask, window=window,
+                                 num_heads=num_heads,
+                                 counter=window_mhsa_q8_loop_cuda, loop=True)
+
+
+window_mhsa_q8_loop_cuda.launches = 0
 
 
 def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,

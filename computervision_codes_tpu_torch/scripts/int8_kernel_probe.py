@@ -5,22 +5,27 @@ times its Pallas kernels on the TPU. Over x (M, K) bf16 and a (K, N)
 weight, per shape:
 
   bf16   out = bf16(x w), float32 sums: the GEMM core of the shipped Swin
-         kernels (``csrc/swin_common.cuh``'s WMMA ``gemm_kernel``, run with
-         a zero bias);
+         kernels (``csrc/swin_gemm.cuh``'s TMA-fed wgmma GEMM, run with a
+         zero bias);
   int8w  weight-only int8: w as int8 codes, widened to bf16 on load,
-         out = bf16((x w) * s), s (1, N) float32 per output channel: the
-         same ``gemm_kernel`` with its int8 weight loader;
+         out = bf16((x w) * s), s (1, N) float32 per output channel:
+         ``csrc/swin_common.cuh``'s WMMA ``gemm_kernel`` with its int8
+         weight loader (wgmma cannot widen int8 operands);
   int8   dynamic int8 x int8 with one activation scale per block of ``blk``
          rows: amax = max|x_blk| + 1e-6, q = round(x * (127 / amax)),
          acc = q w exact in int32, out = bf16(acc * ((amax / 127) * s));
-         the shipped ``mma.sync`` s8 loop (``gemm_q8_kernel``).
+         the shipped quantize pass and s8 wgmma GEMM.
 
 Each has a plain PyTorch version (``gemm_*_reference``) and an entry point
 (``gemm_bf16``, ``gemm_int8w``, ``gemm_int8``) that takes the plain version
 for a CPU tensor and launches the hand-written kernel
 (``csrc/int8_kernel_probe.cu``) for a CUDA tensor; any other device
-raises. ``gemm_*_cuda.launches`` counts the kernel launches. The kernels
-take the shipped tiles' shapes: K % 32 == 0 and N % 64 == 0, any M.
+raises. ``gemm_*_cuda.launches`` counts the kernel launches, and
+``ops.swin_gemm.launches["int8_kernel_probe"]`` the products per path.
+``gemm_bf16_loop_cuda`` and ``gemm_int8_loop_cuda`` run bf16 and int8 on
+the loops the Swin kernels ran before (WMMA, ``mma.sync``): the parent
+that ``chip_smoke.py`` compares against. The kernels take the loops'
+shapes: K % 32 == 0 and N % 64 == 0, any M.
 
 The JAX probe hands int8w its codes as integer-valued bf16; here
 ``gemm_int8w`` takes the int8 codes (K, N) and widens them on load, the
@@ -58,12 +63,14 @@ import json
 import numpy as np
 import torch
 
-from ..ops.mlp_block import Q8Weight, aligned, launch_checked, mm_f32
+from ..ops import swin_gemm
+from ..ops.mlp_block import (Q8Weight, aligned, launch_checked, mm_f32,
+                             on_card)
 from ..utils.timing import bound, device_label, median_ms
 from . import on_device
 
 INV127 = float(np.float32(1.0 / 127.0))
-K_MULTIPLE, N_MULTIPLE = 32, 64  # the shipped GEMM tiles: K % 32, N % 64
+K_MULTIPLE, N_MULTIPLE = 32, 64  # the loops' tiles: K % 32, N % 64
 
 # (name, M, K, N, blk): the JAX probe's shapes (its main(), :100-120)
 SHAPES = [
@@ -139,8 +146,10 @@ def _lib():
 
     lib = load_library("int8_kernel_probe")
     for name, pointers, ints in (("probe_gemm_bf16_launch", 4, 3),
+                                 ("probe_gemm_bf16_loop_launch", 4, 3),
                                  ("probe_gemm_int8w_launch", 4, 3),
-                                 ("probe_gemm_int8_launch", 5, 4)):
+                                 ("probe_gemm_int8_launch", 6, 4),
+                                 ("probe_gemm_int8_loop_launch", 6, 4)):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
@@ -152,8 +161,7 @@ def _operands(what, x, w, w_dtype, k_first: bool):
     """Checked operands of a kernel: x (M, K) bf16 on a CUDA device; w of
     ``w_dtype`` on the same device, (K, N) when ``k_first``, else (N, K);
     K % 32 == 0 and N % 64 == 0. Returns x, w, M, K, N."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {x.device}")
+    on_card(what, x)
     if x.dtype != torch.bfloat16 or x.ndim != 2:
         raise ValueError(f"{what}: x must be (M, K) bfloat16, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -186,18 +194,33 @@ def _zero_bias(n: int, device: torch.device):
     return torch.zeros(n, dtype=torch.bfloat16, device=device)
 
 
-def gemm_bf16_cuda(x, w):
-    """P1's bf16 kernel on x's device and current stream: the shipped GEMM
-    with a zero bias."""
+def _bf16(x, w, counter, loop=False):
     x, w, m, k, n = _operands("gemm_bf16", x, w, torch.bfloat16, True)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
-    launch_checked("gemm_bf16", _lib().probe_gemm_bf16_launch, x, w,
+    lib = _lib()
+    launch_checked("gemm_bf16", lib.probe_gemm_bf16_loop_launch if loop
+                   else lib.probe_gemm_bf16_launch, x, w,
                    _zero_bias(n, x.device), out, m, n, k)
-    gemm_bf16_cuda.launches += 1
+    counter.launches += 1
+    swin_gemm.count("int8_kernel_probe", "bfloat16", [(k, n)], loop)
     return out
 
 
+def gemm_bf16_cuda(x, w):
+    """P1's bf16 kernel on x's device and current stream: the shipped GEMM
+    with a zero bias."""
+    return _bf16(x, w, gemm_bf16_cuda)
+
+
 gemm_bf16_cuda.launches = 0
+
+
+def gemm_bf16_loop_cuda(x, w):
+    """P1's bf16 on the WMMA loop: the parent."""
+    return _bf16(x, w, gemm_bf16_loop_cuda, loop=True)
+
+
+gemm_bf16_loop_cuda.launches = 0
 
 
 def gemm_int8w_cuda(x, wq, s):
@@ -208,27 +231,46 @@ def gemm_int8w_cuda(x, wq, s):
     launch_checked("gemm_int8w", _lib().probe_gemm_int8w_launch, x, wq, s,
                    out, m, n, k)
     gemm_int8w_cuda.launches += 1
+    swin_gemm.count("int8_kernel_probe", "int8w", [(k, n)])
     return out
 
 
 gemm_int8w_cuda.launches = 0
 
 
-def gemm_int8_cuda(x, w: Q8Weight, blk: int):
-    """P1's int8 kernel (the amax pass, then the GEMM): w codes (N, K)."""
+def _int8(x, w: Q8Weight, blk: int, counter, loop=False):
     x, codes, m, k, n = _operands("gemm_int8", x, w.codes, torch.int8,
                                   False)
     check_blk(m, blk)
     s = _scale(w.scale, n, x)
     amax = torch.empty(m // blk, dtype=torch.int32, device=x.device)
+    a_codes = torch.empty(m, k, dtype=torch.int8, device=x.device)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
-    launch_checked("gemm_int8", _lib().probe_gemm_int8_launch, x, codes, s,
-                   amax, out, m, n, k, blk)
-    gemm_int8_cuda.launches += 1
+    lib = _lib()
+    launch_checked("gemm_int8", lib.probe_gemm_int8_loop_launch if loop
+                   else lib.probe_gemm_int8_launch, x, codes, s, amax,
+                   a_codes, out, m, n, k, blk)
+    counter.launches += 1
+    swin_gemm.count("int8_kernel_probe", "int8", [(k, n)], loop)
     return out
 
 
+def gemm_int8_cuda(x, w: Q8Weight, blk: int):
+    """P1's int8 kernel (the amax pass, the quantize pass into an (M, K)
+    codes scratch, then the s8 wgmma GEMM): w codes (N, K)."""
+    return _int8(x, w, blk, gemm_int8_cuda)
+
+
 gemm_int8_cuda.launches = 0
+
+
+def gemm_int8_loop_cuda(x, w: Q8Weight, blk: int):
+    """P1's int8 on the ``mma.sync`` loop (quantizing on load): the
+    parent."""
+    return _int8(x, w, blk, gemm_int8_loop_cuda, loop=True)
+
+
+gemm_int8_loop_cuda.launches = 0
 
 
 def gemm_bf16(x, w, blk=None):

@@ -14,8 +14,9 @@ x (B, Hp, Wp, C) bf16, head_dim 32, window 12:
 All three compute one function, whose plain version is
 ``ops.window_mhsa.window_mhsa_reference(..., mask=None)``. ``mhsa_pack``
 and ``mhsa_batched`` take the plain version for a CPU tensor and launch
-the hand-written kernel (``csrc/swin_pack_probe.cu``: K3's phases around
-an attention phase of one block per (window, group)) for a CUDA tensor;
+the hand-written kernel (``csrc/swin_pack_probe.cu``: K3's phases, its
+products on the Swin GEMM core, around an attention phase of one block per
+(window, group)) for a CUDA tensor;
 any other device raises. ``mhsa_pack_cuda.launches`` and
 ``mhsa_batched_cuda.launches`` count the launches. The kernel takes bf16
 (the probe's dtype) and any window up to 12: a window of 7 (N = 49) is
@@ -52,8 +53,9 @@ import json
 import torch
 
 from ..models.swin import _relative_position_index
+from ..ops import swin_gemm
 from ..ops.mlp_block import launch_checked
-from ..ops.window_mhsa import (HEAD_DIM, attention_operands,
+from ..ops.window_mhsa import (HEAD_DIM, attention_operands, attn_products,
                                window_mhsa_fused, window_mhsa_reference)
 from ..utils.timing import bound, device_label, median_ms
 from . import on_device
@@ -77,10 +79,10 @@ def _lib():
     from ..ops._build import load_library
 
     lib = load_library("swin_pack_probe")
-    lib.swin_pack_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.swin_pack_launch.restype = ctypes.c_int
+    for fn in (lib.swin_pack_launch, lib.swin_pack_loop_launch):
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.swin_pack_chunk.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.swin_pack_chunk.restype = ctypes.c_int
     return lib
@@ -98,9 +100,11 @@ def staged_heads(group: int, window: int) -> int:
 
 
 def _launch(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, *, window,
-            num_heads, group, res_add, counter):
+            num_heads, group, res_add, counter, loop=False):
     """Launch ``csrc/swin_pack_probe.cu`` with ``group`` heads per block on
-    x's device and current stream; add one to ``counter.launches``."""
+    x's device and current stream (``loop``: its QKV and proj products on
+    the WMMA loop); add one to ``counter.launches`` and the two products to
+    ``swin_gemm.launches``."""
     (x, wqkv, bqkv, wproj, bproj, bias), _, (gamma, beta) = \
         attention_operands("swin_pack_probe", x, gamma, beta, wqkv, bqkv,
                            wproj, bproj, bias, None, window, num_heads)
@@ -113,11 +117,14 @@ def _launch(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, *, window,
     qkv = torch.empty(m, 3 * c, dtype=x.dtype, device=x.device)
     attn = torch.empty(m, c, dtype=x.dtype, device=x.device)
     stats = torch.empty(m, 2, dtype=torch.float32, device=x.device)
-    launch_checked("swin_pack_probe", _lib().swin_pack_launch, x, gamma,
-                   beta, wqkv, bqkv, wproj, bproj, bias, qkv, attn, stats, y,
-                   b, hp, wp, c, num_heads, window, group, HEAD_DIM ** -0.5,
-                   int(res_add))
+    lib = _lib()
+    launch_checked("swin_pack_probe",
+                   lib.swin_pack_loop_launch if loop else lib.swin_pack_launch,
+                   x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, qkv, attn,
+                   stats, y, b, hp, wp, c, num_heads, window, group,
+                   HEAD_DIM ** -0.5, int(res_add))
     counter.launches += 1
+    swin_gemm.count("swin_pack_probe", "bfloat16", attn_products(c), loop)
     return y
 
 
@@ -150,6 +157,20 @@ def mhsa_batched_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, *,
 
 
 mhsa_batched_cuda.launches = 0
+
+
+def mhsa_pack_loop_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, *,
+                        window: int, num_heads: int, group: int,
+                        res_add: bool = True):
+    """``mhsa_pack_cuda`` with its QKV and proj products on the WMMA loop:
+    the parent that ``chip_smoke.py`` times against."""
+    check_group(num_heads, group)
+    return _launch(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                   window=window, num_heads=num_heads, group=group,
+                   res_add=res_add, counter=mhsa_pack_loop_cuda, loop=True)
+
+
+mhsa_pack_loop_cuda.launches = 0
 
 
 def mhsa_pack(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, *,
