@@ -44,6 +44,19 @@ printing its own lines:
      the core and the loop it replaced (the ``*_loop_cuda`` wrappers)
      differ, counted with the largest difference; times of the kernel, the
      loop and the plain version in turns (K5 also beside K3 then K4);
+   - the window-attention phase alone (``csrc/window_attn.cuh``: each
+     warp's 16-query strips of scores in registers; the attention of K3,
+     K5 and K6 and the body of K10) on K3's packed qkv at Swin-L-384's
+     four stage shapes, Swin-L-224's window-7 stage 0, a ragged map and a
+     window of 4, shifted and not, bf16 and float32: against the plain
+     version in float32 rounded once (K10's bar) and in the working dtype
+     (REL_TOL), each window's absmax (the int8 branch's proj scales) equal
+     to its outputs' largest magnitude, and the outputs, window absmaxes
+     and int8 proj codes that differ from the previous design (the score
+     tile in shared memory, ``window_attn_phase_prev_cuda``) counted; both
+     designs in turns at the four stage shapes, shifted and not, beside
+     the plain version, SDPA (the yardstick only) and the bound; ptxas'
+     registers and spills of every instantiation;
    - the int8 branches of K3 (stage 2, shifted and not, and the window-7
      shape), K4 (stages 2 and 3) and K5 (stages 0 and 1, shifted and not)
      in bf16 and float32: the share of outputs more than one int8 step
@@ -69,10 +82,11 @@ printing its own lines:
    - K10 (window attention) in bf16 and float32 at Swin-L-384's four stage
      shapes, shifted and not, Swin-L-224's window-7 stage 0 and ragged
      masks (nW < 8, N = 49), through both TPU entry points, against the
-     plain version in float32 rounded once and in bf16; its time at the
-     stage shapes and summed over the 24 launches of a forward, and in
-     float32 at stage 0, beside the plain version's, SDPA's (the yardstick
-     only) and its bound;
+     plain version in float32 rounded once and in bf16, the outputs that
+     differ from the previous design's (``window_attention_prev_cuda``)
+     counted; its time at the stage shapes and summed over the 24 launches
+     of a forward, and in float32 at stage 0, beside the previous design's,
+     the plain version's, SDPA's (the yardstick only) and its bound;
    - K6 (the training branches ``window_mhsa_branch`` and
      ``mlp_block_branch``: K3 and K4 at ``res_add=False``) in bf16 and
      float32 at the Swin-L-384 training step's batch-8 shapes of stages
@@ -199,7 +213,11 @@ paths the cp.async-fed wgmma, on the teacher's the TMA-fed one, each after
 a quantize pass, and the loop on none; the Swin GEMM core's products per
 path: on the teachers and the training steps wgmma only, none on the
 loops or the FMA loop, and each library's C counts equal to the counts
-``ops/swin_gemm.py``'s rule gives its wrappers); K5's int8
+``ops/swin_gemm.py``'s rule gives its wrappers; the window-attention
+phase's launches per design, "window_attn": 22 per predict of either Swin
+teacher, 24 per path-B forward, 44 per training step, in the current
+design, none on any path in the previous one, each library's C counts
+equal to its wrappers'); K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
@@ -220,7 +238,11 @@ formulations beside; K3-K6's, P1's and P2's entries with the loop's time
 as ``loop_ms``; ``swin_gemm``, the Swin GEMM core: bf16 at MLP1 s3 beside
 ``torch.matmul``, int8 beside ``torch._int_mm``, its times at every P1
 shape, K3/K4/K5/K6 against the loop and its products per path on each
-main path), and the last line
+main path; ``window_attn``, the window-attention phase: bf16 at Swin-L-384
+stage 0 shifted beside SDPA, with the previous design's time as
+``prev_ms``, every stage shape's times, float32, the differences from the
+previous design, the registers and its launches per path), and the last
+line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
 exits non-zero at once.
@@ -231,6 +253,7 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -284,6 +307,11 @@ KERNELS = {
     "swin_gemm": "computervision_codes_tpu/ops/window_mhsa.py:273, "
                  "ops/mlp_block.py:201, ops/swin_block.py:187 (the products "
                  "inside them); scripts/int8_kernel_probe.py:78,83",
+    "window_attn": "computervision_codes_tpu/ops/window_mhsa.py:73 "
+                   "(packed_window_attention, the attention of :273's "
+                   "_kernel, which K5 and K6 run too) + "
+                   "ops/window_attention.py:39, :85 (K10's _kernel, "
+                   "_kernel_multi)",
 }
 # the CUDA source of each (csrc/<source>.cu); K6's branches are K3's and
 # K4's float entry points without the residual
@@ -295,7 +323,7 @@ SOURCES = {name: name.removesuffix("_q8").removesuffix("_branch")
     k: "swin_pack_probe" for k in ("mhsa_pack", "mhsa_batched")}
 # the Swin GEMM core is a header that K3, K4, K5 (K6), P1 and P2 include;
 # its launches are its wgmma products, counted per path by ops/swin_gemm.py
-HEADERS = {"swin_gemm": "swin_gemm.cuh"}
+HEADERS = {"swin_gemm": "swin_gemm.cuh", "window_attn": "window_attn.cuh"}
 OFF_MAIN_PATH = {"swin_block_q8"}  # no serving path reaches it
 # the int8 branches against their plain versions: an int8 code of an input
 # can move by one where the kernel's float32 sums (LayerNorm statistics,
@@ -346,16 +374,19 @@ Q1_EXTRA = [("stem 7x7/2 Cin=3", 3, 64, 7, 2, 3, 256, 448),
 TASK_SIZES = {"ivt": 100, "i": 6, "v": 10, "t": 15}
 # the teacher: TeacherSession.create() at its defaults (Swin-L-384 Q2L,
 # loss "i", bf16), B x img x img uint8 frames per predict; per predict K5
-# runs at stages 0-1 (4 blocks), K3 + K4 at stage 2 (18), K4 at stage 3 (2)
+# runs at stages 0-1 (4 blocks), K3 + K4 at stage 2 (18), K4 at stage 3
+# (2), and the window-attention phase ("window_attn") once per K3 and K5
+# launch (22)
 TEACHER_BACKBONE, TEACHER_BATCH, TEACHER_IMG = "swin_L_384_22k", 16, 384
-TEACHER_LAUNCHES = {"window_mhsa": 18, "mlp_block": 20, "swin_block": 4}
-# the int8 teacher (quantize=True): K5 float at stages 0-1, the int8 K3 + K4
-# at stage 2 (18 each), the int8 K4 after the plain attention half at
-# stage 3 (2), and Q1 for the 26 Dense layers of >= 512 inputs (3 patch
-# merges, stage 3's qkv and proj, the input projection, 6 in the encoder
-# layer and 12 in the two decoder layers)
+TEACHER_LAUNCHES = {"window_mhsa": 18, "mlp_block": 20, "swin_block": 4,
+                    "window_attn": 22}
+# the int8 teacher (quantize=True): K5 float at stages 0-1, the int8 K3 +
+# K4 at stage 2 (18 each; the phase 22 again), the int8 K4 after the plain
+# attention half at stage 3 (2), and Q1 for the 26 Dense layers of >= 512
+# inputs (3 patch merges, stage 3's qkv and proj, the input projection, 6
+# in the encoder layer and 12 in the two decoder layers)
 TEACHER_Q8_LAUNCHES = {"swin_block": 4, "window_mhsa_q8": 18,
-                       "mlp_block_q8": 20, "qconv_bn": 26}
+                       "mlp_block_q8": 20, "qconv_bn": 26, "window_attn": 22}
 # the Swin GEMM core's wgmma products per predict of either teacher (4 per
 # K5 launch, 2 per K3 and K4: 16 + 36 + 40) and of the float32 int8
 # teacher (its int8 K3 and K4 only: K5's float32 products take the FMA
@@ -379,6 +410,18 @@ K4_CASES = [("SwinL-384 stage 2", 16 * 24 * 24, 768, 3072),
             ("ragged tokens", 1000, 192, 768)]
 K5_CASES = [("SwinL-384 stage 0", 16, 96, 192, 6, 12),
             ("SwinL-384 stage 1", 16, 48, 384, 12, 12)]
+# the window-attention phase alone (csrc/window_attn.cuh, the attention
+# of K3, K5, K6 and K10's body) on K3's packed qkv: (what, B, map side or
+# (Hp, Wp), heads, window), shifted by window // 2 and not where the map
+# holds more than one window; timed at the first four (Swin-L-384's
+# stages), in float32 at stage 0
+ATTN_CASES = [("SwinL-384 stage 0", 16, 96, 6, 12),
+              ("SwinL-384 stage 1", 16, 48, 12, 12),
+              ("SwinL-384 stage 2", 16, 24, 24, 12),
+              ("SwinL-384 stage 3", 16, 12, 48, 12),
+              ("SwinL-224 stage 0, window 7", 16, 56, 6, 7),
+              ("ragged, 3 x 21x14", 3, (21, 14), 2, 7),
+              ("window 4", 2, 8, 2, 4)]
 # the int8 branches: K3 at stage 2 and the window-7 shape (padded queries),
 # K4 at stages 2 and 3, K5 at stages 0 and 1
 K3_Q8_CASES = K3_CASES[:2]
@@ -438,8 +481,9 @@ K9_RAGGED = [(3, 7, 5, 3), (1, 13, 11, 76), (2, 9, 7, 20), (2, 5, 3, 6),
              (4, 3, 3, 608)]
 # path B: build_swin("swin_L_384_22k", use_fused_attn=True), a bf16 eval
 # forward of 16 frames: every block's attention core on K10, 24 launches
-# (2 + 2 + 18 + 2 blocks), no K3, K4 or K5
-SWIN_FUSED_LAUNCHES = {"window_attention": 24}
+# (2 + 2 + 18 + 2 blocks, each one launch of the window-attention phase's
+# body, "window_attn"), no K3, K4 or K5
+SWIN_FUSED_LAUNCHES = {"window_attention": 24, "window_attn": 24}
 SWIN_FUSED_CALLS = 3  # timed forwards of each plan, in turns
 # K10 at Swin-L-384's four stage shapes and Swin-L-224's window-7 stage 0:
 # (what, B, map side, heads, window, blocks of the stage at Swin-L-384);
@@ -482,7 +526,8 @@ K6_GRAD_MLP = ("SwinL-384 stage 2, batch 2", 2 * 24 * 24, 768, 3072)
 # per block of stages 0-2 (22) in the forward and once more in the remat
 # replay; TRAIN_STEPS steps of each plan in turns on one fixed batch, the
 # first TRAIN_WARM warming up and the next TRAIN_TIMED timed
-TRAIN_LAUNCHES = {"window_mhsa_branch": 44, "mlp_block_branch": 44}
+TRAIN_LAUNCHES = {"window_mhsa_branch": 44, "mlp_block_branch": 44,
+                  "window_attn": 44}
 TRAIN_GEMMS = {"swin_gemm": 176}  # bf16: 2 products a branch launch
 TRAIN_STEPS, TRAIN_WARM, TRAIN_TIMED = 20, 2, 10
 TRAIN_POSITIVE = 0.3  # the share of positive labels, seeded multi-hot
@@ -689,11 +734,22 @@ def gemm_counts() -> dict:
             for path in swin_gemm.PATHS}
 
 
+def attn_counts() -> dict:
+    """The window-attention phase's launches per design, summed over the
+    libraries that run it (the wrappers' counts)."""
+    from computervision_codes_tpu_torch.ops import window_attention
+
+    return {d: sum(c[d] for c in window_attention.phase_launches.values())
+            for d in window_attention.DESIGNS}
+
+
 def launches() -> dict:
     """Every kernel's launches; the Swin GEMM core's are its wgmma
-    products."""
+    products, the window-attention phase's its launches in the current
+    design."""
     return {name: fn.launches for name, fn in kernel_wrappers().items()} | {
-        "swin_gemm": gemm_counts()["wgmma"]}
+        "swin_gemm": gemm_counts()["wgmma"],
+        "window_attn": attn_counts()["regs"]}
 
 
 def check_gemm_counts(what: str) -> dict:
@@ -709,16 +765,31 @@ def check_gemm_counts(what: str) -> dict:
     return gemm_counts()
 
 
+def check_attn_counts(what: str) -> dict:
+    """Each C library's own attention-phase launches per design equal its
+    wrappers' counts; returns the summed counts."""
+    from computervision_codes_tpu_torch.ops import window_attention
+
+    for lib in window_attention.PHASE_LIBRARIES:
+        got = window_attention.library_phase_launches(lib)
+        check(got == window_attention.phase_launches[lib],
+              f"{what}: {lib}'s C library counts attention phases {got}, "
+              f"its wrappers {window_attention.phase_launches[lib]}")
+    return attn_counts()
+
+
 def q1_counts() -> dict:
     """Q1's count per path, as "qconv_bn <path>"."""
     return {f"qconv_bn {name}": n for name, n in q1_launches().items()}
 
 
 def path_launches() -> dict:
-    """Every kernel's count, Q1's per path and the Swin GEMM core's per
-    path (as "swin_gemm <path>")."""
+    """Every kernel's count, Q1's per path, the Swin GEMM core's per path
+    (as "swin_gemm <path>") and the window-attention phase's previous
+    design (as "window_attn prev")."""
     return launches() | q1_counts() | {
-        f"swin_gemm {path}": n for path, n in gemm_counts().items()}
+        f"swin_gemm {path}": n for path, n in gemm_counts().items()} | {
+        "window_attn prev": attn_counts()["prev"]}
 
 
 def launched_since(before: dict) -> dict:
@@ -759,6 +830,43 @@ def phase_build() -> None:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} ptxas: {line.strip()}")
+    for name, row in attn_registers().items():
+        print(f"[build] window_attn {name}: {row}")
+
+
+def attn_registers() -> dict:
+    """ptxas' registers and spills of each instantiation of the
+    window-attention phase's kernels (K3's and K10's, current design and
+    previous), by library, dtype and 16-query strips."""
+    from computervision_codes_tpu_torch.ops import _build
+
+    kernels = {"window_attn_regs_kernel": "K3 phase",
+               "window_attention_kernel": "K10",
+               "window_attn_kernel": "K3 phase prev",
+               "window_attention_prev_kernel": "K10 prev"}
+    rows, current = {}, None
+    for lib in ("window_mhsa", "window_attention"):
+        for line in _build.build_logs.get(lib, "").splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                current = m.group(1)
+                continue
+            if current is None:
+                continue
+            if "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                kind = next((v for k, v in kernels.items()
+                             if re.search(rf"\d{k}I", current)), None)
+                if kind:
+                    dtype = "bf16" if "nv_bfloat16" in current else "f32"
+                    nt = re.search(r"Li(\d+)E", current)
+                    key = f"{kind} {dtype}" + (f" NT={nt.group(1)}"
+                                               if nt else "")
+                    rows[key] = f"{regs} registers; {spill}"
+                current = None
+    return rows
 
 
 def phase_k1(card: str) -> dict:
@@ -945,13 +1053,16 @@ def check_q1_paths(before: dict, calls: int, path: str, what: str) -> None:
 
 
 def reset_launches() -> None:
-    """Every kernel's count, Q1's per path and the Swin GEMM core's per
-    path (the wrappers' and the C libraries'), to 0."""
+    """Every kernel's count, Q1's per path, the Swin GEMM core's per path
+    and the window-attention phase's per design (the wrappers' and the C
+    libraries'), to 0."""
     from computervision_codes_tpu_torch.ops import swin_gemm
+    from computervision_codes_tpu_torch.ops import window_attention
 
     for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values()):
         fn.launches = 0
     swin_gemm.reset_launches()
+    window_attention.reset_phase_launches()
 
 
 def q1_walk_frames(ho: int, wo: int, cout: int) -> int:
@@ -1292,6 +1403,160 @@ def phase_k3(card: str) -> dict:
             "plain_ms": ms["plain"],
             **bound(*attn_work(b, hw, hw, c, heads, w, True, 2), "bf16"),
             "library_ms": None, "loop_ms": ms["loop"]}
+
+
+def attn_inputs(b, hp, wp, heads, w, dtype, seed):
+    """K3's packed qkv (B, Hp, Wp, 3C) and a unit-normal bias (heads, N,
+    N), made on the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c, n = heads * 32, w * w
+    qkv = torch.randn(b, hp, wp, 3 * c, generator=g, device=DEVICE)
+    bias = torch.randn(heads, n, n, generator=g, device=DEVICE)
+    return qkv.to(dtype), bias.to(dtype)
+
+
+def phase_attn(card: str) -> dict:
+    """The window-attention phase alone on K3's packed qkv, the current
+    design (``window_attn_phase_cuda``: the scores in registers) against
+    the plain version in float32 rounded once (K10's bar) and in the
+    working dtype (K3's REL_TOL), with each window's absmax (the int8
+    branch's proj scales) equal to its outputs' largest magnitude; the
+    outputs, window absmaxes and int8 proj codes in which it differs from
+    the previous design (``window_attn_phase_prev_cuda``) counted; then
+    both designs in turns at Swin-L-384's four stage shapes, shifted and
+    not, beside the plain version, SDPA (the yardstick only) and the
+    bound."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_attn_phase_cuda, window_attn_phase_prev_cuda,
+        window_attn_phase_reference, window_partition)
+
+    main_err, differ = 0.0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst, cases = (-1.0, None), 0
+        for seed, (what, b, hw, heads, w) in enumerate(ATTN_CASES):
+            hp, wp = geometry(hw)
+            c = heads * 32
+            qkv, bias = attn_inputs(b, hp, wp, heads, w, dtype, seed)
+            rows = swin_gemm.scale_blocks(b * hp * wp, hp=hp, wp=wp,
+                                          window=w).to(DEVICE)
+            for shift in (0, w // 2) if min(hp, wp) > w else (0,):
+                mask = swin_mask(hp, wp, w, shift)
+                mask = None if mask is None else mask.to(dtype)
+                kw = dict(window=w, num_heads=heads, absmax=True)
+                tag = f"window_attn {str(dtype)[6:]} {what} shift={shift}"
+                got, amax = window_attn_phase_cuda(qkv, bias, mask, **kw)
+                old, old_amax = window_attn_phase_prev_cuda(qkv, bias, mask,
+                                                            **kw)
+                want, _ = window_attn_phase_reference(
+                    qkv.float(), bias.float(),
+                    None if mask is None else mask.float(), **kw)
+                want = want.to(dtype).float()
+                check(got.shape == want.shape,
+                      f"{tag}: shape {tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+                top = want.abs().max().item()
+                err = (got.float() - want).abs().max().item()
+                tol = float(K10_BF16_ULPS * bf16_ulp(top)
+                            if dtype == torch.bfloat16 else K10_F32_REL * top)
+                check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol}")
+                compare(f"{tag} vs the plain version in "
+                        f"{str(dtype)[6:]}", got,
+                        window_attn_phase_reference(qkv, bias, mask,
+                                                    window=w,
+                                                    num_heads=heads), dtype)
+                # the absmax is the largest |output| of each window (an
+                # odd window's padded query may raise it)
+                per_window = window_partition(got.float(), w).abs().amax(
+                    dim=(1, 2))
+                check(torch.equal(amax, per_window) if w % 2 == 0 else
+                      bool((amax >= per_window).all()),
+                      f"{tag}: window absmax is not the outputs' largest "
+                      f"magnitude")
+                codes, old_codes = (
+                    swin_gemm.quantize_codes_reference(
+                        o.float().reshape(-1, c), a[rows][:, None])
+                    for o, a in ((got, amax), (old, old_amax)))
+                d = (got.float() - old.float()).abs()
+                differ[f"{str(dtype)[6:]} {what} shift={shift}"] = (
+                    int((d > 0).sum()), d.max().item(),
+                    int((amax != old_amax).sum()),
+                    int((codes != old_codes).sum()))
+                if err / tol >= worst[0]:
+                    worst = (err / tol, (what, shift, err, tol))
+                if dtype == torch.bfloat16 and what.startswith("SwinL-384"):
+                    main_err = max(main_err, err)
+                cases += 1
+                del got, old, want, codes, old_codes, d
+            del qkv, bias, rows
+        print(f"[kernels] window_attn {str(dtype)[6:]}: {cases} cases within "
+              f"tolerance of the float32 plain version rounded once ("
+              + (f"{K10_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
+                 else f"{K10_F32_REL:g} x") + f" max|ref|) and of the "
+              f"{str(dtype)[6:]} plain version ({REL_TOL[dtype]:g} x "
+              f"max|ref|), window absmaxes equal to the outputs' largest "
+              f"magnitude; worst (case, shift, err, tol) = {worst[1]}")
+    print(f"[kernels] window_attn against the previous design (outputs "
+          f"that differ, largest difference, window absmaxes that differ, "
+          f"int8 proj codes that differ): {differ}")
+
+    # times, bf16, at the four stage shapes shifted and not (the mask in
+    # bf16, as the model passes it), beside the plain version and SDPA over
+    # q, k, v views of one (BW, N, 3, H, 32) tensor with bias + mask as one
+    # (BW, H, N, N) mask (as phase_k10), and the bound
+    def timed(what, b, side, heads, w, shift, dtype, reps):
+        nw, n = (side // w) ** 2, w * w
+        qkv, bias = attn_inputs(b, side, side, heads, w, dtype, 99)
+        mask = swin_mask(side, side, w, shift)
+        mask = None if mask is None else mask.to(dtype)
+        q, k, v, _ = k10_inputs(b * nw, heads, n, dtype, 98)
+        full = bias[None].expand(b * nw, -1, -1, -1).contiguous()
+        if mask is not None:
+            full += mask.repeat(b, 1, 1)[:, None]
+        kw = dict(window=w, num_heads=heads)
+        ms, runs = in_turns(
+            {"new": lambda: window_attn_phase_cuda(qkv, bias, mask, **kw),
+             "prev": lambda: window_attn_phase_prev_cuda(qkv, bias, mask,
+                                                         **kw),
+             "plain": lambda: window_attn_phase_reference(qkv, bias, mask,
+                                                          **kw),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=full, scale=32 ** -0.5)},
+            {"new": reps, "prev": reps, "plain": 3, "sdpa": reps})
+        bnd = k10_bound(b * nw, heads, n, nw, mask is not None, dtype)
+        print(f"[kernels] window_attn time {str(dtype)[6:]} {what} (BW, H, "
+              f"N) = ({b * nw}, {heads}, {n}) shift={shift}: new "
+              f"{ms['new']:.4f} ms, previous {ms['prev']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
+              f"{runs}; {card}")
+        del qkv, bias, q, k, v, full
+        return ms | bnd
+
+    times = {}
+    for what, b, side, heads, w in ATTN_CASES[:4]:
+        for shift in (0, w // 2) if side > w else (0,):
+            times[f"{what} shift={shift}"] = timed(
+                what, b, side, heads, w, shift, torch.bfloat16, 20)
+    what, b, side, heads, w = ATTN_CASES[0]
+    f32 = timed(what, b, side, heads, w, w // 2, torch.float32, 10)
+    t = times[f"{what} shift={w // 2}"]
+    return {"max_abs_err": main_err, "ms": t["new"], "plain_ms": t["plain"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["sdpa"], "prev_ms": t["prev"],
+            "ms_by_shape": {k: {"ms": v["new"], "prev_ms": v["prev"],
+                                "plain_ms": v["plain"],
+                                "library_ms": v["sdpa"],
+                                "bound_ms": v["bound_ms"]}
+                            for k, v in times.items()},
+            "float32": {"ms": f32["new"], "prev_ms": f32["prev"],
+                        "plain_ms": f32["plain"], "library_ms": f32["sdpa"],
+                        "bound_ms": f32["bound_ms"],
+                        "bound_by": f32["bound_by"]},
+            "differ_from_prev": {k: dict(zip(("outputs", "largest",
+                                              "absmaxes", "int8_codes"), v))
+                                 for k, v in differ.items()},
+            "registers": attn_registers()}
 
 
 def phase_k4(card: str) -> dict:
@@ -2885,7 +3150,7 @@ def phase_k10(card: str) -> dict:
     from computervision_codes_tpu_torch.models.swin import shift_mask
     from computervision_codes_tpu_torch.ops.window_attention import (
         window_attention_pallas, window_attention_pallas_multi,
-        window_attention_reference)
+        window_attention_prev_cuda, window_attention_reference)
 
     cases = []
     for what, b, side, heads, w, _ in K10_CASES:
@@ -2902,12 +3167,14 @@ def phase_k10(card: str) -> dict:
         cases.append((what, bw, heads, n, nw, mask))
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        worst, worst_plain = (-1.0, None), (-1.0, None)
+        worst, worst_plain, differ = (-1.0, None), (-1.0, None), {}
         for seed, (what, bw, heads, n, nw, mask) in enumerate(cases):
             q, k, v, bias = k10_inputs(bw, heads, n, dtype, seed)
             entry = (window_attention_pallas_multi if seed % 2 == 0
                      else window_attention_pallas)
             got = entry(q, k, v, bias, mask, nw)
+            differ[what] = new_vs_old(
+                got, window_attention_prev_cuda(q, k, v, bias, mask, nw))
             m32 = None if mask is None else mask.to(dtype).float()
             want = window_attention_reference(
                 q.float(), k.float(), v.float(), bias.float(), m32, nw).to(
@@ -2940,7 +3207,9 @@ def phase_k10(card: str) -> dict:
               f"tolerance of the float32 plain version rounded once ("
               + (f"{K10_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
                  else f"{K10_F32_REL:g} x") + f" max|ref|), half through "
-              f"each TPU entry point; worst (case, err, tol) = {worst[1]}")
+              f"each TPU entry point; worst (case, err, tol) = {worst[1]}; "
+              f"against the previous design (outputs that differ, largest "
+              f"difference) {differ}")
         if dtype == torch.bfloat16:
             print(f"[kernels] K10 bf16 against the bf16 plain version: "
                   f"within {K10_PLAIN_BF16_ULPS} ulps of max|ref|; worst "
@@ -2962,28 +3231,32 @@ def phase_k10(card: str) -> dict:
         ms, runs = in_turns(
             {"kernel": lambda: window_attention_pallas_multi(
                 q, k, v, bias, mask, nw),
+             "prev": lambda: window_attention_prev_cuda(q, k, v, bias, mask,
+                                                        nw),
              "plain": lambda: window_attention_reference(q, k, v, bias,
                                                          mask, nw),
              "sdpa": lambda: F.scaled_dot_product_attention(
                  q, k, v, attn_mask=full, scale=32 ** -0.5)},
-            {"kernel": 20, "plain": 5, "sdpa": 20})
+            {"kernel": 20, "prev": 20, "plain": 5, "sdpa": 20})
         bnd = k10_bound(bw, heads, n, nw, mask is not None, torch.bfloat16)
         times[what] = ms | bnd | {"blocks": blocks}
         flops = 4 * bw * heads * n * n * 32
         print(f"[kernels] K10 time bf16 {what} (BW, H, N, D) = ({bw}, "
               f"{heads}, {n}, 32){' shifted' if mask is not None else ''}: "
               f"kernel {ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f}"
-              f" TFLOP/s), plain {ms['plain']:.4f} ms, SDPA "
-              f"{ms['sdpa']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_detail']}); runs {runs}; {card}")
+              f" TFLOP/s), previous design {ms['prev']:.4f} ms, plain "
+              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
+              f"{runs}; {card}")
         del q, k, v, full
     forward = {key: sum(t["blocks"] * t[key] for t in times.values())
-               for key in ("kernel", "plain", "sdpa", "bound_ms")}
+               for key in ("kernel", "prev", "plain", "sdpa", "bound_ms")}
     print(f"[kernels] K10 bf16, the "
           f"{sum(t['blocks'] for t in times.values())} launches of one "
           f"{TEACHER_BACKBONE} forward at B = {K10_CASES[0][1]} (every block "
           f"timed as its stage's shifted one): kernel "
-          f"{forward['kernel']:.4f} ms, plain {forward['plain']:.4f} ms, SDPA "
+          f"{forward['kernel']:.4f} ms, previous design "
+          f"{forward['prev']:.4f} ms, plain {forward['plain']:.4f} ms, SDPA "
           f"{forward['sdpa']:.4f} ms, bound {forward['bound_ms']:.4f} ms; "
           f"{card}")
     # float32 at stage 0: the FMA products
@@ -2995,14 +3268,16 @@ def phase_k10(card: str) -> dict:
     f32, runs = in_turns(
         {"kernel": lambda: window_attention_pallas_multi(q, k, v, bias, mask,
                                                          nw),
+         "prev": lambda: window_attention_prev_cuda(q, k, v, bias, mask, nw),
          "plain": lambda: window_attention_reference(q, k, v, bias, mask,
                                                      nw),
          "sdpa": lambda: F.scaled_dot_product_attention(
              q, k, v, attn_mask=full, scale=32 ** -0.5)},
-        {"kernel": 10, "plain": 5, "sdpa": 10})
+        {"kernel": 10, "prev": 10, "plain": 5, "sdpa": 10})
     f32 |= k10_bound(b * nw, heads, n, nw, True, torch.float32)
     print(f"[kernels] K10 time float32 {what} (BW, H, N, D) = ({b * nw}, "
-          f"{heads}, {n}, 32) shifted: kernel {f32['kernel']:.4f} ms, plain "
+          f"{heads}, {n}, 32) shifted: kernel {f32['kernel']:.4f} ms, "
+          f"previous design {f32['prev']:.4f} ms, plain "
           f"{f32['plain']:.4f} ms, SDPA {f32['sdpa']:.4f} ms, bound "
           f"{f32['bound_ms']:.4f} ms ({f32['bound_detail']}); runs {runs}; "
           f"{card}")
@@ -3011,11 +3286,19 @@ def phase_k10(card: str) -> dict:
     return {"max_abs_err": main_err, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["sdpa"],
-            "float32": {"ms": f32["kernel"], "plain_ms": f32["plain"],
+            "prev_ms": t["prev"],
+            "ms_by_stage": {k: {"ms": v["kernel"], "prev_ms": v["prev"],
+                                "plain_ms": v["plain"],
+                                "library_ms": v["sdpa"],
+                                "bound_ms": v["bound_ms"]}
+                            for k, v in times.items()},
+            "float32": {"ms": f32["kernel"], "prev_ms": f32["prev"],
+                        "plain_ms": f32["plain"],
                         "bound_ms": f32["bound_ms"],
                         "bound_by": f32["bound_by"],
                         "library_ms": f32["sdpa"]},
             "forward_ms": round(forward["kernel"], 4),
+            "forward_prev_ms": round(forward["prev"], 4),
             "forward_plain_ms": round(forward["plain"], 4),
             "forward_library_ms": round(forward["sdpa"], 4),
             "forward_bound_ms": round(forward["bound_ms"], 6)}
@@ -4279,6 +4562,7 @@ def main() -> None:
                 "stem_pool": phase_k2(card),
                 "qconv_bn": phase_q1(card),
                 "window_mhsa": phase_k3(card),
+                "window_attn": phase_attn(card),
                 "mlp_block": phase_k4(card),
                 "swin_block": phase_k5(card),
                 **phase_q8(card),
@@ -4335,6 +4619,7 @@ def main() -> None:
         "bf16": (TEACHER_LAUNCHES | TEACHER_GEMMS, {}),
         "int8": (TEACHER_Q8_LAUNCHES | TEACHER_GEMMS, {"quantize": True})})
     check_gemm_counts("teacher sessions")
+    check_attn_counts("teacher sessions")
     teacher = path_launches()
     reset_launches()  # path A, the TResNet-L teacher, starts here
     tresnet_sessions, tresnet_frames = phase_teacher(
@@ -4348,11 +4633,13 @@ def main() -> None:
             phase_mstct(card, root, split, lengths, dtype)
         mstct = path_launches()
     reset_launches()  # path B, Swin's use_fused_attn, starts here
-    path_b = phase_swin_fused(card) | q1_counts()
+    path_b = phase_swin_fused(card) | q1_counts() | {
+        "window_attn prev": check_attn_counts("path B")["prev"]}
     reset_launches()  # the teacher's training steps start here
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
     check_gemm_counts("training steps")
+    check_attn_counts("training steps")
     train = path_launches()
     slice_s += time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4371,6 +4658,7 @@ def main() -> None:
     measured |= probe_entries(*phase_probes(card),
                               measured["swin_gemm"]["ms_by_shape"], p2_loops)
     check_gemm_counts("probe drivers")
+    check_attn_counts("probe drivers")
     probes = path_launches()
     probe_s += time.perf_counter() - t0
     paths = {"student sessions": student,
@@ -4410,6 +4698,14 @@ def main() -> None:
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
+    # the window-attention phase: the previous design on no path
+    for label, p in paths.items():
+        check(p["window_attn prev"] == 0,
+              f"{label}: {p['window_attn prev']} launches of the previous "
+              f"window-attention design")
+    measured["window_attn"]["launches_by_path"] = {
+        label: p["window_attn"] for label, p in paths.items()
+        if p["window_attn"]}
     by_path = {label: {k: p.get(f"swin_gemm {k}", 0) for k in PATHS}
                for label, p in paths.items()}
     measured["swin_gemm"]["launches_by_path"] = {

@@ -8,9 +8,13 @@
 // and int8 products ran before (kept for the shapes the path rule sends
 // them, P1's weight-only int8, and as the parent that chip_smoke.py times
 // and compares against through the "_loop" entry points), the LayerNorm
-// and absmax passes and the attention phase. K10 window_attention.cu runs
-// the attention phase's parts (AttnSmem, attn_scores, attn_softmax,
-// attn_pv) over q, k and v it gathers itself.
+// and absmax passes and the previous attention phase (AttnSmem: the score
+// tile in shared memory), kept as the parent that chip_smoke.py times the
+// current one against through the "_prev" entry points. The current
+// attention phase, with each strip's scores in registers, is
+// window_attn.cuh, included at the end: K3's window_attention below runs
+// it, and K10 window_attention.cu runs its body over q, k and v it reads
+// through their strides.
 //
 // Phases, all over row-major token matrices of one dtype T (float or bf16):
 //
@@ -26,13 +30,15 @@
 //                     exact-erf GELU; bias, rounded, + a residual in T;
 //                     bias + residual summed in float32; a float32 scale
 //                     per column and no bias), rounded to T once;
-//   window_attn_kernel one block per (window, head): q, k, v of one window
-//                     (N = w*w tokens, head_dim 32) gathered from the qkv
-//                     matrix into shared memory, S = q k^T in float32, then
-//                     S * scale + rel-pos bias (+ shift mask), a float32
-//                     softmax with the denominator floored at 1e-30, P
-//                     rounded to T, O = P v in float32, rounded to T and
-//                     written at the tokens' own rows.
+//   window_attn_kernel the previous attention phase, one block per (window,
+//                     head): q, k, v of one window (N = w*w tokens,
+//                     head_dim 32) gathered from the qkv matrix into shared
+//                     memory, S = q k^T in float32, then S * scale + rel-pos
+//                     bias (+ shift mask), a float32 softmax with the
+//                     denominator floored at 1e-30, P rounded to T, O = P v
+//                     in float32, rounded to T and written at the tokens'
+//                     own rows (window_attn.cuh computes the same with the
+//                     scores in registers).
 //
 // In the loop, bf16 products run on tensor cores through WMMA (mma.sync
 // underneath) with float32 accumulation; float32 products use plain FMA so
@@ -73,8 +79,9 @@
 //
 // Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
 // for the loops (C % 64 == 0 for the blocks); head_dim 32; window <= 12
-// (the score tile of a 144-token window is 85 KB of float32, and q, k, v,
-// S and P together 160 KB of the 227 KB a block may use).
+// (the previous phase's score tile of a 144-token window is 85 KB of
+// float32, and q, k, v, S and P together 160 KB of the 227 KB a block may
+// use; window_attn.cuh instantiates its strips for N <= 144).
 
 #pragma once
 
@@ -91,6 +98,13 @@ constexpr int MAX_WINDOW = 12;
 constexpr int THREADS = 256;      // 8 warps, every kernel
 constexpr int BM = 128, BN = 64, BK = 32;  // GEMM block tile
 constexpr int LDC = BN + 4;       // row stride of the float32 staging tile
+
+namespace {
+// this library's attention-phase launches per design, read by
+// swin_attn_launches: [0] the scores in registers (window_attn.cuh), [1]
+// the previous phase (AttnSmem)
+long long attn_launch_counts[2] = {0, 0};
+}  // namespace
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -428,7 +442,8 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
 }
 
 // ---------------------------------------------------------------------------
-// Window attention: one block per (window, head).
+// The previous window attention phase: one block per (window, head), the
+// scores in a shared-memory tile (the parent of window_attn.cuh's).
 
 template <typename T> struct AttnTile {
   static constexpr int LDQ = HD + Vec<T>::PAD;  // q, k, v row stride
@@ -679,11 +694,14 @@ cudaError_t gemm(const GemmArgs<T, W>& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The previous attention phase (the parent of window_attn.cuh's
+// window_attention, for the timings); counts one launch in
+// attn_launch_counts[1]
 template <typename T>
-cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
-                             T* out, int B, int Hp, int Wp, int C, int heads,
-                             int w, float scale, cudaStream_t s,
-                             int* wamax = nullptr) {
+cudaError_t window_attention_prev(const T* qkv, const T* bias, const T* mask,
+                                  T* out, int B, int Hp, int Wp, int C,
+                                  int heads, int w, float scale,
+                                  cudaStream_t s, int* wamax = nullptr) {
   const int np = (w * w + 15) / 16 * 16;
   const size_t smem = AttnTile<T>::smem(np);
   cudaError_t err = cudaFuncSetAttribute(
@@ -693,7 +711,9 @@ cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
   const dim3 grid(B * (Hp / w) * (Wp / w), heads);
   window_attn_kernel<T><<<grid, THREADS, smem, s>>>(
       qkv, bias, mask, out, wamax, Hp, Wp, C, w, np, scale, w % 2 == 1);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++attn_launch_counts[1];
+  return err;
 }
 
 inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
@@ -1027,3 +1047,5 @@ cudaError_t gemm_q8(const Q8Args<T>& p, cudaStream_t s) {
 }
 
 }  // namespace swin
+
+#include "window_attn.cuh"

@@ -22,12 +22,12 @@
 // phases on one stream (swin_gemm.cuh): in bf16, LN(x) into the attn
 // scratch, then the TMA-fed wgmma QKV GEMM into a qkv scratch (float32: LN
 // statistics, then the FMA loop applying LN on load); attention with one
-// block per (window, head), whose 144 x 144 float32 score tile stays in
-// shared memory; the proj GEMM with bias and residual. The scratch round
-// trip costs 4 bytes x 4C per token of traffic, well under the GEMMs'
-// time. Odd windows (N = 49) are masked at their real size; no (w+1)^2
-// padding. The TPU kernel's head-group packing is an MXU device and has no
-// counterpart here.
+// block per (window, head), each warp holding its 16-query strips' scores
+// in registers (window_attn.cuh); the proj GEMM with bias and residual.
+// The scratch round trip costs 4 bytes x 4C per token of traffic, well
+// under the GEMMs' time. Odd windows (N = 49) are masked at their real
+// size; no (w+1)^2 padding. The TPU kernel's head-group packing is an MXU
+// device and has no counterpart here.
 //
 // The int8 branch (window_mhsa_q8_launch; quant=True there): the QKV and
 // proj products on the int8 tensor cores (swin_gemm.cuh: a quantize pass
@@ -54,7 +54,10 @@
 //
 // The "_loop" entry points run every product on swin_common.cuh's loops
 // (WMMA / mma.sync), the parent that chip_smoke.py compares against; no
-// main path calls them.
+// main path calls them. window_attn_phase_launch runs the attention phase
+// alone on a packed qkv, in the current design or (prev) the previous one
+// (swin_common.cuh's AttnSmem): the pair that chip_smoke.py times and
+// compares; no main path calls it either.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
@@ -190,4 +193,43 @@ extern "C" int window_mhsa_q8_loop_launch(
   return launch_q8<true>(x, gamma, beta, wqkv, sqkv, bqkv, wproj, sproj,
                          bproj, bias, mask, qkv, attn, stats, amax, codes, y,
                          B, Hp, Wp, C, heads, window, scale, dtype, stream);
+}
+
+// The attention phase alone: qkv (B*Hp*Wp, 3C) as the QKV product writes it
+// -> out (B*Hp*Wp, C), in dtype; bias (heads, N, N) and mask (nW, N, N, or
+// null) in dtype; wamax (B * nW int32, or null) receives each window's
+// max |out| as float bits (zeroed here first), with the padded query of an
+// odd window. prev 1: the previous design (the score tile in shared
+// memory).
+extern "C" int window_attn_phase_launch(const void* qkv, const void* bias,
+                                        const void* mask, void* out,
+                                        void* wamax, int B, int Hp, int Wp,
+                                        int C, int heads, int window,
+                                        float scale, int prev, int dtype,
+                                        void* stream) {
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* amax = static_cast<int*>(wamax);
+  if (amax) {
+    const cudaError_t err = cudaMemsetAsync(
+        amax, 0, sizeof(int) * B * (Hp / window) * (Wp / window), s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    const T* q = static_cast<const T*>(qkv);
+    const T* b = static_cast<const T*>(bias);
+    const T* m = static_cast<const T*>(mask);
+    T* o = static_cast<T*>(out);
+    return (int)(prev ? swin::window_attention_prev(q, b, m, o, B, Hp, Wp, C,
+                                                    heads, window, scale, s,
+                                                    amax)
+                      : swin::window_attention(q, b, m, o, B, Hp, Wp, C,
+                                               heads, window, scale, s,
+                                               amax));
+  };
+  if (dtype == 0) return run(0.0f);
+  if (dtype == 1) return run(__nv_bfloat16());
+  return (int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,7 @@ from . import swin_gemm
 from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, check_operands,
                         check_q8, launch_checked, mlp_block_reference,
                         mlp_products, mlp_q8_reference)
+from .window_attention import count_phase
 from .window_mhsa import (HEAD_DIM, attention_operands, attn_products,
                           window_mhsa_q8_reference, window_mhsa_reference)
 
@@ -117,6 +118,7 @@ def launch_swin_block(x, g1, be1, wqkv, bqkv, wproj, bproj, bias, mask, g2,
                    attn, ybuf, h, stats, out, b, hp, wp, c, num_heads, window,
                    hidden, HEAD_DIM ** -0.5, DTYPE_CODES[x.dtype])
     counter.launches += 1
+    count_phase("swin_block")
     swin_gemm.count("swin_block", swin_gemm.operand_kind(x.dtype),
                     block_products(c, hidden), loop)
     return out
@@ -203,6 +205,7 @@ def launch_swin_block_q8(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
                    b, hp, wp, c, num_heads, window, hidden, HEAD_DIM ** -0.5,
                    DTYPE_CODES[x.dtype])
     counter.launches += 1
+    count_phase("swin_block")
     swin_gemm.count("swin_block", "int8", block_products(c, hidden), loop)
     return out
 

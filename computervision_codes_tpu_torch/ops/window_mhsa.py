@@ -35,7 +35,15 @@ the kernel include that row.
 ``window_mhsa_fused`` dispatches on the tensor's device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel
 (``csrc/window_mhsa.cu``; its QKV and proj products on the Swin GEMM core,
-``ops/swin_gemm.py``), anything else raises.
+``ops/swin_gemm.py``; its attention phase ``csrc/window_attn.cuh``, the
+scores in registers, counted per design in
+``ops.window_attention.phase_launches``), anything else raises.
+
+``window_attn_phase_cuda`` and ``window_attn_phase_prev_cuda`` run the
+attention phase alone on a packed qkv (B, Hp, Wp, 3C), in the current
+design and in the previous one (a shared-memory score tile), and
+``window_attn_phase_reference`` is their plain version: the pair that
+``chip_smoke.py`` times and compares; no model calls them.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, block_absmax,
                         check_operands, check_q8, check_res_add,
                         launch_checked, layer_norm_f32, layer_norm_float32,
                         mm_f32, q8_dot)
+from .window_attention import count_phase
 
 HEAD_DIM = 32  # every Swin variant; the kernel's q/k/v tiles
 MAX_WINDOW = 12  # a 144-token window's float32 score tile is 85 KB
@@ -253,6 +262,7 @@ def launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     counter.launches += 1
     swin_gemm.count("window_mhsa", swin_gemm.operand_kind(x.dtype),
                     attn_products(c), loop)
+    count_phase("window_mhsa")
     return y
 
 
@@ -325,6 +335,7 @@ def launch_window_mhsa_q8(x, gamma, beta, wqkv: Q8Weight, bqkv,
                    HEAD_DIM ** -0.5, DTYPE_CODES[x.dtype])
     counter.launches += 1
     swin_gemm.count("window_mhsa", "int8", attn_products(c), loop)
+    count_phase("window_mhsa")
     return y
 
 
@@ -354,6 +365,99 @@ def window_mhsa_q8_loop_cuda(x, gamma, beta, wqkv: Q8Weight, bqkv,
 
 
 window_mhsa_q8_loop_cuda.launches = 0
+
+
+def window_attn_phase_reference(qkv, bias, mask, *, window: int,
+                                num_heads: int, absmax: bool = False):
+    """The attention phase alone, plain: qkv (B, Hp, Wp, 3C) as the QKV
+    product writes it -> (B, Hp, Wp, C) in qkv's dtype; with ``absmax``
+    also each window's max |output| (B * nW,) float32, with the padded
+    query of an odd window (the int8 branch's proj scales)."""
+    b, hp, wp, c3 = qkv.shape
+    n = window * window
+    win = window_partition(qkv, window).reshape(b, -1, n, c3)
+    o = window_attention_core(win, bias, mask, num_heads, qkv.dtype)
+    out = window_reverse(o.flatten(0, 1), window, hp, wp)
+    if not absmax:
+        return out
+    amax = block_absmax(o.float())
+    if window % 2:
+        amax = torch.maximum(amax, padded_query_absmax(win, num_heads,
+                                                       qkv.dtype))
+    return out, amax.flatten()
+
+
+@functools.cache
+def _phase_fn():
+    """``window_attn_phase_launch`` of ``csrc/window_mhsa.cu``."""
+    from ._build import load_library
+
+    fn = load_library("window_mhsa").window_attn_phase_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_window_attn_phase(qkv, bias, mask, *, window: int,
+                             num_heads: int, absmax: bool, prev: bool,
+                             counter):
+    """Launch the attention phase alone (``prev``: the previous design) on
+    qkv's device and current stream; add one to ``counter.launches`` and to
+    the phase's count of its design. Operands as
+    ``window_attn_phase_reference``; bias and mask are cast to qkv's
+    dtype."""
+    if qkv.ndim != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, Hp, Wp, 3C), got "
+                         f"{tuple(qkv.shape)}")
+    b, hp, wp, c3 = qkv.shape
+    c, n = c3 // 3, window * window
+    check_geometry(qkv[..., :c], window, num_heads)
+    named = {"qkv": (qkv, qkv.shape),
+             "bias": (bias.to(qkv.dtype), (num_heads, n, n))}
+    if mask is not None:
+        named["mask"] = (mask.to(qkv.dtype),
+                         ((hp // window) * (wp // window), n, n))
+    mats, _ = check_operands("window_attn_phase", qkv, named, {})
+    qkv, bias = mats[:2]
+    mask = mats[2] if mask is not None else None
+    out = torch.empty(b, hp, wp, c, dtype=qkv.dtype, device=qkv.device)
+    amax = (torch.empty(b * (hp // window) * (wp // window),
+                        dtype=torch.int32, device=qkv.device)
+            if absmax else None)
+    if b:
+        launch_checked("window_attn_phase", _phase_fn(), qkv, bias, mask,
+                       out, amax, b, hp, wp, c, num_heads, window,
+                       HEAD_DIM ** -0.5, int(prev), DTYPE_CODES[qkv.dtype])
+        counter.launches += 1
+        count_phase("window_mhsa", "prev" if prev else "regs")
+    return (out, amax.view(torch.float32)) if absmax else out
+
+
+def window_attn_phase_cuda(qkv, bias, mask, *, window: int, num_heads: int,
+                           absmax: bool = False):
+    """K3's attention phase alone, scores in registers
+    (``csrc/window_attn.cuh``). ``launches`` counts its launches."""
+    return launch_window_attn_phase(qkv, bias, mask, window=window,
+                                    num_heads=num_heads, absmax=absmax,
+                                    prev=False, counter=window_attn_phase_cuda)
+
+
+window_attn_phase_cuda.launches = 0
+
+
+def window_attn_phase_prev_cuda(qkv, bias, mask, *, window: int,
+                                num_heads: int, absmax: bool = False):
+    """K3's attention phase alone in the previous design (a shared-memory
+    score tile): the parent that ``chip_smoke.py`` times against."""
+    return launch_window_attn_phase(qkv, bias, mask, window=window,
+                                    num_heads=num_heads, absmax=absmax,
+                                    prev=True,
+                                    counter=window_attn_phase_prev_cuda)
+
+
+window_attn_phase_prev_cuda.launches = 0
 
 
 def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
