@@ -51,12 +51,10 @@ printing its own lines:
      window of 4, shifted and not, bf16 and float32: against the plain
      version in float32 rounded once (K10's bar) and in the working dtype
      (REL_TOL), each window's absmax (the int8 branch's proj scales) equal
-     to its outputs' largest magnitude, and the outputs, window absmaxes
-     and int8 proj codes that differ from the previous design (the score
-     tile in shared memory, ``window_attn_phase_prev_cuda``) counted; both
-     designs in turns at the four stage shapes, shifted and not, beside
-     the plain version, SDPA (the yardstick only) and the bound; ptxas'
-     registers and spills of every instantiation;
+     to its outputs' largest magnitude; its time at the four stage shapes,
+     shifted and not, beside the plain version, SDPA (the yardstick only)
+     and the bound, in turns; ptxas' registers and spills of every
+     instantiation;
    - the int8 branches of K3 (stage 2, shifted and not, and the window-7
      shape), K4 (stages 2 and 3) and K5 (stages 0 and 1, shifted and not)
      in bf16 and float32: the share of outputs more than one int8 step
@@ -67,12 +65,30 @@ printing its own lines:
      their shapes, both paths (the wgmma one with its TMA producer) equal
      to the plain version bit for bit; at each shape the new path's, the
      loop's, the plain version's and ``torch._int_mm``'s times in turns;
-   - K7 (full attention) in bf16 and float32 at MS-TCT's (1, 8, T, D) for
-     D = 32, 48, 72, 108 and T = 1000, 2048, 5400, a batch of training
-     windows (32, 8, 256, D) and Tq != Tk, against the plain version in
-     float32 rounded once and (bf16) the plain version in bf16; its time
-     at (1, 8, 8192, D) beside the plain version's, SDPA's (the yardstick
-     only) and its bound;
+   - K7 (full attention; ``csrc/attention_common.cuh``: in bf16 a
+     producer warpgroup feeding K and V (TMA for MS-TCT's views, else
+     cp.async) through an mbarrier ring to wgmma consumers, in float32 a
+     register-tiled FMA loop; the keys split over blocks, merged through
+     the logsumexp, where ``attention_plan`` says) in bf16 and float32 at
+     MS-TCT's (1, 8, T, D) for D = 32, 48, 72, 108 and T = 1000, 2048,
+     5400, a batch of training windows (32, 8, 256, D) and Tq != Tk, on q,
+     k, v laid out as MS-TCT passes them and contiguous, and split at the
+     ragged shapes, against the plain version in float32 rounded once and
+     (bf16) the plain version in bf16; each head's output bit for bit the
+     same when its neighbouring heads and the next video are non-finite;
+     the outputs that differ from the previous design
+     (``attention_prev_cuda``) counted; in turns with the
+     previous design, the plain version and SDPA (the yardstick only) at
+     (1, 8, 8192, D) for each D and at D = 108 over the eval lengths and
+     the training window, beside the bound and the TFLOP/s; at
+     (1, 8, 8192, D) 64 query rows a block against 128;
+   - K8 (flash attention: the forward, K7's kernels writing the lse; dQ
+     and dK/dV, on wgmma in bf16 from the same producer machinery, FMA in
+     float32) in bf16 and float32 at K8_CHECK, the ragged shapes and the
+     autograd Function against the plain versions; the outputs, lse and
+     gradients that differ from the previous design's counted; each
+     kernel in turns with the previous design's, the plain versions and
+     SDPA's forward and forward + backward, beside the bounds;
    - K9 (fused scale-bias-act) in bf16 and float32 at each of the seven
      distinct shapes of TResNet-L-448 at B = 16 and both slopes, at ragged
      shapes, on an odd-offset view and a channels_last map viewed as NHWC,
@@ -82,11 +98,10 @@ printing its own lines:
    - K10 (window attention) in bf16 and float32 at Swin-L-384's four stage
      shapes, shifted and not, Swin-L-224's window-7 stage 0 and ragged
      masks (nW < 8, N = 49), through both TPU entry points, against the
-     plain version in float32 rounded once and in bf16, the outputs that
-     differ from the previous design's (``window_attention_prev_cuda``)
-     counted; its time at the stage shapes and summed over the 24 launches
-     of a forward, and in float32 at stage 0, beside the previous design's,
-     the plain version's, SDPA's (the yardstick only) and its bound;
+     plain version in float32 rounded once and in bf16; its time at the
+     stage shapes and summed over the 24 launches of a forward, and in
+     float32 at stage 0, beside the plain version's, SDPA's (the yardstick
+     only) and its bound;
    - K6 (the training branches ``window_mhsa_branch`` and
      ``mlp_block_branch``: K3 and K4 at ``res_add=False``) in bf16 and
      float32 at the Swin-L-384 training step's batch-8 shapes of stages
@@ -214,21 +229,26 @@ a quantize pass, and the loop on none; the Swin GEMM core's products per
 path: on the teachers and the training steps wgmma only, none on the
 loops or the FMA loop, and each library's C counts equal to the counts
 ``ops/swin_gemm.py``'s rule gives its wrappers; the window-attention
-phase's launches per design, "window_attn": 22 per predict of either Swin
-teacher, 24 per path-B forward, 44 per training step, in the current
-design, none on any path in the previous one, each library's C counts
-equal to its wrappers'); K5's int8
+phase's launches, "window_attn": 22 per predict of either Swin teacher,
+24 per path-B forward, 44 per training step, each library's C counts equal
+to its wrappers'; K7's and K8's launches per design, the previous design's
+on no path, each library's C counts per kernel and design equal to its
+wrappers', and one MS-TCT forward 8 K7 launches of the current design);
+K5's int8
 branch runs on no serving path (it serves dims >= ``quant_min_dim``, 768, and K5
 only dims <= 384), so its count is 0 there and only phase 3 launches it. Then one JSON line
 with the kernels (each with its bound: the larger of its operations at the
 H100's published peak for their type and its bytes at 3.35 TB/s; Q1's
 entry is the new path's 19-convolution total at N = 64 with the loop's,
 the device times, ``launches_by_path`` and the Dense readings beside; K7's
-entry is bf16 at (1, 8, 8192, 108), with its float32 readings at that
-shape under ``float32``; K6's two entries are bf16 at Swin-L-384's stage 2
+entry is bf16 at (1, 8, 8192, 108) on MS-TCT's views, with the previous
+design's time as ``prev_ms``, its float32 readings at that shape under
+``float32``, every timed shape under ``by_shape``, the differences from
+the previous design and ptxas' registers and spills; K6's two entries are bf16 at Swin-L-384's stage 2
 at batch 8, shifted, with each stage's time and the sums over a training
 step beside; K8's three entries are bf16 at (1, 8, 8192, 108) with their
-float32 and training-window readings beside, the backward kernels'
+float32 and training-window readings and the previous design's times
+(``prev_ms``) beside, the backward kernels'
 ``plain_ms`` the plain backward that computes dq, dk and dv together and
 their ``library_ms`` null, SDPA's forward + backward beside; P1's three
 entries at MLP1 s3 (9216 x 768 x 3072), ``library_ms`` ``torch.matmul``
@@ -239,9 +259,8 @@ as ``loop_ms``; ``swin_gemm``, the Swin GEMM core: bf16 at MLP1 s3 beside
 ``torch.matmul``, int8 beside ``torch._int_mm``, its times at every P1
 shape, K3/K4/K5/K6 against the loop and its products per path on each
 main path; ``window_attn``, the window-attention phase: bf16 at Swin-L-384
-stage 0 shifted beside SDPA, with the previous design's time as
-``prev_ms``, every stage shape's times, float32, the differences from the
-previous design, the registers and its launches per path), and the last
+stage 0 shifted beside SDPA, every stage shape's times, float32, the
+registers and its launches per path), and the last
 line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero and the
 last line is not printed. Without a CUDA card, or outside a checkout, it
@@ -734,13 +753,12 @@ def gemm_counts() -> dict:
             for path in swin_gemm.PATHS}
 
 
-def attn_counts() -> dict:
-    """The window-attention phase's launches per design, summed over the
-    libraries that run it (the wrappers' counts)."""
+def attn_counts() -> int:
+    """The window-attention phase's launches, summed over the libraries
+    that run it (the wrappers' counts)."""
     from computervision_codes_tpu_torch.ops import window_attention
 
-    return {d: sum(c[d] for c in window_attention.phase_launches.values())
-            for d in window_attention.DESIGNS}
+    return sum(window_attention.phase_launches.values())
 
 
 def launches() -> dict:
@@ -749,7 +767,7 @@ def launches() -> dict:
     design."""
     return {name: fn.launches for name, fn in kernel_wrappers().items()} | {
         "swin_gemm": gemm_counts()["wgmma"],
-        "window_attn": attn_counts()["regs"]}
+        "window_attn": attn_counts()}
 
 
 def check_gemm_counts(what: str) -> dict:
@@ -765,9 +783,9 @@ def check_gemm_counts(what: str) -> dict:
     return gemm_counts()
 
 
-def check_attn_counts(what: str) -> dict:
-    """Each C library's own attention-phase launches per design equal its
-    wrappers' counts; returns the summed counts."""
+def check_attn_counts(what: str) -> int:
+    """Each C library's own attention-phase launches equal its wrappers'
+    counts; returns the summed count."""
     from computervision_codes_tpu_torch.ops import window_attention
 
     for lib in window_attention.PHASE_LIBRARIES:
@@ -783,13 +801,39 @@ def q1_counts() -> dict:
     return {f"qconv_bn {name}": n for name, n in q1_launches().items()}
 
 
+def design_counts() -> dict:
+    """K7's and K8's launches per kernel and design ("fwd new", "merge
+    new", ..., "dkv prev"), summed over the two libraries (the wrappers'
+    counts)."""
+    from computervision_codes_tpu_torch.ops import attention
+
+    keys = next(iter(attention.design_launches.values()))
+    return {k: sum(c[k] for c in attention.design_launches.values())
+            for k in keys}
+
+
+def check_design_counts(what: str) -> dict:
+    """Each attention library's own launches per kernel and design equal
+    its wrappers' counts; returns the summed counts."""
+    from computervision_codes_tpu_torch.ops import attention
+
+    for lib in attention.LIBRARIES:
+        got = attention.library_design_launches(lib)
+        check(got == attention.design_launches[lib],
+              f"{what}: {lib}'s C library counts {got}, its wrappers "
+              f"{attention.design_launches[lib]}")
+    return design_counts()
+
+
 def path_launches() -> dict:
     """Every kernel's count, Q1's per path, the Swin GEMM core's per path
-    (as "swin_gemm <path>") and the window-attention phase's previous
-    design (as "window_attn prev")."""
+    (as "swin_gemm <path>"), K7's and K8's split merges (as "attention
+    merge") and their previous design's launches (as "attention prev")."""
+    d = design_counts()
     return launches() | q1_counts() | {
         f"swin_gemm {path}": n for path, n in gemm_counts().items()} | {
-        "window_attn prev": attn_counts()["prev"]}
+        "attention merge": d["merge new"],
+        "attention prev": sum(n for k, n in d.items() if k.endswith("prev"))}
 
 
 def launched_since(before: dict) -> dict:
@@ -832,18 +876,19 @@ def phase_build() -> None:
                 print(f"[build] {name} ptxas: {line.strip()}")
     for name, row in attn_registers().items():
         print(f"[build] window_attn {name}: {row}")
+    for lib in ("attention", "flash_attention"):
+        for name, row in attention_registers(lib).items():
+            print(f"[build] {lib} {name}: {row}")
 
 
 def attn_registers() -> dict:
     """ptxas' registers and spills of each instantiation of the
-    window-attention phase's kernels (K3's and K10's, current design and
-    previous), by library, dtype and 16-query strips."""
+    window-attention phase's kernels (K3's and K10's), by library, dtype and
+    16-query strips."""
     from computervision_codes_tpu_torch.ops import _build
 
     kernels = {"window_attn_regs_kernel": "K3 phase",
-               "window_attention_kernel": "K10",
-               "window_attn_kernel": "K3 phase prev",
-               "window_attention_prev_kernel": "K10 prev"}
+               "window_attention_kernel": "K10"}
     rows, current = {}, None
     for lib in ("window_mhsa", "window_attention"):
         for line in _build.build_logs.get(lib, "").splitlines():
@@ -1053,16 +1098,17 @@ def check_q1_paths(before: dict, calls: int, path: str, what: str) -> None:
 
 
 def reset_launches() -> None:
-    """Every kernel's count, Q1's per path, the Swin GEMM core's per path
-    and the window-attention phase's per design (the wrappers' and the C
-    libraries'), to 0."""
-    from computervision_codes_tpu_torch.ops import swin_gemm
+    """Every kernel's count, Q1's per path, the Swin GEMM core's per path,
+    the window-attention phase's and K7's and K8's per design (the
+    wrappers' and the C libraries'), to 0."""
+    from computervision_codes_tpu_torch.ops import attention, swin_gemm
     from computervision_codes_tpu_torch.ops import window_attention
 
     for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values()):
         fn.launches = 0
     swin_gemm.reset_launches()
     window_attention.reset_phase_launches()
+    attention.reset_design_launches()
 
 
 def q1_walk_frames(ho: int, wo: int, cout: int) -> int:
@@ -1296,8 +1342,9 @@ def compare(tag: str, got, want, dtype) -> tuple:
 
 
 def new_vs_old(new, old) -> tuple:
-    """(outputs in which the Swin GEMM core's and the loop's outputs
-    differ, the largest difference)."""
+    """(outputs in which a design's and its parent's results differ (the
+    Swin GEMM core's and the loop's, K7's and K8's current and previous),
+    the largest difference)."""
     d = (new.float() - old.float()).abs()
     return int((d > 0).sum()), d.max().item()
 
@@ -1420,34 +1467,26 @@ def phase_attn(card: str) -> dict:
     design (``window_attn_phase_cuda``: the scores in registers) against
     the plain version in float32 rounded once (K10's bar) and in the
     working dtype (K3's REL_TOL), with each window's absmax (the int8
-    branch's proj scales) equal to its outputs' largest magnitude; the
-    outputs, window absmaxes and int8 proj codes in which it differs from
-    the previous design (``window_attn_phase_prev_cuda``) counted; then
-    both designs in turns at Swin-L-384's four stage shapes, shifted and
-    not, beside the plain version, SDPA (the yardstick only) and the
-    bound."""
-    from computervision_codes_tpu_torch.ops import swin_gemm
+    branch's proj scales) equal to its outputs' largest magnitude; then its
+    time at Swin-L-384's four stage shapes, shifted and not, beside the
+    plain version, SDPA (the yardstick only) and the bound."""
     from computervision_codes_tpu_torch.ops.window_mhsa import (
-        window_attn_phase_cuda, window_attn_phase_prev_cuda,
-        window_attn_phase_reference, window_partition)
+        window_attn_phase_cuda, window_attn_phase_reference,
+        window_partition)
 
-    main_err, differ = 0.0, {}
+    main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         worst, cases = (-1.0, None), 0
         for seed, (what, b, hw, heads, w) in enumerate(ATTN_CASES):
             hp, wp = geometry(hw)
             c = heads * 32
             qkv, bias = attn_inputs(b, hp, wp, heads, w, dtype, seed)
-            rows = swin_gemm.scale_blocks(b * hp * wp, hp=hp, wp=wp,
-                                          window=w).to(DEVICE)
             for shift in (0, w // 2) if min(hp, wp) > w else (0,):
                 mask = swin_mask(hp, wp, w, shift)
                 mask = None if mask is None else mask.to(dtype)
                 kw = dict(window=w, num_heads=heads, absmax=True)
                 tag = f"window_attn {str(dtype)[6:]} {what} shift={shift}"
                 got, amax = window_attn_phase_cuda(qkv, bias, mask, **kw)
-                old, old_amax = window_attn_phase_prev_cuda(qkv, bias, mask,
-                                                            **kw)
                 want, _ = window_attn_phase_reference(
                     qkv.float(), bias.float(),
                     None if mask is None else mask.float(), **kw)
@@ -1473,22 +1512,13 @@ def phase_attn(card: str) -> dict:
                       bool((amax >= per_window).all()),
                       f"{tag}: window absmax is not the outputs' largest "
                       f"magnitude")
-                codes, old_codes = (
-                    swin_gemm.quantize_codes_reference(
-                        o.float().reshape(-1, c), a[rows][:, None])
-                    for o, a in ((got, amax), (old, old_amax)))
-                d = (got.float() - old.float()).abs()
-                differ[f"{str(dtype)[6:]} {what} shift={shift}"] = (
-                    int((d > 0).sum()), d.max().item(),
-                    int((amax != old_amax).sum()),
-                    int((codes != old_codes).sum()))
                 if err / tol >= worst[0]:
                     worst = (err / tol, (what, shift, err, tol))
                 if dtype == torch.bfloat16 and what.startswith("SwinL-384"):
                     main_err = max(main_err, err)
                 cases += 1
-                del got, old, want, codes, old_codes, d
-            del qkv, bias, rows
+                del got, want
+            del qkv, bias
         print(f"[kernels] window_attn {str(dtype)[6:]}: {cases} cases within "
               f"tolerance of the float32 plain version rounded once ("
               + (f"{K10_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
@@ -1496,9 +1526,6 @@ def phase_attn(card: str) -> dict:
               f"{str(dtype)[6:]} plain version ({REL_TOL[dtype]:g} x "
               f"max|ref|), window absmaxes equal to the outputs' largest "
               f"magnitude; worst (case, shift, err, tol) = {worst[1]}")
-    print(f"[kernels] window_attn against the previous design (outputs "
-          f"that differ, largest difference, window absmaxes that differ, "
-          f"int8 proj codes that differ): {differ}")
 
     # times, bf16, at the four stage shapes shifted and not (the mask in
     # bf16, as the model passes it), beside the plain version and SDPA over
@@ -1516,17 +1543,15 @@ def phase_attn(card: str) -> dict:
         kw = dict(window=w, num_heads=heads)
         ms, runs = in_turns(
             {"new": lambda: window_attn_phase_cuda(qkv, bias, mask, **kw),
-             "prev": lambda: window_attn_phase_prev_cuda(qkv, bias, mask,
-                                                         **kw),
              "plain": lambda: window_attn_phase_reference(qkv, bias, mask,
                                                           **kw),
              "sdpa": lambda: F.scaled_dot_product_attention(
                  q, k, v, attn_mask=full, scale=32 ** -0.5)},
-            {"new": reps, "prev": reps, "plain": 3, "sdpa": reps})
+            {"new": reps, "plain": 3, "sdpa": reps})
         bnd = k10_bound(b * nw, heads, n, nw, mask is not None, dtype)
         print(f"[kernels] window_attn time {str(dtype)[6:]} {what} (BW, H, "
-              f"N) = ({b * nw}, {heads}, {n}) shift={shift}: new "
-              f"{ms['new']:.4f} ms, previous {ms['prev']:.4f} ms, plain "
+              f"N) = ({b * nw}, {heads}, {n}) shift={shift}: "
+              f"{ms['new']:.4f} ms, plain "
               f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
               f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
               f"{runs}; {card}")
@@ -1543,19 +1568,15 @@ def phase_attn(card: str) -> dict:
     t = times[f"{what} shift={w // 2}"]
     return {"max_abs_err": main_err, "ms": t["new"], "plain_ms": t["plain"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["sdpa"], "prev_ms": t["prev"],
-            "ms_by_shape": {k: {"ms": v["new"], "prev_ms": v["prev"],
-                                "plain_ms": v["plain"],
+            "library_ms": t["sdpa"],
+            "ms_by_shape": {k: {"ms": v["new"], "plain_ms": v["plain"],
                                 "library_ms": v["sdpa"],
                                 "bound_ms": v["bound_ms"]}
                             for k, v in times.items()},
-            "float32": {"ms": f32["new"], "prev_ms": f32["prev"],
+            "float32": {"ms": f32["new"],
                         "plain_ms": f32["plain"], "library_ms": f32["sdpa"],
                         "bound_ms": f32["bound_ms"],
                         "bound_by": f32["bound_by"]},
-            "differ_from_prev": {k: dict(zip(("outputs", "largest",
-                                              "absmaxes", "int8_codes"), v))
-                                 for k, v in differ.items()},
             "registers": attn_registers()}
 
 
@@ -2620,25 +2641,132 @@ def attention_bound(b, h, tq, tk, d, dtype) -> dict:
                 f"{k} {1e3 * v:.4f} ms" for k, v in times.items())}
 
 
-def phase_k7(card: str) -> dict:
-    """K7 against the plain version evaluated in float32 and rounded once,
-    and against the plain version in the working dtype, at MS-TCT's shapes;
-    then its time beside the plain version's and SDPA's (the yardstick)."""
-    from computervision_codes_tpu_torch.ops.attention import (
-        attention_cuda, attention_reference)
+def mstct_qkv(b, h, tq, tk, d, dtype, seed):
+    """q, k, v as MS-TCT hands them to K7 (``models/mstct.py``
+    GlobalRelationalBlock): (B, H, T, D) views of a (B, Tq, H D) query
+    projection and of the two halves of one (B, Tk, 2 H D) key-value
+    projection, unit normal, made on the card from a seed."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = h * d
+    q = torch.randn(b, tq, c, generator=g, device=DEVICE).to(dtype)
+    kv = torch.randn(b, tk, 2 * c, generator=g, device=DEVICE).to(dtype)
+    k, v = kv.split(c, dim=-1)
+    return [a.reshape(b, t, h, d).transpose(1, 2)
+            for a, t in ((q, tq), (k, tk), (v, tk))]
 
-    cases = [(1, 8, t, t, d) for t in K7_LENGTHS for d in K7_DIMS]
-    cases += [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (d,) for d in K7_DIMS]
-    cases += [K7_RAGGED + (d,) for d in (27, 108)]
-    main_err = 0.0
+
+class forced_plan:
+    """Within the block, every forward of the current design takes `rows`
+    query rows a block and, with `chunk`, splits the keys into runs of
+    `chunk` (the checks and times that compare plans; no path runs it)."""
+
+    def __init__(self, rows=None, chunk=None):
+        self.rows, self.chunk = rows, chunk
+
+    def __enter__(self):
+        from computervision_codes_tpu_torch.ops import attention
+
+        self.plan = plan = attention.attention_plan
+
+        def forced(b, h, tq, tk, d, dtype, sms=attention.SMS):
+            out = dict(plan(b, h, tq, tk, d, dtype, sms))
+            if self.rows is not None:
+                out["rows"] = self.rows
+            if self.chunk is not None:
+                out["chunk"] = self.chunk
+                out["splits"] = -(-tk // self.chunk)
+            return out
+        attention.attention_plan = forced
+
+    def __exit__(self, *exc):
+        from computervision_codes_tpu_torch.ops import attention
+
+        attention.attention_plan = self.plan
+
+
+def attention_registers(library: str) -> dict:
+    """ptxas' registers and spills of each kernel of an attention library,
+    the current design's and the previous one's ("prev ..."), as
+    "name<template arguments>"."""
+    from computervision_codes_tpu_torch.ops import _build
+
+    rows, current = {}, None
+    for line in _build.build_logs.get(library, "").splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current, spill = m.group(1), ""
+            continue
+        if current is None:
+            continue
+        if "spill" in line:
+            spill = re.sub(r"\s+", " ", line.strip())
+        elif "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            parts, i = [], current.find("_ZN") + 3  # <len><name> pairs
+            while 2 < i < len(current) and current[i].isdigit():
+                n = int(re.match(r"\d+", current[i:]).group())
+                i += len(str(n))
+                parts.append(current[i:i + n])
+                i += n
+            name = parts[-1] if parts else current
+            args = ", ".join(re.findall(r"Li(\d+)E", current))
+            args += "bf16" if "bfloat16" in current else (
+                "float" if "IfE" in current else "")
+            args += ", fix" if "Lb1E" in current else ""
+            prev = "prev " if parts and parts[0].endswith("_prev") else ""
+            rows[f"{prev}{name}<{args}>"] = f"{regs} registers; {spill}"
+            current = None
+    return rows
+
+
+def k7_tflops(b, h, tq, tk, d, ms) -> float:
+    return 4 * b * h * tq * tk * d / ms / 1e9
+
+
+def phase_k7(card: str) -> dict:
+    """K7 in the current design against the plain version evaluated in
+    float32 and rounded once, and against the plain version in the working
+    dtype, at MS-TCT's shapes, on q, k and v laid out as MS-TCT passes them
+    (views of its projections: TMA feeds the bf16 kernel) and contiguous
+    (cp.async feeds it where TMA cannot: rows of 216 bytes); the split
+    merge at T = 1000 (the plan splits) and forced at the ragged shapes;
+    each head's output unchanged by non-finite neighbouring heads and
+    videos; the outputs that differ from the previous design's counted;
+    then, in
+    turns, the current design, the previous one, the plain version and SDPA
+    (the yardstick) at (1, 8, 8192, D) for each head dim, at D = 108 over
+    the eval lengths and the training window, beside the bound; one
+    consumer warpgroup (64 rows) against two (128) at (1, 8, 8192, D)."""
+    from computervision_codes_tpu_torch.ops.attention import (
+        attention_cuda, attention_plan, attention_prev_cuda,
+        attention_reference)
+
+    shapes = [(1, 8, t, t, d) for t in K7_LENGTHS for d in K7_DIMS]
+    shapes += [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (d,) for d in K7_DIMS]
+    shapes += [K7_RAGGED + (d,) for d in (27, 108)]
+    cases = [(shape, "mstct", None) for shape in shapes]
+    cases += [(shape, "contiguous", None) for shape in shapes
+              if shape[2] == K7_LENGTHS[0] or shape[2] == K7_WINDOW[2]]
+    cases += [(K7_RAGGED + (d,), layout, 256) for d in (27, 108)
+              for layout in ("mstct", "contiguous")]
+    main_err, differs, splits = 0.0, {}, set()
     for dtype in (torch.bfloat16, torch.float32):
         worst, worst_plain = (-1.0, None), (-1.0, None)
-        for seed, (b, h, tq, tk, d) in enumerate(cases):
-            q, k, v = attention_inputs(b, h, tq, tk, d, dtype, seed)
-            got = attention_cuda(q, k, v)
+        for seed, (shape, layout, chunk) in enumerate(cases):
+            b, h, tq, tk, d = shape
+            make = mstct_qkv if layout == "mstct" else attention_inputs
+            q, k, v = make(b, h, tq, tk, d, dtype, seed)
+            with forced_plan(chunk=chunk):
+                got = attention_cuda(q, k, v)
+                plan = attention_plan(b, h, tq, tk, d, dtype)
+            if plan["splits"] > 1 or chunk:
+                splits.add((str(dtype)[6:], shape, layout,
+                            chunk or plan["chunk"]))
             want = attention_reference(q.float(), k.float(), v.float()).to(
                 dtype).float()
-            tag = f"K7 {str(dtype)[6:]} (B, H, Tq, Tk, D) = {(b, h, tq, tk, d)}"
+            tag = (f"K7 {str(dtype)[6:]} {layout} (B, H, Tq, Tk, D) = "
+                   f"{shape}" + (f" split every {chunk} keys" if chunk
+                                 else ""))
             check(got.shape == want.shape, f"{tag}: shape {tuple(got.shape)}")
             check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
             top = want.abs().max().item()
@@ -2648,7 +2776,7 @@ def phase_k7(card: str) -> dict:
             check(err <= tol, f"{tag}: max_abs_err {err} > tol {tol} "
                               f"(max|ref| {top})")
             if err / tol >= worst[0]:
-                worst = (err / tol, ((b, h, tq, tk, d), err, tol))
+                worst = (err / tol, (layout, shape, err, tol))
             if dtype == torch.bfloat16:
                 plain = attention_reference(q, k, v).float()
                 perr = (got.float() - plain).abs().max().item()
@@ -2656,59 +2784,121 @@ def phase_k7(card: str) -> dict:
                 check(perr <= ptol, f"{tag} vs the bf16 plain version: "
                                     f"max_abs_err {perr} > tol {ptol}")
                 if perr / ptol >= worst_plain[0]:
-                    worst_plain = (perr / ptol, ((b, h, tq, tk, d), perr,
-                                                 ptol))
+                    worst_plain = (perr / ptol, (layout, shape, perr, ptol))
                 if (b, h) == (1, 8) and tq == tk:
                     main_err = max(main_err, err)
+            if chunk is None:
+                differs[f"{str(dtype)[6:]} {layout} {shape}"] = new_vs_old(
+                    got, attention_prev_cuda(q, k, v))
             del q, k, v, got, want
         print(f"[kernels] K7 {str(dtype)[6:]}: {len(cases)} cases within "
               f"tolerance of the float32 plain version rounded once ("
               + (f"{K7_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
                  else f"{K7_F32_REL:g} x") + f" max|ref|); worst "
-              f"((B, H, Tq, Tk, D), err, tol) = {worst[1]}")
+              f"(layout, (B, H, Tq, Tk, D), err, tol) = {worst[1]}")
         if dtype == torch.bfloat16:
             print(f"[kernels] K7 bf16 against the bf16 plain version: "
                   f"within {K7_PLAIN_BF16_ULPS} ulps of max|ref|; worst "
                   f"{worst_plain[1]}")
-
-    times = {}
+    print(f"[kernels] K7 split over keys and merged through the lse "
+          f"(dtype, shape, layout, keys a split): {sorted(splits)}")
+    # each (b, h) reads its own columns and rows only: non-finite heads 1
+    # and 2 of video 0 and a non-finite video 1 leave video 0's other heads
+    # bit for bit as they were (a box of a TMA view reaching into
+    # a neighbouring head's columns or the next video's rows would turn
+    # them NaN: 0 x inf)
+    b, h, tq, tk = K7_RAGGED
+    isolated = 0
     for dtype in (torch.bfloat16, torch.float32):
         for d in K7_DIMS:
-            q, k, v = attention_inputs(1, 8, K7_TIME_T, K7_TIME_T, d, dtype,
-                                       99)
-            ms, runs = in_turns(
-                {"kernel": lambda: attention_cuda(q, k, v),
-                 "plain": lambda: attention_reference(q, k, v),
-                 "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)},
-                {"kernel": 10, "plain": 3, "sdpa": 10})
-            bnd = attention_bound(1, 8, K7_TIME_T, K7_TIME_T, d, dtype)
-            times[dtype, d] = ms | bnd
-            flops = 4 * 8 * K7_TIME_T ** 2 * d
-            print(f"[kernels] K7 time {str(dtype)[6:]} (1, 8, {K7_TIME_T}, "
-                  f"{d}): kernel {ms['kernel']:.4f} ms "
-                  f"({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
-                  f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
-                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
-                  f"{runs}; {card}")
+            for layout in ("mstct", "contiguous"):
+                make = mstct_qkv if layout == "mstct" else attention_inputs
+                q, k, v = make(b, h, tq, tk, d, dtype, 7)
+                base = attention_cuda(q, k, v)
+                for a, x in ((q, float("nan")), (k, float("inf")),
+                             (v, float("nan"))):
+                    a[0, 1:3] = x
+                    a[1] = x
+                got = attention_cuda(q, k, v)
+                keep = [0] + list(range(3, h))
+                check(torch.equal(got[0, keep], base[0, keep]),
+                      f"K7 {str(dtype)[6:]} {layout} D = {d}: a non-finite "
+                      f"head or video changed another head's output")
+                isolated += 1
+                del q, k, v, base, got
+    print(f"[kernels] K7 heads and videos independent: {isolated} cases "
+          f"(bf16 and float32, D in {K7_DIMS}, MS-TCT's views and "
+          f"contiguous, (B, H, Tq, Tk) = {K7_RAGGED}) bit for bit with "
+          f"non-finite neighbours")
+    print(f"[kernels] K7 against the previous design (outputs that differ, "
+          f"the largest difference): {differs}")
+
+    times = {}
+    timed = ([(1, 8, K7_TIME_T, K7_TIME_T, d) for d in K7_DIMS]
+             + [(1, 8, t, t, K7_DIMS[-1]) for t in K7_LENGTHS]
+             + [K7_WINDOW[:2] + (K7_WINDOW[2],) * 2 + (K7_DIMS[-1],)])
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in timed:
+            q, k, v = mstct_qkv(*shape, dtype, 99)
+            fns = {"kernel": lambda: attention_cuda(q, k, v),
+                   "prev": lambda: attention_prev_cuda(q, k, v),
+                   "plain": lambda: attention_reference(q, k, v),
+                   "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+            reps = {"kernel": 10, "prev": 10, "plain": 3, "sdpa": 10}
+            if dtype == torch.bfloat16 and shape[2] == K7_TIME_T:
+                for rows in (64, 128):
+                    def forced(rows=rows):
+                        with forced_plan(rows=rows):
+                            return attention_cuda(q, k, v)
+                    fns[f"rows{rows}"], reps[f"rows{rows}"] = forced, 10
+            ms, runs = in_turns(fns, reps)
+            bnd = attention_bound(*shape, dtype)
+            times[dtype, shape] = ms | bnd
+            tf = {key: k7_tflops(*shape, ms[key]) for key in ms}
+            print(f"[kernels] K7 time {str(dtype)[6:]} {shape}: kernel "
+                  f"{ms['kernel']:.4f} ms ({tf['kernel']:.1f} TFLOP/s), "
+                  f"previous design {ms['prev']:.4f} ms "
+                  f"({tf['prev']:.1f}), plain {ms['plain']:.4f} ms, SDPA "
+                  f"{ms['sdpa']:.4f} ms ({tf['sdpa']:.1f}), bound "
+                  f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']})"
+                  + (f"; 64 rows a block {ms['rows64']:.4f} ms, 128 "
+                     f"{ms['rows128']:.4f} ms" if "rows64" in ms else "")
+                  + f"; runs {runs}; {card}")
             del q, k, v
-    forward = {dt: {key: sum(2 * times[dt, d][key] for d in K7_DIMS)
-                    for key in ("kernel", "plain", "sdpa", "bound_ms")}
+    long_ = [(1, 8, K7_TIME_T, K7_TIME_T, d) for d in K7_DIMS]
+    forward = {dt: {key: sum(2 * times[dt, sh][key] for sh in long_)
+                    for key in ("kernel", "prev", "plain", "sdpa",
+                                "bound_ms")}
                for dt in (torch.bfloat16, torch.float32)}
     for dt, sums in forward.items():
         print(f"[kernels] K7 {str(dt)[6:]}, the 8 launches of one MS-TCT "
               f"forward at T = {K7_TIME_T} (2 per head dim): kernel "
-              f"{sums['kernel']:.4f} ms, plain {sums['plain']:.4f} ms, SDPA "
+              f"{sums['kernel']:.4f} ms, previous design "
+              f"{sums['prev']:.4f} ms, plain {sums['plain']:.4f} ms, SDPA "
               f"{sums['sdpa']:.4f} ms, bound {sums['bound_ms']:.4f} ms; "
               f"{card}")
-    # the entry's numbers are bf16 at D = 108; "float32" holds the float32
-    # ones at the same shape (the driver's default dtype)
-    readings = {dt: {"ms": r["kernel"], "plain_ms": r["plain"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["sdpa"]}
-                for dt in (torch.bfloat16, torch.float32)
-                for r in [times[dt, K7_DIMS[-1]]]}
-    return {"max_abs_err": main_err, **readings[torch.bfloat16],
-            "float32": readings[torch.float32]}
+
+    def reading(dt, shape):
+        r = times[dt, shape]
+        return {"ms": r["kernel"], "prev_ms": r["prev"],
+                "plain_ms": r["plain"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["sdpa"],
+                "tflops": round(k7_tflops(*shape, r["kernel"]), 1)}
+    # the entry's numbers are bf16 at (1, 8, 8192, 108); "float32" holds
+    # the float32 ones at the same shape (the driver's default dtype)
+    main = long_[-1]
+    return {"max_abs_err": main_err, **reading(torch.bfloat16, main),
+            "shape": list(main),
+            "float32": reading(torch.float32, main),
+            "by_shape": {f"{str(dt)[6:]} {sh}": reading(dt, sh)
+                         for dt, sh in times},
+            "rows_64_vs_128_ms": {
+                f"D={sh[-1]}": [times[torch.bfloat16, sh]["rows64"],
+                                times[torch.bfloat16, sh]["rows128"]]
+                for sh in long_},
+            "differ_from_prev": {k: dict(zip(("outputs", "largest"), v))
+                                 for k, v in differs.items()},
+            "registers": attention_registers("attention")}
 
 
 # per K8 kernel: (products x B H Tq Tk D operations, exponentials per
@@ -2769,13 +2959,23 @@ def phase_k8(card: str) -> dict:
 
     worst = {}  # (dtype, what) -> (err / tol, case, err, tol)
     err_max = {}  # (dtype, kernel) -> the largest absolute error
+    differs = {}  # "dtype case" -> output -> (differ, largest)
     for dtype in (torch.bfloat16, torch.float32):
         for seed, (b, h, tq, tk, d) in enumerate(K8_CHECK):
-            (q, k, v, g), (out, lse, _), grads = flash_case(
+            (q, k, v, g), (out, lse, dvec), grads = flash_case(
                 b, h, tq, tk, d, dtype, seed)
             bare, none = A.flash_attention_fwd_cuda(q, k, v, with_lse=False)
+            # the previous design on the same inputs (its dQ and dK/dV on
+            # the current forward's lse and dvec)
+            old = (*A.flash_attention_fwd_prev_cuda(q, k, v),
+                   A.flash_attention_dq_prev_cuda(q, k, v, g, lse, dvec),
+                   *A.flash_attention_dkv_prev_cuda(q, k, v, g, lse, dvec))
             torch.cuda.synchronize()
             case = (b, h, tq, tk, d)
+            differs[f"{str(dtype)[6:]} {case}"] = {
+                name: new_vs_old(new, o) for name, new, o in zip(
+                    ("out", "lse", "dq", "dk", "dv"), (out, lse, *grads),
+                    old)}
             tag = f"K8 {str(dtype)[6:]} (B, H, Tq, Tk, D) = {case}"
             check(none is None and torch.equal(bare, out),
                   f"{tag}: the forward without lse differs")
@@ -2810,12 +3010,14 @@ def phase_k8(card: str) -> dict:
             check(lerr <= ltol, f"{tag} lse: max_abs_err {lerr} > {ltol}")
             if lerr / ltol >= worst.get((dtype, "lse"), (-1.0,))[0]:
                 worst[dtype, "lse"] = (lerr / ltol, case, lerr, ltol)
-            del q, k, v, g, out, lse, grads, ref_out, ref_grads, bare
+            del q, k, v, g, out, lse, grads, ref_out, ref_grads, bare, old
         print(f"[kernels] K8 {str(dtype)[6:]}: {len(K8_CHECK)} cases within "
               f"tolerance of the float32 plain versions rounded once; worst "
               f"(err / tol, (B, H, Tq, Tk, D), err, tol) by output: "
               + "; ".join(f"{name} {worst[dtype, name]}"
                           for name in ("out", "lse", "dq", "dk", "dv")))
+    print(f"[kernels] K8 against the previous design (outputs that differ, "
+          f"the largest difference): {differs}")
     for seed, (b, h, tq, tk, d) in enumerate(
             [(1, 8, 1000, 1000, 108), K8_RAGGED]):
         leaves = [t.requires_grad_() for t in attention_inputs(
@@ -2859,14 +3061,21 @@ def phase_k8(card: str) -> dict:
                                                          dvec),
                  "dkv": lambda: A.flash_attention_dkv_cuda(q, k, v, g, lse,
                                                            dvec),
+                 "fwd_prev": lambda: A.flash_attention_fwd_prev_cuda(
+                     q, k, v),
+                 "dq_prev": lambda: A.flash_attention_dq_prev_cuda(
+                     q, k, v, g, lse, dvec),
+                 "dkv_prev": lambda: A.flash_attention_dkv_prev_cuda(
+                     q, k, v, g, lse, dvec),
                  "plain_fwd": lambda: A.flash_attention_reference_fwd(
                      q, k, v),
                  "plain_bwd": lambda: A.flash_attention_reference_bwd(
                      q, k, v, out, lse, g),
                  "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v),
                  "sdpa_fwd_bwd": sdpa_fwd_bwd},
-                {"fwd": 5, "dq": 5, "dkv": 5, "plain_fwd": 2,
-                 "plain_bwd": 2, "sdpa_fwd": 5, "sdpa_fwd_bwd": 5})
+                {"fwd": 5, "dq": 5, "dkv": 5, "fwd_prev": 5, "dq_prev": 5,
+                 "dkv_prev": 5, "plain_fwd": 2, "plain_bwd": 2,
+                 "sdpa_fwd": 5, "sdpa_fwd_bwd": 5})
             bounds = {kern: flash_bound(*shape, dtype, [kern])
                       for kern in FLASH_WORK}
             bounds["bwd"] = flash_bound(*shape, dtype, ["dq", "dkv"])
@@ -2876,7 +3085,9 @@ def phase_k8(card: str) -> dict:
                   f"{bounds['fwd']['bound_ms']:.4f}), backward dQ + dK/dV "
                   f"{ms['dq']:.4f} + {ms['dkv']:.4f} = "
                   f"{ms['dq'] + ms['dkv']:.4f} ms (bound "
-                  f"{bounds['bwd']['bound_ms']:.4f}); plain forward "
+                  f"{bounds['bwd']['bound_ms']:.4f}); previous design "
+                  f"{ms['fwd_prev']:.4f}, {ms['dq_prev']:.4f} + "
+                  f"{ms['dkv_prev']:.4f} ms; plain forward "
                   f"{ms['plain_fwd']:.4f}, backward {ms['plain_bwd']:.4f} "
                   f"ms; SDPA forward {ms['sdpa_fwd']:.4f}, forward + "
                   f"backward {ms['sdpa_fwd_bwd']:.4f} ms; runs {runs}; "
@@ -2888,8 +3099,9 @@ def phase_k8(card: str) -> dict:
         plain = {"fwd": ms["plain_fwd"], "dq": ms["plain_bwd"],
                  "dkv": ms["plain_bwd"]}
         library = {"fwd": ms["sdpa_fwd"], "dq": None, "dkv": None}
-        return {kern: {"ms": ms[kern], "plain_ms": plain[kern],
-                       **bounds[kern], "library_ms": library[kern]}
+        return {kern: {"ms": ms[kern], "prev_ms": ms[f"{kern}_prev"],
+                       "plain_ms": plain[kern], **bounds[kern],
+                       "library_ms": library[kern]}
                 for kern in ("fwd", "dq", "dkv")} | {
             "sdpa_fwd_bwd_ms": ms["sdpa_fwd_bwd"]}
 
@@ -2914,6 +3126,11 @@ def phase_k8(card: str) -> dict:
                 "dq, dk and dv (flash_attention_reference_bwd)")
             out[f"flash_attention_{kern}"]["sdpa_fwd_bwd_ms"] = (
                 readings["bf16"]["sdpa_fwd_bwd_ms"])
+    out["flash_attention_fwd"]["differ_from_prev"] = {
+        case: {name: dict(zip(("outputs", "largest"), v))
+               for name, v in d.items()} for case, d in differs.items()}
+    out["flash_attention_dq"]["registers"] = attention_registers(
+        "flash_attention")
     return out
 
 
@@ -3150,7 +3367,7 @@ def phase_k10(card: str) -> dict:
     from computervision_codes_tpu_torch.models.swin import shift_mask
     from computervision_codes_tpu_torch.ops.window_attention import (
         window_attention_pallas, window_attention_pallas_multi,
-        window_attention_prev_cuda, window_attention_reference)
+        window_attention_reference)
 
     cases = []
     for what, b, side, heads, w, _ in K10_CASES:
@@ -3167,14 +3384,12 @@ def phase_k10(card: str) -> dict:
         cases.append((what, bw, heads, n, nw, mask))
     main_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        worst, worst_plain, differ = (-1.0, None), (-1.0, None), {}
+        worst, worst_plain = (-1.0, None), (-1.0, None)
         for seed, (what, bw, heads, n, nw, mask) in enumerate(cases):
             q, k, v, bias = k10_inputs(bw, heads, n, dtype, seed)
             entry = (window_attention_pallas_multi if seed % 2 == 0
                      else window_attention_pallas)
             got = entry(q, k, v, bias, mask, nw)
-            differ[what] = new_vs_old(
-                got, window_attention_prev_cuda(q, k, v, bias, mask, nw))
             m32 = None if mask is None else mask.to(dtype).float()
             want = window_attention_reference(
                 q.float(), k.float(), v.float(), bias.float(), m32, nw).to(
@@ -3207,9 +3422,7 @@ def phase_k10(card: str) -> dict:
               f"tolerance of the float32 plain version rounded once ("
               + (f"{K10_BF16_ULPS} bf16 ulps of" if dtype == torch.bfloat16
                  else f"{K10_F32_REL:g} x") + f" max|ref|), half through "
-              f"each TPU entry point; worst (case, err, tol) = {worst[1]}; "
-              f"against the previous design (outputs that differ, largest "
-              f"difference) {differ}")
+              f"each TPU entry point; worst (case, err, tol) = {worst[1]}")
         if dtype == torch.bfloat16:
             print(f"[kernels] K10 bf16 against the bf16 plain version: "
                   f"within {K10_PLAIN_BF16_ULPS} ulps of max|ref|; worst "
@@ -3231,32 +3444,28 @@ def phase_k10(card: str) -> dict:
         ms, runs = in_turns(
             {"kernel": lambda: window_attention_pallas_multi(
                 q, k, v, bias, mask, nw),
-             "prev": lambda: window_attention_prev_cuda(q, k, v, bias, mask,
-                                                        nw),
              "plain": lambda: window_attention_reference(q, k, v, bias,
                                                          mask, nw),
              "sdpa": lambda: F.scaled_dot_product_attention(
                  q, k, v, attn_mask=full, scale=32 ** -0.5)},
-            {"kernel": 20, "prev": 20, "plain": 5, "sdpa": 20})
+            {"kernel": 20, "plain": 5, "sdpa": 20})
         bnd = k10_bound(bw, heads, n, nw, mask is not None, torch.bfloat16)
         times[what] = ms | bnd | {"blocks": blocks}
         flops = 4 * bw * heads * n * n * 32
         print(f"[kernels] K10 time bf16 {what} (BW, H, N, D) = ({bw}, "
               f"{heads}, {n}, 32){' shifted' if mask is not None else ''}: "
               f"kernel {ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f}"
-              f" TFLOP/s), previous design {ms['prev']:.4f} ms, plain "
-              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_detail']}); runs "
-              f"{runs}; {card}")
+              f" TFLOP/s), plain {ms['plain']:.4f} ms, SDPA "
+              f"{ms['sdpa']:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_detail']}); runs {runs}; {card}")
         del q, k, v, full
     forward = {key: sum(t["blocks"] * t[key] for t in times.values())
-               for key in ("kernel", "prev", "plain", "sdpa", "bound_ms")}
+               for key in ("kernel", "plain", "sdpa", "bound_ms")}
     print(f"[kernels] K10 bf16, the "
           f"{sum(t['blocks'] for t in times.values())} launches of one "
           f"{TEACHER_BACKBONE} forward at B = {K10_CASES[0][1]} (every block "
           f"timed as its stage's shifted one): kernel "
-          f"{forward['kernel']:.4f} ms, previous design "
-          f"{forward['prev']:.4f} ms, plain {forward['plain']:.4f} ms, SDPA "
+          f"{forward['kernel']:.4f} ms, plain {forward['plain']:.4f} ms, SDPA "
           f"{forward['sdpa']:.4f} ms, bound {forward['bound_ms']:.4f} ms; "
           f"{card}")
     # float32 at stage 0: the FMA products
@@ -3268,16 +3477,14 @@ def phase_k10(card: str) -> dict:
     f32, runs = in_turns(
         {"kernel": lambda: window_attention_pallas_multi(q, k, v, bias, mask,
                                                          nw),
-         "prev": lambda: window_attention_prev_cuda(q, k, v, bias, mask, nw),
          "plain": lambda: window_attention_reference(q, k, v, bias, mask,
                                                      nw),
          "sdpa": lambda: F.scaled_dot_product_attention(
              q, k, v, attn_mask=full, scale=32 ** -0.5)},
-        {"kernel": 10, "prev": 10, "plain": 5, "sdpa": 10})
+        {"kernel": 10, "plain": 5, "sdpa": 10})
     f32 |= k10_bound(b * nw, heads, n, nw, True, torch.float32)
     print(f"[kernels] K10 time float32 {what} (BW, H, N, D) = ({b * nw}, "
-          f"{heads}, {n}, 32) shifted: kernel {f32['kernel']:.4f} ms, "
-          f"previous design {f32['prev']:.4f} ms, plain "
+          f"{heads}, {n}, 32) shifted: kernel {f32['kernel']:.4f} ms, plain "
           f"{f32['plain']:.4f} ms, SDPA {f32['sdpa']:.4f} ms, bound "
           f"{f32['bound_ms']:.4f} ms ({f32['bound_detail']}); runs {runs}; "
           f"{card}")
@@ -3286,19 +3493,15 @@ def phase_k10(card: str) -> dict:
     return {"max_abs_err": main_err, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["sdpa"],
-            "prev_ms": t["prev"],
-            "ms_by_stage": {k: {"ms": v["kernel"], "prev_ms": v["prev"],
-                                "plain_ms": v["plain"],
+            "ms_by_stage": {k: {"ms": v["kernel"], "plain_ms": v["plain"],
                                 "library_ms": v["sdpa"],
                                 "bound_ms": v["bound_ms"]}
                             for k, v in times.items()},
-            "float32": {"ms": f32["kernel"], "prev_ms": f32["prev"],
-                        "plain_ms": f32["plain"],
+            "float32": {"ms": f32["kernel"], "plain_ms": f32["plain"],
                         "bound_ms": f32["bound_ms"],
                         "bound_by": f32["bound_by"],
                         "library_ms": f32["sdpa"]},
             "forward_ms": round(forward["kernel"], 4),
-            "forward_prev_ms": round(forward["prev"], 4),
             "forward_plain_ms": round(forward["plain"], 4),
             "forward_library_ms": round(forward["sdpa"], 4),
             "forward_bound_ms": round(forward["bound_ms"], 6)}
@@ -3524,8 +3727,8 @@ def phase_mstct(card: str, root: str, split, lengths: dict,
 
 def kernel_category(name: str) -> str:
     low = name.lower()
-    if "attn_bf16_kernel" in name or "attn_f32_kernel" in name:
-        return "K7 attention"
+    if name.split("(")[0].split("<")[0].split()[-1].startswith("attn::"):
+        return "K7 attention"  # attn::attn_wgmma_kernel, _f32_, merge_
     if "conv" in low:
         return "depthwise convolutions"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -3567,7 +3770,14 @@ def phase_mstct_breakdown(card: str) -> None:
                       generator=torch.Generator().manual_seed(0),
                       **MSTCT_KW).to(DEVICE).eval()
         with torch.inference_mode():
-            model(x)  # warm-up
+            before = design_counts()
+            model(x)  # warm-up; K7 in the current design only
+            torch.cuda.synchronize()
+            now = design_counts()
+            got = {k: now[k] - before[k] for k in now if now[k] > before[k]}
+            check(got == {"fwd new": MSTCT_LAUNCHES},
+                  f"{label}: K7 launches per design {got}, want "
+                  f"{{'fwd new': {MSTCT_LAUNCHES}}}")
             x_new = x[:, :t - 1]  # a length no earlier phase ran
             new_ms = [host_ms(lambda: model(x_new)) for _ in range(2)]
             torch.cuda.synchronize()
@@ -4631,10 +4841,13 @@ def main() -> None:
         reset_launches()  # the MS-TCT driver's main path starts here
         for dtype in ("float32", "bfloat16"):
             phase_mstct(card, root, split, lengths, dtype)
+        check_design_counts("MS-TCT driver")
         mstct = path_launches()
     reset_launches()  # path B, Swin's use_fused_attn, starts here
-    path_b = phase_swin_fused(card) | q1_counts() | {
-        "window_attn prev": check_attn_counts("path B")["prev"]}
+    path_b = phase_swin_fused(card)
+    check_attn_counts("path B")
+    path_b |= q1_counts() | {
+        k: path_launches()[k] for k in ("attention merge", "attention prev")}
     reset_launches()  # the teacher's training steps start here
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
@@ -4645,12 +4858,14 @@ def main() -> None:
     t0 = time.perf_counter()
     reset_launches()  # K8's op path starts here
     phase_k8_path(card)
+    check_design_counts("K8's op path")
     k8_path = path_launches()
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, _ = mstct_train_tree(root)
         reset_launches()  # the MS-TCT driver's training starts here
         for dtype in ("float32", "bfloat16"):
             phase_mstct_train(card, root, split, dtype)
+        check_design_counts("MS-TCT driver -t")
         mstct_train = path_launches()
     mstct_s += time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4698,11 +4913,15 @@ def main() -> None:
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
-    # the window-attention phase: the previous design on no path
+    # K7 and K8: the previous design on no path
     for label, p in paths.items():
-        check(p["window_attn prev"] == 0,
-              f"{label}: {p['window_attn prev']} launches of the previous "
-              f"window-attention design")
+        check(p["attention prev"] == 0,
+              f"{label}: {p['attention prev']} launches of K7's or K8's "
+              f"previous design")
+    for name in ("attention", "flash_attention_fwd"):
+        measured[name]["merge_launches_by_path"] = {
+            label: p["attention merge"] for label, p in paths.items()
+            if p["attention merge"]}
     measured["window_attn"]["launches_by_path"] = {
         label: p["window_attn"] for label, p in paths.items()
         if p["window_attn"]}

@@ -11,21 +11,19 @@
 //
 //   dS = P * (dO V^T - dvec) * D^-1/2,  dQ = dS K,  dV = P^T dO,  dK = dS^T Q
 //
-// The TPU kernels DMA one K/V (or Q/dO) block at a time from HBM into VMEM;
-// here each block streams them through shared memory in tiles of 64 rows:
-//
-// - forward: attention_common.cuh's loop (K7's) with the float32 lse
-//   written (the TPU's two forward kernels are one kernel here, the lse
-//   pointer null for ``flash_attention_pallas``);
+// - forward: attention_common.cuh's (K7's) with the float32 lse written
+//   (the TPU's two forward kernels are one kernel here, the lse pointer null
+//   for ``flash_attention_pallas``), split over keys where the plan says;
 // - dQ: one block per ((batch, head), 64 queries) holds its Q and dO tiles
 //   and their lse and dvec, streams K and V, and accumulates dQ;
 // - dK/dV: one block per ((batch, head), 64 keys) holds its K and V tiles,
 //   streams Q, dO, lse and dvec, and accumulates dK and dV.
 //
 // Each tile of dQ, dK and dV has one owner block: no atomics, and the
-// gradients are deterministic. Keys at or past Tk and queries at or past
-// Tq get P = 0, so the lse of a padded query row never reaches a real
-// column.
+// gradients are deterministic. Streamed rows past T are zero (q, k, v and
+// dO zero-filled, lse and dvec 0), so a padded query or key adds nothing to
+// a real row; the keys of dQ's last tile are masked all the same (exp of
+// 0 - lse may overflow where every score is very negative).
 //
 // What bounds it on the H100: the products, 4 Tq Tk D operations per head
 // forward and 10 backward (dQ: S, dP, dS K; dK/dV: S^T, dP^T, P^T dO,
@@ -35,27 +33,38 @@
 // The bytes (each tensor read once, the outputs written once) are far
 // below either.
 //
-// bf16: 4 warps of 16 rows each; every product on mma.sync m16n8k16 bf16 x
-// bf16 -> f32 fed by ldmatrix; P and dS are rounded to bf16 before their
-// products (as K7 rounds P; the TPU kernels keep them float32), their
-// float32 values feed dS. float32: FMA, each thread a 4 x 8 score tile and
-// a 4 x 2*NJ output tile, the score tiles passing through shared memory
-// between the products. D is zero-padded to a multiple of 16 in shared
-// memory (108 -> 112). Rows are read through their strides, the head dim
-// contiguous, with the widest copy every row allows (attention_common.cuh).
-// The backward tiles are single-buffered: at D = 128 a float32 block holds
-// Q, dO, K, V and a 64 x 64 score tile, 153 KB of shared memory.
+// bf16: the forward's machinery (attention_common.cuh). Warpgroup 0
+// produces: cp.async of the stationary tiles (Q and dO, or K and V) once
+// and of the streamed 64-row tiles (K and V, or Q, dO, lse and dvec) into a
+// 2-stage ring in the 128-byte swizzle, full/empty mbarriers, each
+// thread's copies arriving on the stage's mbarrier as they land. Warpgroup 1
+// consumes, 64 rows: every product on wgmma m64nNk16 - the scores (S, dP or
+// S^T, dP^T) with both operands K-major from shared memory, the gradient
+// products with the weights (dS, or P^T and dS^T) from registers (the
+// scores' accumulators packed into A fragments) and the streamed tile as
+// the MN-major B operand, the gradients in float32 registers across the
+// tiles. P and dS are rounded to bf16 before their products (as K7 rounds
+// P; the TPU kernels keep them float32), their float32 values feed dS.
+//
+// float32: FMA (no TF32). Thread (ty, tx) = (tid / 8, tid % 8) owns rows
+// ty + 16 i (i < 4) of its 64, score columns tx + 8 c (c < 4) of each
+// 32-row streamed tile and output columns 2 tx + 16 jj + {0, 1}; the
+// streamed tiles double-buffered through cp.async; the weights pass to
+// their product through the warp's own rows of a shared tile (__syncwarp);
+// exp2 of log2-scaled scores.
+//
+// flash_attention_fwd_prev_launch and flash_attention_bwd_prev_launch run
+// the previous design (attention_prev.cuh, flash_prev.cuh), the parent that
+// chip_smoke.py times against; no model or op path calls them.
 
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "flash_prev.cuh"
 
 namespace flash {
 
 using namespace attn;
-using bf16 = __nv_bfloat16;
-
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Bwd {
   const void* q;
@@ -73,83 +82,6 @@ struct Bwd {
   float scale;
 };
 
-// ---------------------------------------------------------------------------
-// bf16 fragments (mma.sync m16n8k16, row.col)
-
-// A (16 rows x 16 of the contracted dim) from a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t r[4], const bf16* X, int ld,
-                                       int row0, int k0, int lane) {
-  ldmatrix_x4(r, X + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-// B of the n-tiles n0 (r[0], r[1]) and n0 + 8 (r[2], r[3]) from a tile
-// stored n-major: rows n, columns the contracted dim
-__device__ __forceinline__ void frag_b_nk(uint32_t r[4], const bf16* Y, int ld,
-                                          int n0, int k0, int lane) {
-  ldmatrix_x4(r, Y + (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-// the same from a tile stored k-major: rows the contracted dim, columns n
-__device__ __forceinline__ void frag_b_kn(uint32_t r[4], const bf16* Y, int ld,
-                                          int k0, int n0, int lane) {
-  ldmatrix_x4_trans(r, Y + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
-                           n0 + (lane >> 4) * 8);
-}
-
-// acc (16 x 64) = X[row0:row0+16] Y[0:64]^T over DK 16-wide steps of D
-template <int DK>
-__device__ __forceinline__ void rows_by_rows(float acc[8][4], const bf16* X,
-                                             const bf16* Y, int ld, int row0,
-                                             int lane) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk) {
-    uint32_t a[4];
-    frag_a(a, X, ld, row0, kk * 16, lane);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      frag_b_nk(b, Y, ld, np * 16, kk * 16, lane);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// out (16 x 16 DK) += W (16 x 64, as A fragments) Y[0:64]
-template <int DK>
-__device__ __forceinline__ void weights_by_rows(float out[2 * DK][4],
-                                                const uint32_t wa[4][4],
-                                                const bf16* Y, int ld,
-                                                int lane) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-    for (int dp = 0; dp < DK; ++dp) {
-      uint32_t b[4];
-      frag_b_kn(b, Y, ld, kc * 16, dp * 16, lane);
-      mma_bf16(out[2 * dp], wa[kc], b[0], b[1]);
-      mma_bf16(out[2 * dp + 1], wa[kc], b[2], b[3]);
-    }
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// 16 x 64 float32 accumulators, rounded to bf16, as A fragments over the 64
-// columns
-__device__ __forceinline__ void to_a(uint32_t wa[4][4], const float x[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    wa[n >> 1][(n & 1) * 2] = pack2(x[n][0], x[n][1]);
-    wa[n >> 1][(n & 1) * 2 + 1] = pack2(x[n][2], x[n][3]);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ const T* head(const void* base, const Strides& s,
                                          int b, int h) {
@@ -161,257 +93,305 @@ __device__ __forceinline__ T* head_out(void* base, const Strides& s, int b,
   return static_cast<T*>(base) + b * s.b + h * s.h;
 }
 
-// 16 x 16 DK accumulators of rows row0 + {g, g + 8} into rows < rows_total
-template <int DK>
-__device__ __forceinline__ void store_bf16(bf16* out, long long stride,
-                                           const float acc[2 * DK][4],
-                                           int row0, int rows_total, int D,
-                                           int g, int t4) {
-#pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + 8 * (e >> 1);
-      const int col = n * 8 + 2 * t4 + (e & 1);
-      if (row < rows_total && col < D)
-        out[row * stride + col] = __float2bfloat16(acc[n][e]);
-    }
-}
-
-template <int DK>
-struct Bf16Bwd {
-  static constexpr int DP = 16 * DK;
-  static constexpr int LD = DP + 8;  // 16-byte pad: conflict-free ldmatrix
-  static constexpr size_t smem() {   // four 64-row tiles, two 64-float rows
-    return (size_t)4 * BM * LD * sizeof(bf16) + 2 * BM * sizeof(float);
-  }
-};
-
-template <int DK>
-__global__ void __launch_bounds__(THREADS) dq_bf16_kernel(Bwd p) {
-  constexpr int LD = Bf16Bwd<DK>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Gs = Qs + BM * LD;
-  bf16* Ks = Gs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.y * BM;
-  const bf16* qg = head<bf16>(p.q, p.sq, b, h);
-  const bf16* gg = head<bf16>(p.g, p.sg, b, h);
-  const bf16* kg = head<bf16>(p.k, p.sk, b, h);
-  const bf16* vg = head<bf16>(p.v, p.sv, b, h);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  zero_pad(Qs, LD, 2 * BM + 2 * BN, p.D, Bf16Bwd<DK>::DP);
-  load_tile(Qs, LD, qg, p.sq.t, q0, p.Tq, p.D, p.vb);
-  load_tile(Gs, LD, gg, p.sg.t, q0, p.Tq, p.D, p.vb);
-  float lse2[2], dvec[2];  // rows past Tq: P = exp2(-inf) = 0
+// a 64 x DP accumulator of rows row0 + 16 warp + g + 8 h into rows below
+// rows_total, columns below D, rounded to bf16
+template <int DP>
+__device__ __forceinline__ void store_acc(bf16* out, long long stride,
+                                          const float (&acc)[DP / 2], int row0,
+                                          int rows_total, int D, int tq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    const bool valid = row < p.Tq;
-    lse2[r] = valid ? p.lse[(long long)bh * p.Tq + row] * LOG2E : INFINITY;
-    dvec[r] = valid ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
-  }
-  const float sl2 = p.scale * LOG2E;
-  float acc[2 * DK][4];
+    const int row = row0 + 8 * r;
+    if (row >= rows_total) continue;
 #pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
+    for (int jj = 0; jj < DP / 8; ++jj)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  const int ntiles = (p.Tk + BN - 1) / BN;
-  for (int j = 0; j < ntiles; ++j) {
-    load_tile(Ks, LD, kg, p.sk.t, j * BN, p.Tk, p.D, p.vb);
-    load_tile(Vs, LD, vg, p.sv.t, j * BN, p.Tk, p.D, p.vb);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_by_rows<DK>(s, Qs, Ks, LD, warp * 16, lane);   // S = Q K^T
-    rows_by_rows<DK>(dp, Gs, Vs, LD, warp * 16, lane);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * BN + n * 8 + 2 * t4 + (e & 1);
-        const int r = e >> 1;
-        const float pw = col < p.Tk ? exp2f(s[n][e] * sl2 - lse2[r]) : 0.0f;
-        s[n][e] = pw * (dp[n][e] - dvec[r]) * p.scale;  // dS
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * jj + 2 * tq + c;
+        if (col < D)
+          out[row * stride + col] = __float2bfloat16(acc[4 * jj + 2 * r + c]);
       }
-    uint32_t da[4][4];
-    to_a(da, s);
-    weights_by_rows<DK>(acc, da, Ks, LD, lane);  // dQ += dS K
-    __syncthreads();  // K and V are refilled next tile
   }
-  store_bf16<DK>(head_out<bf16>(p.dq, p.sdq, b, h), p.sdq.t, acc,
-                 q0 + warp * 16, p.Tq, p.D, g, t4);
 }
 
-template <int DK>
-__global__ void __launch_bounds__(THREADS) dkv_bf16_kernel(Bwd p) {
-  constexpr int LD = Bf16Bwd<DK>::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;
-  bf16* Gs = Qs + BM * LD;
-  float* Ls = reinterpret_cast<float*>(Gs + BM * LD);  // lse * log2(e)
-  float* Ds = Ls + BM;                                 // dvec
+// ---- bf16: dQ --------------------------------------------------------------
+
+template <int KS>
+struct DqCfg {
+  static constexpr int DP = KS <= 4 ? 64 : 128;
+  static constexpr int ST = 2;
+  static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;
+  static constexpr int TILE = 64 * DP * 2;  // one 64-row tile
+  static constexpr int SMEM = 1024 + 2 * TILE + ST * 2 * TILE + 2 * ST * 8;
+};
+
+template <int KS>
+__global__ void __launch_bounds__(DqCfg<KS>::THREADS, DqCfg<KS>::MIN_BLOCKS)
+dq_wgmma_kernel(const Bwd p) {
+  using C = DqCfg<KS>;
+  constexpr int DP = C::DP, ST = C::ST, T = C::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sg = sq + T;
+  uint8_t* skv = sg + T;  // stage s: K at 2 s T, V at (2 s + 1) T
+  uint64_t* full = reinterpret_cast<uint64_t*>(skv + ST * 2 * T);
+  uint64_t* empty = full + ST;
 
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * BN;
-  const bf16* qg = head<bf16>(p.q, p.sq, b, h);
-  const bf16* gg = head<bf16>(p.g, p.sg, b, h);
-  const bf16* kg = head<bf16>(p.k, p.sk, b, h);
-  const bf16* vg = head<bf16>(p.v, p.sv, b, h);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  zero_pad(Ks, LD, 2 * BN + 2 * BM, p.D, Bf16Bwd<DK>::DP);
-  load_tile(Ks, LD, kg, p.sk.t, k0, p.Tk, p.D, p.vb);
-  load_tile(Vs, LD, vg, p.sv.t, k0, p.Tk, p.D, p.vb);
-  bool key_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) key_ok[r] = k0 + warp * 16 + g + 8 * r < p.Tk;
-  const float sl2 = p.scale * LOG2E;
-  float dk[2 * DK][4], dv[2 * DK][4];
-#pragma unroll
-  for (int n = 0; n < 2 * DK; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-
-  const int ntiles = (p.Tq + BM - 1) / BM;
-  for (int i = 0; i < ntiles; ++i) {
-    load_tile(Qs, LD, qg, p.sq.t, i * BM, p.Tq, p.D, p.vb);
-    load_tile(Gs, LD, gg, p.sg.t, i * BM, p.Tq, p.D, p.vb);
-    for (int t = threadIdx.x; t < BM; t += THREADS) {
-      const int row = i * BM + t;
-      const bool valid = row < p.Tq;
-      Ls[t] = valid ? p.lse[(long long)bh * p.Tq + row] * LOG2E : 0.0f;
-      Ds[t] = valid ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
+  const int q0 = blockIdx.y * 64;
+  const int ntiles = (p.Tk + 63) / 64;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], PRODUCERS);
+      hopper::mbar_init(&empty[s], 4);
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float st[8][4];
-    rows_by_rows<DK>(st, Ks, Qs, LD, warp * 16, lane);  // S^T = K Q^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t4 + (e & 1);
-        st[n][e] = (i * BM + qc < p.Tq && key_ok[e >> 1])
-                       ? exp2f(st[n][e] * sl2 - Ls[qc])
-                       : 0.0f;  // P^T
-      }
-    uint32_t wa[4][4];
-    to_a(wa, st);
-    weights_by_rows<DK>(dv, wa, Gs, LD, lane);  // dV += P^T dO
-    float dpt[8][4];
-    rows_by_rows<DK>(dpt, Vs, Gs, LD, warp * 16, lane);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t4 + (e & 1);
-        dpt[n][e] = st[n][e] * (dpt[n][e] - Ds[qc]) * p.scale;  // dS^T
-      }
-    to_a(wa, dpt);
-    weights_by_rows<DK>(dk, wa, Qs, LD, lane);  // dK += dS^T Q
-    __syncthreads();  // Q, dO, lse and dvec are refilled next tile
+    hopper::mbar_fence_init();
   }
-  const int row0 = k0 + warp * 16;
-  store_bf16<DK>(head_out<bf16>(p.dk, p.sdk, b, h), p.sdk.t, dk, row0, p.Tk,
-                 p.D, g, t4);
-  store_bf16<DK>(head_out<bf16>(p.dv, p.sdv, b, h), p.sdv.t, dv, row0, p.Tk,
-                 p.D, g, t4);
+  if (p.D < DP) {  // the padding columns, once
+    for (int i = 0; i < 2 + 2 * ST; ++i)
+      zero_outside<64, DP>(sq + i * T, 0, 64, 0, p.D, threadIdx.x,
+                           C::THREADS);
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    const bf16* qg = head<bf16>(p.q, p.sq, b, h);
+    const bf16* gg = head<bf16>(p.g, p.sg, b, h);
+    const bf16* kg = head<bf16>(p.k, p.sk, b, h);
+    const bf16* vg = head<bf16>(p.v, p.sv, b, h);
+    const uint32_t q32 = hopper::smem_u32(sq), kv32 = hopper::smem_u32(skv);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      hopper::mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+      if (j == 0) {
+        load_sw<64, DP>(q32, qg, p.sq.t, q0, p.Tq, p.D, p.vb, t);
+        load_sw<64, DP>(q32 + T, gg, p.sg.t, q0, p.Tq, p.D, p.vb, t);
+      }
+      load_sw<64, DP>(kv32 + 2 * s * T, kg, p.sk.t, 64 * j, p.Tk, p.D, p.vb,
+                      t);
+      load_sw<64, DP>(kv32 + (2 * s + 1) * T, vg, p.sv.t, 64 * j, p.Tk, p.D,
+                      p.vb, t);
+      stage_issued(&full[s], p.vb);
+    }
+  } else {
+    hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int warp = t / 32, g = lane / 4, tq = lane % 4;
+    const float sl2 = p.scale * LOG2E;
+    const int row0 = q0 + warp * 16 + g;
+    float lse2[2], dvec[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const bool ok = row < p.Tq;
+      lse2[r] = ok ? p.lse[(long long)bh * p.Tq + row] * LOG2E : 0.0f;
+      dvec[r] = ok ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
+    }
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      const uint8_t* kt = skv + 2 * s * T;
+      stage_landed(&full[s], (j / ST) & 1);
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+      rows_by_rows<KS>(sc, sq, 64, kt);      // S = Q K^T
+      rows_by_rows<KS>(dp, sg, 64, kt + T);  // dP = dO V^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      const int kb = 64 * j;
+      const bool edge = kb + 64 > p.Tk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float pw = ex2(fmaf(sc[i], sl2, -lse2[r]));
+        if (edge && kb + 8 * (i >> 2) + 2 * tq + (i & 1) >= p.Tk) pw = 0.0f;
+        sc[i] = pw * (dp[i] - dvec[r]) * p.scale;  // dS
+      }
+      uint32_t da[4][4];
+      to_a(da, sc);
+      fence_acc(acc);
+      fence_frag(da);
+      hopper::wgmma_fence();
+      weights_by_rows<DP>(acc, da, kt);  // dQ += dS K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    store_acc<DP>(head_out<bf16>(p.dq, p.sdq, b, h), p.sdq.t, acc, row0, p.Tq,
+                  p.D, tq);
+  }
 }
 
-// ---------------------------------------------------------------------------
-// float32: FMA. NJ = Dpad / 16; thread (ty, tx) = (tid / 8, tid % 8) owns
-// rows ty + 16 i (i < 4) of its 64, score columns tx + 8 c (c < 8) and
-// output columns 2 tx + 16 jj + {0, 1} (jj < NJ).
+// ---- bf16: dK and dV ---------------------------------------------------------
+
+template <int KS>
+struct DkvCfg {
+  static constexpr int DP = KS <= 4 ? 64 : 128;
+  static constexpr int ST = 2;
+  static constexpr int THREADS = 256;
+  // at DP = 64 two blocks share an SM, the producer's registers moved to
+  // the consumers; at 128 the consumers' dK, dV, S^T and dP^T need ~240
+  static constexpr int MIN_BLOCKS = DP == 64 ? 2 : 1;
+  static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 200;
+  static constexpr int TILE = 64 * DP * 2;
+  // K and V, ST x (Q, dO), ST x 64 lse and dvec, the barriers
+  static constexpr int SMEM =
+      1024 + 2 * TILE + ST * 2 * TILE + ST * 2 * 64 * 4 + 2 * ST * 8;
+};
+
+template <int KS>
+__global__ void __launch_bounds__(DkvCfg<KS>::THREADS, DkvCfg<KS>::MIN_BLOCKS)
+dkv_wgmma_kernel(const Bwd p) {
+  using C = DkvCfg<KS>;
+  constexpr int DP = C::DP, ST = C::ST, T = C::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align1024(smem_raw);
+  uint8_t* sv = sk + T;
+  uint8_t* sqg = sv + T;  // stage s: Q at 2 s T, dO at (2 s + 1) T
+  float* ls = reinterpret_cast<float*>(sqg + ST * 2 * T);  // ST x 64 lse
+  float* ds = ls + ST * 64;                                // ST x 64 dvec
+  uint64_t* full = reinterpret_cast<uint64_t*>(ds + ST * 64);
+  uint64_t* empty = full + ST;
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int k0 = blockIdx.y * 64;
+  const int ntiles = (p.Tq + 63) / 64;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], PRODUCERS);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  if (p.D < DP) {  // the padding columns, once
+    for (int i = 0; i < 2 + 2 * ST; ++i)
+      zero_outside<64, DP>(sk + i * T, 0, 64, 0, p.D, threadIdx.x,
+                           C::THREADS);
+    hopper::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if constexpr (C::MIN_BLOCKS == 2)
+      hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    const bf16* qg = head<bf16>(p.q, p.sq, b, h);
+    const bf16* gg = head<bf16>(p.g, p.sg, b, h);
+    const bf16* kg = head<bf16>(p.k, p.sk, b, h);
+    const bf16* vg = head<bf16>(p.v, p.sv, b, h);
+    const uint32_t k32 = hopper::smem_u32(sk), qg32 = hopper::smem_u32(sqg);
+    const float* vec = (t < 64 ? p.lse : p.dvec) + (long long)bh * p.Tq;
+    const uint32_t vdst = hopper::smem_u32((t < 64 ? ls : ds) + t % 64);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      hopper::mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+      if (j == 0) {
+        load_sw<64, DP>(k32, kg, p.sk.t, k0, p.Tk, p.D, p.vb, t);
+        load_sw<64, DP>(k32 + T, vg, p.sv.t, k0, p.Tk, p.D, p.vb, t);
+      }
+      const int i0 = 64 * j;
+      load_sw<64, DP>(qg32 + 2 * s * T, qg, p.sq.t, i0, p.Tq, p.D, p.vb, t);
+      load_sw<64, DP>(qg32 + (2 * s + 1) * T, gg, p.sg.t, i0, p.Tq, p.D,
+                      p.vb, t);
+      const bool ok = i0 + t % 64 < p.Tq;
+      copy_chunk<4>(vdst + s * 64 * 4, ok ? vec + i0 + t % 64 : vec, ok);
+      stage_issued(&full[s], p.vb);
+    }
+  } else {
+    if constexpr (C::MIN_BLOCKS == 2)
+      hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int warp = t / 32, g = lane / 4, tq = lane % 4;
+    const float sl2 = p.scale * LOG2E;
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % ST;
+      const uint8_t* qt = sqg + 2 * s * T;
+      const float* lj = ls + s * 64;
+      const float* dj = ds + s * 64;
+      stage_landed(&full[s], (j / ST) & 1);
+      // rows: this warpgroup's 64 keys; columns: the tile's 64 queries
+      float st[32], dpt[32];
+      hopper::wgmma_fence();
+      rows_by_rows<KS>(st, sk, 64, qt);       // S^T = K Q^T
+      rows_by_rows<KS>(dpt, sv, 64, qt + T);  // dP^T = V dO^T
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * tq + (i & 1);
+        st[i] = ex2(fmaf(st[i], sl2, -lj[col] * LOG2E));  // P^T
+      }
+      uint32_t pa[4][4], da[4][4];
+      to_a(pa, st);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i >> 2) + 2 * tq + (i & 1);
+        dpt[i] = st[i] * (dpt[i] - dj[col]) * p.scale;  // dS^T
+      }
+      to_a(da, dpt);
+      fence_acc(dk);
+      fence_acc(dv);
+      fence_frag(pa);
+      fence_frag(da);
+      hopper::wgmma_fence();
+      weights_by_rows<DP>(dv, pa, qt + T);  // dV += P^T dO
+      weights_by_rows<DP>(dk, da, qt);      // dK += dS^T Q
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_acc(dk);
+      fence_acc(dv);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    const int row0 = k0 + warp * 16 + g;
+    store_acc<DP>(head_out<bf16>(p.dk, p.sdk, b, h), p.sdk.t, dk, row0, p.Tk,
+                  p.D, tq);
+    store_acc<DP>(head_out<bf16>(p.dv, p.sdv, b, h), p.sdv.t, dv, row0, p.Tk,
+                  p.D, tq);
+  }
+}
+
+// ---- float32: FMA --------------------------------------------------------------
 
 template <int NJ>
 struct F32Bwd {
   static constexpr int DP = 16 * NJ;
-  static constexpr int LD = DP + 4;   // LD / 4 odd: conflict-free float4 rows
-  static constexpr int LDP = BN + 4;  // the score tile
-  static constexpr size_t smem() {    // four tiles, the score tile, 2 rows
-    return ((size_t)4 * BM * LD + (size_t)BM * LDP + 2 * BM) * sizeof(float);
+  static constexpr int LD = F32Tiles<NJ>::LD, LDP = F32Tiles<NJ>::LDP;
+  // two stationary 64-row tiles, two stages of two 32-row tiles, the warps'
+  // weight rows, two stages of 32 lse and dvec
+  static constexpr size_t smem() {
+    return ((size_t)(2 * F_BM + 4 * F_BN) * LD + (size_t)F_BM * LDP +
+            4 * F_BN) * sizeof(float);
   }
 };
 
-// s[i][c] += X[ty + 16 i] . Y[tx + 8 c] over the padded head dim
 template <int NJ>
-__device__ __forceinline__ void rows_dot_f32(float s[4][8], const float* X,
-                                             const float* Y, int ty, int tx) {
-  constexpr int LD = F32Bwd<NJ>::LD;
-#pragma unroll 2
-  for (int d = 0; d < F32Bwd<NJ>::DP; d += 4) {
-    float4 xv[4];
+__device__ __forceinline__ void zero_acc(float (&a)[4][NJ][2]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      xv[i] = *reinterpret_cast<const float4*>(X + (ty + 16 * i) * LD + d);
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float4 yv =
-          *reinterpret_cast<const float4*>(Y + (tx + 8 * c) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][c] = fmaf(xv[i].x, yv.x, s[i][c]);
-        s[i][c] = fmaf(xv[i].y, yv.y, s[i][c]);
-        s[i][c] = fmaf(xv[i].z, yv.z, s[i][c]);
-        s[i][c] = fmaf(xv[i].w, yv.w, s[i][c]);
-      }
-    }
-  }
-}
-
-// out[i][jj] += W[ty + 16 i, :] Y[:, 2 tx + 16 jj + {0, 1}] over 64 rows of
-// Y, W the score tile in shared memory
-template <int NJ>
-__device__ __forceinline__ void weights_by_rows_f32(float out[4][NJ][2],
-                                                    const float* W,
-                                                    const float* Y, int ty,
-                                                    int tx) {
-  constexpr int LD = F32Bwd<NJ>::LD, LDP = F32Bwd<NJ>::LDP;
-#pragma unroll 1
-  for (int kk = 0; kk < BN; kk += 4) {
-    float4 wv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      wv[i] = *reinterpret_cast<const float4*>(W + (ty + 16 * i) * LDP + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float2 yv = *reinterpret_cast<const float2*>(
-            Y + (kk + u) * LD + 2 * tx + 16 * jj);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = u == 0 ? wv[i].x : u == 1 ? wv[i].y
-                        : u == 2 ? wv[i].z : wv[i].w;
-          out[i][jj][0] = fmaf(w, yv.x, out[i][jj][0]);
-          out[i][jj][1] = fmaf(w, yv.y, out[i][jj][1]);
-        }
-      }
-    }
-  }
+    for (int jj = 0; jj < NJ; ++jj) a[i][jj][0] = a[i][jj][1] = 0.0f;
 }
 
 template <int NJ>
 __device__ __forceinline__ void store_f32(float* out, long long stride,
-                                          const float acc[4][NJ][2], int row0,
-                                          int rows_total, int D, int ty,
-                                          int tx) {
+                                          const float (&acc)[4][NJ][2],
+                                          int row0, int rows_total, int D,
+                                          int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty + 16 * i;
@@ -427,170 +407,174 @@ __device__ __forceinline__ void store_f32(float* out, long long stride,
 }
 
 template <int NJ>
-__device__ __forceinline__ void zero_acc(float a[4][NJ][2]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) a[i][jj][0] = a[i][jj][1] = 0.0f;
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(THREADS) dq_f32_kernel(Bwd p) {
+__global__ void __launch_bounds__(F_THREADS) dq_f32_kernel(const Bwd p) {
   constexpr int LD = F32Bwd<NJ>::LD, LDP = F32Bwd<NJ>::LDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Gs = Qs + BM * LD;
-  float* Ks = Gs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* Ps = Vs + BN * LD;
+  float* Gs = Qs + F_BM * LD;
+  auto Ks = [&](int s) { return Gs + F_BM * LD + s * 2 * F_BN * LD; };
+  auto Vs = [&](int s) { return Ks(s) + F_BN * LD; };
+  float* Ps = Qs + (2 * F_BM + 4 * F_BN) * LD;
 
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.y * BM;
+  const int q0 = blockIdx.y * F_BM;
   const float* qg = head<float>(p.q, p.sq, b, h);
   const float* gg = head<float>(p.g, p.sg, b, h);
   const float* kg = head<float>(p.k, p.sk, b, h);
   const float* vg = head<float>(p.v, p.sv, b, h);
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int ntiles = (p.Tk + F_BN - 1) / F_BN;
 
-  zero_pad(Qs, LD, 2 * BM + 2 * BN, p.D, F32Bwd<NJ>::DP);
-  load_tile(Qs, LD, qg, p.sq.t, q0, p.Tq, p.D, p.vb);
-  load_tile(Gs, LD, gg, p.sg.t, q0, p.Tq, p.D, p.vb);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * p.D; i += THREADS)
-    Qs[(i / p.D) * LD + i % p.D] *= p.scale;  // q * scale in float32
+  zero_cols<F_THREADS>(Qs, LD, 2 * F_BM + 4 * F_BN, p.D, F32Bwd<NJ>::DP);
+  load_rows<F_THREADS>(Qs, LD, qg, p.sq.t, q0, F_BM, p.Tq, p.D, p.vb);
+  load_rows<F_THREADS>(Gs, LD, gg, p.sg.t, q0, F_BM, p.Tq, p.D, p.vb);
+  load_rows<F_THREADS>(Ks(0), LD, kg, p.sk.t, 0, F_BN, p.Tk, p.D, p.vb);
+  load_rows<F_THREADS>(Vs(0), LD, vg, p.sv.t, 0, F_BN, p.Tk, p.D, p.vb);
+  hopper::cp_async_commit();
 
-  float lse[4], dvec[4];  // rows past Tq: P = exp(-inf) = 0
+  float lse2[4], dvec[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    const bool valid = row < p.Tq;
-    lse[i] = valid ? p.lse[(long long)bh * p.Tq + row] : INFINITY;
-    dvec[i] = valid ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
+    const bool ok = row < p.Tq;
+    lse2[i] = ok ? p.lse[(long long)bh * p.Tq + row] * LOG2E : 0.0f;
+    dvec[i] = ok ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
   }
   float acc[4][NJ][2];
   zero_acc<NJ>(acc);
 
-  const int ntiles = (p.Tk + BN - 1) / BN;
   for (int j = 0; j < ntiles; ++j) {
-    load_tile(Ks, LD, kg, p.sk.t, j * BN, p.Tk, p.D, p.vb);
-    load_tile(Vs, LD, vg, p.sv.t, j * BN, p.Tk, p.D, p.vb);
-    cp_async_commit();
-    cp_async_wait<0>();
+    const int cur = j & 1;
+    if (j + 1 < ntiles) {
+      const int k0 = (j + 1) * F_BN;
+      load_rows<F_THREADS>(Ks(cur ^ 1), LD, kg, p.sk.t, k0, F_BN, p.Tk, p.D,
+                           p.vb);
+      load_rows<F_THREADS>(Vs(cur ^ 1), LD, vg, p.sv.t, k0, F_BN, p.Tk, p.D,
+                           p.vb);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
     __syncthreads();
-
-    float s[4][8], dp[4][8];
+    if (j == 0) {
+      for (int i = threadIdx.x; i < F_BM * p.D; i += F_THREADS)
+        Qs[(i / p.D) * LD + i % p.D] *= p.scale;  // q * scale in float32
+      __syncthreads();
+    }
+    float s[4][4], dp[4][4];
+    rows_dot<NJ, 4>(s, Qs, Ks(cur), ty, tx);  // S = (q * scale) K^T
+    rows_dot<NJ, 4>(dp, Gs, Vs(cur), ty, tx);  // dP = dO V^T
+    const int kb = j * F_BN;
+    const bool edge = kb + F_BN > p.Tk;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = dp[i][c] = 0.0f;
-    rows_dot_f32<NJ>(s, Qs, Ks, ty, tx);   // S = (q * scale) K^T
-    rows_dot_f32<NJ>(dp, Gs, Vs, ty, tx);  // dP = dO V^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float pw =
-            j * BN + tx + 8 * c < p.Tk ? expf(s[i][c] - lse[i]) : 0.0f;
+      for (int c = 0; c < 4; ++c) {
+        float pw = exp2f(fmaf(s[i][c], LOG2E, -lse2[i]));
+        if (edge && kb + tx + 8 * c >= p.Tk) pw = 0.0f;
         Ps[(ty + 16 * i) * LDP + tx + 8 * c] =
             pw * (dp[i][c] - dvec[i]) * p.scale;  // dS
       }
-    __syncthreads();
-    weights_by_rows_f32<NJ>(acc, Ps, Ks, ty, tx);  // dQ += dS K
-    __syncthreads();  // K, V and dS are refilled next tile
+    __syncwarp();
+    weights_by_rows_f32<NJ>(acc, Ps, Ks(cur), ty, tx);  // dQ += dS K
+    __syncthreads();  // the other buffer is refilled next tile
   }
   store_f32<NJ>(head_out<float>(p.dq, p.sdq, b, h), p.sdq.t, acc, q0, p.Tq,
                 p.D, ty, tx);
 }
 
 template <int NJ>
-__global__ void __launch_bounds__(THREADS) dkv_f32_kernel(Bwd p) {
+__global__ void __launch_bounds__(F_THREADS) dkv_f32_kernel(const Bwd p) {
   constexpr int LD = F32Bwd<NJ>::LD, LDP = F32Bwd<NJ>::LDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + BN * LD;
-  float* Qs = Vs + BN * LD;
-  float* Gs = Qs + BM * LD;
-  float* Ps = Gs + BM * LD;
-  float* Ls = Ps + BN * LDP;  // lse
-  float* Ds = Ls + BM;        // dvec
+  float* Vs = Ks + F_BM * LD;
+  auto Qs = [&](int s) { return Vs + F_BM * LD + s * 2 * F_BN * LD; };
+  auto Gs = [&](int s) { return Qs(s) + F_BN * LD; };
+  float* Ps = Ks + (2 * F_BM + 4 * F_BN) * LD;
+  float* Ls = Ps + F_BM * LDP;  // 2 x 32 lse
+  float* Ds = Ls + 2 * F_BN;    // 2 x 32 dvec
 
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.y * BN;
+  const int k0 = blockIdx.y * F_BM;
   const float* qg = head<float>(p.q, p.sq, b, h);
   const float* gg = head<float>(p.g, p.sg, b, h);
   const float* kg = head<float>(p.k, p.sk, b, h);
   const float* vg = head<float>(p.v, p.sv, b, h);
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+  const int ntiles = (p.Tq + F_BN - 1) / F_BN;
+  // threads 0-31 copy a tile's lse, 32-63 its dvec
+  const float* vec = (threadIdx.x < F_BN ? p.lse : p.dvec) +
+                     (long long)bh * p.Tq;
+  auto load_vec = [&](int s, int i0) {
+    if (threadIdx.x < 2 * F_BN) {
+      const int r = threadIdx.x % F_BN;
+      const bool ok = i0 + r < p.Tq;
+      copy_chunk<4>(static_cast<uint32_t>(__cvta_generic_to_shared(
+                        (threadIdx.x < F_BN ? Ls : Ds) + s * F_BN + r)),
+                    ok ? vec + i0 + r : vec, ok);
+    }
+  };
 
-  zero_pad(Ks, LD, 2 * BN + 2 * BM, p.D, F32Bwd<NJ>::DP);
-  load_tile(Ks, LD, kg, p.sk.t, k0, p.Tk, p.D, p.vb);
-  load_tile(Vs, LD, vg, p.sv.t, k0, p.Tk, p.D, p.vb);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  // S^T = (k * scale) q^T: the TPU kernel scales q; the two differ by
-  // float32 rounding only
-  for (int i = threadIdx.x; i < BN * p.D; i += THREADS)
-    Ks[(i / p.D) * LD + i % p.D] *= p.scale;
-  bool key_ok[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) key_ok[i] = k0 + ty + 16 * i < p.Tk;
+  zero_cols<F_THREADS>(Ks, LD, 2 * F_BM + 4 * F_BN, p.D, F32Bwd<NJ>::DP);
+  load_rows<F_THREADS>(Ks, LD, kg, p.sk.t, k0, F_BM, p.Tk, p.D, p.vb);
+  load_rows<F_THREADS>(Vs, LD, vg, p.sv.t, k0, F_BM, p.Tk, p.D, p.vb);
+  load_rows<F_THREADS>(Qs(0), LD, qg, p.sq.t, 0, F_BN, p.Tq, p.D, p.vb);
+  load_rows<F_THREADS>(Gs(0), LD, gg, p.sg.t, 0, F_BN, p.Tq, p.D, p.vb);
+  load_vec(0, 0);
+  hopper::cp_async_commit();
   float dk[4][NJ][2], dv[4][NJ][2];
   zero_acc<NJ>(dk);
   zero_acc<NJ>(dv);
 
-  const int ntiles = (p.Tq + BM - 1) / BM;
   for (int it = 0; it < ntiles; ++it) {
-    load_tile(Qs, LD, qg, p.sq.t, it * BM, p.Tq, p.D, p.vb);
-    load_tile(Gs, LD, gg, p.sg.t, it * BM, p.Tq, p.D, p.vb);
-    for (int t = threadIdx.x; t < BM; t += THREADS) {
-      const int row = it * BM + t;
-      const bool valid = row < p.Tq;
-      Ls[t] = valid ? p.lse[(long long)bh * p.Tq + row] : 0.0f;
-      Ds[t] = valid ? p.dvec[(long long)bh * p.Tq + row] : 0.0f;
+    const int cur = it & 1;
+    if (it + 1 < ntiles) {
+      const int i0 = (it + 1) * F_BN;
+      load_rows<F_THREADS>(Qs(cur ^ 1), LD, qg, p.sq.t, i0, F_BN, p.Tq, p.D,
+                           p.vb);
+      load_rows<F_THREADS>(Gs(cur ^ 1), LD, gg, p.sg.t, i0, F_BN, p.Tq, p.D,
+                           p.vb);
+      load_vec(cur ^ 1, i0);
     }
-    cp_async_commit();
-    cp_async_wait<0>();
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
     __syncthreads();
-
+    if (it == 0) {
+      // S^T = (k * scale) q^T: the TPU kernel scales q; the two differ by
+      // float32 rounding only
+      for (int i = threadIdx.x; i < F_BM * p.D; i += F_THREADS)
+        Ks[(i / p.D) * LD + i % p.D] *= p.scale;
+      __syncthreads();
+    }
+    const float* L = Ls + cur * F_BN;
+    const float* Dv = Ds + cur * F_BN;
     // rows: keys ty + 16 i; columns: queries tx + 8 c
-    float s[4][8];
+    float s[4][4];
+    rows_dot<NJ, 4>(s, Ks, Qs(cur), ty, tx);  // S^T
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
-    rows_dot_f32<NJ>(s, Ks, Qs, ty, tx);  // S^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < 4; ++c) {
         const int qc = tx + 8 * c;
-        s[i][c] = (it * BM + qc < p.Tq && key_ok[i]) ? expf(s[i][c] - Ls[qc])
-                                                     : 0.0f;  // P^T
+        s[i][c] = exp2f(fmaf(s[i][c], LOG2E, -L[qc] * LOG2E));  // P^T
         Ps[(ty + 16 * i) * LDP + qc] = s[i][c];
       }
-    __syncthreads();
-    weights_by_rows_f32<NJ>(dv, Ps, Gs, ty, tx);  // dV += P^T dO
-    float dp[4][8];
+    __syncwarp();
+    weights_by_rows_f32<NJ>(dv, Ps, Gs(cur), ty, tx);  // dV += P^T dO
+    float dp[4][4];
+    rows_dot<NJ, 4>(dp, Vs, Gs(cur), ty, tx);  // dP^T = V dO^T
+    __syncwarp();  // the warp is done reading its P^T rows
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) dp[i][c] = 0.0f;
-    rows_dot_f32<NJ>(dp, Vs, Gs, ty, tx);  // dP^T = V dO^T
-    __syncthreads();  // every thread is done reading P^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < 4; ++c) {
         const int qc = tx + 8 * c;
         Ps[(ty + 16 * i) * LDP + qc] =
-            s[i][c] * (dp[i][c] - Ds[qc]) * p.scale;  // dS^T
+            s[i][c] * (dp[i][c] - Dv[qc]) * p.scale;  // dS^T
       }
-    __syncthreads();
-    weights_by_rows_f32<NJ>(dk, Ps, Qs, ty, tx);  // dK += dS^T Q
-    __syncthreads();  // Q, dO, the scores, lse and dvec are refilled next
+    __syncwarp();
+    weights_by_rows_f32<NJ>(dk, Ps, Qs(cur), ty, tx);  // dK += dS^T Q
+    __syncthreads();  // the other buffers are refilled next tile
   }
   store_f32<NJ>(head_out<float>(p.dk, p.sdk, b, h), p.sdk.t, dk, k0, p.Tk,
                 p.D, ty, tx);
@@ -598,18 +582,16 @@ __global__ void __launch_bounds__(THREADS) dkv_f32_kernel(Bwd p) {
                 p.D, ty, tx);
 }
 
-// ---------------------------------------------------------------------------
-// launches
+// ---- launches ------------------------------------------------------------------
 
-template <typename Kernel, typename Params>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const Params& p,
-                   cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, THREADS, smem, s>>>(p);
+namespace {
+
+template <auto Kernel>
+cudaError_t go(dim3 grid, int threads, int smem, const Bwd& p,
+               cudaStream_t s) {
+  const cudaError_t e = smem_once<Kernel>(smem);
+  if (e != cudaSuccess) return e;
+  Kernel<<<grid, threads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -629,48 +611,98 @@ cudaError_t by_k16(int k16, F f) {
   return cudaErrorInvalidValue;
 }
 
-bool valid_shape(int B, int H, int Tq, int Tk, int D, int vb, int dtype) {
-  const int es = dtype == 1 ? 2 : 4;
-  return D >= 1 && D <= D_MAX && Tq >= 1 && Tk >= 1 && B >= 1 && H >= 1 &&
-         (long long)B * H <= 0x7fffffffLL && (Tq + BM - 1) / BM <= 65535 &&
-         (Tk + BN - 1) / BN <= 65535 && (dtype == 0 || dtype == 1) &&
-         (vb == 16 || vb == 8 || vb == 4 || (vb == 2 && dtype == 1)) &&
-         D % (vb / es) == 0;
+// kind 0: dQ over blocks of 64 queries; 1: dK and dV over blocks of 64 keys
+cudaError_t backward(int kind, const Bwd& p, int dtype, cudaStream_t s) {
+  const int blocks = kind == 0 ? (p.Tq + 63) / 64 : (p.Tk + 63) / 64;
+  if (blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(p.B * p.H, blocks);
+  const cudaError_t e = by_k16((p.D + 15) / 16, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    if (dtype == 1)
+      return kind == 0
+                 ? go<dq_wgmma_kernel<K>>(grid, DqCfg<K>::THREADS,
+                                          DqCfg<K>::SMEM, p, s)
+                 : go<dkv_wgmma_kernel<K>>(grid, DkvCfg<K>::THREADS,
+                                           DkvCfg<K>::SMEM, p, s);
+    return kind == 0 ? go<dq_f32_kernel<K>>(grid, F_THREADS,
+                                            (int)F32Bwd<K>::smem(), p, s)
+                     : go<dkv_f32_kernel<K>>(grid, F_THREADS,
+                                             (int)F32Bwd<K>::smem(), p, s);
+  });
+  if (e == cudaSuccess) ++launch_counts[0][kind == 0 ? K_DQ : K_DKV];
+  return e;
 }
+
+// the previous design's launches (flash_prev.cuh), the attribute set at
+// every launch as it was
+template <typename Kernel, typename Params>
+cudaError_t prev_go(Kernel kernel, size_t smem, dim3 grid, const Params& p,
+                    cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, attn_prev::THREADS, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace flash
 
 // Forward. q (B, H, Tq, D), k and v (B, H, Tk, D), the output o (B, H, Tq,
 // D), each given by its (b, h, t) element strides; lse float32 (B * H, Tq)
-// contiguous, or null (``flash_attention_pallas``); dtype 0 float32, 1 bf16.
+// contiguous, or null (``flash_attention_pallas``); dtype 0 float32, 1 bf16;
+// rows, chunk, splits, part_o and part_lse as attention_launch's.
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
     int H, int Tq, int Tk, int D, long long sqb, long long sqh, long long sqt,
     long long skb, long long skh, long long skt, long long svb, long long svh,
     long long svt, long long sob, long long soh, long long sot, int vb,
-    int dtype, void* stream) {
-  if (!flash::valid_shape(B, H, Tq, Tk, D, vb, dtype))
+    int dtype, int rows, int chunk, int splits, float* part_o,
+    float* part_lse, void* stream) {
+  if (!attn::valid_rows(B, H, Tq, Tk, D, vb, dtype))
     return (int)cudaErrorInvalidValue;
   attn::Problem p{q, k, v, o, B, H, Tq, Tk, D,
                   {sqb, sqh, sqt}, {skb, skh, skt}, {svb, svh, svt},
-                  {sob, soh, sot}, vb, (float)pow((double)D, -0.5)};
+                  {sob, soh, sot}, vb, (float)pow((double)D, -0.5),
+                  lse, chunk, splits, part_o, part_lse};
+  return (int)attn::forward(p, rows, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The forward in the previous design (the parent, for timings).
+extern "C" int flash_attention_fwd_prev_launch(
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int H, int Tq, int Tk, int D, long long sqb, long long sqh, long long sqt,
+    long long skb, long long skh, long long skt, long long svb, long long svh,
+    long long svt, long long sob, long long soh, long long sot, int vb,
+    int dtype, void* stream) {
+  if (!attn::valid_rows(B, H, Tq, Tk, D, vb, dtype) ||
+      (Tq + attn_prev::BM - 1) / attn_prev::BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  attn_prev::Problem p{q, k, v, o, B, H, Tq, Tk, D,
+                       {sqb, sqh, sqt}, {skb, skh, skt}, {svb, svh, svt},
+                       {sob, soh, sot}, vb, (float)pow((double)D, -0.5)};
   p.lse = lse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * H, (Tq + attn::BM - 1) / attn::BM);
-  return (int)flash::by_k16((D + 15) / 16, [&](auto kc) {
+  const dim3 grid(B * H, (Tq + attn_prev::BM - 1) / attn_prev::BM);
+  const cudaError_t e = flash::by_k16((D + 15) / 16, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     return dtype == 1
-               ? flash::launch(attn::attn_bf16_kernel<K>,
-                               attn::Bf16Tiles<K>::smem(), grid, p, s)
-               : flash::launch(attn::attn_f32_kernel<K>,
-                               attn::F32Tiles<K>::smem(), grid, p, s);
+               ? flash::prev_go(attn_prev::attn_bf16_kernel<K>,
+                                attn_prev::Bf16Tiles<K>::smem(), grid, p, s)
+               : flash::prev_go(attn_prev::attn_f32_kernel<K>,
+                                attn_prev::F32Tiles<K>::smem(), grid, p, s);
   });
+  if (e == cudaSuccess) ++attn::launch_counts[1][attn::K_FWD];
+  return (int)e;
 }
 
 // Backward, one entry per kernel (kind 0: dQ, 1: dK and dV). q, k, v and g
 // (dO, shaped as the output) as in the forward; lse and dvec float32 (B * H,
 // Tq) contiguous; the gradients dq (as q), dk and dv (as k) given by their
-// strides, in the inputs' dtype.
+// strides, in the inputs' dtype; prev 1: the previous design.
 extern "C" int flash_attention_bwd_launch(
     int kind, const void* q, const void* k, const void* v, const void* g,
     const float* lse, const float* dvec, void* dq, void* dk, void* dv, int B,
@@ -679,26 +711,41 @@ extern "C" int flash_attention_bwd_launch(
     long long svt, long long sgb, long long sgh, long long sgt, long long sdqb,
     long long sdqh, long long sdqt, long long sdkb, long long sdkh,
     long long sdkt, long long sdvb, long long sdvh, long long sdvt, int vb,
-    int dtype, void* stream) {
-  if (!flash::valid_shape(B, H, Tq, Tk, D, vb, dtype) || (kind != 0 && kind != 1))
+    int dtype, int prev, void* stream) {
+  if (!attn::valid_rows(B, H, Tq, Tk, D, vb, dtype) ||
+      (kind != 0 && kind != 1))
     return (int)cudaErrorInvalidValue;
-  flash::Bwd p{q, k, v, g, lse, dvec, dq, dk, dv, B, H, Tq, Tk, D,
-               {sqb, sqh, sqt}, {skb, skh, skt}, {svb, svh, svt},
-               {sgb, sgh, sgt}, {sdqb, sdqh, sdqt}, {sdkb, sdkh, sdkt},
-               {sdvb, sdvh, sdvt}, vb, (float)pow((double)D, -0.5)};
+  const float scale = (float)pow((double)D, -0.5);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * H, kind == 0 ? (Tq + attn::BM - 1) / attn::BM
-                                   : (Tk + attn::BN - 1) / attn::BN);
-  return (int)flash::by_k16((D + 15) / 16, [&](auto kc) {
+  if (!prev) {
+    flash::Bwd p{q, k, v, g, lse, dvec, dq, dk, dv, B, H, Tq, Tk, D,
+                 {sqb, sqh, sqt}, {skb, skh, skt}, {svb, svh, svt},
+                 {sgb, sgh, sgt}, {sdqb, sdqh, sdqt}, {sdkb, sdkh, sdkt},
+                 {sdvb, sdvh, sdvt}, vb, scale};
+    return (int)flash::backward(kind, p, dtype, s);
+  }
+  flash_prev::Bwd p{q, k, v, g, lse, dvec, dq, dk, dv, B, H, Tq, Tk, D,
+                    {sqb, sqh, sqt}, {skb, skh, skt}, {svb, svh, svt},
+                    {sgb, sgh, sgt}, {sdqb, sdqh, sdqt}, {sdkb, sdkh, sdkt},
+                    {sdvb, sdvh, sdvt}, vb, scale};
+  const int blocks = kind == 0 ? (Tq + attn_prev::BM - 1) / attn_prev::BM
+                               : (Tk + attn_prev::BN - 1) / attn_prev::BN;
+  if (blocks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, blocks);
+  const cudaError_t e = flash::by_k16((D + 15) / 16, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
+    using namespace flash_prev;
     if (dtype == 1)
-      return kind == 0 ? flash::launch(flash::dq_bf16_kernel<K>,
-                                       flash::Bf16Bwd<K>::smem(), grid, p, s)
-                       : flash::launch(flash::dkv_bf16_kernel<K>,
-                                       flash::Bf16Bwd<K>::smem(), grid, p, s);
-    return kind == 0 ? flash::launch(flash::dq_f32_kernel<K>,
-                                     flash::F32Bwd<K>::smem(), grid, p, s)
-                     : flash::launch(flash::dkv_f32_kernel<K>,
-                                     flash::F32Bwd<K>::smem(), grid, p, s);
+      return kind == 0 ? flash::prev_go(dq_bf16_kernel<K>,
+                                        Bf16Bwd<K>::smem(), grid, p, s)
+                       : flash::prev_go(dkv_bf16_kernel<K>,
+                                        Bf16Bwd<K>::smem(), grid, p, s);
+    return kind == 0 ? flash::prev_go(dq_f32_kernel<K>, F32Bwd<K>::smem(),
+                                      grid, p, s)
+                     : flash::prev_go(dkv_f32_kernel<K>, F32Bwd<K>::smem(),
+                                      grid, p, s);
   });
+  if (e == cudaSuccess)
+    ++attn::launch_counts[1][kind == 0 ? attn::K_DQ : attn::K_DKV];
+  return (int)e;
 }

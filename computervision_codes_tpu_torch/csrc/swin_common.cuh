@@ -8,13 +8,10 @@
 // and int8 products ran before (kept for the shapes the path rule sends
 // them, P1's weight-only int8, and as the parent that chip_smoke.py times
 // and compares against through the "_loop" entry points), the LayerNorm
-// and absmax passes and the previous attention phase (AttnSmem: the score
-// tile in shared memory), kept as the parent that chip_smoke.py times the
-// current one against through the "_prev" entry points. The current
-// attention phase, with each strip's scores in registers, is
-// window_attn.cuh, included at the end: K3's window_attention below runs
-// it, and K10 window_attention.cu runs its body over q, k and v it reads
-// through their strides.
+// and absmax passes. The attention phase, with each strip's scores in
+// registers, is window_attn.cuh, included at the end: K3's window_attention
+// below runs it, and K10 window_attention.cu runs its body over q, k and v
+// it reads through their strides.
 //
 // Phases, all over row-major token matrices of one dtype T (float or bf16):
 //
@@ -29,16 +26,7 @@
 //                     goes through one of five epilogues (bias; bias +
 //                     exact-erf GELU; bias, rounded, + a residual in T;
 //                     bias + residual summed in float32; a float32 scale
-//                     per column and no bias), rounded to T once;
-//   window_attn_kernel the previous attention phase, one block per (window,
-//                     head): q, k, v of one window (N = w*w tokens,
-//                     head_dim 32) gathered from the qkv matrix into shared
-//                     memory, S = q k^T in float32, then S * scale + rel-pos
-//                     bias (+ shift mask), a float32 softmax with the
-//                     denominator floored at 1e-30, P rounded to T, O = P v
-//                     in float32, rounded to T and written at the tokens'
-//                     own rows (window_attn.cuh computes the same with the
-//                     scores in registers).
+//                     per column and no bias), rounded to T once.
 //
 // In the loop, bf16 products run on tensor cores through WMMA (mma.sync
 // underneath) with float32 accumulation; float32 products use plain FMA so
@@ -68,20 +56,18 @@
 //                     with its per-block absmax, or T(res + T(v)); or (P1)
 //                     as (float)acc * ((amax * float32(1/127)) * scale[n])
 //                     with no bias, rounded to T;
-//   window_attn_kernel with a window absmax: max |output| of each window
-//                     (all heads), and for an odd window the output of a
-//                     padded query of the TPU kernel's (w+1)^2 geometry
-//                     (uniform attention over the w^2 keys), which enters
-//                     that absmax on the TPU.
-//
+//   the attention phase (window_attn.cuh) with a window absmax: max |output|
+//                     of each window (all heads), and for an odd window the
+//                     output of a padded query of the TPU kernel's (w+1)^2
+//                     geometry (uniform attention over the w^2 keys), which
+//                     enters that absmax on the TPU.
+
 // The int8 epilogues and quantizers use the _rn intrinsics and rintf (no
 // FMA contraction), in the JAX code's order of operations.
 //
 // Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
 // for the loops (C % 64 == 0 for the blocks); head_dim 32; window <= 12
-// (the previous phase's score tile of a 144-token window is 85 KB of
-// float32, and q, k, v, S and P together 160 KB of the 227 KB a block may
-// use; window_attn.cuh instantiates its strips for N <= 144).
+// (window_attn.cuh instantiates its strips for N <= 144).
 
 #pragma once
 
@@ -100,10 +86,8 @@ constexpr int BM = 128, BN = 64, BK = 32;  // GEMM block tile
 constexpr int LDC = BN + 4;       // row stride of the float32 staging tile
 
 namespace {
-// this library's attention-phase launches per design, read by
-// swin_attn_launches: [0] the scores in registers (window_attn.cuh), [1]
-// the previous phase (AttnSmem)
-long long attn_launch_counts[2] = {0, 0};
+// this library's attention-phase launches, read by swin_attn_launches
+long long attn_launch_count = 0;
 }  // namespace
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -442,237 +426,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
 }
 
 // ---------------------------------------------------------------------------
-// The previous window attention phase: one block per (window, head), the
-// scores in a shared-memory tile (the parent of window_attn.cuh's).
-
-template <typename T> struct AttnTile {
-  static constexpr int LDQ = HD + Vec<T>::PAD;  // q, k, v row stride
-  __host__ __device__ static int ldp(int np) {  // P row stride
-    return np + Vec<T>::PAD;
-  }
-  __host__ __device__ static int lds(int np) { return np + 4; }
-  __host__ __device__ static size_t qkv_bytes(int np) {
-    return round128(sizeof(T) * np * LDQ);
-  }
-  // S, and for bf16 the float32 staging tile of O (np x (HD + 4)) after it
-  __host__ __device__ static size_t s_bytes(int np) {
-    const int ld = lds(np) > HD + 4 ? lds(np) : HD + 4;
-    return round128(sizeof(float) * np * ld);
-  }
-  // float32 P overwrites S in place; bf16 P has its own tile
-  __host__ __device__ static size_t p_bytes(int np) {
-    return sizeof(T) == sizeof(float) ? 0
-                                      : round128(sizeof(T) * np * ldp(np));
-  }
-  __host__ __device__ static size_t smem(int np) {
-    return 3 * qkv_bytes(np) + s_bytes(np) + p_bytes(np);
-  }
-};
-
-// S[i][j] = q_i . k_j for i, j < Np (padded rows are zero)
-__device__ void attn_scores(const __nv_bfloat16* Qs, const __nv_bfloat16* Ks,
-                            float* S, int np, int n) {
-  using namespace nvcuda;
-  constexpr int LDQ = AttnTile<__nv_bfloat16>::LDQ;
-  const int lds = AttnTile<__nv_bfloat16>::lds(np);
-  const int nt = np / 16, warp = threadIdx.x / 32;
-  for (int t = warp; t < nt * nt; t += THREADS / 32) {
-    const int ti = t / nt, tj = t % nt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b;  // k^T: column j of B is row j of k
-      wmma::load_matrix_sync(a, Qs + ti * 16 * LDQ + kk, LDQ);
-      wmma::load_matrix_sync(b, Ks + tj * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(S + ti * 16 * lds + tj * 16, c, lds,
-                            wmma::mem_row_major);
-  }
-}
-__device__ void attn_scores(const float* Qs, const float* Ks, float* S,
-                            int np, int n) {
-  constexpr int LDQ = AttnTile<float>::LDQ;
-  const int lds = AttnTile<float>::lds(np);
-  for (int idx = threadIdx.x; idx < n * n; idx += THREADS) {
-    const int i = idx / n, j = idx % n;
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) s = fmaf(Qs[i * LDQ + d], Ks[j * LDQ + d], s);
-    S[i * lds + j] = s;
-  }
-}
-
-// out row of token r = P[r] V, rounded to T
-template <typename Store>
-__device__ void attn_pv(const __nv_bfloat16* P, const __nv_bfloat16* Vs,
-                        float* Os, int np, int n, Store store) {
-  using namespace nvcuda;
-  constexpr int LDQ = AttnTile<__nv_bfloat16>::LDQ, LDO = HD + 4;
-  const int ldp = AttnTile<__nv_bfloat16>::ldp(np);
-  const int nt = np / 16, warp = threadIdx.x / 32;
-  for (int t = warp; t < nt * (HD / 16); t += THREADS / 32) {
-    const int ti = t / (HD / 16), dj = t % (HD / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-    for (int k0 = 0; k0 < np; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(a, P + ti * 16 * ldp + k0, ldp);
-      wmma::load_matrix_sync(b, Vs + k0 * LDQ + dj * 16, LDQ);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(Os + ti * 16 * LDO + dj * 16, c, LDO,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n * HD; idx += THREADS)
-    store(idx / HD, idx % HD, Os[(idx / HD) * LDO + idx % HD]);
-}
-template <typename Store>
-__device__ void attn_pv(const float* P, const float* Vs, float* /*Os*/,
-                        int np, int n, Store store) {
-  constexpr int LDQ = AttnTile<float>::LDQ;
-  const int ldp = AttnTile<float>::lds(np);  // P is S, in place
-  for (int idx = threadIdx.x; idx < n * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    float o = 0.0f;
-    for (int j = 0; j < n; ++j) o = fmaf(P[r * ldp + j], Vs[j * LDQ + d], o);
-    store(r, d, o);
-  }
-}
-
-// The dynamic shared memory of one (window, head) block: q, k, v tiles
-// (np x LDQ), the float32 score tile S (lds), and P (ldp; float32 P is S).
-template <typename T> struct AttnSmem {
-  T *Qs, *Ks, *Vs, *P;
-  float* S;
-  int lds, ldp;
-  __device__ AttnSmem(unsigned char* smem, int np) {
-    using Tile = AttnTile<T>;
-    Qs = reinterpret_cast<T*>(smem);
-    Ks = reinterpret_cast<T*>(smem + Tile::qkv_bytes(np));
-    Vs = reinterpret_cast<T*>(smem + 2 * Tile::qkv_bytes(np));
-    S = reinterpret_cast<float*>(smem + 3 * Tile::qkv_bytes(np));
-    P = reinterpret_cast<T*>(smem + 3 * Tile::qkv_bytes(np) +
-                             (Tile::p_bytes(np) ? Tile::s_bytes(np) : 0));
-    lds = Tile::lds(np);
-    ldp = Tile::p_bytes(np) ? Tile::ldp(np) : lds;
-  }
-};
-
-// P from S, one warp per row: s = S[i][j] * scale + bias[i][j] (+ mask[i][j])
-// over the n real keys, a float32 softmax with the denominator floored at
-// 1e-30, rounded to T; padded keys and padded query rows of P are zero.
-// bias_h and mask_w (or null) are this head's and this window's (n, n).
-template <typename T>
-__device__ void attn_softmax(const AttnSmem<T>& sm, const T* bias_h,
-                             const T* mask_w, int n, int np, float scale) {
-  const int lane = threadIdx.x % 32;
-  for (int i = threadIdx.x / 32; i < np; i += THREADS / 32) {
-    float* srow = sm.S + i * sm.lds;
-    T* prow = sm.P + i * sm.ldp;
-    if (i >= n) {
-      for (int j = lane; j < np; j += 32) prow[j] = from_f<T>(0.0f);
-      continue;
-    }
-    float m = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j < n; j += 32) {
-      float s = srow[j] * scale + to_f(bias_h[i * n + j]);
-      if (mask_w) s += to_f(mask_w[i * n + j]);
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / fmaxf(warp_sum(sum), 1e-30f);
-    for (int j = lane; j < np; j += 32)
-      prow[j] = from_f<T>(j < n ? srow[j] * inv : 0.0f);
-  }
-}
-
-// qkv (B, Hp, Wp, 3C) holds q | k | v per token; bias (H, N, N) and mask
-// (nW, N, N, or null) in T; out (B, Hp, Wp, C). Window wi of an image is
-// row-major over the (Hp/w, Wp/w) grid, as the shift mask is.
-// wamax (B * nW window absmaxes, float bits, or null): the int8 branch's
-// proj scales, max |out| over the window's tokens and heads, with the
-// padded query of an odd window when pad_query.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-                   const T* __restrict__ mask, T* __restrict__ out,
-                   int* __restrict__ wamax, int Hp, int Wp, int C, int w,
-                   int np, float scale, bool pad_query) {
-  constexpr int V = Vec<T>::V, LDQ = AttnTile<T>::LDQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const AttnSmem<T> sm(smem, np);
-  T *Qs = sm.Qs, *Ks = sm.Ks, *Vs = sm.Vs;
-
-  const int n = w * w, nww = Wp / w, nw = (Hp / w) * nww;
-  const int b = blockIdx.x / nw, wi = blockIdx.x % nw;
-  const int wr = wi / nww, wc = wi % nww, h = blockIdx.y;
-  auto token = [&](int r) {  // row of token r of this window in (B*Hp*Wp)
-    return ((size_t)b * Hp + wr * w + r / w) * Wp + wc * w + r % w;
-  };
-
-  // gather q, k, v (padded rows zero)
-  for (int i = threadIdx.x; i < 3 * np * (HD / V); i += THREADS) {
-    const int which = i / (np * (HD / V)), rem = i % (np * (HD / V));
-    const int r = rem / (HD / V), c = (rem % (HD / V)) * V;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      v = *reinterpret_cast<const uint4*>(qkv + token(r) * 3 * C +
-                                          which * C + h * HD + c);
-    T* dst = which == 0 ? Qs : which == 1 ? Ks : Vs;
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = v;
-  }
-  __syncthreads();
-  attn_scores(Qs, Ks, sm.S, np, n);
-  __syncthreads();
-  attn_softmax(sm, bias + (size_t)h * n * n,
-               mask ? mask + (size_t)wi * n * n : nullptr, n, np, scale);
-  __syncthreads();
-
-  // bf16 stages O in S, which P no longer needs
-  float omax = 0.0f;
-  const int lane = threadIdx.x % 32;
-  attn_pv(sm.P, Vs, sm.S, np, n, [&](int r, int d, float o) {
-    const T ov = from_f<T>(o);
-    out[token(r) * C + h * HD + d] = ov;
-    omax = fmaxf(omax, fabsf(to_f(ov)));
-  });
-  if (wamax == nullptr) return;
-  if (pad_query && threadIdx.x < HD) {
-    // p = T(1 / n) on every real key: the padded query's row of P
-    const float p = round_to<T>(__fdiv_rn(1.0f, (float)n));
-    float o = 0.0f;
-    for (int j = 0; j < n; ++j)
-      o = __fadd_rn(o, __fmul_rn(p, to_f(Vs[j * LDQ + threadIdx.x])));
-    omax = fmaxf(omax, fabsf(round_to<T>(o)));
-  }
-  __shared__ float red[THREADS / 32];
-  omax = warp_max(omax);
-  if (lane == 0) red[threadIdx.x / 32] = omax;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = red[0];
-    for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
-    atomicMax(wamax + blockIdx.x, __float_as_int(m));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Host side: the phases launched in order on one stream. Each returns the
 // first CUDA error (cudaSuccess when every launch was accepted).
 
@@ -694,28 +447,6 @@ cudaError_t gemm(const GemmArgs<T, W>& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The previous attention phase (the parent of window_attn.cuh's
-// window_attention, for the timings); counts one launch in
-// attn_launch_counts[1]
-template <typename T>
-cudaError_t window_attention_prev(const T* qkv, const T* bias, const T* mask,
-                                  T* out, int B, int Hp, int Wp, int C,
-                                  int heads, int w, float scale,
-                                  cudaStream_t s, int* wamax = nullptr) {
-  const int np = (w * w + 15) / 16 * 16;
-  const size_t smem = AttnTile<T>::smem(np);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * (Hp / w) * (Wp / w), heads);
-  window_attn_kernel<T><<<grid, THREADS, smem, s>>>(
-      qkv, bias, mask, out, wamax, Hp, Wp, C, w, np, scale, w % 2 == 1);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++attn_launch_counts[1];
-  return err;
-}
-
 inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
   return B > 0 && w > 0 && w <= MAX_WINDOW && Hp % w == 0 && Wp % w == 0 &&
          Hp > 0 && Wp > 0 && C % 64 == 0 && heads > 0 && C == heads * HD &&
@@ -727,7 +458,7 @@ inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
 
 // which activation-scale block token row m belongs to: contiguous blocks of
 // blk rows (w == 0), or the windows of a (B, Hp, Wp) map (w > 0), numbered
-// as window_attn_kernel's blocks are
+// as the attention phase's blocks are
 struct ScaleMap {
   int blk, Hp, Wp, w;
   __device__ __forceinline__ int operator()(int m) const {

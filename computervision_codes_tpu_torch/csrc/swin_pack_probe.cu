@@ -68,7 +68,7 @@
 // stream, never synchronise and allocate nothing; the return value is the
 // first CUDA error of the phases' launches (0 on success).
 
-#include "attention_common.cuh"
+#include "mma_sync.cuh"
 #include "swin_gemm.cuh"
 
 namespace {

@@ -34,11 +34,6 @@
 // amortises grid-step overhead on the TPU and has no counterpart here:
 // every (window, head) is a block.
 //
-// window_attention_prev_launch runs the previous design (swin_common.cuh's
-// AttnSmem phase: the N x N float32 score tile in shared memory, 160 KB a
-// block at N = 144), the parent that chip_smoke.py times and compares
-// against; no model calls it.
-//
 // Interface: plain C, loaded with ctypes. The launch goes on the caller's
 // stream, never synchronises and allocates nothing; the return value is the
 // CUDA error of the launch (0 on success).
@@ -46,9 +41,6 @@
 #include "swin_common.cuh"
 
 namespace {
-
-using swin::HD;
-using swin::THREADS;
 
 template <typename T> struct Args {
   const T *q, *k, *v, *bias, *mask;  // mask may be null
@@ -59,78 +51,7 @@ template <typename T> struct Args {
   float scale;
 };
 
-// copy one vector of vb bytes (zero when src is null)
-__device__ __forceinline__ void copy_vec(void* dst, const void* src,
-                                         int vb) {
-  switch (vb) {
-    case 16:
-      *static_cast<uint4*>(dst) =
-          src ? *static_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-      break;
-    case 8:
-      *static_cast<uint2*>(dst) =
-          src ? *static_cast<const uint2*>(src) : make_uint2(0, 0);
-      break;
-    case 4:
-      *static_cast<uint32_t*>(dst) =
-          src ? *static_cast<const uint32_t*>(src) : 0u;
-      break;
-    default:
-      *static_cast<uint16_t*>(dst) =
-          src ? *static_cast<const uint16_t*>(src) : (uint16_t)0;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-window_attention_prev_kernel(const Args<T> a) {
-  constexpr int LDQ = swin::AttnTile<T>::LDQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const swin::AttnSmem<T> sm(smem, a.np);
-  const int n = a.n, np = a.np;
-  const long long wdw = blockIdx.x, h = blockIdx.y;
-
-  // gather q, k, v of (window, head) through their strides; padded rows
-  // zero
-  const int per = HD * (int)sizeof(T) / a.vb;  // loads per row
-  const int ve = a.vb / (int)sizeof(T);        // elements per load
-  for (int i = threadIdx.x; i < 3 * np * per; i += THREADS) {
-    const int which = i / (np * per), rem = i % (np * per);
-    const int r = rem / per, c = (rem % per) * ve;
-    const T* base = which == 0 ? a.q : which == 1 ? a.k : a.v;
-    const long long* st = which == 0 ? a.sq : which == 1 ? a.sk : a.sv;
-    T* dst = (which == 0 ? sm.Qs : which == 1 ? sm.Ks : sm.Vs) + r * LDQ + c;
-    copy_vec(dst,
-             r < n ? base + wdw * st[0] + h * st[1] + r * st[2] + c : nullptr,
-             a.vb);
-  }
-  __syncthreads();
-  swin::attn_scores(sm.Qs, sm.Ks, sm.S, np, n);
-  __syncthreads();
-  swin::attn_softmax(sm, a.bias + h * n * n,
-                     a.mask ? a.mask + (wdw % a.nw) * n * n : nullptr, n, np,
-                     a.scale);
-  __syncthreads();
-  T* o = a.o + wdw * a.so[0] + h * a.so[1];
-  swin::attn_pv(sm.P, sm.Vs, sm.S, np, n, [&](int r, int d, float v) {
-    o[r * a.so[2] + d] = swin::from_f<T>(v);
-  });
-}
-
-template <typename T>
-cudaError_t launch_prev(const Args<T>& a, int BW, int H, cudaStream_t s) {
-  const size_t smem = swin::AttnTile<T>::smem(a.np);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attention_prev_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  window_attention_prev_kernel<T><<<dim3(BW, H), THREADS, smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++swin::attn_launch_counts[1];
-  return err;
-}
-
-// The current design: window_attn.cuh's body over (window, head) blocks
+// window_attn.cuh's body over (window, head) blocks
 template <typename T, int NT>
 __global__ void __launch_bounds__(32 * swin::wa::warps_of(NT),
                                   swin::wa::min_blocks_of<T>(NT))
@@ -163,14 +84,12 @@ cudaError_t launch_regs(const Args<T>& a, int BW, int H, cudaStream_t s) {
   window_attention_kernel<T, NT>
       <<<dim3(BW, H), 32 * swin::wa::warps_of(NT), smem, s>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess) ++swin::attn_launch_counts[0];
+  if (err == cudaSuccess) ++swin::attn_launch_count;
   return err;
 }
 
 template <typename T>
-cudaError_t launch(const Args<T>& a, int BW, int H, bool prev,
-                   cudaStream_t s) {
-  if (prev) return launch_prev(a, BW, H, s);
+cudaError_t launch(const Args<T>& a, int BW, int H, cudaStream_t s) {
   switch (a.np / 16) {
 #define CASE(NT) \
   case NT:       \
@@ -184,8 +103,7 @@ cudaError_t launch(const Args<T>& a, int BW, int H, bool prev,
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* bias,
         const void* mask, void* o, int BW, int H, int N, int nw,
-        const long long* strides, int vb, float scale, bool prev,
-        cudaStream_t s) {
+        const long long* strides, int vb, float scale, cudaStream_t s) {
   Args<T> a{static_cast<const T*>(q),    static_cast<const T*>(k),
             static_cast<const T*>(v),    static_cast<const T*>(bias),
             static_cast<const T*>(mask), static_cast<T*>(o),
@@ -198,7 +116,7 @@ int run(const void* q, const void* k, const void* v, const void* bias,
   }
   a.vb = vb;
   a.scale = scale;
-  return (int)launch(a, BW, H, prev, s);
+  return (int)launch(a, BW, H, s);
 }
 
 int entry(
@@ -207,7 +125,7 @@ int entry(
     long long sqw, long long sqh, long long sqn, long long skw,
     long long skh, long long skn, long long svw, long long svh,
     long long svn, long long sow, long long soh, long long son, int vb,
-    float scale, int dtype, bool prev, void* stream) {
+    float scale, int dtype, void* stream) {
   const int es = dtype == 1 ? 2 : 4;
   if (BW < 1 || H < 1 || H > 65535 || N < 1 ||
       N > swin::MAX_WINDOW * swin::MAX_WINDOW || nw < 1 ||
@@ -220,9 +138,9 @@ int entry(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(q, k, v, bias, mask, o, BW, H, N, nw, strides, vb,
-                      scale, prev, s);
+                      scale, s);
   return run<__nv_bfloat16>(q, k, v, bias, mask, o, BW, H, N, nw, strides,
-                            vb, scale, prev, s);
+                            vb, scale, s);
 }
 
 }  // namespace
@@ -241,19 +159,5 @@ extern "C" int window_attention_launch(
     long long svn, long long sow, long long soh, long long son, int vb,
     float scale, int dtype, void* stream) {
   return entry(q, k, v, bias, mask, o, BW, H, N, nw, sqw, sqh, sqn, skw, skh,
-               skn, svw, svh, svn, sow, soh, son, vb, scale, dtype, false,
-               stream);
-}
-
-// window_attention_launch in the previous design (the parent, for timings)
-extern "C" int window_attention_prev_launch(
-    const void* q, const void* k, const void* v, const void* bias,
-    const void* mask, void* o, int BW, int H, int N, int nw,
-    long long sqw, long long sqh, long long sqn, long long skw,
-    long long skh, long long skn, long long svw, long long svh,
-    long long svn, long long sow, long long soh, long long son, int vb,
-    float scale, int dtype, void* stream) {
-  return entry(q, k, v, bias, mask, o, BW, H, N, nw, sqw, sqh, sqn, skw, skh,
-               skn, svw, svh, svn, sow, soh, son, vb, scale, dtype, true,
-               stream);
+               skn, svw, svh, svn, sow, soh, son, vb, scale, dtype, stream);
 }

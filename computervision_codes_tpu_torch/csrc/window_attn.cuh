@@ -14,17 +14,15 @@
 //   o = T(P v),  P = T(softmax(q k^T * scale + bias (+ mask)))
 //
 // with the scores, the softmax and the PV sums in float32, the denominator
-// floored at 1e-30 and P rounded to T before the PV product, as
-// swin_common.cuh's previous phase (AttnSmem, kept as the parent that
-// chip_smoke.py times against) computes them.
+// floored at 1e-30 and P rounded to T before the PV product.
 //
 // What bounds it on the card: bytes and latency. At Swin-L-384 stage 0
 // (B = 16, 1024 windows, 6 heads, N = 144, bf16) q, k, v and o are 226 MB
 // (0.068 ms at 3.35 TB/s) against 16.3 G operations of products (0.016 ms
-// at 989 TFLOP/s). The previous phase kept a float32 N x N score tile and a
-// P tile in shared memory (163 KB a block at N = 144), so one block of 8
-// warps filled an SM, and its gather, three barrier-separated phases and
-// the store ran one after another with nothing to hide their latency.
+// at 989 TFLOP/s). A float32 N x N score tile and a P tile in shared memory
+// (the design this one replaced: 163 KB a block at N = 144) let one block
+// of 8 warps fill an SM, its gather, three barrier-separated phases and the
+// store running one after another with nothing to hide their latency.
 //
 // What this design does (from P2's group_attn_kernel, swin_pack_probe.cu):
 // - one block per (window, head), warps_of(NT) warps (NT = N / 16 padded:
@@ -40,8 +38,7 @@
 // - a warp keeps its strip's scores in registers: in bf16 S = q k^T as
 //   mma.sync m16n8k16 fragments (N / 8 of them, 72 floats a thread at
 //   N = 144), in float32 the same fragment layout filled by FMAs over
-//   float4 reads of q and k (each score summed over d in order, as the
-//   previous phase sums it); scale, bias and mask are applied in registers
+//   float4 reads of q and k (each score summed over d in order); scale, bias and mask are applied in registers
 //   in the order s * scale + bias (+ mask), the bias and mask read in the
 //   accumulator's layout as pairs; each row's max and sum come from the
 //   four threads that hold the row (quad shuffles); padded keys get -inf
@@ -54,16 +51,9 @@
 // - no score or weight tile lives in shared memory, so blocks are small
 //   and several share an SM: one block's loads overlap another's products.
 //
-// Numerics against the previous phase: the scores and, in bf16, the P v
-// sums are the same instructions in the same order; the softmax sum adds
-// each thread's 2 N / 8 terms in key order and then the quad's four
-// partial sums, where the previous phase summed lane-strided terms over a
-// warp, so a denominator can move by a float32 ulp and flip a bf16 P; the
-// float32 P v sums are taken in another order.
-
 #pragma once
 
-#include "attention_common.cuh"
+#include "mma_sync.cuh"
 
 namespace swin {
 namespace wa {
@@ -518,7 +508,7 @@ cudaError_t launch_attn_regs(const T* qkv, const T* bias, const T* mask,
 
 // The attention phase of K3 (and K5, K6): qkv (B*Hp*Wp, 3C) -> out
 // (B*Hp*Wp, C) with the scores in registers; wamax as the kernel's. Counts
-// one launch of this design in attn_launch_counts[0].
+// one launch in attn_launch_count.
 template <typename T>
 cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
                              T* out, int B, int Hp, int Wp, int C, int heads,
@@ -534,19 +524,14 @@ cudaError_t window_attention(const T* qkv, const T* bias, const T* mask,
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9)
 #undef CASE
   }
-  if (err == cudaSuccess) ++attn_launch_counts[0];
+  if (err == cudaSuccess) ++attn_launch_count;
   return err;
 }
 
 }  // namespace swin
 
 // This library's attention-phase launches since it was loaded (or last
-// reset), per design: out[0] the scores in registers (window_attn.cuh),
-// out[1] the previous phase (swin_common.cuh's AttnSmem).
-extern "C" void swin_attn_launches(long long* out) {
-  for (int i = 0; i < 2; ++i) out[i] = swin::attn_launch_counts[i];
-}
+// reset).
+extern "C" long long swin_attn_launches() { return swin::attn_launch_count; }
 
-extern "C" void swin_attn_reset() {
-  for (long long& n : swin::attn_launch_counts) n = 0;
-}
+extern "C" void swin_attn_reset() { swin::attn_launch_count = 0; }

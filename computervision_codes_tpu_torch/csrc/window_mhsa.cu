@@ -55,9 +55,8 @@
 // The "_loop" entry points run every product on swin_common.cuh's loops
 // (WMMA / mma.sync), the parent that chip_smoke.py compares against; no
 // main path calls them. window_attn_phase_launch runs the attention phase
-// alone on a packed qkv, in the current design or (prev) the previous one
-// (swin_common.cuh's AttnSmem): the pair that chip_smoke.py times and
-// compares; no main path calls it either.
+// alone on a packed qkv, which chip_smoke.py checks and times; no main path
+// calls it either.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
@@ -199,13 +198,12 @@ extern "C" int window_mhsa_q8_loop_launch(
 // -> out (B*Hp*Wp, C), in dtype; bias (heads, N, N) and mask (nW, N, N, or
 // null) in dtype; wamax (B * nW int32, or null) receives each window's
 // max |out| as float bits (zeroed here first), with the padded query of an
-// odd window. prev 1: the previous design (the score tile in shared
-// memory).
+// odd window.
 extern "C" int window_attn_phase_launch(const void* qkv, const void* bias,
                                         const void* mask, void* out,
                                         void* wamax, int B, int Hp, int Wp,
                                         int C, int heads, int window,
-                                        float scale, int prev, int dtype,
+                                        float scale, int dtype,
                                         void* stream) {
   if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
     return (int)cudaErrorInvalidValue;
@@ -222,12 +220,8 @@ extern "C" int window_attn_phase_launch(const void* qkv, const void* bias,
     const T* b = static_cast<const T*>(bias);
     const T* m = static_cast<const T*>(mask);
     T* o = static_cast<T*>(out);
-    return (int)(prev ? swin::window_attention_prev(q, b, m, o, B, Hp, Wp, C,
-                                                    heads, window, scale, s,
-                                                    amax)
-                      : swin::window_attention(q, b, m, o, B, Hp, Wp, C,
-                                               heads, window, scale, s,
-                                               amax));
+    return (int)swin::window_attention(q, b, m, o, B, Hp, Wp, C, heads,
+                                       window, scale, s, amax);
   };
   if (dtype == 0) return run(0.0f);
   if (dtype == 1) return run(__nv_bfloat16());

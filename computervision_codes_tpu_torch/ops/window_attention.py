@@ -20,13 +20,10 @@ v through their strides and writes its (B*nW, H, N, D) output into
 is a view. ``window_attention_pallas`` and ``window_attention_pallas_multi``
 are the TPU kernels' entry points over it, for API parity:
 ``block_windows`` (windows per TPU grid step) has no counterpart here.
-``window_attention_prev_cuda`` launches the previous design (the scores in
-a shared-memory tile), the parent that ``chip_smoke.py`` times against; no
-model calls it.
 
 The attention phase that K10 and K3 (``ops/window_mhsa.py``; K5 and K6
-run K3's phases) share is counted per design and library in
-``phase_launches`` by the wrappers, and by each C library itself
+run K3's phases) share is counted per library in ``phase_launches`` by the
+wrappers, and by each C library itself
 (``library_phase_launches``); ``attn_plan`` is its launch geometry and
 ``window_attn_strips_reference`` a plain emulation of its strip algorithm.
 
@@ -51,14 +48,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 32  # every Swin variant's; the kernel's q, k, v tiles
 MAX_TOKENS = 144  # a 12x12 window: the strips the kernels instantiate
 
-# the attention phase's designs: "regs", the scores in registers
-# (csrc/window_attn.cuh); "prev", the previous phase (a shared-memory score
-# tile), which only the "_prev" entry points run. The libraries that run
-# it: K3 (and K6's attention branch), K5 and K10
-DESIGNS = ("regs", "prev")
+# the libraries that run the attention phase (csrc/window_attn.cuh): K3
+# (and K6's attention branch), K5 and K10
 PHASE_LIBRARIES = ("window_mhsa", "swin_block", "window_attention")
-# library -> design -> attention-phase launches through its wrappers
-phase_launches = {lib: dict.fromkeys(DESIGNS, 0) for lib in PHASE_LIBRARIES}
+# library -> attention-phase launches through its wrappers
+phase_launches = dict.fromkeys(PHASE_LIBRARIES, 0)
 
 # the H100: shared memory per SM and per block (bytes), the 1 KB the
 # runtime reserves per block, threads per SM (the hopper-kernels guide)
@@ -90,22 +84,19 @@ def attn_plan(n: int, dtype) -> dict:
             "blocks_per_sm": per_sm}
 
 
-def count_phase(library: str, design: str = "regs") -> None:
-    """One attention-phase launch of ``library`` in ``design``."""
-    phase_launches[library][design] += 1
+def count_phase(library: str) -> None:
+    """One attention-phase launch of ``library``."""
+    phase_launches[library] += 1
 
 
-def library_phase_launches(library: str) -> dict:
-    """The C library's own attention-phase launches per design since it was
-    loaded or reset (``swin_attn_launches``; builds and loads it: the card
-    only)."""
+def library_phase_launches(library: str) -> int:
+    """The C library's own attention-phase launches since it was loaded or
+    reset (``swin_attn_launches``; builds and loads it: the card only)."""
     from ._build import load_library
 
     fn = load_library(library).swin_attn_launches
-    fn.argtypes, fn.restype = [ctypes.c_void_p], None
-    out = (ctypes.c_longlong * len(DESIGNS))()
-    fn(ctypes.addressof(out))
-    return dict(zip(DESIGNS, out))
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()
 
 
 def reset_phase_launches() -> None:
@@ -113,8 +104,8 @@ def reset_phase_launches() -> None:
     libraries already loaded in this process."""
     from ._build import loaded
 
-    for library, counts in phase_launches.items():
-        counts.update(dict.fromkeys(DESIGNS, 0))
+    for library in PHASE_LIBRARIES:
+        phase_launches[library] = 0
         lib = loaded(library)
         if lib is not None:
             reset = lib.swin_attn_reset
@@ -179,15 +170,12 @@ def window_attention_reference(q, k, v, bias, mask=None, nw: int = 1):
 
 
 @functools.cache
-def _launch_fn(prev: bool = False):
+def _launch_fn():
     """The C entry point of ``csrc/window_attention.cu`` (built on first
-    use), with its argument types declared; ``prev``: the previous
-    design's."""
+    use), with its argument types declared."""
     from ._build import load_library
 
-    lib = load_library("window_attention")
-    fn = lib.window_attention_prev_launch if prev else \
-        lib.window_attention_launch
+    fn = load_library("window_attention").window_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
@@ -196,11 +184,9 @@ def _launch_fn(prev: bool = False):
     return fn
 
 
-def launch_window_attention(q, k, v, bias, mask, nw: int, *, counter,
-                            prev: bool = False):
-    """Launch the CUDA kernel (``prev``: the previous design) on q's device
-    and current stream; add one to ``counter.launches`` and to the phase's
-    count of its design.
+def launch_window_attention(q, k, v, bias, mask, nw: int, *, counter):
+    """Launch the CUDA kernel on q's device and current stream; add one to
+    ``counter.launches`` and to the phase's count.
 
     q, k, v (BW, H, N, 32), float32 or bfloat16, one dtype on one CUDA
     device, any strides with the head dim contiguous; N <= 144. bias
@@ -246,7 +232,7 @@ def launch_window_attention(q, k, v, bias, mask, nw: int, *, counter,
     if bw == 0:
         return out
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    err = mlp_block.run_entry(_launch_fn(prev), q.device, q, k, v, bias,
+    err = mlp_block.run_entry(_launch_fn(), q.device, q, k, v, bias,
                               mask, out, bw, h, n,
                               1 if mask is None else nw, *strides,
                               vector_bytes((q, k, v), q.element_size()),
@@ -255,7 +241,7 @@ def launch_window_attention(q, k, v, bias, mask, nw: int, *, counter,
         raise RuntimeError(f"window_attention kernel launch failed: CUDA "
                            f"error {err}")
     counter.launches += 1
-    count_phase("window_attention", "prev" if prev else "regs")
+    count_phase("window_attention")
     return out
 
 
@@ -268,17 +254,6 @@ def window_attention_cuda(q, k, v, bias, mask=None, nw: int = 1):
 
 
 window_attention_cuda.launches = 0
-
-
-def window_attention_prev_cuda(q, k, v, bias, mask=None, nw: int = 1):
-    """K10 in the previous design (the scores in a shared-memory tile): the
-    parent that ``chip_smoke.py`` times and compares against."""
-    return launch_window_attention(q, k, v, bias, mask, nw,
-                                   counter=window_attention_prev_cuda,
-                                   prev=True)
-
-
-window_attention_prev_cuda.launches = 0
 
 
 def window_attention_pallas(q, k, v, bias, mask=None, nw: int = 1):

@@ -36,14 +36,12 @@ the kernel include that row.
 the plain version, a CUDA tensor launches the kernel
 (``csrc/window_mhsa.cu``; its QKV and proj products on the Swin GEMM core,
 ``ops/swin_gemm.py``; its attention phase ``csrc/window_attn.cuh``, the
-scores in registers, counted per design in
-``ops.window_attention.phase_launches``), anything else raises.
+scores in registers, counted in ``ops.window_attention.phase_launches``),
+anything else raises.
 
-``window_attn_phase_cuda`` and ``window_attn_phase_prev_cuda`` run the
-attention phase alone on a packed qkv (B, Hp, Wp, 3C), in the current
-design and in the previous one (a shared-memory score tile), and
-``window_attn_phase_reference`` is their plain version: the pair that
-``chip_smoke.py`` times and compares; no model calls them.
+``window_attn_phase_cuda`` runs the attention phase alone on a packed qkv
+(B, Hp, Wp, 3C) and ``window_attn_phase_reference`` is its plain version,
+which ``chip_smoke.py`` checks and times; no model calls them.
 """
 
 from __future__ import annotations
@@ -394,18 +392,15 @@ def _phase_fn():
 
     fn = load_library("window_mhsa").window_attn_phase_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch_window_attn_phase(qkv, bias, mask, *, window: int,
-                             num_heads: int, absmax: bool, prev: bool,
-                             counter):
-    """Launch the attention phase alone (``prev``: the previous design) on
-    qkv's device and current stream; add one to ``counter.launches`` and to
-    the phase's count of its design. Operands as
+                             num_heads: int, absmax: bool, counter):
+    """Launch the attention phase alone on qkv's device and current stream;
+    add one to ``counter.launches`` and to the phase's count. Operands as
     ``window_attn_phase_reference``; bias and mask are cast to qkv's
     dtype."""
     if qkv.ndim != 4 or qkv.shape[-1] % 3:
@@ -429,9 +424,9 @@ def launch_window_attn_phase(qkv, bias, mask, *, window: int,
     if b:
         launch_checked("window_attn_phase", _phase_fn(), qkv, bias, mask,
                        out, amax, b, hp, wp, c, num_heads, window,
-                       HEAD_DIM ** -0.5, int(prev), DTYPE_CODES[qkv.dtype])
+                       HEAD_DIM ** -0.5, DTYPE_CODES[qkv.dtype])
         counter.launches += 1
-        count_phase("window_mhsa", "prev" if prev else "regs")
+        count_phase("window_mhsa")
     return (out, amax.view(torch.float32)) if absmax else out
 
 
@@ -441,23 +436,10 @@ def window_attn_phase_cuda(qkv, bias, mask, *, window: int, num_heads: int,
     (``csrc/window_attn.cuh``). ``launches`` counts its launches."""
     return launch_window_attn_phase(qkv, bias, mask, window=window,
                                     num_heads=num_heads, absmax=absmax,
-                                    prev=False, counter=window_attn_phase_cuda)
+                                    counter=window_attn_phase_cuda)
 
 
 window_attn_phase_cuda.launches = 0
-
-
-def window_attn_phase_prev_cuda(qkv, bias, mask, *, window: int,
-                                num_heads: int, absmax: bool = False):
-    """K3's attention phase alone in the previous design (a shared-memory
-    score tile): the parent that ``chip_smoke.py`` times against."""
-    return launch_window_attn_phase(qkv, bias, mask, window=window,
-                                    num_heads=num_heads, absmax=absmax,
-                                    prev=True,
-                                    counter=window_attn_phase_prev_cuda)
-
-
-window_attn_phase_prev_cuda.launches = 0
 
 
 def window_mhsa_fused(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,

@@ -15,8 +15,7 @@ order can move a rounded P by one ulp). ``attn_plan`` gives every window of
 1-12 (each window the Swin variants use) at most 227 KB of shared memory a
 block and at least 3 blocks an SM in both dtypes. The dispatch is driven
 with the C entry points replaced by recorders: each wrapper calls its
-design's entry point, never a plain version, and counts the launch per
-library and design. The kernels are held to the plain versions on the card
+entry point, never a plain version, and counts the launch per library. The kernels are held to the plain versions on the card
 by chip_smoke.py.
 """
 
@@ -190,8 +189,7 @@ class _Recorder:
 def recorded(monkeypatch):
     rec = _Recorder()
     monkeypatch.setattr(k3, "_phase_fn", lambda: rec.window_attn_phase)
-    monkeypatch.setattr(wa, "_launch_fn", lambda prev=False: getattr(
-        rec, "window_attention" + "_prev" * prev))
+    monkeypatch.setattr(wa, "_launch_fn", lambda: rec.window_attention)
     for mod in (k3, k5):
         lib = mod.__name__.rsplit(".", 1)[1]
         monkeypatch.setattr(mod, "_launch_fn", lambda loop=False, lib=lib:
@@ -208,12 +206,11 @@ def recorded(monkeypatch):
                       (k3, "window_mhsa_reference"),
                       (k5, "swin_block_reference")):
         monkeypatch.setattr(mod, name, no_plain)
-    monkeypatch.setattr(wa, "phase_launches", {
-        lib: dict.fromkeys(wa.DESIGNS, 0) for lib in wa.PHASE_LIBRARIES})
+    monkeypatch.setattr(wa, "phase_launches",
+                        dict.fromkeys(wa.PHASE_LIBRARIES, 0))
     monkeypatch.setattr(sg, "launches", {
         lib: dict.fromkeys(sg.PATHS, 0) for lib in sg.LIBRARIES})
-    for fn in (k3.window_attn_phase_cuda, k3.window_attn_phase_prev_cuda,
-               wa.window_attention_cuda, wa.window_attention_prev_cuda,
+    for fn in (k3.window_attn_phase_cuda, wa.window_attention_cuda,
                k3.window_mhsa_cuda, swin_train.window_mhsa_branch_cuda,
                k5.swin_block_cuda):
         monkeypatch.setattr(fn, "launches", 0)
@@ -221,8 +218,9 @@ def recorded(monkeypatch):
 
 
 def test_phase_dispatch_per_design(recorded):
-    """Each phase entry point launches its own design and counts it; the
-    int8 branch's absmax scratch is one int32 a window, read as float."""
+    """Each phase entry point launches the phase and counts it per library;
+    the int8 branch's absmax scratch is one int32 a window, read as float;
+    without a mask or absmax the entry gets null pointers."""
     b, side, w, c = 2, 8, 4, HEADS * D
     n, nw = w * w, (side // w) ** 2
     qkv = torch.zeros(b, side, side, 3 * c, dtype=torch.bfloat16)
@@ -230,33 +228,29 @@ def test_phase_dispatch_per_design(recorded):
     mask = torch.zeros(nw, n, n)
     kw = dict(window=w, num_heads=HEADS)
     out, amax = k3.window_attn_phase_cuda(qkv, bias, mask, absmax=True, **kw)
-    k3.window_attn_phase_prev_cuda(qkv, bias, None, **kw)
+    k3.window_attn_phase_cuda(qkv, bias, None, **kw)
     q = torch.zeros(b * nw, HEADS, n, D, dtype=torch.bfloat16)
     wa.window_attention_cuda(q, q, q, bias, mask, nw)
-    wa.window_attention_prev_cuda(q, q, q, bias, None, 1)
+    wa.window_attention_cuda(q, q, q, bias, None, 1)
     names = [name for name, _ in recorded.calls]
     assert names == ["window_attn_phase", "window_attn_phase",
-                     "window_attention", "window_attention_prev"]
-    (_, new), (_, old) = recorded.calls[:2]
+                     "window_attention", "window_attention"]
+    (_, new), (_, bare) = recorded.calls[:2]
     assert new[4].shape == (b * nw,) and new[4].dtype == torch.int32
-    assert old[2] is None and old[4] is None  # no mask, no absmax
-    assert new[5:] == (b, side, side, c, HEADS, w, D ** -0.5, 0, 1)
-    assert old[-2:] == (1, 1)  # prev, bf16
+    assert bare[2] is None and bare[4] is None  # no mask, no absmax
+    assert new[5:] == (b, side, side, c, HEADS, w, D ** -0.5, 1)
+    assert bare[-1] == 1  # bf16
     assert out.shape == (b, side, side, c) and amax.dtype == torch.float32
     assert wa.phase_launches == {
-        "window_mhsa": {"regs": 1, "prev": 1},
-        "swin_block": {"regs": 0, "prev": 0},
-        "window_attention": {"regs": 1, "prev": 1}}
+        "window_mhsa": 2, "swin_block": 0, "window_attention": 2}
     assert (k3.window_attn_phase_cuda.launches,
-            k3.window_attn_phase_prev_cuda.launches,
-            wa.window_attention_cuda.launches,
-            wa.window_attention_prev_cuda.launches) == (1, 1, 1, 1)
+            wa.window_attention_cuda.launches) == (2, 2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_model_paths_count_the_new_design(recorded, rng, dtype):
-    """K3, K6's attention branch and K5 each count one launch of the new
-    design and none of the previous one."""
+    """K3, K6's attention branch and K5 each count one launch of the
+    attention phase in their library."""
     b, side, w, c, hidden = 2, 8, 4, 64, 256
     n = w * w
 
@@ -274,6 +268,4 @@ def test_model_paths_count_the_new_design(recorded, rng, dtype):
     assert [name for name, _ in recorded.calls] == [
         "window_mhsa", "window_mhsa", "swin_block"]
     assert wa.phase_launches == {
-        "window_mhsa": {"regs": 2, "prev": 0},
-        "swin_block": {"regs": 1, "prev": 0},
-        "window_attention": {"regs": 0, "prev": 0}}
+        "window_mhsa": 2, "swin_block": 1, "window_attention": 0}
