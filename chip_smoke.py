@@ -20,12 +20,24 @@ printing its own lines:
    ``int8_kernel_probe`` (its bf16, int8w and int8 GEMMs) and P2
    ``swin_pack_probe`` (its pack<g> and batched attention);
 3. kernels: each kernel against its plain PyTorch version on the card:
-   - K1 at every (dilation, causal) pair of the main path, B=4, T=256,
-     C=512, in bf16 and float32, plus ragged shapes; its time beside the
-     plain version's;
-   - K2 in bf16 and float32 at N x 256x448 frames for N = 4 and 1024 and
-     at the JAX kernel test's ragged shapes and batch sizes; its time at
-     N = 64 and 1024;
+   - K1 (bf16: a thread-block cluster per 64-row tile, the columns split
+     among its CTAs, both products on wgmma fed by TMA, the hidden tile
+     exchanged through distributed shared memory; float32 the FMA kernel)
+     at every (dilation, causal) pair of the main path, B=4, T=256, C=512,
+     in bf16 and float32, plus ragged shapes and C = 128 and 1024, the
+     previous design (``dilated_residual_prev_cuda``) too at the main
+     shapes; the plan and the clusters the card holds at once; its time
+     and device time in turns with the previous design and the plain
+     version at the offline shape (d = 1, 16, 1024) and the push's at
+     streams 1 and 16 (causal, d = 16, 1024), TFLOP/s and the share of the
+     bound; ptxas' registers and spills per instantiation;
+   - K2 (bf16: a persistent implicit GEMM on wgmma, A built in registers
+     from the staged input rows, each conv row computed once; float32 the
+     FMA kernel) in bf16 and float32 at N x 256x448 frames for N = 1, 4
+     and 1024 and at the JAX kernel test's ragged shapes and batch sizes,
+     both designs; its time and device time in turns with the previous
+     design (``stem_pool_prev_cuda``) and the plain version at N = 1, 64
+     and 1024, TFLOP/s and the share of the bound; registers and spills;
    - Q1 at each of ResNet18's 19 int8 convolutions at 256x448 (N = 2
      frames), the 3-channel 7x7/2 stem and odd sizes at stride 2, through
      both paths (the quantize pass + wgmma where Cin % 16 == 0, which
@@ -231,7 +243,9 @@ loops or the FMA loop, and each library's C counts equal to the counts
 ``ops/swin_gemm.py``'s rule gives its wrappers; the window-attention
 phase's launches, "window_attn": 22 per predict of either Swin teacher,
 24 per path-B forward, 44 per training step, each library's C counts equal
-to its wrappers'; K7's and K8's launches per design, the previous design's
+to its wrappers'; K1's and K2's launches per design, the previous
+designs' on no path and each library's C counts equal to its wrappers';
+K7's and K8's launches per design, the previous design's
 on no path, each library's C counts per kernel and design equal to its
 wrappers', and one MS-TCT forward 8 K7 launches of the current design);
 K5's int8
@@ -270,6 +284,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import copy
+import ctypes
 import functools
 import json
 import re
@@ -364,6 +379,21 @@ STREAM_CONTEXT, STREAM_COUNTS, PUSHES = 256, (1, 16), 8
 # largest magnitude. float32: sums of up to 1536 products taken in another
 # order, far inside 1e-4 relative to the largest magnitude.
 REL_TOL = {torch.bfloat16: 8 * 2.0 ** -8, torch.float32: 1e-4}
+# K1 beyond C = 512: (B, T, C, dilation, causal) at the narrowest and the
+# widest C the kernel takes (clusters of 2 and of 8 CTAs of 128 columns,
+# and at C = 128 of one CTA where the layer's clusters outnumber the card's)
+K1_WIDTHS = [(2, 70, 128, 16, False), (2, 70, 128, 1, True),
+             (1, 300, 1024, 4, True), (2, 130, 1024, 64, False),
+             (72, 64, 128, 3, True)]  # more clusters than fit: one CTA each
+# K1's plan held to the C library's at (B, T, C): the offline and push
+# shapes (one wave of 64-column clusters at streams 1, 128-column ones
+# beyond) and the narrowest and widest C
+K1_PLANS = [(4, 256, 512), (1, 256, 512), (16, 256, 512), (1, 256, 128),
+            (2, 300, 1024)]
+# K1's timed shapes at T = 256, C = 512, bf16: (B, dilation, causal), the
+# offline predict's (B = 4) and the push's at streams 1 and 16 (causal)
+K1_TIMED = [(4, 1, False), (4, 16, False), (4, 1024, False),
+            (1, 16, True), (1, 1024, True), (16, 16, True), (16, 1024, True)]
 # full model, float32, card vs CPU: 17 convolutions and 41 residual layers
 # with sums in another order (and other cuDNN algorithms)
 MODEL_REL_TOL = 1e-3
@@ -379,7 +409,7 @@ STEM_F32_ATOL = 2e-5
 STEM_CASES = ([(4, 256, 448), (1024, 256, 448)]
               + [(2, 32, 56), (2, 16, 16), (2, 24, 40)]
               + [(n, 16, 16) for n in (9, 10, 11, 16, 22)])
-STEM_TIME_N = (64, 1024)
+STEM_TIME_N = (1, 64, 1024)  # the push, a batch, the offline predict
 Q1_CHECK_N, Q1_TIME_N = 2, 64
 # the wgmma path's persistent walk, bit for bit: each case at the frames
 # that give every resident block at least this many output tiles
@@ -828,9 +858,15 @@ def check_design_counts(what: str) -> dict:
 def path_launches() -> dict:
     """Every kernel's count, Q1's per path, the Swin GEMM core's per path
     (as "swin_gemm <path>"), K7's and K8's split merges (as "attention
-    merge") and their previous design's launches (as "attention prev")."""
+    merge") and the previous designs' launches (K7's and K8's as
+    "attention prev", K1's and K2's as "dilated_residual prev" and
+    "stem_pool prev")."""
+    from computervision_codes_tpu_torch.ops import dilated_conv, stem_pool
+
     d = design_counts()
     return launches() | q1_counts() | {
+        "dilated_residual prev": dilated_conv.design_launches["prev"],
+        "stem_pool prev": stem_pool.design_launches["prev"]} | {
         f"swin_gemm {path}": n for path, n in gemm_counts().items()} | {
         "attention merge": d["merge new"],
         "attention prev": sum(n for k, n in d.items() if k.endswith("prev"))}
@@ -914,59 +950,164 @@ def attn_registers() -> dict:
     return rows
 
 
+def k12_registers() -> dict:
+    """ptxas' registers and spills of each instantiation of K1's and K2's
+    kernels: the current design ("new") and the previous one ("prev"), by
+    dtype and template argument."""
+    from computervision_codes_tpu_torch.ops import _build
+
+    kinds = {"k1_kernelILi64E": "K1 new bf16, 64-column slices",
+             "k1_kernelILi128E": "K1 new bf16, 128-column slices",
+             "dilated_residual_kernelI13__nv_bfloat16E": "K1 prev bf16",
+             "dilated_residual_kernelIfE": "K1 float32 (both designs)",
+             "stem_wgmma_kernelILi16E": "K2 new bf16, 16-byte copies",
+             "stem_wgmma_kernelILi8E": "K2 new bf16, 8-byte copies",
+             "stem_pool_kernelI13__nv_bfloat16E": "K2 prev bf16",
+             "stem_pool_kernelIfE": "K2 float32 (both designs)"}
+    rows, current, spill = {}, None, ""
+    for lib in ("dilated_residual", "stem_pool"):
+        for line in _build.build_logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = m.group(1)
+                continue
+            if current is None:
+                continue
+            if "spill" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                kind = next((v for k, v in kinds.items() if k in current),
+                            None)
+                if kind:
+                    rows[kind] = f"{regs} registers; {spill}"
+                current = None
+    return rows
+
+
+def k1_work(b, t, c) -> dict:
+    """K1's bound at (b, t, c) in bf16: 8 b t c^2 FLOP, its bytes x and y
+    and the weights once."""
+    return bound(8 * b * t * c * c,
+                 2 * (2 * b * t * c + 4 * c * c + 2 * c), "bf16")
+
+
+def check_design_pairs(what: str) -> None:
+    """K1's and K2's C libraries count the launches per design that their
+    wrappers count (each library only where this process loaded it)."""
+    from computervision_codes_tpu_torch.ops import _build, dilated_conv
+    from computervision_codes_tpu_torch.ops import stem_pool
+
+    for name, mod in (("dilated_residual", dilated_conv),
+                      ("stem_pool", stem_pool)):
+        if _build.loaded(name) is None:
+            check(all(n == 0 for n in mod.design_launches.values()),
+                  f"{what}: {name} counts {mod.design_launches} unloaded")
+            continue
+        got = mod.library_design_launches()
+        check(got == mod.design_launches,
+              f"{what}: {name}'s C library counts {got}, its wrappers "
+              f"{mod.design_launches}")
+
+
 def phase_k1(card: str) -> dict:
+    """K1 in both designs against the plain version: every (dilation,
+    causal) pair of the main path and ragged shapes (the current design in
+    bf16 and float32, the previous at the main shapes), C = 128 and 1024;
+    then the times in turns (new, previous, plain) at the offline and
+    streaming shapes in bf16, with device times, TFLOP/s and the share of
+    the bound, and the instantiations' registers and spills."""
+    from computervision_codes_tpu_torch.ops import _build
     from computervision_codes_tpu_torch.ops.dilated_conv import (
-        dilated_residual_cuda, dilated_residual_reference)
+        dilated_residual_cuda, dilated_residual_plan,
+        dilated_residual_prev_cuda, dilated_residual_reference)
 
     b0, t0, c = LAYER
-    cases = [(b0, t0, 2 ** i, causal) for causal in (False, True)
+    cases = [(b0, t0, c, 2 ** i, causal) for causal in (False, True)
              for i in range(11)]
-    # ragged: T not a multiple of the 32-row tile, T = 1, B = 3, d >= T
-    cases += [(b, t, d, causal) for causal in (False, True)
+    # ragged: T not a multiple of the 64-row tile, T = 1, B = 3, d >= T
+    cases += [(b, t, c, d, causal) for causal in (False, True)
               for b, t, d in ((3, 37, 1), (3, 37, 16), (3, 37, 64),
                               (1, 1, 1), (1, 1, 1024), (2, 300, 128))]
+    cases += K1_WIDTHS
     worst_main = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         worst = (0.0, None)
-        for n, (b, t, d, causal) in enumerate(cases):
-            args = layer_inputs(b, t, c, dtype, seed=n)
-            got = dilated_residual_cuda(*args, d, causal)
+        prev_checked = 0
+        for n, (b, t, cc, d, causal) in enumerate(cases):
+            args = layer_inputs(b, t, cc, dtype, seed=n)
             want = dilated_residual_reference(*args, d, causal)
-            check(bool(torch.isfinite(got).all()),
-                  f"K1 non-finite output {dtype} b={b} t={t} d={d}")
-            err = (got.float() - want.float()).abs().max().item()
             tol = REL_TOL[dtype] * max(1.0, want.float().abs().max().item())
-            check(err <= tol, f"K1 {dtype} b={b} t={t} d={d} causal={causal}"
-                              f": max_abs_err {err} > tol {tol}")
-            if err / tol >= worst[0]:
-                worst = (err / tol, (b, t, d, causal, err, tol))
-            if dtype == torch.bfloat16 and (b, t) == (b0, t0):
-                worst_main = max(worst_main, err)
+            designs = [("new", dilated_residual_cuda)]
+            if (b, t, cc) == (b0, t0, c):
+                designs.append(("prev", dilated_residual_prev_cuda))
+                prev_checked += 1
+            for name, fn in designs:
+                got = fn(*args, d, causal)
+                check(bool(torch.isfinite(got).all()),
+                      f"K1 {name} non-finite output {dtype} "
+                      f"{(b, t, cc, d, causal)}")
+                err = (got.float() - want.float()).abs().max().item()
+                check(err <= tol, f"K1 {name} {dtype} {(b, t, cc, d, causal)}"
+                                  f": max_abs_err {err} > tol {tol}")
+                if name == "new" and err / tol >= worst[0]:
+                    worst = (err / tol, (b, t, cc, d, causal, err, tol))
+                if name == "new" and dtype == torch.bfloat16 and \
+                        (b, t, cc) == (b0, t0, c):
+                    worst_main = max(worst_main, err)
         print(f"[kernels] K1 {str(dtype)[6:]}: {len(cases)} cases within "
-              f"tolerance ({REL_TOL[dtype]:g} x max|ref|); worst "
-              f"(b, t, d, causal, err, tol) = {worst[1]}")
+              f"tolerance ({REL_TOL[dtype]:g} x max|ref|), the previous "
+              f"design too at the {prev_checked} main-shape cases; worst "
+              f"(b, t, c, d, causal, err, tol) = {worst[1]}")
+    lib = _build.load_library("dilated_residual")
+    for b, t, cc in K1_PLANS:
+        out = (ctypes.c_int * 4)()
+        check(lib.dilated_residual_plan(b, t, cc, out) == 0,
+              f"K1 plan query failed at {(b, t, cc)}")
+        plan = dilated_residual_plan(b, t, cc, torch.bfloat16,
+                                     out[3] or None)
+        check(list(out)[:3] == [plan["slice"], plan["cluster"],
+                                plan["stages"]],
+              f"K1 {(b, t, cc)}: C plan {list(out)[:3]} != Python {plan}")
+        print(f"[kernels] K1 plan (B, T, C) = {(b, t, cc)}: slices of "
+              f"{out[0]} columns, clusters of {out[1]} CTAs, {out[2]} "
+              f"stages, grid {plan['grid']}; the card holds {out[3]} "
+              f"clusters of 64-column CTAs at once")
+    for kind, row in k12_registers().items():
+        if kind.startswith("K1"):
+            print(f"[kernels] {kind}: {row}")
 
-    # times at the offline shape in both dtypes, and at the streaming
-    # shapes (B = streams) in bf16; kernel and plain in turns
     times = {}
-    for b, dtype in ((b0, torch.bfloat16), (b0, torch.float32),
-                     *((s, torch.bfloat16) for s in STREAM_COUNTS)):
-        args = layer_inputs(b, t0, c, dtype, seed=99)
-        times[b, dtype], runs = in_turns(
-            {"plain": lambda: dilated_residual_reference(*args, 16, False),
-             "kernel": lambda: dilated_residual_cuda(*args, 16, False)},
-            {"plain": 50, "kernel": 50})
-        kern_ms = times[b, dtype]["kernel"]
-        print(f"[kernels] K1 time {str(dtype)[6:]} B={b} T={t0} C={c} d=16:"
-              f" kernel {kern_ms:.4f} ms "
-              f"({8 * b * t0 * c * c / kern_ms / 1e9:.1f} TFLOP/s), plain "
-              f"{times[b, dtype]['plain']:.4f} ms; runs {runs}; {card}")
-    return {"max_abs_err": worst_main,
-            "ms": times[b0, torch.bfloat16]["kernel"],
-            "plain_ms": times[b0, torch.bfloat16]["plain"],
-            **bound(8 * b0 * t0 * c * c,
-                    2 * (2 * b0 * t0 * c + 4 * c * c + 2 * c), "bf16"),
-            "library_ms": None}
+    for b, d, causal in K1_TIMED:
+        args = layer_inputs(b, t0, c, torch.bfloat16, seed=99)
+        ms, runs = in_turns(
+            {"new": lambda: dilated_residual_cuda(*args, d, causal),
+             "prev": lambda: dilated_residual_prev_cuda(*args, d, causal),
+             "plain": lambda: dilated_residual_reference(*args, d, causal)},
+            {"new": 50, "prev": 50, "plain": 50})
+        dev = {name: device_ms(lambda: fn(*args, d, causal), 20)
+               for name, fn in (("new", dilated_residual_cuda),
+                                ("prev", dilated_residual_prev_cuda))}
+        work = k1_work(b, t0, c)
+        times[b, d, causal] = ms | {f"{k}_device": v for k, v in dev.items()}
+        flop = 8 * b * t0 * c * c
+        print(f"[kernels] K1 time bf16 (B, T, C) = ({b}, {t0}, {c}) d={d} "
+              f"causal={causal}: new {ms['new']:.4f} ms (device "
+              f"{dev['new']:.4f}: {flop / dev['new'] / 1e9:.1f} TFLOP/s, "
+              f"{work['bound_ms'] / dev['new']:.1%} of the bound "
+              f"{work['bound_ms']:.4f} ms), previous {ms['prev']:.4f} "
+              f"(device {dev['prev']:.4f}), plain {ms['plain']:.4f}; runs "
+              f"{runs}; {card}")
+    main = times[b0, 16, False]
+    return {"max_abs_err": worst_main, "ms": main["new"],
+            "plain_ms": main["plain"], **k1_work(b0, t0, c),
+            "library_ms": None, "prev_ms": main["prev"],
+            "device_ms": main["new_device"],
+            "prev_device_ms": main["prev_device"],
+            "by_shape": {f"B={b} d={d} causal={causal}": v
+                         for (b, d, causal), v in times.items()},
+            "registers": {k: v for k, v in k12_registers().items()
+                          if k.startswith("K1")}}
 
 
 def stem_inputs(n, h, w, dtype, seed):
@@ -980,60 +1121,102 @@ def stem_inputs(n, h, w, dtype, seed):
     return x, wt, bias
 
 
+def k2_work(n, h, w) -> dict:
+    """K2's bound at n frames of h x w in bf16: the 147-tap convolution's
+    FLOP, its input, output and weight bytes."""
+    return bound(2 * n * (h // 2) * (w // 2) * 64 * 147,
+                 2 * (n * h * w * 3 + n * (h // 4) * (w // 4) * 64
+                      + 147 * 64) + 4 * 64, "bf16")
+
+
 def phase_k2(card: str) -> dict:
+    """K2 in both designs against the plain version at every STEM_CASES
+    shape and one frame (the push), bf16 and float32; then the times in
+    turns (new, previous, plain) in bf16 at STEM_TIME_N frames, with device
+    times, TFLOP/s and the share of the bound, and the instantiations'
+    registers and spills."""
     from computervision_codes_tpu_torch.ops.stem_pool import (
-        stem_pool_cuda, stem_pool_reference)
+        stem_pool_cuda, stem_pool_plan, stem_pool_prev_cuda,
+        stem_pool_reference)
 
     main_err = 0.0
+    cases = STEM_CASES + [(1,) + OFFLINE[2:]]
     for dtype in (torch.bfloat16, torch.float32):
         worst = (-1.0, None)
-        for seed, (n, h, w) in enumerate(STEM_CASES):
+        for seed, (n, h, w) in enumerate(cases):
             args = stem_inputs(n, h, w, dtype, seed)
-            got = stem_pool_cuda(*args)
             want = stem_pool_reference(*args)
-            check(got.shape == want.shape == (n, h // 4, w // 4, 64),
-                  f"K2 {dtype} {(n, h, w)}: shape {tuple(got.shape)}")
-            check(bool(torch.isfinite(got).all()),
-                  f"K2 {dtype} {(n, h, w)}: non-finite")
-            err = (got.float() - want.float()).abs().max().item()
             top = want.float().abs().max().item()
             tol = STEM_F32_ATOL if dtype == torch.float32 else bf16_ulp(top)
-            check(err <= tol, f"K2 {dtype} {(n, h, w)}: max_abs_err {err} > "
-                              f"tol {tol} (max|ref| {top})")
-            if err / tol >= worst[0]:
-                worst = (err / tol, ((n, h, w), err, tol))
-            if dtype == torch.bfloat16 and (n, h, w) == (1024,) + OFFLINE[2:]:
-                main_err = err
-            del args, got, want
-        print(f"[kernels] K2 {str(dtype)[6:]}: {len(STEM_CASES)} shapes "
-              f"within tolerance ("
+            for name, fn in (("new", stem_pool_cuda),
+                             ("prev", stem_pool_prev_cuda)):
+                got = fn(*args)
+                check(got.shape == want.shape == (n, h // 4, w // 4, 64),
+                      f"K2 {name} {dtype} {(n, h, w)}: shape "
+                      f"{tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"K2 {name} {dtype} {(n, h, w)}: non-finite")
+                err = (got.float() - want.float()).abs().max().item()
+                check(err <= tol, f"K2 {name} {dtype} {(n, h, w)}: "
+                                  f"max_abs_err {err} > tol {tol} "
+                                  f"(max|ref| {top})")
+                if name == "new" and err / tol >= worst[0]:
+                    worst = (err / tol, ((n, h, w), err, tol))
+                if name == "new" and dtype == torch.bfloat16 and \
+                        (n, h, w) == (1024,) + OFFLINE[2:]:
+                    main_err = err
+                del got
+            del args, want
+        print(f"[kernels] K2 {str(dtype)[6:]}: {len(cases)} shapes within "
+              f"tolerance ("
               f"{'2e-5 absolute' if dtype == torch.float32 else '1 ulp of max|ref|'}"
-              f"); worst ((N, H, W), err, tol) = {worst[1]}")
+              f"), both designs; worst of the current ((N, H, W), err, tol) "
+              f"= {worst[1]}")
+    for kind, row in k12_registers().items():
+        if kind.startswith("K2"):
+            print(f"[kernels] {kind}: {row}")
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     times = {}
     h, w = OFFLINE[2:]
     for n in STEM_TIME_N:
-        for dtype in (torch.bfloat16, torch.float32):
-            args = stem_inputs(n, h, w, dtype, seed=99)
-            reps = 20 if n < 1024 else 5
-            times[n, dtype], runs = in_turns(
-                {"plain": lambda: stem_pool_reference(*args),
-                 "kernel": lambda: stem_pool_cuda(*args)},
-                {"plain": reps, "kernel": reps})
-            kern_ms = times[n, dtype]["kernel"]
-            flop = 2 * n * (h // 2) * (w // 2) * 64 * 147
-            print(f"[kernels] K2 time {str(dtype)[6:]} N={n} {h}x{w}: kernel "
-                  f"{kern_ms:.4f} ms ({flop / kern_ms / 1e9:.1f} TFLOP/s of "
-                  f"conv), plain {times[n, dtype]['plain']:.4f} ms; runs "
-                  f"{runs}; {card}")
-            del args
+        args = stem_inputs(n, h, w, torch.bfloat16, seed=99)
+        reps = 20 if n < 1024 else 5
+        ms, runs = in_turns({"new": lambda: stem_pool_cuda(*args),
+                             "prev": lambda: stem_pool_prev_cuda(*args),
+                             "plain": lambda: stem_pool_reference(*args)},
+                            {"new": reps, "prev": reps, "plain": reps})
+        dev = {name: device_ms(lambda: fn(*args), reps)
+               for name, fn in (("new", stem_pool_cuda),
+                                ("prev", stem_pool_prev_cuda))}
+        work = k2_work(n, h, w)
+        times[n] = ms | {f"{k}_device": v for k, v in dev.items()}
+        flop = 2 * n * (h // 2) * (w // 2) * 64 * 147
+        print(f"[kernels] K2 time bf16 N={n} {h}x{w} (plan "
+              f"{stem_pool_plan(n, h, w, sms)}): new {ms['new']:.4f} ms "
+              f"(device {dev['new']:.4f}: {flop / dev['new'] / 1e9:.1f} "
+              f"TFLOP/s of conv, {work['bound_ms'] / dev['new']:.1%} of the "
+              f"bound {work['bound_ms']:.4f} ms, {work['bound_by']}), "
+              f"previous {ms['prev']:.4f} (device {dev['prev']:.4f}), plain "
+              f"{ms['plain']:.4f}; runs {runs}; {card}")
+        del args
+    args = stem_inputs(STEM_TIME_N[-1], h, w, torch.float32, seed=99)
+    f32, runs = in_turns({"new": lambda: stem_pool_cuda(*args),
+                          "plain": lambda: stem_pool_reference(*args)},
+                         {"new": 5, "plain": 5})
+    print(f"[kernels] K2 time float32 N={STEM_TIME_N[-1]} {h}x{w} (the FMA "
+          f"kernel, both designs): {f32['new']:.4f} ms, plain "
+          f"{f32['plain']:.4f}; runs {runs}; {card}")
+    del args
     n = STEM_TIME_N[-1]
-    return {"max_abs_err": main_err,
-            "ms": times[n, torch.bfloat16]["kernel"],
-            "plain_ms": times[n, torch.bfloat16]["plain"],
-            **bound(2 * n * (h // 2) * (w // 2) * 64 * 147,
-                    2 * (n * h * w * 3 + n * (h // 4) * (w // 4) * 64
-                         + 147 * 64) + 4 * 64, "bf16"),
-            "library_ms": None}
+    return {"max_abs_err": main_err, "ms": times[n]["new"],
+            "plain_ms": times[n]["plain"], **k2_work(n, h, w),
+            "library_ms": None, "prev_ms": times[n]["prev"],
+            "device_ms": times[n]["new_device"],
+            "prev_device_ms": times[n]["prev_device"],
+            "by_frames": {str(k): v for k, v in times.items()},
+            "float32_ms": f32["new"],
+            "registers": {k: v for k, v in k12_registers().items()
+                          if k.startswith("K2")}}
 
 
 def resnet18_convs(h: int, w: int) -> list:
@@ -1101,14 +1284,19 @@ def reset_launches() -> None:
     """Every kernel's count, Q1's per path, the Swin GEMM core's per path,
     the window-attention phase's and K7's and K8's per design (the
     wrappers' and the C libraries'), to 0."""
-    from computervision_codes_tpu_torch.ops import attention, swin_gemm
+    from computervision_codes_tpu_torch.ops import attention, dilated_conv
+    from computervision_codes_tpu_torch.ops import stem_pool, swin_gemm
     from computervision_codes_tpu_torch.ops import window_attention
 
-    for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values()):
+    for fn in (*kernel_wrappers().values(), *q1_path_wrappers().values(),
+               dilated_conv.dilated_residual_prev_cuda,
+               stem_pool.stem_pool_prev_cuda):
         fn.launches = 0
     swin_gemm.reset_launches()
     window_attention.reset_phase_launches()
     attention.reset_design_launches()
+    dilated_conv.reset_design_launches()
+    stem_pool.reset_design_launches()
 
 
 def q1_walk_frames(ho: int, wo: int, cout: int) -> int:
@@ -4780,6 +4968,7 @@ def main() -> None:
                 **phase_k8(card),
                 "fused_scale_bias_act": phase_k9(card),
                 "window_attention": phase_k10(card)}
+    check_design_pairs("the kernel phases")
     slice_s = time.perf_counter()  # the training slice's phases, summed
     measured["window_mhsa_branch"], measured["mlp_block_branch"] = \
         phase_k6(card)
@@ -4823,6 +5012,7 @@ def main() -> None:
         "int8 fused stem": phase_streaming(card, "int8 fused stem",
                                            int8_fused, quantize=True,
                                            fused_stem=True)}
+    check_design_pairs("student sessions")
     student = path_launches()
     reset_launches()  # the teachers' main path starts here
     teachers, frames = phase_teacher(card, {
@@ -4847,7 +5037,9 @@ def main() -> None:
     path_b = phase_swin_fused(card)
     check_attn_counts("path B")
     path_b |= q1_counts() | {
-        k: path_launches()[k] for k in ("attention merge", "attention prev")}
+        k: path_launches()[k] for k in ("attention merge", "attention prev",
+                                        "dilated_residual prev",
+                                        "stem_pool prev")}
     reset_launches()  # the teacher's training steps start here
     t0 = time.perf_counter()
     train, train_state, train_batch = phase_train(card)
@@ -4913,11 +5105,13 @@ def main() -> None:
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
-    # K7 and K8: the previous design on no path
+    # K1, K2, K7 and K8: the previous designs on no path
+    check_design_pairs("the paths after the student's")
     for label, p in paths.items():
-        check(p["attention prev"] == 0,
-              f"{label}: {p['attention prev']} launches of K7's or K8's "
-              f"previous design")
+        for name in ("attention", "dilated_residual", "stem_pool"):
+            check(p[f"{name} prev"] == 0,
+                  f"{label}: {p[f'{name} prev']} launches of {name}'s "
+                  f"previous design")
     for name in ("attention", "flash_attention_fwd"):
         measured[name]["merge_launches_by_path"] = {
             label: p["attention merge"] for label, p in paths.items()

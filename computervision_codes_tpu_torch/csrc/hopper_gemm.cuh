@@ -4,7 +4,9 @@
 // fence, and wgmma over operands in the 128-byte swizzle: int8 (m64nNk32,
 // s8 x s8 -> s32, both K-major) and bf16 (m64nNk16, bf16 x bf16 -> f32:
 // A K-major with B MN-major or K-major; A from registers with B MN-major),
-// and setmaxnreg for warp-specialised kernels.
+// setmaxnreg for warp-specialised kernels, and the cluster primitives
+// (rank, mapa, remote arrivals, the cluster barrier, a multicast TMA load,
+// a bulk copy between CTAs).
 //
 // The layout every operand tile uses: rows of 128 bytes of K, 8 rows to a
 // 1024-byte swizzle atom, the 16-byte chunk c of row r stored at chunk
@@ -115,6 +117,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 3-D TMA load of one box at (c0 innermost, c1, c2) into the same offset of
+// the shared memory of every CTA of the cluster in `mask`, each completing
+// on its own mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      int c0, int c1, int c2,
+                                                      uint64_t* bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(mask)
       : "memory");
 }
 
@@ -505,6 +524,59 @@ template <> struct WgmmaBF16RS<128> {
   }
 };
 
+// ---- thread-block clusters ------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the variable at `addr` (a shared::cta
+// address) in the CTA of rank `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// one arrival on an mbarrier of any CTA of the cluster (a mapa address),
+// with the default release at CTA scope: enough to hand a stage back once
+// the wgmmas that read it have completed (a cluster-scope release is a
+// fence that costs about a microsecond a stage)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   remote_bar)
+               : "memory");
+}
+
+// every thread of every CTA of the cluster arrives (releasing its writes)
+// and waits (acquiring the others'); all threads of a warp together
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16) of this CTA's shared memory to
+// another CTA of the cluster (dst, a mapa address), completing on that
+// CTA's mbarrier (bar, a mapa address); the source is read through the
+// async proxy (fence_proxy_async after writing it)
+__device__ __forceinline__ void bulk_copy_to_cta(uint32_t dst,
+                                                 const void* src,
+                                                 uint32_t bytes,
+                                                 uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
+      "::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // register budgets of warp-specialised kernels: the producer warpgroup
 // gives registers up, the consumers take them (all four warps of a
 // warpgroup execute it; the counts are multiples of 8 in [24, 256])
@@ -592,6 +664,49 @@ inline int encode_u8_sw128_cached(CUtensorMap* map, const void* base,
     next = (next + 1) % SLOTS;
   }
   return err;
+}
+
+// A (planes, rows, cols) byte array, planes and rows dense, as boxes of
+// (1, box_rows, 128 bytes) in the 128-byte swizzle; reads outside it (a
+// negative row included) fill zeros. cols must be a multiple of 16 and base
+// 16-byte aligned. Through a per-thread cache, as encode_u8_sw128_cached.
+// Returns 0 on success.
+inline int encode_u8_sw128_3d_cached(CUtensorMap* map, const void* base,
+                                     long long planes, long long rows,
+                                     long long cols, int box_rows) {
+  struct Entry {
+    const void* base;
+    long long planes, rows, cols;
+    int box_rows;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 64;
+  thread_local Entry cache[SLOTS] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.base == base && e.planes == planes && e.rows == rows &&
+        e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols,
+                                 (cuuint64_t)(cols * rows)};
+  const cuuint32_t box[3] = {128u, (cuuint32_t)box_rows, 1u};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = Entry{base, planes, rows, cols, box_rows, *map};
+  next = (next + 1) % SLOTS;
+  return 0;
 }
 
 }  // namespace hopper

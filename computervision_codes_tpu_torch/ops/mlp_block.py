@@ -207,11 +207,15 @@ def on_card(what: str, x) -> None:
 
 def run_entry(fn, device, *args) -> int:
     """Call a C entry point with each tensor as its pointer and the current
-    stream of ``device`` last; returns its CUDA error code."""
+    stream of ``device`` last, with that device current (switched only when
+    it is not: the switch costs the host microseconds a call); returns its
+    CUDA error code."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, stream)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        return fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                    for a in args), stream)
+        return fn(*args, stream)
 
 
 def launch_checked(what: str, fn, *args) -> None:
