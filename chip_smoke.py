@@ -4682,14 +4682,37 @@ def refused(fn, error, msg: str) -> None:
     fail(msg)
 
 
+def check_int8w_paths(x, wq, s) -> None:
+    """One call of P1's int8w and of its loop twin each add one product to
+    their own path, in the wrappers' counts and in the C library's."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+    from computervision_codes_tpu_torch.scripts import int8_kernel_probe as p1
+
+    lib = "int8_kernel_probe"
+    for fn, path in ((p1.gemm_int8w_cuda, "wgmma"),
+                     (p1.gemm_int8w_loop_cuda, "loop")):
+        c0, w0 = swin_gemm.library_launches(lib), dict(swin_gemm.launches[lib])
+        fn(x, wq, s)
+        c1, w1 = swin_gemm.library_launches(lib), swin_gemm.launches[lib]
+        got_c = {k: c1[k] - c0[k] for k in c1}
+        got_w = {k: w1[k] - w0[k] for k in w1}
+        want = dict.fromkeys(swin_gemm.PATHS, 0) | {path: 1}
+        check(got_c == got_w == want,
+              f"P1 int8w {fn.__name__}: C library counts {got_c}, wrappers "
+              f"{got_w}, want {want}")
+
+
 def phase_p1(card: str) -> dict:
     """P1: the int8 kernel probe's three kernels against their plain
     versions on the card at the probe's twelve shapes and ragged ones, int8
-    bit for bit, bf16 and int8w within REL_TOL; bf16 and int8 (the Swin
-    GEMM core) against the loops they ran on before, int8 bit for bit and
-    bf16 with the outputs that differ counted; an M that ``blk`` does not
-    divide and an N % 64 != 0 are refused. Then at each of the twelve
-    shapes bf16 and int8 on the core and on the loop, ``torch.matmul`` and
+    bit for bit, bf16 and int8w within REL_TOL (int8w also with a scale per
+    channel drawn from a seed); int8w (s = 1/16) times 16 equal to bf16 on
+    the codes widened to bf16 bit for bit (the same wgmma sums, scaled by a
+    power of two); all three (the Swin GEMM core) against the loops they ran
+    on before, int8 bit for bit and bf16 and int8w with the outputs that
+    differ counted; an M that ``blk`` does not divide and an N % 64 != 0 are
+    refused. Then at each of the twelve shapes each variant on the core and
+    on the loop, ``torch.matmul`` (bf16, and on the widened codes) and
     ``torch._int_mm`` (the int8 product alone, from codes) in turns, with
     the plain versions at P1_TIMED. Returns the kernels line's swin_gemm
     readings."""
@@ -4698,23 +4721,38 @@ def phase_p1(card: str) -> dict:
 
     cases = list(p1.SHAPES) + [(f"ragged {m}x{k}x{n} blk {blk}", m, k, n, blk)
                                for m, k, n, blk in P1_RAGGED]
-    worst = {"bf16": (-1.0, None), "int8w": (-1.0, None)}
-    differ, timed_err = {}, 0.0
+    worst = {"bf16": (-1.0, None), "int8w": (-1.0, None),
+             "int8w per channel": (-1.0, None)}
+    differ, differ_w, timed_err = {}, {}, {}
     for seed, (what, m, k, n, blk) in enumerate(cases):
         x, w, wq, s = p1.probe_inputs(m, k, n, DEVICE, seed)
         w8 = Q8Weight(wq.t().contiguous(), s)
+        if seed == 0:
+            check_int8w_paths(x, wq, s)
+        g = torch.Generator(device=DEVICE).manual_seed(1000 + seed)
+        s_ch = 0.01 + torch.rand(1, n, generator=g, device=DEVICE)
+        int8w = p1.gemm_int8w_cuda(x, wq, s)
         for tag, got, want in (
                 ("bf16", p1.gemm_bf16_cuda(x, w),
                  p1.gemm_bf16_reference(x, w)),
-                ("int8w", p1.gemm_int8w_cuda(x, wq, s),
-                 p1.gemm_int8w_reference(x, wq, s))):
+                ("int8w", int8w, p1.gemm_int8w_reference(x, wq, s)),
+                ("int8w per channel", p1.gemm_int8w_cuda(x, wq, s_ch),
+                 p1.gemm_int8w_reference(x, wq, s_ch))):
             err, tol = compare(f"P1 {tag} {what}", got, want, torch.bfloat16)
             if err / tol >= worst[tag][0]:
                 worst[tag] = (err / tol, (what, err, tol))
+            if what == P1_TIMED:
+                timed_err[tag] = err
             if tag == "bf16":
                 differ[what] = new_vs_old(got, p1.gemm_bf16_loop_cuda(x, w))
-                if what == P1_TIMED:
-                    timed_err = err
+        widened = p1.gemm_bf16_cuda(x, wq.to(torch.bfloat16))
+        scaled = 16 * int8w.float()
+        check(torch.equal(scaled, widened.float()),
+              f"P1 int8w {what}: 16 x int8w (s = 1/16) differs from bf16 on "
+              f"the widened codes in {int((scaled != widened.float()).sum())}"
+              f" outputs, by up to "
+              f"{(scaled - widened.float()).abs().max().item()}")
+        differ_w[what] = new_vs_old(int8w, p1.gemm_int8w_loop_cuda(x, wq, s))
         got = p1.gemm_int8_cuda(x, w8, blk)
         want = p1.gemm_int8_reference(x, w8, blk)
         check(torch.equal(got, want),
@@ -4740,43 +4778,62 @@ def phase_p1(card: str) -> dict:
           f"{P1_RAGGED}: int8 equal to the plain version bit for bit; bf16 "
           f"and int8w within {REL_TOL[torch.bfloat16]:g} x max|ref|, worst "
           f"(case, err, tol) bf16 {worst['bf16'][1]}, int8w "
-          f"{worst['int8w'][1]}; M % blk != 0 and N = {P1_REFUSED_N} raise "
-          f"ValueError; int8 on the Swin GEMM core equal to the mma.sync "
-          f"loop's bit for bit; bf16 against the WMMA loop (outputs that "
-          f"differ, largest difference) {differ}; {card}")
+          f"{worst['int8w'][1]}, int8w with a scale per channel "
+          f"{worst['int8w per channel'][1]}; 16 x int8w (s = 1/16) equal to "
+          f"bf16 on the widened codes bit for bit at every case; int8w on "
+          f"the wgmma path and its loop twin on the loop, each one product "
+          f"in the C library's counts and the wrappers'; M % blk != 0 and "
+          f"N = {P1_REFUSED_N} raise ValueError; int8 on the Swin GEMM core "
+          f"equal to the mma.sync loop's bit for bit; against the WMMA loop "
+          f"(outputs that differ, largest difference) bf16 {differ}, int8w "
+          f"{differ_w}; {card}")
 
     # times at the twelve shapes, core and loop in turns with the library
     rows = {}
     for what, m, k, n, blk in p1.SHAPES:
         x, w, wq, s = p1.probe_inputs(m, k, n, DEVICE, 99)
         w8 = Q8Weight(wq.t().contiguous(), s)
+        wq_bf16 = wq.to(torch.bfloat16)
         codes = p1.quantize_blocks(x, blk)[0]
         fns = {"bf16": lambda: p1.gemm_bf16_cuda(x, w),
                "bf16_loop": lambda: p1.gemm_bf16_loop_cuda(x, w),
                "matmul": lambda: torch.matmul(x, w),
+               "int8w": lambda: p1.gemm_int8w_cuda(x, wq, s),
+               "int8w_loop": lambda: p1.gemm_int8w_loop_cuda(x, wq, s),
+               "matmul_widened": lambda: torch.matmul(x, wq_bf16),
                "int8": lambda: p1.gemm_int8_cuda(x, w8, blk),
                "int8_loop": lambda: p1.gemm_int8_loop_cuda(x, w8, blk),
                "int_mm": lambda: torch._int_mm(codes, w8.codes.t())}
         if what == P1_TIMED:
             fns["plain"] = lambda: p1.gemm_bf16_reference(x, w)
+            fns["int8w_plain"] = lambda: p1.gemm_int8w_reference(x, wq, s)
             fns["int8_plain"] = lambda: p1.gemm_int8_reference(x, w8, blk)
         ms, runs = in_turns(fns, dict.fromkeys(fns, 10))
         rows[what] = ms
         print(f"[kernels] swin_gemm time {what}: bf16 {ms['bf16']:.4f} ms "
               f"(loop {ms['bf16_loop']:.4f}, torch.matmul "
-              f"{ms['matmul']:.4f}), int8 {ms['int8']:.4f} ms, the amax and "
-              f"quantize passes included (loop {ms['int8_loop']:.4f}, "
-              f"torch._int_mm {ms['int_mm']:.4f}); runs {runs}; {card}")
-        del x, w, wq, w8, codes
+              f"{ms['matmul']:.4f}), int8w {ms['int8w']:.4f} ms (loop "
+              f"{ms['int8w_loop']:.4f}, torch.matmul on the widened codes "
+              f"{ms['matmul_widened']:.4f}), int8 {ms['int8']:.4f} ms, the "
+              f"amax and quantize passes included (loop "
+              f"{ms['int8_loop']:.4f}, torch._int_mm {ms['int_mm']:.4f}); "
+              f"runs {runs}; {card}")
+        del x, w, wq, wq_bf16, w8, codes
     what, m, k, n, blk = next(s for s in p1.SHAPES if s[0] == P1_TIMED)
     top = rows[what]
     ops = 2 * m * k * n
     int8_bound = bound(ops, m * k * 2 + k * n + 4 * n + 2 * m * n, "int8")
-    return {"shape": what, "max_abs_err": timed_err, "ms": top["bf16"],
-            "plain_ms": top["plain"],
+    int8w_bound = bound(ops, m * k * 2 + k * n + 4 * n + 2 * m * n, "bf16")
+    return {"shape": what, "max_abs_err": timed_err["bf16"],
+            "ms": top["bf16"], "plain_ms": top["plain"],
             **bound(ops, 2 * m * k + 2 * k * n + 2 * m * n, "bf16"),
             "library_ms": top["matmul"], "library": "torch.matmul, bf16",
             "loop_ms": top["bf16_loop"],
+            "int8w": {"max_abs_err": timed_err["int8w"], "ms": top["int8w"],
+                      "plain_ms": top["int8w_plain"],
+                      "loop_ms": top["int8w_loop"], **int8w_bound,
+                      "library_ms": top["matmul_widened"],
+                      "library": "torch.matmul on the codes widened to bf16"},
             "int8": {"max_abs_err": 0.0, "ms": top["int8"],
                      "plain_ms": top["int8_plain"],
                      "loop_ms": top["int8_loop"], **int8_bound,
@@ -4911,6 +4968,16 @@ def phase_probes(card: str) -> tuple:
     return rows["int8_kernel_probe"], rows["swin_pack_probe"]
 
 
+def check_probe_paths() -> None:
+    """The probe drivers ran P1's products (int8w's among them) on the
+    wgmma path only."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+
+    got = swin_gemm.launches["int8_kernel_probe"]
+    check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
+          f"probe drivers: P1's products per path {got}")
+
+
 def probe_entries(p1_rows: list, p2_rows: list, p1_loops: dict,
                   p2_loops: dict) -> dict:
     """The kernels line's P1 and P2 entries, from the probe drivers' rows:
@@ -4928,14 +4995,14 @@ def probe_entries(p1_rows: list, p2_rows: list, p1_loops: dict,
     for tag in ("bf16", "int8w", "int8"):
         r = by[f"{P1_TIMED} {tag}"]
         out[f"probe_gemm_{tag}"] = entry(r, r["lib_ms"]) | {
-            "library": "torch._int_mm on the codes (the GEMM alone)"
-            if tag == "int8" else "torch.matmul, bf16",
+            "library": {"bf16": "torch.matmul, bf16",
+                        "int8w": "torch.matmul on the codes widened to bf16",
+                        "int8": "torch._int_mm on the codes (the GEMM "
+                                "alone)"}[tag],
             "ms_by_shape": {q["metric"]: [q["ms"], q["lib_ms"]]
                             for q in p1_rows
-                            if q["metric"].endswith(f" {tag}")}}
-        if tag != "int8w":  # int8w stays on the loop
-            out[f"probe_gemm_{tag}"]["loop_ms"] = \
-                p1_loops[P1_TIMED][f"{tag}_loop"]
+                            if q["metric"].endswith(f" {tag}")},
+            "loop_ms": p1_loops[P1_TIMED][f"{tag}_loop"]}
     by = {r["metric"]: r for r in p2_rows}
     stage, pack = P2_TIMED
     for name, tag in (("mhsa_pack", pack), ("mhsa_batched", "batched")):
@@ -5066,6 +5133,7 @@ def main() -> None:
                               measured["swin_gemm"]["ms_by_shape"], p2_loops)
     check_gemm_counts("probe drivers")
     check_attn_counts("probe drivers")
+    check_probe_paths()
     probes = path_launches()
     probe_s += time.perf_counter() - t0
     paths = {"student sessions": student,

@@ -666,6 +666,47 @@ inline int encode_u8_sw128_cached(CUtensorMap* map, const void* base,
   return err;
 }
 
+// A row-major (rows, cols) byte matrix as unswizzled boxes of (box_rows,
+// box_cols bytes): row r of a box at r * box_cols in shared memory; reads
+// outside the matrix fill zeros. cols and box_cols must be multiples of 16,
+// base 16-byte aligned. Through a per-thread cache, as
+// encode_u8_sw128_cached. Returns 0 on success.
+inline int encode_u8_plain_cached(CUtensorMap* map, const void* base,
+                                  long long rows, long long cols,
+                                  int box_rows, int box_cols) {
+  struct Entry {
+    const void* base;
+    long long rows, cols;
+    int box_rows, box_cols;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 32;
+  thread_local Entry cache[SLOTS] = {};
+  thread_local int next = 0;
+  for (const Entry& e : cache)
+    if (e.base == base && e.rows == rows && e.cols == cols &&
+        e.box_rows == box_rows && e.box_cols == box_cols) {
+      *map = e.map;
+      return 0;
+    }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = Entry{base, rows, cols, box_rows, box_cols, *map};
+  next = (next + 1) % SLOTS;
+  return 0;
+}
+
 // A (planes, rows, cols) byte array, planes and rows dense, as boxes of
 // (1, box_rows, 128 bytes) in the 128-byte swizzle; reads outside it (a
 // negative row included) fill zeros. cols must be a multiple of 16 and base

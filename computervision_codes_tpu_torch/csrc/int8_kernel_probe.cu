@@ -20,19 +20,22 @@
 //   bf16   swin::gemm_any<bf16, EPI_BIAS> with a zero bias (the product
 //          K6's proj runs; acc + 0 rounds as acc does): the TMA-fed wgmma
 //          GEMM, A read in place, w (K, N) as the MN-major operand;
-//   int8w  swin::gemm<bf16, false, EPI_SCALE, int8_t>: swin_common.cuh's
-//          WMMA tile loop (128 x 64 x 32 tiles, the next tile read into
-//          registers while the current one is multiplied) with the int8
-//          weight loader and the bias-free scale epilogue (wgmma cannot
-//          widen int8 operands, so this variant stays on the loop);
+//   int8w  swin::gemm_int8w_any: the same TMA-fed wgmma GEMM and bf16
+//          consumers as bf16, with the bias-free scale epilogue; wgmma
+//          cannot widen int8 operands, so the kernel does: the producer
+//          loads each stage's codes by TMA beside its A, and seven warps
+//          widen them to bf16 in the slot's B, laid out as bf16's TMA box
+//          (Int8wOp in swin_gemm.cuh); one launch, the weight never widened
+//          in device memory;
 //   int8   swin::gemm_q8_any<bf16, Q8_T, Q8E_SCALE>: the quantize pass
 //          into a codes scratch, then the s8 wgmma GEMM with the bias-free
 //          epilogue in the JAX order.
 //
-// The "_loop" entry points run bf16 and int8 on swin_common.cuh's loops
-// (WMMA, and mma.sync quantizing A on load): the parent that chip_smoke.py
-// compares against. The entry points take N a multiple of 64 and K of 32
-// (the loops' tiles); M may be anything. The int8 variant's scale needs a
+// The "_loop" entry points run each variant on swin_common.cuh's loops
+// (WMMA, int8w's widening its int8 codes on load, and mma.sync quantizing A
+// on load): the parent that chip_smoke.py compares against. The entry
+// points take N a multiple of 64 and K of 32 (the loops' tiles); M may be
+// anything. The int8 variant's scale needs a
 // whole row block before any of its products, so a reduction pass runs
 // first (probe_amax_kernel, the only kernel of this file: one warp per row,
 // atomicMax of the float bits into its block's slot; non-negative floats
@@ -47,7 +50,10 @@
 // What bounds it on the card: at the stage-3 MLP shape (9216 x 768 x 3072)
 // 43.5 G operations, 0.044 ms at 989 TFLOP/s in bf16 and 0.022 ms at 1,979
 // TOP/s in int8, against 73-76 MB of traffic (0.022 ms at 3.35 TB/s); at
-// the stage-1 and stage-2 QKV shapes the bytes bound it.
+// the stage-1 and stage-2 QKV shapes the bytes bound it. int8w's widening
+// adds no device-memory traffic: per stage of a 128 x 128 tile its warps
+// read 8 KB and write 16 KB of shared memory and run 8 integer and bf16
+// operations per 4 codes, beside the stage's 0.28 us of wgmma at peak.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream, never synchronise and allocate nothing; the return value is the
@@ -97,6 +103,17 @@ int launch_bf16(const void* x, const void* w, const void* zero, void* out,
 }
 
 template <bool LOOP>
+int launch_int8w(const void* x, const void* w, const void* s, void* out,
+                 int M, int N, int K, void* stream) {
+  if (!shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
+  return (int)swin::gemm_int8w_any(
+      {static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
+       static_cast<const int8_t*>(w), nullptr, nullptr,
+       static_cast<bf16*>(out), M, N, K, static_cast<const float*>(s)},
+      LOOP, static_cast<cudaStream_t>(stream));
+}
+
+template <bool LOOP>
 int launch_int8(const void* x, const void* w, const void* s, void* amax,
                 void* codes, void* out, int M, int N, int K, int blk,
                 void* stream) {
@@ -143,14 +160,14 @@ extern "C" int probe_gemm_bf16_loop_launch(const void* x, const void* w,
 extern "C" int probe_gemm_int8w_launch(const void* x, const void* w,
                                        const void* s, void* out, int M, int N,
                                        int K, void* stream) {
-  if (!shape_ok(M, N, K)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = swin::gemm<bf16, false, swin::EPI_SCALE, int8_t>(
-      {static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-       static_cast<const int8_t*>(w), nullptr, nullptr,
-       static_cast<bf16*>(out), M, N, K, static_cast<const float*>(s)},
-      static_cast<cudaStream_t>(stream));
-  if (err == cudaSuccess) ++swin::gemm_launch_counts[swin::PATH_LOOP];
-  return (int)err;
+  return launch_int8w<false>(x, w, s, out, M, N, K, stream);
+}
+
+// probe_gemm_int8w_launch on the WMMA loop
+extern "C" int probe_gemm_int8w_loop_launch(const void* x, const void* w,
+                                            const void* s, void* out, int M,
+                                            int N, int K, void* stream) {
+  return launch_int8w<true>(x, w, s, out, M, N, K, stream);
 }
 
 // x (M, K) bf16, w (N, K) int8 codes, s (N,) float32, amax scratch of

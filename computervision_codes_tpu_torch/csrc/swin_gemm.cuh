@@ -31,7 +31,25 @@
 //                      flax weight read in place as the MN-major operand,
 //                      imm-trans-b 1, in boxes of 64 N x 64 K) or s8
 //                      m64nBNk32 (A the codes; B the (N, K) Q8Weight codes,
-//                      K-major). The block is persistent: it walks tiles
+//                      K-major). P1's weight-only int8 (Int8wOp) runs the
+//                      bf16 consumers on a B that the kernel widens itself,
+//                      in a block of 512 threads: the producer loads each
+//                      stage's (K, N) int8 codes by TMA beside its A, on
+//                      the same full barrier (unswizzled boxes of 64 N x 64
+//                      K bytes), and seven warps (the producer warpgroup's
+//                      warps 1-3 and a fourth warpgroup) widen them into the
+//                      slot's B in the 128-byte swizzle TMA writes for a
+//                      bf16 weight (16 codes read, two 16-byte chunks
+//                      written a thread; both free of bank conflicts: a
+//                      quarter-warp reads 128 contiguous bytes and writes
+//                      the even chunks of one row and the odd ones of the
+//                      next), fence the async proxy and arrive on the
+//                      slot's own barrier, which the consumers wait on
+//                      beside the full one. The codes' landing means the
+//                      slot was handed back, so the widening needs no
+//                      barrier of its own to wait on, and stays off the
+//                      producer's and the consumers' loops. The block is
+//                      persistent: it walks tiles
 //                      N-fastest and carries the ring's stage and phase from
 //                      one tile to the next, so the next tile loads during
 //                      this tile's epilogue. TMA fills rows past M and K
@@ -45,19 +63,21 @@
 //                      one atomicMax a block), Q8E_ROUND_RES, Q8E_SCALE.
 //                      int32 sums are exact, so the int8 outputs are the
 //                      loop's bit for bit; bf16 sums are float32 in another
-//                      order than WMMA's.
+//                      order than WMMA's. int8w's stage holds the bf16 of
+//                      each code exactly, so its sums are bf16's on the
+//                      widened weight, in the same order.
 //
-// Which path a product takes (gemm_path_bf16 / gemm_path_q8, the rule of
-// ops/swin_gemm.py::gemm_path) follows from the operand type and the shape
-// alone: float32 stays on the FMA loop (TF32 would change its numbers);
-// bf16 takes wgmma when K % 8 == 0 (TMA's 16-byte row pitch) and
-// N % 64 == 0 (the tiles), int8 when K % 16 == 0 and N % 64 == 0; anything
-// else would take the loop, which needs K % 32 == 0 and N % 64 == 0 and so
-// refuses those shapes too. P1's weight-only int8 (int8 codes widened to
-// bf16 on load) stays on the WMMA loop. Every main-path product takes
-// wgmma. The loop is kept for those shapes and, through each library's
-// "_loop" entry points (a template flag here, never set by a main path), as
-// the parent that chip_smoke.py times and compares against. Each library
+// Which path a product takes (gemm_path_bf16 / gemm_path_q8 /
+// gemm_path_int8w, the rule of ops/swin_gemm.py::gemm_path) follows from
+// the operand type and the shape alone: float32 stays on the FMA loop (TF32
+// would change its numbers); bf16 and int8w take wgmma when K % 8 == 0
+// (TMA's 16-byte row pitch of A) and N % 64 == 0 (the tiles), int8 when
+// K % 16 == 0 and N % 64 == 0; anything else would take the loop, which
+// needs K % 32 == 0 and N % 64 == 0 and so refuses those shapes too. Every
+// main-path product takes wgmma. The loop is kept for those shapes and,
+// through each library's "_loop" entry points (a template flag here, never
+// set by a main path), as the parent that chip_smoke.py times and compares
+// against (P1's int8w on it: the WMMA loop widening on load). Each library
 // counts its products per path (swin_gemm_launches below).
 //
 // What bounds the products on the card: at Swin-L-384's shapes they are
@@ -66,8 +86,12 @@
 // LN and quantize passes are byte bound (stage 0's LN, 147,456 x 192 bf16,
 // about 113 MB read and written, 0.034 ms at 3.35 TB/s).
 //
-// hopper_gemm.cuh lists the traps of this design; the one specific to here
-// is the MN-major descriptor of B (smem_desc_sw128_mn).
+// hopper_gemm.cuh lists the traps of this design; the ones specific to here
+// are the MN-major descriptor of B (smem_desc_sw128_mn) and, for int8w, the
+// proxy fence after the widening stores (generic writes that wgmma reads
+// through the async proxy) and the place of each widened chunk
+// (ops/swin_gemm.py::widened_offset writes the same mapping in Python,
+// where the CPU tests hold it to TMA's swizzle).
 
 #pragma once
 
@@ -93,6 +117,9 @@ inline int gemm_path_bf16(int K, int N) {
 }
 inline int gemm_path_q8(int K, int N) {
   return K % 16 == 0 && N % 64 == 0 ? PATH_WGMMA : PATH_LOOP;
+}
+inline int gemm_path_int8w(int K, int N) {
+  return K % 8 == 0 && N % 64 == 0 ? PATH_WGMMA : PATH_LOOP;
 }
 
 // the N tile of the wgmma path (N % 64 == 0)
@@ -162,11 +189,21 @@ constexpr int STAGES = 4;
 constexpr int THREADS = 384;  // the producer warpgroup, then the consumers
 constexpr int A_BYTES = BM * KB;
 constexpr int B_BOX = 64 * KB;  // bf16 B: one box of 64 N x 64 K rows
-template <int BN> struct Smem {
+constexpr int RAW_BOX = 64 * KB / 2;  // int8w codes: 64 N x 64 K bytes
+// int8w: the warps that widen B (the producer warpgroup's warps 1-3 and a
+// fourth warpgroup) and its block
+constexpr int WIDEN_WARPS = 7;
+constexpr int WIDEN_THREADS = 512;
+// The ring: STAGES slots of A, of B and, with WIDEN (int8w), of B's codes
+// (BN / 64 raw boxes), then the full and empty mbarriers of each slot and,
+// with WIDEN, one a slot that its widened B is ready
+template <int BN, bool WIDEN = false> struct Smem {
   static constexpr int B_BYTES = BN * KB;
-  // 1024 for aligning the ring by hand, the ring, 2 x STAGES mbarriers
+  static constexpr int RAW_BYTES = WIDEN ? BN / 64 * RAW_BOX : 0;
+  // 1024 for aligning the ring by hand, the ring, the mbarriers
   static constexpr int SIZE =
-      1024 + STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * 8;
+      1024 + STAGES * (A_BYTES + B_BYTES + RAW_BYTES) +
+      (WIDEN ? 3 : 2) * STAGES * 8;
 };
 }  // namespace wg
 
@@ -174,10 +211,11 @@ __device__ __forceinline__ void consumers_sync() {  // the 256 consumers
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// bf16 x bf16 -> float32: A (M, K) bf16, B (K, N) bf16 row-major
-template <int EPI> struct Bf16Op {
+// bf16 x bf16 -> float32: A (M, K) bf16, B (K, N) bf16 row-major (W:
+// the type of Args' weight; Int8wOp's codes)
+template <int EPI, typename W = bf16> struct Bf16Op {
   using Acc = float;
-  using Args = GemmArgs<bf16>;
+  using Args = GemmArgs<bf16, W>;
   static __host__ __device__ int k_bytes(int K) { return 2 * K; }
 
   // B's stage: BN / 64 boxes of 64 N x 64 K rows, one after another
@@ -304,19 +342,106 @@ template <typename T, int EPI> struct S8Op {
   }
 };
 
+// two pairs of int8 codes widened to bf16 pairs (the first code in the low
+// half): each code c's bf16 is (128 + (c & 127)) - (c < 0 ? 256 : 128),
+// whose operands are the bf16 bit patterns 0x43 | (c & 0x7f) and
+// 0x43 | (c & 0x80) (exponent 7, or 8 where the sign bit carries into it),
+// and whose difference, an integer of at most 8 significant bits, is exact
+__device__ __forceinline__ uint2 widen4(uint32_t codes) {
+  uint32_t out[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // bytes c_2h, 0x43, c_2h+1, 0x43
+    const uint32_t x = __byte_perm(codes, 0x43434343u, 0x4140 + 0x202 * h);
+    asm("sub.rn.bf16x2 %0, %1, %2;\n"
+        : "=r"(out[h])
+        : "r"(x & 0xFF7FFF7Fu), "r"(x & 0xFF80FF80u));
+  }
+  return make_uint2(out[0], out[1]);
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// bf16 x int8 codes -> float32 (P1's int8w): A (M, K) bf16 and the
+// consumers' products and epilogue as Bf16Op's (EPI_SCALE); B the (K, N)
+// codes, loaded by TMA beside A and widened by seven warps into the slot's
+// B, laid out as Bf16Op's TMA writes it
+struct Int8wOp : Bf16Op<EPI_SCALE, int8_t> {
+  // the codes of stage kb: BN / 64 unswizzled boxes of 64 N x 64 K bytes,
+  // so code (k, n) lands at (n / 64) RAW_BOX + 64 k + n % 64
+  template <int BN>
+  static __device__ void load_raw(uint8_t* dst, const CUtensorMap* tm,
+                                  int kb, int n_block, uint64_t* bar) {
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      hopper::tma_load_2d(dst + j * wg::RAW_BOX, tm, n_block + 64 * j,
+                          kb * (wg::KB / 2), bar);
+  }
+  // thread ct of THREADS widens the raw codes' 16-byte chunks ct,
+  // ct + THREADS, ...: chunk c holds codes n = 16 (c % 4) .. + 15 of row
+  // k = (c / 4) % 64 of box c / 256, whose bf16 are chunks 2 (c % 4) and
+  // 2 (c % 4) + 1 of row k of B box c / 256, each at chunk ^ (k % 8) (the
+  // 128-byte swizzle TMA writes). All its chunks are read before any is
+  // written, so the reads overlap.
+  template <int BN, int THREADS>
+  static __device__ void widen(uint8_t* slot, const uint8_t* raw, int ct) {
+    constexpr int CHUNKS = BN / 64 * wg::RAW_BOX / 16;
+    constexpr int PER = (CHUNKS + THREADS - 1) / THREADS;
+    const uint32_t src = hopper::smem_u32(raw), dst = hopper::smem_u32(slot);
+    uint4 v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = ct + THREADS * i;
+      if (CHUNKS % THREADS == 0 || c < CHUNKS) v[i] = lds128(src + 16 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = ct + THREADS * i;
+      if (CHUNKS % THREADS != 0 && c >= CHUNKS) break;
+      const int k = (c >> 2) & 63, q = c & 3;
+      const uint32_t row = dst + (c >> 8) * wg::B_BOX + k * wg::KB;
+      const uint2 w0 = widen4(v[i].x), w1 = widen4(v[i].y),
+                  w2 = widen4(v[i].z), w3 = widen4(v[i].w);
+      sts128(row + (((2 * q) ^ (k & 7)) << 4),
+             make_uint4(w0.x, w0.y, w1.x, w1.y));
+      sts128(row + (((2 * q + 1) ^ (k & 7)) << 4),
+             make_uint4(w2.x, w2.y, w3.x, w3.y));
+    }
+  }
+};
+
 template <class Op> struct IsGeluAmax : std::false_type {};
 template <typename T> struct IsGeluAmax<S8Op<T, Q8E_GELU_AMAX>>
     : std::true_type {};
+// the Op whose B seven warps widen (its codes loaded beside A, a fourth
+// warpgroup)
+template <class Op> struct Widens : std::false_type {};
+template <> struct Widens<Int8wOp> : std::true_type {};
+template <class Op>
+constexpr int threads_of = Widens<Op>::value ? wg::WIDEN_THREADS : wg::THREADS;
 
 // Persistent: block b takes tiles b, b + gridDim.x, ... in N-fastest order
 // (the blocks in flight share their A rows in L2). The ring's stage and
 // phase run on across tiles.
 template <class Op, int BN>
-__global__ void __launch_bounds__(wg::THREADS, 1)
+__global__ void __launch_bounds__(threads_of<Op>, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                   const __grid_constant__ CUtensorMap tm_b,
                   const typename Op::Args p) {
-  using S = wg::Smem<BN>;
+  constexpr bool WIDEN = Widens<Op>::value;
+  using S = wg::Smem<BN, WIDEN>;
   constexpr int ST = wg::STAGES, BM = wg::BM;
   constexpr bool AMAX = IsGeluAmax<Op>::value;
   extern __shared__ uint8_t smem_raw[];
@@ -325,8 +450,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sa = ring;                     // ST x (BM x 128)
   uint8_t* sb = ring + ST * wg::A_BYTES;  // ST x (BN x 128)
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + ST * S::B_BYTES);
+  uint8_t* raw = sb + ST * S::B_BYTES;    // WIDEN: ST x (BN x 64)
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + ST * S::RAW_BYTES);
   uint64_t* empty = full + ST;
+  uint64_t* widened = empty + ST;  // WIDEN
 
   const int n_tiles = p.N / BN;
   const int tiles = ((p.M + BM - 1) / BM) * n_tiles;
@@ -338,11 +465,36 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       hopper::mbar_init(&full[s], 1);   // the producer's expect_tx
       hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
+    if constexpr (WIDEN)
+      for (int s = 0; s < ST; ++s)
+        hopper::mbar_init(&widened[s], wg::WIDEN_WARPS);  // lane 0 each
     hopper::mbar_fence_init();
     hopper::tma_prefetch_map(&tm_a);
     hopper::tma_prefetch_map(&tm_b);
   }
   __syncthreads();
+
+  if constexpr (WIDEN) {
+    if (warpgroup == 3 || (warpgroup == 0 && t >= 32)) {
+      // ---- widening: warps 1-3 and warpgroup 3 widen slot s's codes into
+      // its B once they have landed (so the consumers have handed the slot
+      // back), fence the async proxy and arrive on widened[s] -------------
+      const int wt = warpgroup == 0 ? t - 32 : 96 + t;
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % ST;
+          hopper::mbar_wait(&full[s], (it / ST) & 1);
+          Op::template widen<BN, 32 * wg::WIDEN_WARPS>(
+              sb + s * S::B_BYTES, raw + s * S::RAW_BYTES, wt);
+          hopper::fence_proxy_async();  // the stores, before wgmma reads
+          __syncwarp();
+          if (t % 32 == 0) hopper::mbar_arrive(&widened[s]);
+        }
+      }
+      return;
+    }
+  }
 
   if (warpgroup == 0) {
     // ---- producer: one thread ------------------------------------------
@@ -354,11 +506,16 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
       for (int kb = 0; kb < nk; ++kb, ++it) {
         const int s = it % ST;
         hopper::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], wg::A_BYTES + S::B_BYTES);
+        hopper::mbar_arrive_expect_tx(
+            &full[s], wg::A_BYTES + (WIDEN ? S::RAW_BYTES : S::B_BYTES));
         hopper::tma_load_2d(sa + s * wg::A_BYTES, &tm_a, kb * wg::KB, m_block,
                             &full[s]);
-        Op::template load_b<BN>(sb + s * S::B_BYTES, &tm_b, kb, n_block,
-                                &full[s]);
+        if constexpr (WIDEN)
+          Op::template load_raw<BN>(raw + s * S::RAW_BYTES, &tm_b, kb,
+                                    n_block, &full[s]);
+        else
+          Op::template load_b<BN>(sb + s * S::B_BYTES, &tm_b, kb, n_block,
+                                  &full[s]);
       }
     }
     return;
@@ -377,6 +534,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
     for (int kb = 0; kb < nk; ++kb, ++it) {
       const int s = it % ST;
       hopper::mbar_wait(&full[s], (it / ST) & 1);
+      if constexpr (WIDEN) hopper::mbar_wait(&widened[s], (it / ST) & 1);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) hopper::fence_operand(acc[i]);
       hopper::wgmma_fence();
@@ -421,7 +579,8 @@ namespace {
 template <class Op, int BN>
 cudaError_t launch_wgmma(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                          const typename Op::Args& p, cudaStream_t s) {
-  using S = wg::Smem<BN>;
+  using S = wg::Smem<BN, Widens<Op>::value>;
+  constexpr int THREADS = threads_of<Op>;
   auto kernel = wgmma_gemm_kernel<Op, BN>;
   static int resident[32] = {0};
   int dev = 0;
@@ -437,7 +596,7 @@ cudaError_t launch_wgmma(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        wg::THREADS, S::SIZE);
+                                                        THREADS, S::SIZE);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     blocks = sms * per_sm;
@@ -446,7 +605,7 @@ cudaError_t launch_wgmma(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
   const long long tiles =
       (long long)((p.M + wg::BM - 1) / wg::BM) * (p.N / BN);
   const int grid = (int)(tiles < blocks ? tiles : blocks);
-  kernel<<<grid, wg::THREADS, S::SIZE, s>>>(tm_a, tm_b, p);
+  kernel<<<grid, THREADS, S::SIZE, s>>>(tm_a, tm_b, p);
   return cudaGetLastError();
 }
 }  // namespace
@@ -475,6 +634,22 @@ cudaError_t gemm_wgmma(const GemmArgs<bf16>& p, cudaStream_t s) {
                                          wg::B_BOX / wg::KB);
   if (err != 0) return (cudaError_t)err;
   return launch_wgmma_tiled<Bf16Op<EPI>>(tm_a, tm_b, p, s);
+}
+
+// int8w: A p.a (M, K) bf16, B p.w (K, N) int8 codes as a byte matrix in
+// unswizzled boxes of 64 N x 64 K (Int8wOp::load_raw)
+inline cudaError_t gemm_wgmma_int8w(const GemmArgs<bf16, int8_t>& p,
+                                    cudaStream_t s) {
+  if (p.M <= 0 || gemm_path_int8w(p.K, p.N) != PATH_WGMMA)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_b;
+  int err = hopper::encode_u8_sw128_cached(&tm_a, p.a, p.M, 2LL * p.K,
+                                           wg::BM);
+  if (err == 0)
+    err = hopper::encode_u8_plain_cached(&tm_b, p.w, p.K, p.N, wg::KB / 2,
+                                         wg::RAW_BOX / (wg::KB / 2));
+  if (err != 0) return (cudaError_t)err;
+  return launch_wgmma_tiled<Int8wOp>(tm_a, tm_b, p, s);
 }
 
 // int8: A the codes p.a (M, K), B p.w (N, K)
@@ -560,6 +735,18 @@ cudaError_t gemm_q8_any(Q8Args<T> p, int8_t* codes, bool loop,
   } else {
     err = gemm_q8<T, SRC, EPI>(p, s);
   }
+  if (err == cudaSuccess) ++gemm_launch_counts[path];
+  return err;
+}
+
+// P1's int8w product on the path the rule picks, or on the WMMA loop (its
+// int8 loader widening on load) when `loop` (the "_loop" entry point)
+inline cudaError_t gemm_int8w_any(const GemmArgs<bf16, int8_t>& p, bool loop,
+                                  cudaStream_t s) {
+  const int path = loop ? PATH_LOOP : gemm_path_int8w(p.K, p.N);
+  const cudaError_t err = path == PATH_WGMMA
+                              ? gemm_wgmma_int8w(p, s)
+                              : gemm<bf16, false, EPI_SCALE, int8_t>(p, s);
   if (err == cudaSuccess) ++gemm_launch_counts[path];
   return err;
 }

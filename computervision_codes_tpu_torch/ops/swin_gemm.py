@@ -5,17 +5,20 @@ runs on the card through ``csrc/swin_gemm.cuh``: a LayerNorm pass (bf16
 QKV and fc1) or a quantize pass (int8) writes the A operand, then a
 persistent wgmma GEMM fed by TMA multiplies it. Which path a product takes
 follows from its operand kind and shape alone, by ``gemm_path``, the rule
-the C code applies too (``gemm_path_bf16``/``gemm_path_q8`` there):
+the C code applies too (``gemm_path_bf16``/``gemm_path_q8``/
+``gemm_path_int8w`` there):
 
 - ``"fma"``: float32 products, on the FMA loop of ``swin_common.cuh``
   (TF32 would change float32's numbers);
-- ``"wgmma"``: bf16 products with K % 8 == 0 (TMA's 16-byte row pitch) and
-  int8 products with K % 16 == 0, N % 64 == 0 for both (the N tiles,
-  ``tile_n``); every product of the Swin-L models takes it;
+- ``"wgmma"``: bf16 products and P1's weight-only int8 (``"int8w"``: bf16
+  activations times int8 codes) with K % 8 == 0 (TMA's 16-byte row pitch),
+  int8 products with K % 16 == 0, N % 64 == 0 for all three (the N tiles,
+  ``tile_n``); every product of the Swin-L models takes it. wgmma cannot
+  widen int8 operands, so for int8w seven warps of the kernel widen each
+  stage's codes into a bf16 B stage themselves (``Int8wOp``;
+  ``widened_offset`` is where each code lands);
 - ``"loop"``: the rest (``swin_common.cuh``'s WMMA / ``mma.sync`` loops,
-  which need K % 32 == 0 and N % 64 == 0 and so refuse those shapes too),
-  and P1's weight-only int8 (``"int8w"``: int8 codes widened to bf16 on
-  load, which wgmma cannot do), which stays on the WMMA loop.
+  which need K % 32 == 0 and N % 64 == 0 and so refuse those shapes too).
 
 Each library (``LIBRARIES``) counts its products per path twice: here in
 ``launches``, which each wrapper adds to by the rule when its C entry point
@@ -56,9 +59,7 @@ def gemm_path(kind: str, k: int, n: int) -> str:
     int8 weight codes)."""
     if kind == "float32":
         return "fma"
-    if kind == "int8w":
-        return "loop"
-    if kind == "bfloat16":
+    if kind in ("bfloat16", "int8w"):
         ok = k % 8 == 0 and n % 64 == 0
     elif kind == "int8":
         ok = k % 16 == 0 and n % 64 == 0
@@ -71,6 +72,39 @@ def tile_n(n: int) -> int:
     """The wgmma path's N tile: 128 where it divides N, else 192, else 64
     (N % 64 == 0)."""
     return 128 if n % 128 == 0 else 192 if n % 192 == 0 else 64
+
+
+# int8w's B stage (csrc/swin_gemm.cuh, wg:: and Int8wOp): a stage is 64 K
+# rows; bf16 boxes of 64 N x 64 K rows of 128 bytes, raw boxes of 64 N x 64
+# K bytes; the threads that widen them (seven warps)
+STAGE_K, ROW_BYTES, WIDEN_THREADS = 64, 128, 224
+B_BOX, RAW_BOX = STAGE_K * ROW_BYTES, STAGE_K * 64
+
+
+def raw_offset(k, n):
+    """Where TMA puts code (k, n) of a stage (k < 64, n < BN) in a raw slot:
+    unswizzled boxes of 64 N x 64 K bytes, one per 64 columns."""
+    return (n // 64) * RAW_BOX + k * 64 + n % 64
+
+
+def widened_offset(raw):
+    """Where the widening warps write the bf16 of the code at byte ``raw``
+    of a raw slot: the thread that takes the raw slot's 16-byte chunk c =
+    raw // 16 (box c // 256, row k = (c // 4) % 64, codes 16 (c % 4) ..
+    + 15) stores its first eight bf16 as chunk 2 (c % 4) and the next eight
+    as chunk 2 (c % 4) + 1 of that box's row k, each chunk j at j ^ (k % 8).
+    Returns the byte offset of the bf16 (its low byte) in the B stage; works
+    elementwise on tensors."""
+    c, e = raw // 16, raw % 16
+    box, k, q = c // 256, (c // 4) % 64, c % 4
+    chunk = (2 * q + e // 8) ^ (k % 8)
+    return box * B_BOX + k * ROW_BYTES + chunk * 16 + 2 * (e % 8)
+
+
+def widen_chunks(bn: int, thread: int) -> range:
+    """The raw slot's 16-byte chunks that widening ``thread`` (0-223)
+    widens at the N tile ``bn``."""
+    return range(thread, bn // 64 * RAW_BOX // 16, WIDEN_THREADS)
 
 
 def operand_kind(dtype: torch.dtype, quant: bool = False) -> str:

@@ -7,10 +7,11 @@ weight, per shape:
   bf16   out = bf16(x w), float32 sums: the GEMM core of the shipped Swin
          kernels (``csrc/swin_gemm.cuh``'s TMA-fed wgmma GEMM, run with a
          zero bias);
-  int8w  weight-only int8: w as int8 codes, widened to bf16 on load,
-         out = bf16((x w) * s), s (1, N) float32 per output channel:
-         ``csrc/swin_common.cuh``'s WMMA ``gemm_kernel`` with its int8
-         weight loader (wgmma cannot widen int8 operands);
+  int8w  weight-only int8: w as int8 codes, widened to bf16,
+         out = bf16((x w) * s), s (1, N) float32 per output channel: the
+         same GEMM core, whose producer warpgroup loads the codes by TMA and
+         widens them in shared memory into the bf16 stage that the wgmma
+         consumers read (wgmma cannot widen int8 operands itself);
   int8   dynamic int8 x int8 with one activation scale per block of ``blk``
          rows: amax = max|x_blk| + 1e-6, q = round(x * (127 / amax)),
          acc = q w exact in int32, out = bf16(acc * ((amax / 127) * s));
@@ -22,13 +23,14 @@ for a CPU tensor and launches the hand-written kernel
 (``csrc/int8_kernel_probe.cu``) for a CUDA tensor; any other device
 raises. ``gemm_*_cuda.launches`` counts the kernel launches, and
 ``ops.swin_gemm.launches["int8_kernel_probe"]`` the products per path.
-``gemm_bf16_loop_cuda`` and ``gemm_int8_loop_cuda`` run bf16 and int8 on
-the loops the Swin kernels ran before (WMMA, ``mma.sync``): the parent
-that ``chip_smoke.py`` compares against. The kernels take the loops'
-shapes: K % 32 == 0 and N % 64 == 0, any M.
+``gemm_bf16_loop_cuda``, ``gemm_int8w_loop_cuda`` and
+``gemm_int8_loop_cuda`` run each variant on the loops the Swin kernels ran
+before (WMMA, int8w's widening on load, ``mma.sync``): the parent that
+``chip_smoke.py`` compares against. The kernels take the loops' shapes:
+K % 32 == 0 and N % 64 == 0, any M.
 
 The JAX probe hands int8w its codes as integer-valued bf16; here
-``gemm_int8w`` takes the int8 codes (K, N) and widens them on load, the
+``gemm_int8w`` takes the int8 codes (K, N) and widens them on the card, the
 same function at half the weight bytes. ``gemm_int8`` takes the weight as
 a ``Q8Weight`` (codes (N, K), the int8 kernel's layout; scale (1, N)),
 transposed once at setup. ``blk`` only tiles the TPU's bf16 and int8w
@@ -44,8 +46,9 @@ the card's name and power limit, one JSON line per (shape, variant): ``ms``
 and ``tflops`` of the entry point, ``bound_ms`` and ``bound_by``, the
 plain version's ``plain_ms``, ``max_abs_err`` against it and its
 ``max_abs_ref``, and ``lib_ms``,
-one library call's time as a yardstick (``torch.matmul`` in bf16 for bf16
-and int8w, ``torch._int_mm`` on the codes for int8: the GEMM alone). A
+one library call's time as a yardstick (``torch.matmul`` in bf16 for bf16,
+and on the codes widened to bf16 for int8w; ``torch._int_mm`` on the codes
+for int8: the GEMM alone). A
 failed build or launch raises; nothing is caught.
 
     python -m computervision_codes_tpu_torch.scripts.int8_kernel_probe
@@ -148,6 +151,7 @@ def _lib():
     for name, pointers, ints in (("probe_gemm_bf16_launch", 4, 3),
                                  ("probe_gemm_bf16_loop_launch", 4, 3),
                                  ("probe_gemm_int8w_launch", 4, 3),
+                                 ("probe_gemm_int8w_loop_launch", 4, 3),
                                  ("probe_gemm_int8_launch", 6, 4),
                                  ("probe_gemm_int8_loop_launch", 6, 4)):
         fn = getattr(lib, name)
@@ -223,19 +227,33 @@ def gemm_bf16_loop_cuda(x, w):
 gemm_bf16_loop_cuda.launches = 0
 
 
-def gemm_int8w_cuda(x, wq, s):
-    """P1's int8w kernel: wq (K, N) int8 codes, s (1, N) float32."""
+def _int8w(x, wq, s, counter, loop=False):
     x, wq, m, k, n = _operands("gemm_int8w", x, wq, torch.int8, True)
     s = _scale(s, n, x)
     out = torch.empty(m, n, dtype=torch.bfloat16, device=x.device)
-    launch_checked("gemm_int8w", _lib().probe_gemm_int8w_launch, x, wq, s,
-                   out, m, n, k)
-    gemm_int8w_cuda.launches += 1
-    swin_gemm.count("int8_kernel_probe", "int8w", [(k, n)])
+    lib = _lib()
+    launch_checked("gemm_int8w", lib.probe_gemm_int8w_loop_launch if loop
+                   else lib.probe_gemm_int8w_launch, x, wq, s, out, m, n, k)
+    counter.launches += 1
+    swin_gemm.count("int8_kernel_probe", "int8w", [(k, n)], loop)
     return out
 
 
+def gemm_int8w_cuda(x, wq, s):
+    """P1's int8w kernel (the core's bf16 GEMM with the codes widened in
+    its B stage): wq (K, N) int8 codes, s (1, N) float32."""
+    return _int8w(x, wq, s, gemm_int8w_cuda)
+
+
 gemm_int8w_cuda.launches = 0
+
+
+def gemm_int8w_loop_cuda(x, wq, s):
+    """P1's int8w on the WMMA loop (widening on load): the parent."""
+    return _int8w(x, wq, s, gemm_int8w_loop_cuda, loop=True)
+
+
+gemm_int8w_loop_cuda.launches = 0
 
 
 def _int8(x, w: Q8Weight, blk: int, counter, loop=False):

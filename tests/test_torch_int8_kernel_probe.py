@@ -97,6 +97,28 @@ def test_plain_versions_match_jax_bodies(spread):
         assert np.abs(whole[:BLK] - want[:BLK]).max() > 0
 
 
+@pytest.mark.parametrize("seed", [11, 12])
+def test_int8w_per_channel_scales_match_jax_body(seed):
+    """int8w with a scale per output channel drawn from the seed (the
+    probe's inputs use 1/16 everywhere, which cannot show a scale read from
+    the wrong column): the plain version and the entry point on CPU tensors
+    within one bf16 ulp of the JAX body, and a permuted scale is another
+    function."""
+    x, _, wq, _ = _inputs(seed=seed)
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(0.01, 1.0, (1, N)).astype(np.float32)
+    want = _pallas(jprobe._int8w_kernel, jnp.asarray(x, jnp.bfloat16),
+                   jnp.asarray(wq, jnp.bfloat16), jnp.asarray(s))
+    tx, twq, ts = _bf16(x), torch.from_numpy(wq), torch.from_numpy(s)
+    got = probe.gemm_int8w_reference(tx, twq, ts).float().numpy()
+    _within_one_ulp(got, want)
+    np.testing.assert_array_equal(
+        probe.gemm_int8w(tx, twq, ts).float().numpy(), got)
+    rolled = probe.gemm_int8w_reference(
+        tx, twq, torch.from_numpy(np.roll(s, 1, axis=1))).float().numpy()
+    assert np.abs(rolled - want).max() > 0.1 * np.abs(want).max()
+
+
 def test_int8_block_must_divide_rows():
     x, _, wq, s = _inputs(seed=5)
     w8 = Q8Weight(torch.from_numpy(wq).t().contiguous(), torch.from_numpy(s))
@@ -122,6 +144,7 @@ def test_driver_rows_and_counters():
     kernels' counters move only when a kernel launches, so on the CPU they
     stay where they were."""
     before = (probe.gemm_bf16_cuda.launches, probe.gemm_int8w_cuda.launches,
+              probe.gemm_int8w_loop_cuda.launches,
               probe.gemm_int8_cuda.launches)
     rows = probe.run("tiny", M, K, N, BLK, device="cpu", iters=1,
                      plain_iters=1)
@@ -133,6 +156,7 @@ def test_driver_rows_and_counters():
         assert r["bound_by"] in ("bytes", "operations")
         assert r["bound_ms"] > 0
     assert (probe.gemm_bf16_cuda.launches, probe.gemm_int8w_cuda.launches,
+            probe.gemm_int8w_loop_cuda.launches,
             probe.gemm_int8_cuda.launches) == before
     ops, nbytes, kind = probe.work(9216, 768, 3072, "bf16")
     assert kind == "bf16" and ops == 2 * 9216 * 768 * 3072

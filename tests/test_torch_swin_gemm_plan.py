@@ -224,10 +224,10 @@ def test_swin_l_products_take_wgmma(what, m, k, n, kind):
 
 
 @pytest.mark.parametrize("name, m, k, n, blk", p1.SHAPES)
-def test_p1_shapes_take_wgmma_but_int8w(name, m, k, n, blk):
+def test_p1_shapes_take_wgmma(name, m, k, n, blk):
     assert sg.gemm_path("bfloat16", k, n) == "wgmma"
     assert sg.gemm_path("int8", k, n) == "wgmma"
-    assert sg.gemm_path("int8w", k, n) == "loop"  # stays on the WMMA loop
+    assert sg.gemm_path("int8w", k, n) == "wgmma"  # widened in the B stage
 
 
 @pytest.mark.parametrize("k, n", [(192, 576), (64, 64), (40, 128)])
@@ -238,9 +238,69 @@ def test_float32_takes_the_fma_loop(k, n):
 @pytest.mark.parametrize("kind, k, n", [("bfloat16", 36, 128),
                                         ("bfloat16", 64, 96),
                                         ("int8", 24, 128),
-                                        ("int8", 128, 48)])
+                                        ("int8", 128, 48),
+                                        ("int8w", 36, 128),
+                                        ("int8w", 64, 96)])
 def test_what_wgmma_cannot_take_goes_to_the_loop(kind, k, n):
     assert sg.gemm_path(kind, k, n) == "loop"
+
+
+# ---- int8w: where the widening warps put the codes ----------------------
+
+
+def _stage(bn):
+    k = torch.arange(sg.STAGE_K).view(-1, 1).expand(-1, bn)
+    n = torch.arange(bn).view(1, -1).expand(sg.STAGE_K, -1)
+    return k, n
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192])
+def test_widened_codes_fill_the_stage_once(bn):
+    """Every code of a raw slot lands on its own bf16 of the B stage, and
+    together they fill it: BN / 64 boxes of 64 rows of 128 bytes."""
+    k, n = _stage(bn)
+    dst = sg.widened_offset(sg.raw_offset(k, n)).flatten()
+    assert bool((dst % 2 == 0).all())
+    assert torch.equal(dst.sort().values,
+                       torch.arange(0, bn // 64 * sg.B_BOX, 2))
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192])
+def test_widened_codes_land_where_tma_puts_a_bf16_weight(bn):
+    """The widened stage is the one Bf16Op's TMA box writes for a bf16 (K,
+    N) weight, which smem_desc_sw128_mn reads: box n // 64 of 64 K rows of
+    128 bytes, with the 128-byte swizzle applied to the address (bits 4-6
+    XOR bits 7-9)."""
+    k, n = _stage(bn)
+    linear = (n // 64) * sg.B_BOX + k * sg.ROW_BYTES + 2 * (n % 64)
+    swizzled = linear ^ (((linear >> 7) & 7) << 4)
+    assert torch.equal(sg.widened_offset(sg.raw_offset(k, n)), swizzled)
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192])
+def test_widening_covers_the_raw_slot_without_bank_conflicts(bn):
+    """The 224 widening threads take each 16-byte chunk of the raw slot once;
+    each quarter-warp (eight threads, one 16-byte access each) reads 128
+    contiguous bytes and, in each of its two stores, writes eight chunks
+    that fall on distinct banks (the chunk's place within its 128 bytes)."""
+    chunks = [c for t in range(sg.WIDEN_THREADS)
+              for c in sg.widen_chunks(bn, t)]
+    assert sorted(chunks) == list(range(bn // 64 * sg.RAW_BOX // 16))
+    for i in range(len(sg.widen_chunks(bn, 0))):
+        for warp in range(sg.WIDEN_THREADS // 32):
+            for quarter in range(4):
+                threads = range(32 * warp + 8 * quarter,
+                                32 * warp + 8 * quarter + 8)
+                cs = [sg.widen_chunks(bn, t)[i] for t in threads
+                      if i < len(sg.widen_chunks(bn, t))]
+                if not cs:
+                    continue
+                assert cs == list(range(cs[0], cs[0] + len(cs)))
+                assert cs[0] % 8 == 0  # 128 contiguous, aligned bytes
+                for half in (0, 8):  # the codes of each store
+                    dst = [int(sg.widened_offset(torch.tensor(16 * c + half)))
+                           for c in cs]
+                    assert len({d // 16 % 8 for d in dst}) == len(cs)
 
 
 def test_tile_n_rule():
@@ -292,7 +352,8 @@ def recorded(monkeypatch):
                              "window_mhsa_q8_reference")),
                        (k4, ("mlp_block_reference", "mlp_q8_reference")),
                        (k5, ("swin_block_reference",)),
-                       (p1, ("gemm_bf16_reference", "gemm_int8_reference"))):
+                       (p1, ("gemm_bf16_reference", "gemm_int8w_reference",
+                             "gemm_int8_reference"))):
         for name in names:
             monkeypatch.setattr(mod, name, no_plain)
     monkeypatch.setattr(sg, "launches", {
@@ -304,8 +365,8 @@ def recorded(monkeypatch):
                k5.swin_block_cuda, k5.swin_block_loop_cuda,
                k5.swin_block_q8_cuda, k5.swin_block_q8_loop_cuda,
                p1.gemm_bf16_cuda, p1.gemm_bf16_loop_cuda,
-               p1.gemm_int8w_cuda, p1.gemm_int8_cuda,
-               p1.gemm_int8_loop_cuda):
+               p1.gemm_int8w_cuda, p1.gemm_int8w_loop_cuda,
+               p1.gemm_int8_cuda, p1.gemm_int8_loop_cuda):
         monkeypatch.setattr(fn, "launches", 0)
     return rec
 
@@ -417,8 +478,8 @@ def test_q8_dispatch(recorded, rng, loop):
 
 
 def test_p1_dispatch(recorded, rng):
-    """P1: bf16 and int8 on wgmma (int8 with an (M, K) codes scratch),
-    int8w on the loop, and the _loop twins."""
+    """P1: bf16, int8w and int8 on wgmma (int8 with an (M, K) codes
+    scratch), and the _loop twins."""
     m, k, n, blk = 96, 64, 128, 32
     x = _mat(rng, m, k).to(torch.bfloat16)
     wgt = _mat(rng, k, n).to(torch.bfloat16)
@@ -427,16 +488,39 @@ def test_p1_dispatch(recorded, rng):
     w8 = k4.Q8Weight(wq.t().contiguous(), s)
     for fn in (p1.gemm_bf16_cuda, p1.gemm_bf16_loop_cuda):
         assert tuple(fn(x, wgt).shape) == (m, n)
-    p1.gemm_int8w_cuda(x, wq, s)
+    for fn in (p1.gemm_int8w_cuda, p1.gemm_int8w_loop_cuda):
+        assert tuple(fn(x, wq, s).shape) == (m, n)
     for fn in (p1.gemm_int8_cuda, p1.gemm_int8_loop_cuda):
         assert tuple(fn(x, w8, blk).shape) == (m, n)
     assert [name for name, _ in recorded.calls] == [
         "probe_gemm_bf16_launch", "probe_gemm_bf16_loop_launch",
-        "probe_gemm_int8w_launch", "probe_gemm_int8_launch",
-        "probe_gemm_int8_loop_launch"]
-    args = _shapes(recorded.calls[3][1])
+        "probe_gemm_int8w_launch", "probe_gemm_int8w_loop_launch",
+        "probe_gemm_int8_launch", "probe_gemm_int8_loop_launch"]
+    for _, call in recorded.calls[2:4]:
+        assert _shapes(call) == [((m, k), torch.bfloat16),
+                                 ((k, n), torch.int8),
+                                 ((1, n), torch.float32),
+                                 ((m, n), torch.bfloat16), m, n, k]
+    args = _shapes(recorded.calls[4][1])
     assert args[3:6] == [((m // blk,), torch.int32), ((m, k), torch.int8),
                          ((m, n), torch.bfloat16)]
     assert args[6:] == [m, n, k, blk]
-    assert sg.launches["int8_kernel_probe"] == {"wgmma": 2, "loop": 3,
+    assert sg.launches["int8_kernel_probe"] == {"wgmma": 3, "loop": 3,
+                                                "fma": 0}
+
+
+def test_p1_int8w_launches_once_a_call(recorded, rng):
+    """Each int8w call is one launch of the C entry point (no separate widen
+    pass), counted once by its wrapper and once on the wgmma path."""
+    m, k, n = 200, 160, 192
+    x = _mat(rng, m, k).to(torch.bfloat16)
+    wq = torch.ones(k, n, dtype=torch.int8)
+    s = _mat(rng, 1, n)
+    for _ in range(3):
+        p1.gemm_int8w_cuda(x, wq, s)
+    assert [name for name, _ in recorded.calls] == [
+        "probe_gemm_int8w_launch"] * 3
+    assert p1.gemm_int8w_cuda.launches == 3
+    assert p1.gemm_int8w_loop_cuda.launches == 0
+    assert sg.launches["int8_kernel_probe"] == {"wgmma": 3, "loop": 0,
                                                 "fma": 0}
