@@ -8,7 +8,9 @@ and nvcc. Imports torch, numpy and the port only (no JAX). Phases, each
 printing its own lines:
 
 1. device: the card's name and power limit (nvidia-smi); the kernel and
-   model checks run float32 with TF32 off in cuDNN and cuBLAS;
+   model checks run float32 with TF32 off in cuDNN and cuBLAS; the host's
+   CPU count, and the host data plane (``csrc/dataplane.cpp``, g++) built,
+   with what it decodes;
 2. build: every kernel of the paths from the checkout's sources, one nvcc
    per source, all started together (timed, with ptxas' register and spill
    lines): K1 ``dilated_residual``, K2 ``stem_pool``, Q1 ``qconv_bn``, K3
@@ -230,9 +232,25 @@ printing its own lines:
    ``torch.matmul`` / ``torch._int_mm`` and its bound) and of
    ``scripts.swin_pack_probe`` (K3's loop, each pack<g> and batched at
    stages 1 and 3), every row held to its plain version.
+15. the frame source and the video inference CLI (``phase_frames``,
+   after phase 7): (a) a PNG video of 1,100 frames of 256x448 through
+   ``cli.infer.main`` offline with ``--random_init --quantize --device
+   cuda`` (two predicts of 4 x 256, the second padded): the per-frame
+   probabilities equal to the same session's ``predict`` on the frames in
+   memory padded the same way, K1 41 and Q1 19 (conv path, each after a
+   quantize pass, no loop) per predict; ``--streaming`` over its first 64
+   frames equal to direct ``push`` calls; (b) 256 PNG frames of 854x480:
+   ``decode_batch_u8`` to 256x448 at 1, 8 and every host thread (frames/s,
+   warm reads), ``cli.infer`` end to end over 2,048 of them (decode
+   overlapped with predict) beside the same int8 session's predict alone;
+   (c) ``cli.common.evaluate_videos`` over a 64-frame PNG tree of
+   384x384 with the bf16 Swin-L-384 teacher at batch 16 (a finite mAP, K3,
+   K4 and K5 per predict as in phase 7), and ``prefetch_to_device`` equal
+   to the host batches of ``batch_iterator`` (eval and train).
 
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
-path A), phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
+path A), phase 15 (the video inference CLI's, then the dataset path's),
+phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
 training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
 kernel must have launched on its path (Q1's per path too: on the student's
@@ -283,10 +301,12 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -681,6 +701,23 @@ GEMM_WALK = [("K3 stage 2 QKV", 16 * 24 * 24, 768, 2304, "bias"),
              ("P1 MLP1 s3", 9216, 768, 3072, "scale")]
 
 
+# phase_frames, the frame source and the video inference CLI: (a) one PNG
+# video of FRAMES_VIDEO frames at the serving geometry (the resize the
+# identity) through cli.infer offline, int8 (``--random_init --quantize``,
+# the float stem: K1 41 and Q1 19 per predict), at FRAMES_SPAN = (batch,
+# clip_len): two predicts, the second padded; --streaming over its first
+# FRAMES_STREAM frames; (b) the host's rates on FRAMES_RATE_N frames at
+# CholecT45's 854x480, written as PNG at zlib level 6 with Paeth rows, and
+# cli.infer end to end over FRAMES_E2E of them (the frames cycled: two full
+# spans); (c) evaluate_videos over a FRAMES_TREE[0]-frame tree of
+# FRAMES_TREE[1]-pixel squares with the bf16 teacher session
+FRAMES_VIDEO, FRAMES_SPAN, FRAMES_STREAM = 1100, (4, 256), 64
+FRAMES_HW = OFFLINE[2:]
+FRAMES_RATE_N, FRAMES_RATE_HW, FRAMES_E2E = 256, (480, 854), 2048
+FRAMES_TREE = (64, TEACHER_IMG)
+FRAMES_DECODE_THREADS = (1, 8)  # and every CPU the process may use
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -892,6 +929,13 @@ def phase_device() -> str:
           f"{torch.cuda.device_count()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; float32 checks with TF32 off "
           f"(cudnn.allow_tf32=False, matmul precision 'highest')")
+    from computervision_codes_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    route = native.route()  # builds csrc/dataplane.cpp with g++
+    print(f"[device] host CPUs {len(os.sched_getaffinity(0))} (the process's "
+          f"affinity); data plane {PACKAGE}/csrc/dataplane.cpp built with "
+          f"g++ in {time.perf_counter() - t0:.2f} s: {route}")
     return card
 
 
@@ -5012,6 +5056,346 @@ def probe_entries(p1_rows: list, p2_rows: list, p1_loops: dict,
     return out
 
 
+def write_frames(directory: Path, frames, level: int,
+                 filter_type: int | None = None) -> list:
+    """Write each (H, W, 3) uint8 frame as ``<i:06d>.png`` on one thread
+    per CPU (zlib releases the GIL); returns the paths in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from computervision_codes_tpu_torch.data.synthetic import write_png
+
+    directory.mkdir(parents=True)
+    paths = [str(directory / f"{i:06d}.png") for i in range(len(frames))]
+    with ThreadPoolExecutor(len(os.sched_getaffinity(0))) as pool:
+        list(pool.map(lambda i: write_png(paths[i], frames[i], level,
+                                          filter_type), range(len(frames))))
+    return paths
+
+
+def linked_dir(directory: Path, paths: list, n: int) -> Path:
+    """A frame directory of ``n`` hard links that cycle through
+    ``paths``."""
+    directory.mkdir()
+    for i in range(n):
+        os.link(paths[i % len(paths)], directory / f"{i:06d}.png")
+    return directory
+
+
+def endoscope_frames(n: int, hw: tuple, seed: int) -> list:
+    """``n`` synthetic frames: a smooth colour field with noise of +-8,
+    panned one pixel a frame (views of one wider image). A stand-in for
+    video frames: how close its PNG size and row-filter mix come to
+    CholecT45's is not measured."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w + n].astype(np.float32)
+    field = np.stack([128 + 100 * np.sin(xx / 41 + yy / 60),
+                      128 + 80 * np.cos(yy / 53 + xx / 97),
+                      100 + 50 * np.sin((xx + yy) / 90)], -1)
+    noise = np.random.default_rng(seed).integers(-8, 9, field.shape)
+    wide = np.clip(field + noise, 0, 255).astype(np.uint8)
+    return [wide[:, i:i + w] for i in range(n)]
+
+
+def counted(label: str, fn, want: dict, form: str, calls: list):
+    """``fn`` wrapped: each call's launches must equal ``want`` (Q1's on
+    ``form``, each after a quantize pass); appends each call's host ms."""
+    def call(*args):
+        before, q1_before = launches(), q1_launches()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        calls.append((time.perf_counter() - t0) * 1e3)
+        count = launched_since(before)
+        what = f"{label} {len(calls)}"
+        check(count == want, f"{what}: launches {count}, want {want}")
+        check_q1_paths(q1_before, want["qconv_bn"], form, what)
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def capture_sessions(cls, method: str, label: str, want: dict, into: list,
+                     calls: list):
+    """While open, each session that ``cls.create`` makes is appended to
+    ``into``, its ``method`` wrapped by ``counted``."""
+    original = cls.__dict__["create"]
+
+    def create(klass, *args, **kw):
+        sess = original.__get__(None, klass)(*args, **kw)
+        setattr(sess, method,
+                counted(label, getattr(sess, method), want, "conv", calls))
+        into.append(sess)
+        return sess
+
+    cls.create = classmethod(create)
+    try:
+        yield
+    finally:
+        cls.create = original
+
+
+def phase_frames(card: str, teacher) -> tuple:
+    """The frame source and the video inference CLI (see FRAMES_*):
+    (a) cli.infer offline and --streaming, int8, from PNG files, against
+    the session's own predict and push on the frames in memory; (b) the
+    host's decode rates and cli.infer end to end beside the int8 predict
+    alone; (c) evaluate_videos over a PNG tree with ``teacher``, and
+    prefetch_to_device against the host batches. Returns the launches of
+    the CLI's runs in (a) and (b), each run counted from 0, and of the
+    dataset path ((c))."""
+    from computervision_codes_tpu_torch.cli import infer
+    from computervision_codes_tpu_torch.cli.common import evaluate_videos
+    from computervision_codes_tpu_torch.data import native, pipeline
+    from computervision_codes_tpu_torch.data.prefetch import (
+        prefetch_to_device)
+    from computervision_codes_tpu_torch.data.synthetic import (
+        write_synthetic_dataset)
+    from computervision_codes_tpu_torch.metrics import Recognition
+    from computervision_codes_tpu_torch.serving import (InferenceSession,
+                                                        StreamingSession)
+
+    t_phase = time.perf_counter()
+    cpus = len(os.sched_getaffinity(0))
+    int8 = dict.fromkeys(KERNELS, 0) | {
+        "dilated_residual": LAYERS_PER_FORWARD, "qconv_bn": INT8_CONVS}
+    b, cl = FRAMES_SPAN
+    span = b * cl
+    h, w = FRAMES_HW
+    flags = ["--batch", str(b), "--clip_len", str(cl), "--height", str(h),
+             "--width", str(w), "--device", DEVICE, "--random_init",
+             "--quantize"]
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as tmp:
+        root = Path(tmp)
+        frames = np.random.default_rng(11).integers(
+            0, 256, (FRAMES_VIDEO, h, w, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        paths = write_frames(root / "VID01", frames, level=1, filter_type=0)
+        write_s = time.perf_counter() - t0
+        kib_a = np.mean([os.path.getsize(p) for p in paths]) / 1024
+        check(np.array_equal(native.decode_batch_u8(paths[:b], (h, w)),
+                             frames[:b]),
+              "decode_batch_u8 at the PNG's own size differs from the "
+              "frames written")
+
+        # the CLI's path: each cli.infer run counted from 0, and only those
+        # runs (not the reference predicts and pushes between them); each
+        # run creates one int8 session, whose calibration forward launches
+        # Q1 once per convolution
+        cli_launches, cli_calls_n = [], 0
+
+        def cli_run(argv: list) -> dict:
+            reset_launches()  # a run of the video inference CLI starts here
+            out = infer.main(argv + flags)
+            cli_launches.append(path_launches())
+            return out
+
+        # (a) offline, then the same session's predict on the frames
+        sessions, calls = [], []
+        with capture_sessions(InferenceSession, "predict",
+                              "cli.infer offline predict", int8, sessions,
+                              calls):
+            res = cli_run(["--video", str(root / "VID01")])
+        cli_calls = list(calls)
+        cli_calls_n += len(calls)
+        check(len(sessions) == 1 and len(calls) == -(-FRAMES_VIDEO // span),
+              f"cli.infer offline: {len(sessions)} sessions, {len(calls)} "
+              f"predicts")
+        sess = sessions[0]
+        want = {k: [] for k in TASK_SIZES}
+        for start in range(0, FRAMES_VIDEO, span):
+            clip = np.zeros((span, h, w, 3), np.uint8)
+            n = len(frames[start:start + span])
+            clip[:n] = frames[start:start + span]
+            out = sess.predict(clip.reshape(b, cl, h, w, 3))
+            for k in want:
+                want[k].append(out[k].reshape(span, -1)[:n])
+        for k, n_cls in TASK_SIZES.items():
+            got, ref = res["probs"][k], np.concatenate(want[k])
+            check(got.shape == (FRAMES_VIDEO, n_cls),
+                  f"cli.infer offline {k}: shape {got.shape}")
+            check(np.array_equal(got, ref),
+                  f"cli.infer offline {k}: differs from the session's "
+                  f"predict on the frames in memory by up to "
+                  f"{np.abs(got - ref).max():.3g}")
+        clip = frames[:span].reshape(b, cl, h, w, 3)
+        predict_ms = [timed_call(lambda: sess.predict(clip))[1]
+                      for _ in range(3)]
+        predict_fps = span / float(np.median(predict_ms)) * 1e3
+        print(f"[frames] (a) cli.infer offline --quantize over "
+              f"{FRAMES_VIDEO} PNG frames of {h}x{w} (uniform noise, zlib "
+              f"level 1, filter None, {kib_a:.1f} KiB each; "
+              f"{len(cli_calls)} "
+              f"predicts of {b}x{cl}, the last padded): probabilities equal "
+              f"to the "
+              f"session's predict on the frames in memory; launches per "
+              f"predict {{K1 {LAYERS_PER_FORWARD}, Q1 {INT8_CONVS} (conv "
+              f"path, each after a quantize pass), no loop}}; "
+              f"{res['seconds']:.3f} s = "
+              f"{FRAMES_VIDEO / res['seconds']:.1f} frames/s end to end; "
+              f"ms per predict in the CLI "
+              f"{[round(m, 3) for m in cli_calls]} (host clock; the first "
+              f"warms up); {time.perf_counter() - t_phase:.1f} s into the "
+              f"phase; {card}")
+
+        # (a) --streaming over the first frames, then direct pushes
+        sessions, calls = [], []
+        with capture_sessions(StreamingSession, "push",
+                              "cli.infer --streaming push", int8, sessions,
+                              calls):
+            res = cli_run(["--video", str(linked_dir(
+                root / "stream", paths, FRAMES_STREAM)), "--streaming"])
+        cli_calls_n += len(calls)
+        check(len(sessions) == 1 and len(calls) == FRAMES_STREAM,
+              f"cli.infer --streaming: {len(sessions)} sessions, "
+              f"{len(calls)} pushes")
+        sess = sessions[0]
+        sess.reset()
+        direct = [sess.push(f) for f in frames[:FRAMES_STREAM]]
+        for k in TASK_SIZES:
+            got, ref = res["probs"][k], np.stack([d[k] for d in direct])
+            check(got.shape == ref.shape and np.array_equal(got, ref),
+                  f"cli.infer --streaming {k}: differs from direct pushes")
+        print(f"[frames] (a) cli.infer --streaming --quantize over "
+              f"{FRAMES_STREAM} frames: equal to {FRAMES_STREAM} direct "
+              f"pushes after reset(); launches per push as per predict; "
+              f"median ms per push in the CLI "
+              f"{float(np.median(calls[1:])):.3f} (host clock); "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase; {card}")
+        del sessions, sess, direct
+
+        # (b) the host's rates at CholecT45's frame size, warm reads, on
+        # synthetic frames written with PIL's adaptive row filters
+        rate = endoscope_frames(FRAMES_RATE_N, FRAMES_RATE_HW, 12)
+        t0 = time.perf_counter()
+        rate_paths = write_frames(root / "rate", rate, level=6)
+        write_s += time.perf_counter() - t0
+        kib = np.mean([os.path.getsize(p) for p in rate_paths]) / 1024
+        decoded = native.decode_batch_u8(rate_paths, (h, w))  # warms cache
+        for i in range(0, FRAMES_RATE_N, FRAMES_RATE_N // 4):
+            check(np.array_equal(decoded[i], native.resize_u8(rate[i],
+                                                              (h, w))),
+                  f"decode_batch_u8 of frame {i} differs from resize_u8 of "
+                  f"the frame written")
+        fps = {}
+        for threads in dict.fromkeys(FRAMES_DECODE_THREADS + (cpus,)):
+            # a quarter of the frames on one thread: the rate is per frame
+            some = rate_paths[:FRAMES_RATE_N // 4 if threads == 1 else None]
+            t0 = time.perf_counter()
+            native.decode_batch_u8(some, (h, w), n_threads=threads)
+            fps[threads] = len(some) / (time.perf_counter() - t0)
+        # one thread's ms per frame: the file read and inflate (Python's
+        # zlib), then the unfilter, expansion and resize (the C library)
+        t_inflate = t_c = 0.0
+        out = np.empty((h, w, 3), np.uint8)
+        mix = np.zeros(5, np.int64)  # the rows of each filter type
+        for p in rate_paths[:FRAMES_RATE_N // 8]:
+            t0 = time.perf_counter()
+            png = native.read_png(p)
+            t1 = time.perf_counter()
+            native.png_to_u8(png, out)
+            t_inflate += t1 - t0
+            t_c += time.perf_counter() - t1
+            mix += np.bincount(np.frombuffer(png.data, np.uint8)[
+                ::1 + 3 * png.width], minlength=5)
+        per = FRAMES_RATE_N // 8
+        split = (f"read + inflate {t_inflate / per * 1e3:.2f} ms, unfilter "
+                 f"+ resize {t_c / per * 1e3:.2f} ms per frame on one "
+                 f"thread")
+        try:
+            native.VideoReader(str(root / "VID01.avi"))
+            fail("VideoReader opened an MJPEG container without libjpeg")
+        except RuntimeError as e:
+            check("libjpeg" in str(e), f"VideoReader's refusal: {e}")
+        sessions, calls = [], []
+        with capture_sessions(InferenceSession, "predict",
+                              "cli.infer offline predict, 854x480 frames",
+                              int8, sessions, calls):
+            res = cli_run(["--video", str(linked_dir(
+                root / "e2e", rate_paths, FRAMES_E2E))])
+        cli_calls_n += len(calls)
+        check_probs({k: v[None] for k, v in res["probs"].items()},
+                    (1, FRAMES_E2E), "cli.infer over 854x480 frames")
+        e2e_fps = FRAMES_E2E / res["seconds"]
+        del sessions
+        shares = ", ".join(f"{name} {n / mix.sum():.1%}" for name, n in zip(
+            ("None", "Sub", "Up", "Average", "Paeth"), mix))
+        print(f"[frames] (b) {FRAMES_RATE_N} synthetic PNG frames of "
+              f"{FRAMES_RATE_HW[0]}x{FRAMES_RATE_HW[1]} (endoscope_frames; "
+              f"zlib level 6, each row's filter chosen as PIL's encoder "
+              f"does: {shares} of the rows; {kib:.1f} KiB each; reads "
+              f"warm) -> {h}x{w} "
+              f"uint8: decode_batch_u8 frames/s "
+              + ", ".join(f"{t} thread{'s' if t > 1 else ''} {f:.1f}"
+                          for t, f in fps.items())
+              + f" (host CPUs {cpus}; {split}); VideoReader.read_u8 not "
+              f"measured "
+              f"(MJPEG needs libjpeg, which the data plane lacks); "
+              f"cli.infer --quantize end to end over {FRAMES_E2E} of them "
+              f"(decode overlapped with predict) {e2e_fps:.1f} frames/s; "
+              f"the same int8 session's predict alone "
+              f"{predict_fps:.1f} frames/s ({np.median(predict_ms):.3f} ms "
+              f"per {span} frames); {time.perf_counter() - t_phase:.1f} s "
+              f"into the phase; {card}")
+        infer_launches = {k: sum(p[k] for p in cli_launches)
+                          for k in cli_launches[0]}
+        want = {k: n * cli_calls_n for k, n in int8.items()}
+        want["qconv_bn"] += INT8_CONVS * len(cli_launches)
+        got = {k: infer_launches[k] for k in int8}
+        check(got == want, f"the CLI's path over its {cli_calls_n} predicts "
+              f"and pushes and {len(cli_launches)} calibrations: launches "
+              f"{got}, want {want}")
+        print(f"[frames] the CLI's path, its {len(cli_launches)} runs each "
+              f"counted from 0: {cli_calls_n} predicts and pushes and "
+              f"{len(cli_launches)} int8 calibration forwards (Q1 only), "
+              f"launches { {k: v for k, v in got.items() if v} }; {card}")
+
+        # (c) evaluate_videos over a PNG tree with the teacher session
+        n, side = FRAMES_TREE
+        tree = str(root / "tree")
+        write_synthetic_dataset(tree, ["VID01"], frames_per_video=n,
+                                height=side, width=side, write_images=True)
+        ds = pipeline.CholecDataset(tree, image_size=(side, side))
+        reset_launches()  # the dataset path starts here
+        calls = []
+        predict = counted("evaluate_videos teacher predict", teacher.predict,
+                          dict.fromkeys(KERNELS, 0) | TEACHER_LAUNCHES
+                          | TEACHER_GEMMS, "gemm", calls)
+        metrics = {"i": Recognition(TASK_SIZES["i"])}
+        t0 = time.perf_counter()
+        evaluate_videos(lambda images: (predict(images), None), ds,
+                        ["VID01"], teacher.batch, metrics)
+        eval_s = time.perf_counter() - t0
+        m_ap = metrics["i"].compute_video_AP()["mAP"]
+        check(len(calls) == -(-n // teacher.batch) and np.isfinite(m_ap),
+              f"evaluate_videos: {len(calls)} predicts, mAP {m_ap}")
+        check_gemm_counts("dataset path")
+        check_attn_counts("dataset path")
+        dataset_launches = path_launches()
+        for train in (False, True):
+            host = list(pipeline.batch_iterator(ds, ["VID01"], teacher.batch,
+                                                train=train, seed=3))
+            moved = list(prefetch_to_device(iter(host), depth=2,
+                                            device=DEVICE))
+            check(len(moved) == len(host), f"prefetch: {len(moved)} batches")
+            for hb, db in zip(host, moved):
+                for k, v in hb.items():
+                    t = db[k]
+                    check(t.device.type == torch.device(DEVICE).type
+                          and torch.equal(t.cpu(), torch.from_numpy(v)),
+                          f"prefetch_to_device {k} (train={train}) differs "
+                          f"from the host batch")
+            check(bool(np.isfinite(host[0]["image"]).all()),
+                  f"batch_iterator(train={train}): non-finite image")
+        print(f"[frames] (c) evaluate_videos over {n} PNG frames of "
+              f"{side}x{side} with the bf16 {TEACHER_BACKBONE} teacher at "
+              f"batch {teacher.batch}: mAP(i) {m_ap:.4f}, launches per "
+              f"predict as phase 7's ({len(calls)} predicts), "
+              f"{eval_s:.3f} s; prefetch_to_device equal to the host "
+              f"batches (eval and train); {card}")
+    print(f"[frames] phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock), writing frames {write_s:.1f} s of it")
+    return infer_launches, dataset_launches
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -5093,6 +5477,9 @@ def main() -> None:
         card, {"bf16": (TRESNET_LAUNCHES, {})},
         TRESNET, TRESNET_IMG, TRESNET_BATCH)
     tresnet = path_launches()
+    frames_s = time.perf_counter()  # this slice's phase
+    infer_path, dataset_path = phase_frames(card, teachers["bf16"])
+    frames_s = time.perf_counter() - frames_s
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, lengths = mstct_tree(root)
         reset_launches()  # the MS-TCT driver's main path starts here
@@ -5139,6 +5526,10 @@ def main() -> None:
     paths = {"student sessions": student,
              "teacher sessions (creation and predicts)": teacher,
              "the TResNet-L teacher session (path A)": tresnet,
+             "the video inference CLI (cli.infer offline and --streaming, "
+             "int8, PNG frames)": infer_path,
+             "the dataset path (evaluate_videos over PNG frames, bf16 "
+             "Swin-L-384 teacher)": dataset_path,
              "MS-TCT driver (-e -d, float32 and bfloat16)": mstct,
              "Swin-L-384 use_fused_attn forward (path B, a configuration)":
                  path_b,
@@ -5227,7 +5618,8 @@ def main() -> None:
           f"training slice's (K8's check and time not counted: the float32 "
           f"step card vs CPU, K8's path, the driver's -t, the fixed-batch "
           f"step) {mstct_s:.1f} s; the probes' (P1's and P2's checks, both "
-          f"drivers' main()) {probe_s:.1f} s (host clock)")
+          f"drivers' main()) {probe_s:.1f} s; the frame source's "
+          f"(phase_frames) {frames_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/"

@@ -4,16 +4,24 @@ The port's copy of what its drivers need from ``cli/common.py`` in the JAX
 package: the reference-compatible flags (``common_parser``, names and
 defaults unchanged), ``build_modelname``, the challenge-protocol table
 (``ignore_null_protocol``), ``seed_everything``, which seeds ``random``,
-numpy and torch, and ``maybe_resume``.
+numpy and torch, ``maybe_resume``, and the eval loop over frames from disk
+with its reports (``make_metrics``, ``reset_metrics``,
+``evaluate_videos``, ``compute_map_table``, ``print_final_report``).
 """
 
 from __future__ import annotations
 
 import argparse
 import random
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
+
+from ..data.pipeline import CholecDataset, video_eval_batches
+from ..metrics import Recognition
+
+COMPONENTS = ("i", "v", "t", "iv", "it", "ivt")
 
 
 def common_parser(description: str) -> argparse.ArgumentParser:
@@ -113,6 +121,44 @@ def build_modelname(flags) -> str:
     return "_".join(f"{h}{a}" for h, a in zip(headers, args) if str(a))
 
 
+def make_metrics() -> Dict[str, Recognition]:
+    return {"ivt": Recognition(100), "i": Recognition(6),
+            "v": Recognition(10), "t": Recognition(15)}
+
+
+def reset_metrics(metrics: Dict[str, Recognition]) -> None:
+    for m in metrics.values():
+        m.reset_global()
+
+
+def evaluate_videos(run_batch, dataset: CholecDataset, videos: Sequence[str],
+                    batch_size: int, metrics: Dict[str, Recognition],
+                    collect_features: bool = False) -> Dict[str, np.ndarray]:
+    """Per-video eval loop feeding the Recognition accumulators.
+
+    ``run_batch(images) -> (probs dict with i/v/t/ivt, features or None)``,
+    ``images`` the (B, H, W, 3) float32 normalised frames of a batch (the
+    last padded to ``batch_size``). Returns {video: (T, D) features} when
+    requested (the dump path).
+    """
+    feats_out: Dict[str, np.ndarray] = {}
+    for video in videos:
+        chunks = []
+        for batch in video_eval_batches(dataset, video, batch_size):
+            probs, feats = run_batch(batch["image"])
+            valid = batch["valid"]
+            for key, m in metrics.items():
+                m.update(batch[f"label_{key}"][valid],
+                         np.asarray(probs[key])[valid])
+            if collect_features and feats is not None:
+                chunks.append(np.asarray(feats)[valid])
+        for m in metrics.values():
+            m.video_end()
+        if collect_features:
+            feats_out[video] = np.concatenate(chunks, axis=0)
+    return feats_out
+
+
 # Which reference drivers HARDCODE the challenge protocol (ignore_null=True)
 # for their printed AP tables vs derive it from the dataset-variant name.
 # Checkpoint SELECTION always uses compute_video_AP() defaults
@@ -135,3 +181,38 @@ def ignore_null_protocol(stage: str, dataset_variant: str) -> bool:
     """The ignore_null setting the reference stage uses for its AP tables."""
     fixed = REFERENCE_CHALLENGE_PROTOCOL[stage]
     return fixed if fixed is not None else "challenge" in dataset_variant
+
+
+def compute_map_table(metrics: Dict[str, Recognition], loss_type: str,
+                      ignore_null: bool) -> Dict[str, Dict]:
+    """Reference metric selection (Spatial_cnn/run.py:518-529): single-task
+    runs use the per-task accumulators; multi-task uses disentangled ivt."""
+    out = {}
+    if loss_type in ("i", "v", "t"):
+        for c in ("i", "v", "t"):
+            out[c] = metrics[c].compute_video_AP(ignore_null=ignore_null)
+    else:
+        for c in ("i", "v", "t"):
+            out[c] = metrics["ivt"].compute_video_AP(
+                c, ignore_null=ignore_null)
+    for c in ("iv", "it", "ivt"):
+        out[c] = metrics["ivt"].compute_video_AP(c, ignore_null=ignore_null)
+    return out
+
+
+def print_final_report(logger, table: Dict[str, Dict],
+                       metrics: Dict[str, Recognition]) -> None:
+    """Reference final report format (Spatial_cnn/run.py:530-561)."""
+    logger.log("-" * 50)
+    logger.log("Test Results\nPer-category AP: ")
+    for c in COMPONENTS:
+        logger.log(f"{c.upper():<4}: {table[c]['AP']}")
+    logger.log("-" * 50)
+    logger.log("Mean AP:  I  |  V  |  T  |  IV  |  IT  |  IVT ")
+    logger.log(":::::: : " + " | ".join(
+        f"{table[c]['mAP']:.4f}" for c in COMPONENTS))
+    for k in (5, 10, 20):
+        tops = [metrics["ivt"].topK(k, c) for c in COMPONENTS]
+        logger.log(f"top {k}:  I  |  V  |  T  |  IV  |  IT  |  IVT ")
+        logger.log(":::::: : " + " | ".join(f"{v:.4f}" for v in tops))
+    logger.log("=" * 50)

@@ -90,9 +90,9 @@ def test_synthetic_tree_and_labels_match_jax(tree):
     want = jax_synthetic.synthetic_feature_dict(VIDEOS, 4, 3, seed=2)
     for v in VIDEOS:
         np.testing.assert_array_equal(got[v], want[v])
-    with pytest.raises(RuntimeError, match="PIL"):
+    with pytest.raises(RuntimeError, match="libjpeg"):
         synthetic.write_synthetic_dataset(roots["port"], VIDEOS,
-                                          write_images=True)
+                                          write_images=True, container=True)
 
 
 @pytest.mark.parametrize("fmt", ["pkl", "npz"])
