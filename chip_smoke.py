@@ -158,7 +158,10 @@ printing its own lines:
    CPU; one float32 training step of the full-width Q2L(swin_L_384_22k,
    "i", ``fused_train``, remat "dots") at batch 1 with drop rates 0 on the
    card (K6) against the CPU: the loss and the gradient norms of one
-   parameter per stage, the head and all; one float32 training step of the
+   parameter per stage, the head and all; the same at loss "all", rates
+   (1, 0.5, 0.1), with seeded Res18-wide teacher arrays: every loss term,
+   the KD block's gradient too, and the KD block's outputs of an eval
+   forward with the teacher features; one float32 training step of the
    full-width MSTCT (``make_mstct_train_step``) at batch 2 of 256 frames,
    dropout off, on the card (K7) against the CPU: the loss and the gradient
    norms;
@@ -247,9 +250,31 @@ printing its own lines:
    384x384 with the bf16 Swin-L-384 teacher at batch 16 (a finite mAP, K3,
    K4 and K5 per predict as in phase 7), and ``prefetch_to_device`` equal
    to the host batches of ``batch_iterator`` (eval and train).
+16. the frame-level training drivers (``phase_spatial_drivers``, after
+   phase 11) on one PNG tree of fold 1 (8 frames of 384x384 a video):
+   (a) ``cli.spatial_transformer.main`` at full width, Swin-L-384 Q2L,
+   ``--loss_type all --rates 1 0.5 0.1 --teacher_dim 512 -b 8 --dtype
+   bfloat16 --fused_train --remat``, on seeded Res18 and Res18TCN stores:
+   ``-t -e -d`` (K6 88 launches and 176 wgmma products a step; K5 4, K3
+   18, K4 20 a validation, test and dump forward; no loop product), every
+   loss term finite, the mAP in [0, 1], a 45-video dump of finite
+   (8, 1536) float32; ``-e -d --quant_eval`` (the int8 branches as the
+   int8 teacher's plan, its dump not equal to the float one); ``--resume``
+   for one more epoch (the step count continues); (b)
+   ``cli.spatial_cnn.main`` at its defaults (ResNet18, 256x448, float32,
+   ``-b 32``) with ``--loss_type all`` on (a)'s dump and a seeded
+   Q2LMSTCT store: ``-t -e -d``, then one epoch each of ``--optimizer
+   sam`` and ``--qat`` (losses finite, running statistics moved, a
+   45-video (8, 512) dump), the ``--qat`` eval equal to a forward over
+   quantize -> dequantize weights computed here, and no launch of any
+   kernel of the port; of each run the epoch's frames over the wall time
+   of its training loop (end to end), the period between steps and an eval
+   forward's span on the card's clock (CUDA events; nothing synchronises
+   between steps), and the peak memory.
 
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
-path A), phase 15 (the video inference CLI's, then the dataset path's),
+path A), phase 15 (the video inference CLI's, then the dataset path's), phase
+16 (the teacher's training driver's, then the student's),
 phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
 training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
@@ -613,6 +638,10 @@ TRAIN_EVAL_REL, TRAIN_EVAL_CORR = 0.04, 0.999
 # between the two devices and move its weight row's gradient by a whole
 # term. The parameters: one per Swin stage, the patch embed and the head
 TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 1e-4, 1e-2
+# loss "all": the KD partner's width (the Res18 student's 512 features)
+# and the rates of the soft KL and the feature KD (phase 4 and the
+# drivers' phase)
+TRAIN_TEACHER_DIM, TRAIN_RATES = 512, (1.0, 0.5, 0.1)
 TRAIN_GRAD_PARAMS = (
     "backbone.patch_embed.weight", "backbone.stage0_block1.attn.qkv.kernel",
     "backbone.stage1_block0.mlp.Dense_0.kernel",
@@ -716,6 +745,34 @@ FRAMES_HW = OFFLINE[2:]
 FRAMES_RATE_N, FRAMES_RATE_HW, FRAMES_E2E = 256, (480, 854), 2048
 FRAMES_TREE = (64, TEACHER_IMG)
 FRAMES_DECODE_THREADS = (1, 8)  # and every CPU the process may use
+# phase 16, the frame-level training drivers on one PNG tree (fold 1: 31
+# training, 5 validation, 9 test videos) of SPATIAL_FRAMES frames a video
+# at 384x384, which the student reads at its default 256x448. The teacher
+# (cli.spatial_transformer) at full width: Swin-L-384 Q2L, loss "all",
+# bf16, fused_train and remat, batch 8, the Res18 (512-d) and Res18TCN
+# stores seeded; the student (cli.spatial_cnn) at its defaults (ResNet18,
+# 256x448, float32, batch 32) distilling from the teacher's dump (the
+# 1536-d feature bus) and a seeded Q2LMSTCT store. Both read every frame,
+# so that the teacher's dump lines up row for row with the student's
+# frames. Per training step K6 44 + 44 and 176 wgmma products; per eval
+# forward (one per video at 8 frames) phase 7's counts
+SPATIAL_FRAMES = 8
+SPATIAL_TEACHER_BATCH, SPATIAL_STUDENT_BATCH = 8, 32
+SPATIAL_STUDENT_DIM = 512  # ResNet18's pooled feature
+SPATIAL_QUANT_MIN_DIM = 768  # --quant_eval's default: stages 2 and 3 int8
+# per --quant_eval forward: the int8 teacher's Swin plan (K5 float at
+# stages 0-1, the int8 K3 + K4 at stage 2, the int8 K4 at stage 3); the
+# driver's twin keeps its Dense layers float, as the JAX driver's, so no Q1
+SPATIAL_Q8_LAUNCHES = {k: n for k, n in TEACHER_Q8_LAUNCHES.items()
+                       if k != "qconv_bn"}
+SPATIAL_TEACHER_PATH = ("the teacher's training driver "
+                        "(cli.spatial_transformer -t -e -d, -e -d "
+                        "--quant_eval, --resume: bf16 Swin-L-384 Q2L, loss "
+                        "all)")
+# the --qat eval against a forward over the quantize -> dequantize
+# weights computed here: the effective weights may differ by one float32
+# ulp (w + (deq - w) against deq), so the probabilities within 1e-5
+SPATIAL_QAT_ATOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -4499,21 +4556,32 @@ def phase_k6(card: str) -> tuple:
     return tuple(out)
 
 
-def train_inputs(b: int, img: int, seed: int) -> dict:
-    """One batch of seeded frames and multi-hot labels, on the card."""
+def train_inputs(b: int, img: int, seed: int, teacher: bool = False
+                 ) -> dict:
+    """One batch of seeded frames and multi-hot labels, on the card; with
+    ``teacher`` also seeded teacher predictions (logits) and
+    TRAIN_TEACHER_DIM-wide teacher features for ``loss_type="all"``."""
     rng = np.random.default_rng(seed)
     batch = {"image": rng.standard_normal((b, img, img, 3)).astype(
         np.float32)}
     for k, n in TASK_SIZES.items():
         batch[f"label_{k}"] = (rng.random((b, n)) < TRAIN_POSITIVE).astype(
             np.float32)
+        if teacher and k != "ivt":
+            batch[f"teacher_pred_{k}"] = (2 * rng.standard_normal(
+                (b, n))).astype(np.float32)
+            batch[f"teacher_feat_{k}"] = rng.standard_normal(
+                (b, TRAIN_TEACHER_DIM)).astype(np.float32)
     return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
 
 
-def train_setup(fused: bool, dtype, device: str, drop: bool = True):
-    """(state, step) of the teacher's training path: Q2L(swin_L_384, "i",
-    remat "dots"), weights from seed 0, SGD 1e-2 with weight decay 1e-5, the
-    reference's pos-weights; ``drop=False`` sets every drop rate to 0."""
+def train_setup(fused: bool, dtype, device: str, drop: bool = True,
+                loss_type: str = "i"):
+    """(state, step) of the teacher's training path: Q2L(swin_L_384,
+    ``loss_type``, remat "dots"; for "all" with the KD block over
+    TRAIN_TEACHER_DIM-wide teacher features and the rates TRAIN_RATES),
+    weights from seed 0, SGD 1e-2 with weight decay 1e-5, the reference's
+    pos-weights; ``drop=False`` sets every drop rate to 0."""
     from computervision_codes_tpu_torch.losses import (
         TARGET_POS_WEIGHT, TOOL_POS_WEIGHT, VERB_POS_WEIGHT)
     from computervision_codes_tpu_torch.models.common import Dropout
@@ -4521,9 +4589,10 @@ def train_setup(fused: bool, dtype, device: str, drop: bool = True):
     from computervision_codes_tpu_torch.train import (
         build_sgd, create_train_state, make_spatial_train_step)
 
-    model = Q2L(backbone=TEACHER_BACKBONE, loss_type="i", dtype=dtype,
+    model = Q2L(backbone=TEACHER_BACKBONE, loss_type=loss_type, dtype=dtype,
                 remat=True, remat_policy="dots", fused_train=fused,
                 drop_path_rate=0.1 if drop else 0.0,
+                teacher_dim=TRAIN_TEACHER_DIM,
                 generator=torch.Generator().manual_seed(0))
     if not drop:
         for m in model.modules():
@@ -4532,25 +4601,45 @@ def train_setup(fused: bool, dtype, device: str, drop: bool = True):
     state = create_train_state(model, build_sgd(1e-2, weight_decay=1e-5),
                                seed=1, device=device)
     pw = {"i": TOOL_POS_WEIGHT, "v": VERB_POS_WEIGHT, "t": TARGET_POS_WEIGHT}
-    return state, make_spatial_train_step(model, "i", pos_weights=pw,
-                                          device=device)
+    return state, make_spatial_train_step(model, loss_type, TRAIN_RATES,
+                                          pos_weights=pw, device=device)
 
 
 def phase_model_train() -> None:
-    """One float32 training step of the full-width Q2L(swin_L_384, "i",
+    """One float32 training step of the full-width Q2L(swin_L_384,
     fused_train, remat "dots") at batch 1, drop rates 0, on the card (K6
     float32 at stages 0-2) against the same step on the CPU (the plain
-    versions): the loss, the gradient norm of one parameter per stage and
-    of the head, and the global gradient norm."""
-    batch = {k: v.cpu() for k, v in train_inputs(1, TRAIN_IMG, 11).items()}
-    named = TRAIN_GRAD_PARAMS
+    versions), for loss "i" and for "all" at TRAIN_RATES with seeded
+    teacher arrays: the loss (and for "all" each loss term), the gradient
+    norm of one parameter per stage and of the head, and the global
+    gradient norm; for "all" also the KD block's outputs of the eval
+    forward with the teacher features, before the step."""
+    for loss_type in ("i", "all"):
+        model_train_step(loss_type)
+
+
+def model_train_step(loss_type: str) -> None:
+    teacher = loss_type == "all"
+    batch = {k: v.cpu() for k, v in
+             train_inputs(1, TRAIN_IMG, 11, teacher).items()}
+    named = TRAIN_GRAD_PARAMS + (("kd_attention.mi.kernel",) if teacher
+                                 else ())
     readings = {}
     for device in ("cpu", DEVICE):
-        state, step = train_setup(True, torch.float32, device, drop=False)
+        state, step = train_setup(True, torch.float32, device, drop=False,
+                                  loss_type=loss_type)
+        kd = None
+        if teacher:
+            feats = [batch[f"teacher_feat_{k}"].to(device) for k in "ivt"]
+            with torch.inference_mode():
+                kd = state.model.eval()(batch["image"].to(device),
+                                        *feats)["kd"]
+            kd = {k: v.float().cpu() for k, v in kd.items()}
         before = launches()
         t0 = time.perf_counter()
         _, metrics = step(state, batch)
-        loss = metrics["loss"].item()
+        terms = {k: v.item() for k, v in metrics.items()
+                 if not k.startswith("hard_loss_")}
         seconds = time.perf_counter() - t0
         count = launched_since(before)
         grads = dict(state.model.named_parameters())
@@ -4558,33 +4647,49 @@ def phase_model_train() -> None:
         norms["global"] = float(torch.stack([
             p.grad.float().norm() for p in state.model.parameters()
             if p.grad is not None]).norm())
-        readings[device] = (loss, norms, count, seconds)
+        readings[device] = (terms, norms, count, seconds, kd)
         del state, step
-    (l_cpu, n_cpu, _, t_cpu), (l_dev, n_dev, count, t_dev) = (
+    (t_cpu_terms, n_cpu, _, t_cpu, kd_cpu), (
+        t_dev_terms, n_dev, count, t_dev, kd_dev) = (
         readings["cpu"], readings[DEVICE])
     want = dict.fromkeys(KERNELS, 0) | TRAIN_LAUNCHES
-    check(count == want, f"float32 training step launches {count}, want "
-                         f"{want}")
+    check(count == want, f"float32 training step ({loss_type}) launches "
+                         f"{count}, want {want}")
     rel = {n: abs(n_dev[n] - n_cpu[n]) / max(n_cpu[n], 1e-12) for n in n_cpu}
-    loss_rel = abs(l_dev - l_cpu) / max(1.0, abs(l_cpu))
-    print(f"[model] float32 training step of Q2L({TEACHER_BACKBONE}, 'i', "
-          f"fused_train, remat 'dots'), full depth and width, batch 1, "
+    terms_rel = {k: abs(t_dev_terms[k] - v) / max(1.0, abs(v))
+                 for k, v in t_cpu_terms.items()}
+    l_dev, l_cpu = t_dev_terms["loss"], t_cpu_terms["loss"]
+    print(f"[model] float32 training step of Q2L({TEACHER_BACKBONE}, "
+          f"'{loss_type}', fused_train, remat 'dots'"
+          + (f", teacher_dim {TRAIN_TEACHER_DIM}, rates {TRAIN_RATES}"
+             if teacher else "")
+          + f"), full depth and width, batch 1, "
           f"drop rates 0, card (K6) vs CPU (plain versions): loss "
           f"{l_dev:.6f} vs {l_cpu:.6f}; gradient norms card / CPU "
           + ", ".join(f"{n} {n_dev[n]:.6e} / {n_cpu[n]:.6e}" for n in n_cpu)
-          + f"; relative differences: loss {loss_rel:.2e} (tol "
+          + f"; relative differences: loss terms "
+          f"{ {k: float(f'{r:.2e}') for k, r in terms_rel.items()} } (tol "
           f"{TRAIN_F32_LOSS_REL:g}), gradient norms "
           f"{ {n: float(f'{r:.2e}') for n, r in rel.items()} } (tol "
           f"{TRAIN_F32_GRAD_REL:g}); launches "
           f"{ {k: v for k, v in count.items() if v} }; CPU step "
           f"{t_cpu:.2f} s, card step {t_dev:.2f} s (host clock)")
-    check(loss_rel <= TRAIN_F32_LOSS_REL,
-          f"float32 training step, card vs CPU: loss differs by {loss_rel} "
-          f"> {TRAIN_F32_LOSS_REL}")
+    for k, r in terms_rel.items():
+        check(r <= TRAIN_F32_LOSS_REL,
+              f"float32 training step ({loss_type}), card vs CPU: {k} "
+              f"differs by {r} > {TRAIN_F32_LOSS_REL}")
+    if teacher:
+        check({"soft_loss", "kd_loss"} <= set(t_dev_terms),
+              f"training step (all): metrics {sorted(t_dev_terms)}")
+        card_vs_cpu(f"float32 Q2L({TEACHER_BACKBONE}, 'all') eval forward "
+                    f"with teacher features,",
+                    [(f"kd {k}", kd_dev[k], kd_cpu[k]) for k in "ivt"],
+                    TEACHER_MODEL_REL_TOL)
     for name, r in rel.items():
         check(np.isfinite(r) and r <= TRAIN_F32_GRAD_REL,
-              f"float32 training step, card vs CPU: the gradient norm of "
-              f"{name} differs by {r} (relative) > {TRAIN_F32_GRAD_REL}")
+              f"float32 training step ({loss_type}), card vs CPU: the "
+              f"gradient norm of {name} differs by {r} (relative) > "
+              f"{TRAIN_F32_GRAD_REL}")
 
 
 def phase_train(card: str) -> tuple:
@@ -5133,6 +5238,353 @@ def capture_sessions(cls, method: str, label: str, want: dict, into: list,
         cls.create = original
 
 
+@contextlib.contextmanager
+def timed_steps(module, events: dict):
+    """While open, each train and eval step that ``module`` (a driver)
+    makes records a CUDA event on the current stream as it is called and
+    one as it returns, with the call's ms on the host clock, into
+    ``events["train"]`` and ``events["eval"]``: nothing synchronises, so
+    the host runs ahead of the card as the driver runs it alone."""
+    made = {"train": module.make_spatial_train_step,
+            "eval": module.make_spatial_eval_step}
+
+    def wrap(kind, factory):
+        def make(*args, **kw):
+            step = factory(*args, **kw)
+
+            def call(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = step(*a)
+                end.record()
+                events.setdefault(kind, []).append(
+                    (start, end, (time.perf_counter() - t0) * 1e3))
+                return out
+            return call
+        return make
+
+    module.make_spatial_train_step = wrap("train", made["train"])
+    module.make_spatial_eval_step = wrap("eval", made["eval"])
+    try:
+        yield
+    finally:
+        module.make_spatial_train_step = made["train"]
+        module.make_spatial_eval_step = made["eval"]
+
+
+def step_periods(pairs: list) -> list:
+    """ms on the card's clock from each step's end to the next one's: the
+    steady period of a loop, the card's idle gaps included."""
+    return [a[1].elapsed_time(b[1]) for a, b in zip(pairs, pairs[1:])]
+
+
+def driver_run(label: str, module, argv: list, want_step: dict,
+               want_eval: dict, card: str) -> tuple:
+    """``module.main(argv)`` on the card with its steps timed by events:
+    every kernel's launches must be ``want_step`` per training step plus
+    ``want_eval`` per eval forward, the Swin GEMM core's products on
+    wgmma only; prints the training epoch's frames over the wall time of
+    its loop (the driver's own ``train_seconds``), the median ms of a
+    step's call on the host clock, the median period between steps and
+    an eval forward's span on the card's clock, and the peak device
+    memory. Returns (result, the steps' events
+    by kind, launches)."""
+    events = {}
+    batch = int(argv[argv.index("-b") + 1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = path_launches()
+    t0 = time.perf_counter()
+    with timed_steps(module, events):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    now = path_launches()
+    count = {k: now[k] - before[k] for k in now}
+    steps, evals = len(events.get("train", [])), len(events.get("eval", []))
+    want = {k: want_step.get(k, 0) * steps + want_eval.get(k, 0) * evals
+            for k in launches()}
+    check({k: count[k] for k in want} == want,
+          f"{label}: launches {count} over {steps} steps and {evals} eval "
+          f"forwards, want {want}")
+    check(count["swin_gemm loop"] == count["swin_gemm fma"] == 0,
+          f"{label}: Swin GEMM products off wgmma {count}")
+    peak = torch.cuda.max_memory_allocated()
+    periods = step_periods(events.get("train", []))
+    step_ms = float(np.median(periods)) if periods else None
+    host_ms = float(np.median([e[2] for e in events["train"][1:]])) \
+        if periods else None
+    spans = [e[0].elapsed_time(e[1]) for e in events.get("eval", [])]
+    eval_ms = float(np.median(spans[1:])) if evals > 1 else None
+    epoch_s = result.get("train_seconds", [])
+    print(f"[spatial] {label}: {steps} training steps, {evals} eval "
+          f"forwards of batch {batch}; launches "
+          f"{ {k: v for k, v in count.items() if v} }; "
+          + (f"the epoch {steps * batch} frames (the last batch padded) in "
+             f"{sum(epoch_s):.3f} s of its training loop (host clock) = "
+             f"{steps * batch / sum(epoch_s):.1f} frames/s end to end; "
+             if epoch_s else "")
+          + "ms per training step, median after the first: a call on the "
+          "host clock (no synchronise) "
+          + (f"{host_ms:.3f}, " if host_ms else "-, ")
+          + "between consecutive steps' ends on the card's clock "
+          + (f"{step_ms:.3f} = {batch / step_ms * 1e3:.1f} frames/s per "
+             f"step" if step_ms else "-")
+          + "; ms of an eval forward on the card's clock, median after "
+          f"the first: "
+          + (f"{eval_ms:.3f} = {batch / eval_ms * 1e3:.1f} frames/s of the "
+             f"batch" if eval_ms else "-")
+          + f"; peak device memory {peak / 2**30:.2f} GiB; the run "
+          f"{wall:.1f} s (host clock, model creation and decode included); "
+          f"{card}")
+    return result, events, count
+
+
+def spatial_tree(root: str):
+    """The phase's PNG tree and seeded teacher stores; returns the split."""
+    from computervision_codes_tpu_torch.data.feature_store import (
+        FeatureStore)
+    from computervision_codes_tpu_torch.data.splits import resolve_split
+    from computervision_codes_tpu_torch.data.synthetic import (
+        synthetic_feature_dict, write_synthetic_dataset)
+
+    split = resolve_split("cholect45-crossval", 1)
+    write_synthetic_dataset(root, split.all_videos, SPATIAL_FRAMES,
+                            height=TEACHER_IMG, width=TEACHER_IMG,
+                            write_images=True)
+    feats = f"{root}/data_feats"
+    for i, k in enumerate(("i", "v", "t")):
+        n = TASK_SIZES[k]
+        FeatureStore(feats, "Res18").save(1, "feats", synthetic_feature_dict(
+            split.all_videos, SPATIAL_FRAMES, TRAIN_TEACHER_DIM, seed=i),
+            task=k)
+        for version, seed in (("Res18TCN", 10 + i), ("Q2LMSTCT", 20 + i)):
+            FeatureStore(feats, version).save(
+                1, "pred", synthetic_feature_dict(
+                    split.all_videos, SPATIAL_FRAMES, n, seed=seed), task=k)
+    return split
+
+
+def dump_check(label: str, path: str, split, dim: int) -> dict:
+    """The driver's dump: every video, (SPATIAL_FRAMES, dim) finite
+    float32."""
+    import pickle
+
+    with open(path, "rb") as f:
+        feats = pickle.load(f)
+    check(set(feats) == {v[3:] for v in split.all_videos},
+          f"{label} dump: {len(feats)} videos")
+    for v, a in feats.items():
+        check(a.dtype == np.float32 and a.shape == (SPATIAL_FRAMES, dim)
+              and bool(np.isfinite(a).all()),
+              f"{label} dump {v}: {a.dtype} {a.shape} or non-finite")
+    return feats
+
+
+def finite_losses(label: str, result: dict) -> None:
+    for epoch in result["train_loss"]:
+        check(all(np.isfinite(v) for v in epoch.values()),
+              f"{label}: non-finite loss terms {epoch}")
+
+
+def phase_spatial_drivers(card: str) -> tuple:
+    """Phase 16: the teacher's and the student's training drivers from one
+    PNG tree (see SPATIAL_*). (a) cli.spatial_transformer ``-t -e -d``, then
+    ``-e -d --quant_eval``, then ``--resume`` for one more epoch; (b)
+    cli.spatial_cnn ``-t -e -d`` on (a)'s dump, then one epoch each of
+    ``--optimizer sam`` and ``--qat`` and the QAT eval against a forward
+    over the quantize -> dequantize weights. Returns the launches of (a)
+    and of (b), each counted from 0."""
+    import types
+
+    from computervision_codes_tpu_torch.cli import spatial_cnn
+    from computervision_codes_tpu_torch.cli import spatial_transformer
+    from computervision_codes_tpu_torch.data.pipeline import (
+        CholecDataset, video_eval_batches)
+    from computervision_codes_tpu_torch.models.convert import (
+        load_jax_variables)
+    from computervision_codes_tpu_torch.models.qat import qat_convs
+    from computervision_codes_tpu_torch.models.spatial_cnn import SpatialCNN
+    from computervision_codes_tpu_torch.models.swin import swin_feature_dim
+    from computervision_codes_tpu_torch.train import make_spatial_eval_step
+    from computervision_codes_tpu_torch.train.checkpoint import (
+        checkpoint_path, read_msgpack, restore_variables)
+
+    dim = swin_feature_dim(TEACHER_BACKBONE)  # the teacher's feature
+
+    t_phase = time.perf_counter()
+    none = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        t0 = time.perf_counter()
+        split = spatial_tree(root)
+        write_s = time.perf_counter() - t0
+        feats_root = f"{root}/data_feats"
+
+        # (a) the teacher
+        reset_launches()
+        ckpt = f"{root}/ckpt_teacher"
+        teacher = ["--data_dir", root, "--backbone", TEACHER_BACKBONE,
+                   "--image_height", str(TEACHER_IMG), "--image_width",
+                   str(TEACHER_IMG), "-b", str(SPATIAL_TEACHER_BATCH),
+                   "--loss_type", "all", "--rates",
+                   *map(str, TRAIN_RATES), "--teacher_dim",
+                   str(TRAIN_TEACHER_DIM), "--dtype", "bfloat16",
+                   "--fused_train", "--remat", "--device", DEVICE,
+                   "--version", "Q2L", "--ckpt_root", ckpt]
+        step_want = TRAIN_LAUNCHES | TRAIN_GEMMS
+        eval_want = TEACHER_LAUNCHES | TEACHER_GEMMS
+        res, events, _ = driver_run(
+            "(a) teacher -t -e -d", spatial_transformer,
+            teacher + ["-t", "-e", "-d", "--epochs", "1"], step_want,
+            eval_want, card)
+        steps = res["step"]
+        check(steps == -(-len(split.train) * SPATIAL_FRAMES
+                         // SPATIAL_TEACHER_BATCH)
+              and len(events["eval"]) == len(split.val) + len(split.test)
+              + len(split.all_videos),
+              f"(a) teacher: {steps} steps, {len(events['eval'])} eval "
+              f"forwards")
+        finite_losses("(a) teacher", res)
+        check({"soft_loss", "kd_loss", "hard_loss"} <= set(
+            res["train_loss"][0]), f"(a) teacher: metrics "
+                                   f"{sorted(res['train_loss'][0])}")
+        check(all(0.0 <= m <= 1.0 for m in res["test_mAP"].values()),
+              f"(a) teacher: test mAP {res['test_mAP']}")
+        dump = dump_check("(a) teacher", res["dump_path"], split, dim)
+        print(f"[spatial] (a) teacher: loss terms {res['train_loss'][0]}; "
+              f"test mAP {rounded(res['test_mAP'])}; "
+              f"dump {len(dump)} videos of ({SPATIAL_FRAMES}, "
+              f"{dim}) float32")
+        q8_root = f"{root}/feats_q8"
+        res3, _, _ = driver_run(
+            "(a) teacher -e -d --quant_eval", spatial_transformer,
+            teacher + ["-e", "-d", "--quant_eval", "--quant_min_dim",
+                       str(SPATIAL_QUANT_MIN_DIM), "--feats_dir", q8_root],
+            {}, SPATIAL_Q8_LAUNCHES | TEACHER_GEMMS, card)
+        check(all(0.0 <= m <= 1.0 for m in res3["test_mAP"].values()),
+              f"(a) --quant_eval: test mAP {res3['test_mAP']}")
+        # the int8 dump against the float one, both from the best
+        # checkpoint
+        q8 = dump_check("(a) --quant_eval", res3["dump_path"], split, dim)
+        a = np.concatenate([q8[v].ravel() for v in sorted(q8)])
+        b = np.concatenate([dump[v].ravel() for v in sorted(q8)])
+        corr = float(np.corrcoef(a, b)[0, 1])
+        check(not np.array_equal(a, b), "(a) --quant_eval: the int8 dump "
+                                        "equals the float one")
+        print(f"[spatial] (a) --quant_eval: the int8 branches' dump against "
+              f"the float dump from the same checkpoint: max difference "
+              f"{float(np.abs(a - b).max()):.4e} of max|float| "
+              f"{float(np.abs(b).max()):.4e}, correlation {corr:.6f}; test "
+              f"mAP {rounded(res3['test_mAP'])}")
+        res2, _, _ = driver_run(
+            "(a) teacher --resume", spatial_transformer,
+            teacher + ["-t", "--resume", "--epochs", "1"], step_want,
+            eval_want, card)
+        check(res2["step"] == 2 * steps,
+              f"(a) teacher --resume: step {res2['step']}, want {2 * steps}")
+        finite_losses("(a) teacher --resume", res2)
+        check_gemm_counts("(a) the teacher's driver")
+        check_attn_counts("(a) the teacher's driver")
+        teacher_launches = path_launches()
+
+        # (b) the student, on the teacher's feature bus: its "all" dump
+        # stands for each task's
+        reset_launches()
+        for k in ("i", "v", "t"):
+            os.symlink(res["dump_path"], f"{feats_root}/run_Q2L/k1_{k}_"
+                                         f"feats.pkl")
+        student = ["--data_dir", root, "--loss_type", "all", "--rates",
+                   *map(str, TRAIN_RATES), "--teacher_dim", str(dim),
+                   "-b", str(SPATIAL_STUDENT_BATCH), "--epochs", "1",
+                   "--device", DEVICE]
+        model_name = "rendezvous_lcholect45-crossval_cholect1"
+        runs = {}
+        for label, extra in (("-t -e -d", ["-t", "-e", "-d"]),
+                             ("--optimizer sam", ["-t", "--optimizer",
+                                                  "sam"]),
+                             ("--qat", ["-t", "-e", "--qat"])):
+            out = f"{root}/ckpt_student_{len(runs)}"
+            res, _, _ = driver_run(f"(b) student {label}", spatial_cnn,
+                                   student + extra + ["--ckpt_root", out],
+                                   {}, {}, card)
+            finite_losses(f"(b) student {label}", res)
+            stats = read_msgpack(checkpoint_path(
+                f"{out}/run_", model_name, "latest"))["batch_stats"]
+            means = np.concatenate([np.asarray(n["mean"]).ravel() for n in
+                                    nodes_with(stats, "mean")])
+            check(bool(np.isfinite(means).all()) and np.abs(means).max() > 0,
+                  f"(b) student {label}: running means not moved or "
+                  f"non-finite")
+            print(f"[spatial] (b) student {label}: loss terms "
+                  f"{res['train_loss'][0]}; running means moved (max "
+                  f"|mean| {np.abs(means).max():.4e}, finite)"
+                  + (f"; test mAP {rounded(res['test_mAP'])}"
+                     if "test_mAP" in res else ""))
+            runs[label] = (res, out)
+        dump_check("(b) student", runs["-t -e -d"][0]["dump_path"], split,
+                   SPATIAL_STUDENT_DIM)
+
+        # the --qat eval is a forward over the quantize -> dequantize
+        # weights, computed here without the port's quantizer
+        out = runs["--qat"][1]
+        variables = restore_variables(checkpoint_path(f"{out}/run_",
+                                                      model_name))
+        model = load_jax_variables(SpatialCNN(
+            "resnet18", "all", teacher_dim=dim), variables).to(DEVICE)
+        twin = copy.deepcopy(model)
+        with torch.no_grad():
+            for conv in qat_convs(twin.backbone):
+                w = conv.weight
+                scale = w.abs().amax(dim=(1, 2, 3), keepdim=True)
+                scale = scale.clamp_min(1e-8) / 127.0
+                conv.weight.copy_(torch.round(w / scale).clamp(-127, 127)
+                                  * scale)
+        ds = CholecDataset(root, image_size=(256, 448))
+        images = next(video_eval_batches(ds, split.test[0],
+                                         SPATIAL_STUDENT_BATCH))["image"]
+        probs, _ = make_spatial_eval_step(model, qat=True, device=DEVICE)(
+            types.SimpleNamespace(model=model), images)
+        ref, _ = make_spatial_eval_step(twin, device=DEVICE)(
+            types.SimpleNamespace(model=twin), images)
+        float_probs, _ = make_spatial_eval_step(model, device=DEVICE)(
+            types.SimpleNamespace(model=model), images)
+        err = max((probs[k] - ref[k]).abs().max().item() for k in probs)
+        moved = max((probs[k] - float_probs[k]).abs().max().item()
+                    for k in probs)
+        check(err <= SPATIAL_QAT_ATOL and moved > 0,
+              f"(b) --qat eval against the dequantized weights' forward: "
+              f"{err} (tol {SPATIAL_QAT_ATOL}); against the float weights "
+              f"{moved}")
+        print(f"[spatial] (b) --qat eval against a forward over the "
+              f"quantize -> dequantize weights: max |probability "
+              f"difference| {err:.3e} (tol {SPATIAL_QAT_ATOL:g}); against "
+              f"the float weights {moved:.3e}")
+        student_launches = path_launches()
+        check({k: student_launches[k] for k in none} == none
+              and all(v == 0 for k, v in student_launches.items()
+                      if k.startswith(("swin_gemm", "qconv_bn"))),
+              f"(b) the student's path launched kernels "
+              f"{ {k: v for k, v in student_launches.items() if v} }")
+    print(f"[spatial] phase 16 wall time {time.perf_counter() - t_phase:.1f}"
+          f" s (host clock), writing the tree {write_s:.1f} s of it; {card}")
+    return teacher_launches, student_launches
+
+
+def rounded(table: dict) -> dict:
+    return {k: round(v, 4) for k, v in table.items()}
+
+
+def nodes_with(tree: dict, key: str):
+    """The sub-dicts of a nested dict that hold ``key``."""
+    if key in tree:
+        yield tree
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from nodes_with(v, key)
+
+
 def phase_frames(card: str, teacher) -> tuple:
     """The frame source and the video inference CLI (see FRAMES_*):
     (a) cli.infer offline and --streaming, int8, from PNG files, against
@@ -5501,6 +5953,9 @@ def main() -> None:
     check_attn_counts("training steps")
     train = path_launches()
     slice_s += time.perf_counter() - t0
+    spatial_s = time.perf_counter()  # this slice's phase: both drivers
+    spatial_teacher, spatial_student = phase_spatial_drivers(card)
+    spatial_s = time.perf_counter() - spatial_s
     t0 = time.perf_counter()
     reset_launches()  # K8's op path starts here
     phase_k8_path(card)
@@ -5540,7 +5995,11 @@ def main() -> None:
              "MS-TCT driver -t and --resume (float32 and bfloat16)":
                  mstct_train,
              "the probe drivers (int8_kernel_probe and swin_pack_probe "
-             "main())": probes}
+             "main())": probes,
+             SPATIAL_TEACHER_PATH: spatial_teacher,
+             "the student's training driver (cli.spatial_cnn -t -e -d, "
+             "--optimizer sam, --qat: ResNet18 on cuDNN and cuBLAS, no "
+             "kernel of the port)": spatial_student}
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     print("[main path] launches: " + "; ".join(
         f"{label} { {k: v for k, v in p.items() if v} }"
@@ -5560,7 +6019,7 @@ def main() -> None:
     from computervision_codes_tpu_torch.ops.swin_gemm import PATHS
     for label in ("teacher sessions (creation and predicts)",
                   "the Swin-L-384 teacher's training steps (both plans) and "
-                  "the trained module's eval"):
+                  "the trained module's eval", SPATIAL_TEACHER_PATH):
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
@@ -5619,7 +6078,8 @@ def main() -> None:
           f"step card vs CPU, K8's path, the driver's -t, the fixed-batch "
           f"step) {mstct_s:.1f} s; the probes' (P1's and P2's checks, both "
           f"drivers' main()) {probe_s:.1f} s; the frame source's "
-          f"(phase_frames) {frames_s:.1f} s (host clock)")
+          f"(phase_frames) {frames_s:.1f} s; the training drivers' "
+          f"(phase 16) {spatial_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/"

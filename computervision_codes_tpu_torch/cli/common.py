@@ -4,14 +4,17 @@ The port's copy of what its drivers need from ``cli/common.py`` in the JAX
 package: the reference-compatible flags (``common_parser``, names and
 defaults unchanged), ``build_modelname``, the challenge-protocol table
 (``ignore_null_protocol``), ``seed_everything``, which seeds ``random``,
-numpy and torch, ``maybe_resume``, and the eval loop over frames from disk
-with its reports (``make_metrics``, ``reset_metrics``,
-``evaluate_videos``, ``compute_map_table``, ``print_final_report``).
+numpy and torch, ``maybe_warm_start`` (``--imagenet_pretrain``),
+``maybe_resume``, ``refuse_unported`` (the flags of later slices), and
+the eval loop over frames from disk with its reports (``make_metrics``,
+``reset_metrics``, ``evaluate_videos``, ``host_outputs``,
+``compute_map_table``, ``print_final_report``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 from typing import Dict, Sequence
 
@@ -100,6 +103,39 @@ def seed_everything(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def maybe_warm_start(flags, state, backbone: str, logger):
+    """Apply ``--imagenet_pretrain``: the converted official checkpoint
+    into the backbone (``models.pretrained``); a no-op when the flag is
+    empty. A directory is best-effort per backbone (no file for it: train
+    from scratch, logged); a .pth path raises on any problem."""
+    path = getattr(flags, "imagenet_pretrain", "")
+    if not path:
+        return state
+    from ..models.pretrained import PTDICT, warm_start_backbone
+
+    if os.path.isdir(path) and (
+            backbone not in PTDICT
+            or not os.path.exists(os.path.join(path, PTDICT[backbone]))):
+        logger.log(f"imagenet_pretrain: no checkpoint for {backbone} in "
+                   f"{path} — training from scratch")
+        return state
+    return warm_start_backbone(state, backbone, path, log=logger.log)
+
+
+def refuse_unported(flags) -> None:
+    """The flags whose code is not ported yet raise, naming their slice:
+    ``--dp_devices`` / ``--tp_devices`` > 1 (ROADMAP Queue 1 item 8, the
+    parallel slice) and ``--device_augment`` (item 7)."""
+    for name in ("dp_devices", "tp_devices"):
+        if getattr(flags, name, 0) > 1:
+            raise NotImplementedError(
+                f"--{name} > 1 is not ported yet (ROADMAP Queue 1 item 8, "
+                f"the parallel slice)")
+    if getattr(flags, "device_augment", False):
+        raise NotImplementedError("--device_augment is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+
+
 def maybe_resume(flags, ckpt, state, logger):
     """With ``--resume``, restore ``state`` from the ``_latest`` checkpoint
     when there is one (its weights, step, schedule count and generator),
@@ -157,6 +193,13 @@ def evaluate_videos(run_batch, dataset: CholecDataset, videos: Sequence[str],
         if collect_features:
             feats_out[video] = np.concatenate(chunks, axis=0)
     return feats_out
+
+
+def host_outputs(probs: Dict, feats) -> tuple:
+    """An eval step's outputs (tensors on any device, in any dtype) as
+    float32 numpy arrays, as ``evaluate_videos`` takes them."""
+    return ({k: v.float().cpu().numpy() for k, v in probs.items()},
+            feats.float().cpu().numpy())
 
 
 # Which reference drivers HARDCODE the challenge protocol (ignore_null=True)

@@ -65,6 +65,21 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
+class Classifier(nn.Module):
+    """A single linear head over a flat feature, as the JAX ``Classifier``
+    (reference MT4MTLKD/Spatial_cnn/network.py:121-129): its ``Dense`` is
+    the child ``fc``."""
+
+    def __init__(self, cin: int, num_classes: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = Dense(cin, num_classes, dtype=dtype, generator=generator)
+
+    def forward(self, x):
+        return self.fc(x.reshape(x.shape[0], -1))
+
+
 class TemporalConv(nn.Module):
     """flax ``nn.Conv(cout, (k,), padding=k // 2, feature_group_count=
     groups)`` over (B, T, C) in the compute dtype: the convolution rounds

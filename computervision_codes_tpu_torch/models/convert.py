@@ -32,6 +32,16 @@ counterpart, as nested dicts of float32 numpy arrays in the JAX layouts
 above, so that ``load_jax_variables`` of the result fills an equal module
 and a flax checkpoint of the port's weights restores in JAX.
 
+The torch-layout converters are the port's copies of the JAX package's
+(``models/convert.py`` there): ``load_torch_state_dict`` reads a ``.pth``
+(``torch.load(..., weights_only=True)``, ``module.`` prefixes stripped), and
+``convert_torchvision_resnet``, ``convert_swin`` and ``convert_tresnet`` map
+a torchvision / microsoft / TResNet state dict onto the flax-named numpy
+tree that ``load_jax_variables`` takes (conv OIHW -> HWIO, linear (out, in)
+-> (in, out), BatchNorm -> ``params`` scale/bias + ``batch_stats``
+mean/var, or all four in ``frozen``). ``convert_cvt`` waits for the CvT
+backbone (the zoo slice) and raises.
+
 ``load_jax_quantized(qmodule, q_backbone)`` does the same for a tree that
 the JAX ``quantize_resnet`` / ``calibrate_resnet`` made: int8 ``w_q`` goes
 from HWIO to the kernel's (Cout, kh, kw, Cin), ``w`` (a float stem) stays
@@ -42,7 +52,7 @@ conv without ``act_scale`` in the tree goes back to dynamic scales).
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Set, Tuple
+from typing import Dict, Set, Tuple
 
 import numpy as np
 import torch
@@ -226,3 +236,194 @@ def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:
             if "w_q" in node and "act_scale" not in node:
                 conv.act_scale = None
     return qmodule
+
+
+# ---------------------------------------------------------------------------
+# torch-layout checkpoints (torchvision, microsoft Swin, TResNet) -> the
+# flax-named trees above
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """The tensors of a ``.pth`` as numpy arrays: the file's
+    ``state_dict`` or ``model`` entry where it has one, ``module.``
+    prefixes stripped. Loaded with ``weights_only=True`` (no code runs)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"],
+                                                             dict):
+        sd = sd["model"]
+    return {k.removeprefix("module."): v.detach().cpu().numpy()
+            for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def _conv(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _dense(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (1, 0))
+
+
+def _bn(sd: Dict[str, np.ndarray], prefix: str) -> Tuple[Dict, Dict]:
+    params = {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+    stats = {"mean": sd[f"{prefix}.running_mean"],
+             "var": sd[f"{prefix}.running_var"]}
+    return params, stats
+
+
+def convert_torchvision_resnet(sd: Dict[str, np.ndarray], stage_sizes,
+                               frozen_bn: bool = False) -> Dict:
+    """torchvision resnet18/34/50/101 state dict -> ``{"params",
+    "batch_stats"}`` (``{"params", "frozen"}`` with ``frozen_bn``)."""
+    params: Dict = {}
+    stats: Dict = {}
+    frozen: Dict = {}
+
+    def put_bn(prefix: str, *path: str):
+        p, s = _bn(sd, prefix)
+        if frozen_bn:
+            dst = frozen
+            for key in path[:-1]:
+                dst = dst.setdefault(key, {})
+            dst[path[-1]] = {**p, **s}
+        else:
+            for tree, leaf in ((params, p), (stats, s)):
+                dst = tree
+                for key in path[:-1]:
+                    dst = dst.setdefault(key, {})
+                dst[path[-1]] = leaf
+
+    params["conv1"] = {"kernel": _conv(sd["conv1.weight"])}
+    put_bn("bn1", "bn1")
+    bottleneck = any(k.startswith("layer1.0.conv3") for k in sd)
+    n_convs = 3 if bottleneck else 2
+    for si, blocks in enumerate(stage_sizes):
+        for bi in range(blocks):
+            t = f"layer{si + 1}.{bi}"
+            name = f"layer{si + 1}_{bi}"
+            block: Dict = {
+                f"conv{ci}": {"kernel": _conv(sd[f"{t}.conv{ci}.weight"])}
+                for ci in range(1, n_convs + 1)
+            }
+            params[name] = block
+            for ci in range(1, n_convs + 1):
+                put_bn(f"{t}.bn{ci}", name, f"bn{ci}")
+            if f"{t}.downsample.0.weight" in sd:
+                block["downsample_conv"] = {
+                    "kernel": _conv(sd[f"{t}.downsample.0.weight"])}
+                put_bn(f"{t}.downsample.1", name, "downsample_bn")
+    out = {"params": params}
+    if frozen_bn:
+        out["frozen"] = frozen
+    else:
+        out["batch_stats"] = stats
+    return out
+
+
+def convert_tresnet(sd: Dict[str, np.ndarray], layers) -> Dict:
+    """Official TResNet checkpoint (``body.conv1``, ``body.layer{1-4}.{b}.
+    {conv1,conv2,conv3,se,downsample}``) -> ``{"params", "batch_stats"}``
+    for ``models.tresnet.TResNet``. Each conv2d_ABN pair maps to (conv
+    kernel, ``<abn>/bn``); an anti-aliased block's conv sits one
+    Sequential deeper (``conv1.0.0``); the SE 1x1 convs become Dense."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put_abn(prefix: str, *path):
+        p, s = _bn(sd, prefix)
+        for tree, leaf in ((params, p), (stats, s)):
+            dst = tree
+            for key in path:
+                dst = dst.setdefault(key, {})
+            dst["bn"] = leaf
+
+    def conv_abn(src: str, dst_block: Dict, conv_name: str, abn_path):
+        if f"{src}.0.0.weight" in sd:  # Sequential(conv2d_ABN, blur) form
+            src = f"{src}.0"
+        dst_block[conv_name] = {"kernel": _conv(sd[f"{src}.0.weight"])}
+        put_abn(f"{src}.1", *abn_path)
+
+    def se_dense(w: np.ndarray) -> np.ndarray:
+        return _dense(w[:, :, 0, 0])  # 1x1 conv acting on pooled vector
+
+    params["stem_conv"] = {"kernel": _conv(sd["body.conv1.0.weight"])}
+    put_abn("body.conv1.1", "stem_abn")
+    for si, depth in enumerate(layers):
+        bottleneck = si >= 2
+        for bi in range(depth):
+            t = f"body.layer{si + 1}.{bi}"
+            name = f"layer{si + 1}_{bi}"
+            block: Dict = {}
+            params[name] = block
+            conv_abn(f"{t}.conv1", block, "conv1", (name, "abn1"))
+            conv_abn(f"{t}.conv2", block, "conv2", (name, "abn2"))
+            if bottleneck:
+                conv_abn(f"{t}.conv3", block, "conv3", (name, "abn3"))
+            if f"{t}.se.fc1.weight" in sd:
+                block["se"] = {
+                    "fc1": {"kernel": se_dense(sd[f"{t}.se.fc1.weight"]),
+                            "bias": sd[f"{t}.se.fc1.bias"]},
+                    "fc2": {"kernel": se_dense(sd[f"{t}.se.fc2.weight"]),
+                            "bias": sd[f"{t}.se.fc2.bias"]},
+                }
+            # downsample: Sequential([AvgPool,] conv2d_ABN); the conv_abn
+            # index is 1 when the pool is present, 0 otherwise
+            for di in (1, 0):
+                if f"{t}.downsample.{di}.0.weight" in sd:
+                    block["downsample"] = {
+                        "kernel": _conv(sd[f"{t}.downsample.{di}.0.weight"])}
+                    put_abn(f"{t}.downsample.{di}.1", name, "downsample_abn")
+                    break
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_cvt(sd: Dict[str, np.ndarray], depths) -> Dict:
+    """The CvT converter waits for the CvT backbone."""
+    raise NotImplementedError("CvT checkpoints are not ported yet: the CvT "
+                              "backbone comes with the backbone zoo slice")
+
+
+def convert_swin(sd: Dict[str, np.ndarray], depths) -> Dict:
+    """Official microsoft/timm Swin state dict (``patch_embed.*``,
+    ``layers.{s}.blocks.{b}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
+    mlp.fc2}``, ``layers.{s}.downsample.{norm,reduction}``, ``norm``) ->
+    ``{"params"}`` of the headless backbone (a ``head`` is left out)."""
+    params: Dict = {}
+    params["patch_embed"] = {"kernel": _conv(sd["patch_embed.proj.weight"]),
+                             "bias": sd["patch_embed.proj.bias"]}
+    if "patch_embed.norm.weight" in sd:
+        params["patch_norm"] = {"scale": sd["patch_embed.norm.weight"],
+                                "bias": sd["patch_embed.norm.bias"]}
+    for si, depth in enumerate(depths):
+        for bi in range(depth):
+            t = f"layers.{si}.blocks.{bi}"
+            params[f"stage{si}_block{bi}"] = {
+                "norm1": {"scale": sd[f"{t}.norm1.weight"],
+                          "bias": sd[f"{t}.norm1.bias"]},
+                "norm2": {"scale": sd[f"{t}.norm2.weight"],
+                          "bias": sd[f"{t}.norm2.bias"]},
+                "attn": {
+                    "qkv": {"kernel": _dense(sd[f"{t}.attn.qkv.weight"]),
+                            "bias": sd[f"{t}.attn.qkv.bias"]},
+                    "proj": {"kernel": _dense(sd[f"{t}.attn.proj.weight"]),
+                             "bias": sd[f"{t}.attn.proj.bias"]},
+                    "relative_position_bias_table":
+                        sd[f"{t}.attn.relative_position_bias_table"],
+                },
+                "mlp": {
+                    "Dense_0": {"kernel": _dense(sd[f"{t}.mlp.fc1.weight"]),
+                                "bias": sd[f"{t}.mlp.fc1.bias"]},
+                    "Dense_1": {"kernel": _dense(sd[f"{t}.mlp.fc2.weight"]),
+                                "bias": sd[f"{t}.mlp.fc2.bias"]},
+                },
+            }
+        if si < len(depths) - 1:
+            d = f"layers.{si}.downsample"
+            params[f"merge{si}"] = {
+                "norm": {"scale": sd[f"{d}.norm.weight"],
+                         "bias": sd[f"{d}.norm.bias"]},
+                "reduction": {"kernel": _dense(sd[f"{d}.reduction.weight"])},
+            }
+    params["norm"] = {"scale": sd["norm.weight"], "bias": sd["norm.bias"]}
+    return {"params": params}

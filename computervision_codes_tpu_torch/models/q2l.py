@@ -24,9 +24,15 @@ The TResNet backbones (``models.tresnet``) give d_model = width * 8 * 4
 (2432 for TResNet-L), the channels of their last stage; the Swin options do
 not apply to them and are ignored, as the JAX module ignores them.
 
-Not ported yet, and refused: the CvT backbones (the zoo slice) and the KD
-block (``feat_i``, the student-training slice). The JAX ``return_sim_mat``
-output is not ported.
+The KD block (``kd_attention``, ``models.spatial_cnn.KDCrossTaskAttention``
+over the task feature) exists for ``loss_type="all"`` with a
+``teacher_dim``, as the JAX block's parameters exist when its init saw
+teacher features (the driver's init): ``forward(images, feat_i, feat_v,
+feat_t)`` then returns ``out["kd"]``. ``return_sim_mat`` also returns each
+task decoder's last cross-attention map, the mean over heads of the
+softmax, ``out["sim_mat"][task]`` (B, K, HW), as the JAX option.
+
+Not ported yet, and refused: the CvT backbones (the zoo slice).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from .common import Dense, Dropout, GroupWiseLinear, LayerNorm
 from .position_encoding import sine_position_embedding
 from .resnet import VARIANTS as RESNET_VARIANTS
 from .resnet import build_resnet, feature_dim
+from .spatial_cnn import KDCrossTaskAttention, kd_forward
 from .swin import VARIANTS as SWIN_VARIANTS
 from .swin import build_swin, swin_feature_dim
 from .tresnet import VARIANTS as TRESNET_VARIANTS
@@ -66,7 +73,9 @@ class MultiHeadAttention(nn.Module):
                                       generator=generator))
         self.dropout = Dropout(DROPOUT)
 
-    def forward(self, q, k, v, generator=None):
+    def forward(self, q, k, v, generator=None, return_attn: bool = False):
+        """``return_attn``: also the attention weights averaged over the
+        heads, (B, nq, nk), torch.nn.MultiheadAttention's convention."""
         h = self.num_heads
         hd = self.dim // h
         b, nq, _ = q.shape
@@ -80,7 +89,8 @@ class MultiHeadAttention(nn.Module):
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
         attn = self.dropout(attn, generator)
         out = (attn @ split(self.v_proj(v), nk)).transpose(1, 2)
-        return self.out_proj(out.reshape(b, nq, self.dim))
+        out = self.out_proj(out.reshape(b, nq, self.dim))
+        return (out, attn.mean(dim=1)) if return_attn else out
 
 
 class EncoderLayer(nn.Module):
@@ -121,15 +131,20 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(dim, dtype)
         self.dropout = Dropout(DROPOUT)
 
-    def forward(self, tgt, memory, pos, query_pos, generator=None):
+    def forward(self, tgt, memory, pos, query_pos, generator=None,
+                return_attn: bool = False):
         def drop(t):
             return self.dropout(t, generator)
 
         attn = self.cross_attn(tgt + query_pos, memory + pos, memory,
-                               generator)
+                               generator, return_attn)
+        sim = None
+        if return_attn:
+            attn, sim = attn
         tgt = self.norm2(tgt + drop(attn))
         ffn = self.linear2(drop(torch.relu(self.linear1(tgt))))
-        return self.norm3(tgt + drop(ffn))
+        tgt = self.norm3(tgt + drop(ffn))
+        return (tgt, sim) if return_attn else tgt
 
 
 class Q2LTransformer(nn.Module):
@@ -147,33 +162,46 @@ class Q2LTransformer(nn.Module):
                                                         generator))
         self.decoder_norm = LayerNorm(dim, dtype)
 
-    def forward(self, src, pos, query_embed, generator=None):
+    def forward(self, src, pos, query_embed, generator=None,
+                return_attn: bool = False):
         """src (B, HW, d), pos (1, HW, d), query_embed (K, d) ->
-        (decoded queries (B, K, d), encoder memory (B, HW, d))."""
+        (decoded queries (B, K, d), encoder memory (B, HW, d)), and with
+        ``return_attn`` the last decoder layer's cross-attention map
+        (B, K, HW)."""
         memory = src
         for i in range(ENCODER_LAYERS):
             memory = getattr(self, f"encoder{i}")(memory, pos, generator)
         query = query_embed[None].expand(src.shape[0], -1, -1).to(self.dtype)
         tgt = torch.zeros_like(query)
+        sim = None
         for i in range(DECODER_LAYERS):
+            last = return_attn and i == DECODER_LAYERS - 1
             tgt = getattr(self, f"decoder{i}")(tgt, memory, pos, query,
-                                               generator)
+                                               generator, last)
+            if last:
+                tgt, sim = tgt
+        if return_attn:
+            return self.decoder_norm(tgt), memory, sim
         return self.decoder_norm(tgt), memory
 
 
 class Q2L(nn.Module):
     """Query2Label with per-task decoders over one shared transformer:
     NHWC frames -> ``{"logits": {task: (B, K)}, "feature": (B, d),
-    "task_features": {task: (B, d)}}``."""
+    "task_features": {task: (B, d)}}``, plus ``"kd"`` and ``"sim_mat"``
+    (module docstring)."""
 
     def __init__(self, backbone: str = "swin_L_384_22k",
                  loss_type: str = "all", drop_path_rate: float = 0.1,
                  fused_eval: Optional[bool] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
+                 teacher_dim: Optional[int] = None,
+                 return_sim_mat: bool = False,
                  **swin_flags):
         super().__init__()
         self.loss_type, self.dtype = loss_type, dtype
+        self.return_sim_mat = return_sim_mat
         g = generator
         if backbone in SWIN_VARIANTS:
             self.backbone = build_swin(backbone, drop_path_rate, dtype, g,
@@ -201,6 +229,9 @@ class Q2L(nn.Module):
                 torch.randn(n, dim, generator=g)))
             self.add_module(f"fc_{key}",
                             GroupWiseLinear(n, dim, dtype=dtype, generator=g))
+        if loss_type == "all" and teacher_dim:
+            self.kd_attention = KDCrossTaskAttention(dim, teacher_dim, dtype,
+                                                     g)
 
     @property
     def tasks(self):
@@ -224,22 +255,31 @@ class Q2L(nn.Module):
         src = fmap.reshape(b, h * w, self.dim)
         logits = {k: torch.zeros(b, n, dtype=self.dtype, device=fmap.device)
                   for k, n in TASK_SIZES.items()}
-        feats = {}
+        feats, sims = {}, {}
         for key in self.tasks:
             proj = getattr(self, f"input_proj_{key}")(src)
-            hs, memory = self.transformer(
-                proj, pos, getattr(self, f"query_embed_{key}"), generator)
+            res = self.transformer(
+                proj, pos, getattr(self, f"query_embed_{key}"), generator,
+                self.return_sim_mat)
+            hs, memory = res[:2]
+            if self.return_sim_mat:
+                sims[key] = res[2]
             logits[key] = getattr(self, f"fc_{key}")(hs)
             feats[key] = memory.mean(dim=1)
         feature = feats.get("ivt", next(iter(feats.values())))
-        return {"logits": logits, "feature": feature, "task_features": feats}
+        out = {"logits": logits, "feature": feature, "task_features": feats}
+        if self.return_sim_mat:
+            out["sim_mat"] = sims
+        return out
 
     def forward(self, images, feat_i=None, feat_v=None, feat_t=None,
                 generator: Optional[torch.Generator] = None) -> Dict:
         """``generator``: where a training call draws its dropout and
         DropPath masks (one on the model's device; None draws from
-        PyTorch's default generator)."""
-        if feat_i is not None:
-            raise NotImplementedError("the KD block (feat_i) is not ported "
-                                      "yet (the student-training slice)")
-        return self.head(self.feature_map(images, generator), generator)
+        PyTorch's default generator). ``feat_{i,v,t}`` (B, teacher_dim):
+        the teachers' features for the KD block (``loss_type="all"``)."""
+        out = self.head(self.feature_map(images, generator), generator)
+        if self.loss_type == "all" and feat_i is not None:
+            out["kd"] = kd_forward(self, out["feature"], feat_i, feat_v,
+                                   feat_t)
+        return out

@@ -1,11 +1,18 @@
-"""ResNet-18/34/50/101 backbones, eval forward (torchvision architecture).
+"""ResNet-18/34/50/101 backbones (torchvision architecture).
 
 Counterpart of ``models/resnet.py`` in the JAX package: stem 7x7/2 conv ->
 BN -> ReLU -> 3x3/2 max-pool, then BasicBlock or Bottleneck stages with a
 1x1 conv + BN downsample shortcut, returning every stage output and the
-pooled feature. BatchNorm runs with its running statistics only (eval);
-``frozen_bn`` keeps the same arithmetic in a separate ``frozen`` collection,
-as the JAX FrozenBatchNorm does.
+pooled feature. In eval BatchNorm runs with its running statistics; in
+``.train()`` it is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+(the JAX ``models/resnet.py:53``): the batch's mean and biased variance
+normalise, and the running statistics move to ``0.9 * running + 0.1 *
+batch`` (the biased variance too, where ``F.batch_norm`` would take the
+unbiased one). ``frozen_bn`` keeps the eval arithmetic in a separate
+``frozen`` collection in both modes, as the JAX FrozenBatchNorm does.
+A convolution's ``weight_fn`` (None by default) replaces its weight by
+``weight_fn(weight)`` at each call: the QAT fake-quant
+(``models/qat.py``).
 
 Inputs at the public boundary are NHWC, as in the JAX package; inside, the
 tensors are NCHW in ``channels_last`` memory format, which is the same
@@ -54,39 +61,76 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(nn.init.normal_(w, 0.0, std,
                                                    generator=generator))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.weight_fn = None
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride,
-                        self.padding)
+        w = self.weight if self.weight_fn is None else self.weight_fn(
+            self.weight)
+        return F.conv2d(x, w.to(self.dtype), b, self.stride, self.padding)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: y = x * w + b, with w = weight / sqrt(var + eps)
-    and b = bias - mean * w computed in float32, then cast to the compute
-    dtype."""
+    """BatchNorm over NCHW maps. Eval: y = x * w + b, with w = weight /
+    sqrt(var + eps) and b = bias - mean * w computed in float32, then cast
+    to the compute dtype. Training (``.train()``): flax's batch statistics
+    in float32 (mean, and the variance max(0, mean(x^2) - mean^2)),
+    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in float32, cast
+    to the compute dtype, and the running statistics updated in place.
+    ``weight`` and ``bias`` are parameters (flax's ``scale`` and ``bias``),
+    the statistics buffers."""
 
     collection = "batch_stats"
+    momentum = 0.9
 
     def __init__(self, n: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.register_buffer("weight", torch.ones(n))
-        self.register_buffer("bias", torch.zeros(n))
+        self._affine("weight", torch.ones(n))
+        self._affine("bias", torch.zeros(n))
         self.register_buffer("running_mean", torch.zeros(n))
         self.register_buffer("running_var", torch.ones(n))
 
+    def _affine(self, name: str, value: torch.Tensor) -> None:
+        self.register_parameter(name, nn.Parameter(value))
+
     def forward(self, x):
+        if self.training:
+            return self.batch_forward(x)
+        return self.eval_forward(x)
+
+    def eval_forward(self, x):
         w = self.weight * torch.rsqrt(self.running_var + BN_EPS)
         b = self.bias - self.running_mean * w
         shape = (1, -1, 1, 1)
         return x * w.to(self.dtype).view(shape) + b.to(self.dtype).view(shape)
 
+    def batch_forward(self, x):
+        xf = x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
+
 
 class FrozenBatchNorm(BatchNorm):
-    """BatchNorm whose four vectors come from the JAX ``frozen`` collection."""
+    """BatchNorm whose four vectors come from the JAX ``frozen`` collection:
+    buffers, and the eval arithmetic in training too."""
 
     collection = "frozen"
+
+    def _affine(self, name: str, value: torch.Tensor) -> None:
+        self.register_buffer(name, value)
+
+    def forward(self, x):
+        return self.eval_forward(x)
 
 
 def _norm(frozen: bool) -> Type[BatchNorm]:

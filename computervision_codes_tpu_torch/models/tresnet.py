@@ -75,7 +75,8 @@ class ABN(nn.Module):
         self.act, self.slope, self.dtype = act, slope, dtype
         self.bn = BatchNorm(n, dtype)
         if zero_init:
-            self.bn.weight.zero_()
+            with torch.no_grad():
+                self.bn.weight.zero_()
 
     def forward(self, x):
         if self.training:

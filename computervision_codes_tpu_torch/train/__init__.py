@@ -1,8 +1,8 @@
 """Training-side code of the port: JAX-compatible checkpoints (read and
-written), the SGD recipe and the spatial track's train and eval steps (the
-MS-TCT step is its driver's, ``cli/temporal_mstct.py``)."""
+written), the SGD recipe, SAM and ImbSAM, and the spatial track's train and
+eval steps (the MS-TCT step is its driver's, ``cli/temporal_mstct.py``)."""
 
-from .optim import build_sgd
+from .optim import build_sgd, imbsam_gradients, sam_gradients
 from .schedule import reference_warmup_exp_schedule
 from .state import TrainState
 from .trainer import (create_train_state, make_spatial_eval_step,
@@ -10,6 +10,8 @@ from .trainer import (create_train_state, make_spatial_eval_step,
 
 __all__ = [
     "build_sgd",
+    "sam_gradients",
+    "imbsam_gradients",
     "reference_warmup_exp_schedule",
     "TrainState",
     "create_train_state",

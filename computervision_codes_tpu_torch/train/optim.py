@@ -3,16 +3,30 @@
 Counterpart of ``computervision_codes_tpu/train/optim.py::build_sgd``:
 optax's ``add_decayed_weights`` then ``sgd`` add the L2 term to the
 gradient before momentum, which is ``torch.optim.SGD``'s own rule
-(MT4MTLKD/Spatial_cnn/run.py:344). SAM, ImbSAM and ``freeze_swin_early``
-are not ported yet (the student-training and TERL slices).
+(MT4MTLKD/Spatial_cnn/run.py:344).
+
+``sam_gradients`` and ``imbsam_gradients`` are the JAX functional SAM and
+ImbSAM (the reference's TERL/6_baseline_learnT/imbsam.py:5-41 and 49-96):
+each gradient comes from a loss evaluated at perturbed parameters,
+
+    SAM:    g1 = ∇L(w);  ε = ρ g1/(|g1| + 1e-16);  g = ∇L(w + ε)
+    ImbSAM: g_head = ∇L_head(w);  g_t = ∇L_tail(w);
+            ε = ρ g_t/(|g_t| + 1e-16);  g = ∇L_tail(w + ε) + g_head
+
+where |g| is the global norm over every parameter's gradient (a parameter
+the loss does not reach has a zero gradient, as in JAX). Here the
+parameters are perturbed in place and restored, bit for bit, before the
+functions return, so the optimizer applies the gradient at the unperturbed
+weights. ``freeze_swin_early`` is not ported yet (the TERL slice).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, List, Optional, Sequence, Union
 
 import torch
+import torch.nn as nn
 
 LearningRate = Union[float, Callable[[int], float]]
 
@@ -49,3 +63,86 @@ def build_sgd(learning_rate: LearningRate, weight_decay: float = 0.0,
     count, L2 ``weight_decay`` and ``momentum`` (0: none)."""
     return functools.partial(SGD, learning_rate=learning_rate,
                              weight_decay=weight_decay, momentum=momentum)
+
+
+def _gradients(loss_fn: Callable, params: Sequence[torch.Tensor],
+               has_aux: bool):
+    """(the gradient of ``loss_fn()`` for each parameter, zeros where the
+    loss does not reach it; the aux output or None)."""
+    out = loss_fn()
+    loss, aux = out if has_aux else (out, None)
+    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)], aux
+
+
+def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the root of every leaf's sum of squares."""
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+def _perturb(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             rho: float) -> List[torch.Tensor]:
+    """w + g * rho / (|g| + 1e-16), in place; returns copies of the
+    parameters before, for ``_restore``."""
+    scale = rho / (_global_norm(grads) + 1e-16)
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.copy_(p + g * scale)
+    return saved
+
+
+def _restore(tensors: Sequence[torch.Tensor],
+             saved: Sequence[torch.Tensor]) -> None:
+    with torch.no_grad():
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+
+
+def _buffers(module: Optional[nn.Module]) -> List[torch.Tensor]:
+    return [] if module is None else list(module.buffers())
+
+
+def sam_gradients(loss_fn: Callable, params: Sequence[torch.Tensor],
+                  rho: float = 0.05, has_aux: bool = False,
+                  module: Optional[nn.Module] = None):
+    """Two-step SAM gradient of ``loss_fn() -> loss`` (or ``(loss, aux)``)
+    over ``params``: a list of gradients (and the second pass's aux). The
+    buffers of ``module`` (its BatchNorm statistics) are restored after the
+    first pass, so that the perturbed pass alone moves them, as the JAX
+    step keeps the batch statistics of that pass."""
+    buffers = _buffers(module)
+    before = [b.detach().clone() for b in buffers]
+    g1, _ = _gradients(loss_fn, params, has_aux)
+    _restore(buffers, before)
+    saved = _perturb(params, g1, rho)
+    try:
+        g2, aux2 = _gradients(loss_fn, params, has_aux)
+    finally:
+        _restore(params, saved)
+    return (g2, aux2) if has_aux else g2
+
+
+def imbsam_gradients(loss_head_fn: Callable, loss_tail_fn: Callable,
+                     params: Sequence[torch.Tensor], rho: float = 0.05,
+                     module: Optional[nn.Module] = None):
+    """Three-step ImbSAM: sharpness-aware for the tail loss only. The
+    buffers of ``module`` are restored after each pass (the JAX losses
+    return no mutated statistics)."""
+    buffers = _buffers(module)
+    before = [b.detach().clone() for b in buffers]
+
+    def grad(fn):
+        g, _ = _gradients(fn, params, False)
+        _restore(buffers, before)
+        return g
+
+    g_head = grad(loss_head_fn)
+    g_tail = grad(loss_tail_fn)
+    saved = _perturb(params, g_tail, rho)
+    try:
+        g_sharp = grad(loss_tail_fn)
+    finally:
+        _restore(params, saved)
+    return [a + b for a, b in zip(g_sharp, g_head)]

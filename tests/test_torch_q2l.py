@@ -95,8 +95,16 @@ def test_unported_parts_raise():
              s2d_embed=True)
     assert [q8.backbone.stage1_block0.quant, q8.backbone.stage2_block0.quant,
             q8.backbone.s2d_embed] == [False, True, True]
-    model = Q2L(backbone="swin_nano_64", loss_type="all").eval()
+    # the KD call runs (its parity: tests/test_torch_kd_modules.py); a
+    # model made without a teacher_dim has no KD block and refuses it
+    model = Q2L(backbone="swin_nano_64", loss_type="all",
+                teacher_dim=512).eval()
     feat = torch.zeros(1, 512)
-    with pytest.raises(NotImplementedError, match="KD"):
-        model(torch.zeros(1, 64, 64, 3), feat_i=feat, feat_v=feat,
-              feat_t=feat)
+    with torch.no_grad():
+        out = model(torch.zeros(1, 64, 64, 3), feat_i=feat, feat_v=feat,
+                    feat_t=feat)
+    assert {k: tuple(v.shape) for k, v in out["kd"].items()} == {
+        k: (1, 512) for k in ("i", "v", "t")}
+    with pytest.raises(ValueError, match="KD block"):
+        Q2L(backbone="swin_nano_64", loss_type="all")(
+            torch.zeros(1, 64, 64, 3), feat_i=feat, feat_v=feat, feat_t=feat)

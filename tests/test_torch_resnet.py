@@ -77,6 +77,6 @@ def test_bottleneck_matches_jax(rng):
     block = load_jax_variables(Bottleneck(16, 8, stride=2), variables)
     xt = torch.from_numpy(x).permute(0, 3, 1, 2)
     with torch.no_grad():
-        got = block(xt).permute(0, 2, 3, 1).numpy()
+        got = block.eval()(xt).permute(0, 2, 3, 1).numpy()
     assert got.shape == (2, 4, 4, 32)
     np.testing.assert_allclose(got, want, atol=ATOL)

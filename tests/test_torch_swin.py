@@ -160,16 +160,47 @@ def test_fused_attn_matches_jax(rng, cfg, hw):
                                    atol=ATOL, err_msg=k)
 
 
-@pytest.mark.parametrize("kwargs, match", [
-    (dict(loss_type="all", rates=(1.0, 0.0, 0.1)), "distillation"),
-    (dict(loss_type="all", rates=(1.0, 0.5, 0.0)), "distillation"),
-    (dict(loss_type="i", sam_rho=0.05), "SAM"),
-    (dict(loss_type="i", qat=True), "qat")],
+@pytest.mark.parametrize("kwargs, metric", [
+    (dict(loss_type="all", rates=(1.0, 0.0, 0.1)), "kd_loss"),
+    (dict(loss_type="all", rates=(1.0, 0.5, 0.0)), "soft_loss"),
+    (dict(loss_type="i", sam_rho=0.05), "hard_loss_i"),
+    (dict(loss_type="i", qat=True), "hard_loss_i")],
     ids=["all-kd-rate", "all-soft-rate", "sam", "qat"])
-def test_unported_options_raise(kwargs, match):
-    """What the teacher's training step still refuses (the student-training
-    slice); the Swin options ``fused_train`` and ``remat`` are ported."""
-    model = build_swin("swin_nano_64", fused_train=True, remat=True)
-    assert model.remat and model.stage0_block0.fused_train
-    with pytest.raises(NotImplementedError, match=match):
-        make_spatial_train_step(model, device="cpu", **kwargs)
+def test_unported_options_raise(rng, kwargs, metric):
+    """The options the teacher's training step refused before the
+    student-training slice (the distillation rates, SAM, QAT) now make a
+    step that runs on the Swin teacher with ``fused_train`` and ``remat``:
+    one step on seeded frames and teacher arrays gives a finite loss with
+    the option's metric (the parity with JAX is
+    tests/test_torch_cli_spatial_transformer.py and
+    tests/test_torch_spatial_train.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny ops: one thread under parallel workers
+    try:
+        _run_option(rng, kwargs, metric)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run_option(rng, kwargs, metric):
+    from computervision_codes_tpu_torch.models.q2l import Q2L, TASK_SIZES
+    from computervision_codes_tpu_torch.train import (build_sgd,
+                                                      create_train_state)
+
+    model = Q2L("swin_nano_64", loss_type=kwargs["loss_type"],
+                teacher_dim=16, fused_train=True, remat=True,
+                generator=torch.Generator().manual_seed(0))
+    assert model.backbone.remat and model.backbone.stage0_block0.fused_train
+    batch = {"image": rng.standard_normal((1, 64, 64, 3)).astype(np.float32)}
+    for k, n in TASK_SIZES.items():
+        batch[f"label_{k}"] = (rng.random((1, n)) < 0.3).astype(np.float32)
+        if k != "ivt":
+            batch[f"teacher_pred_{k}"] = rng.standard_normal(
+                (1, n)).astype(np.float32)
+            batch[f"teacher_feat_{k}"] = rng.standard_normal(
+                (1, 16)).astype(np.float32)
+    state = create_train_state(model, build_sgd(1e-2), device="cpu")
+    step = make_spatial_train_step(model, device="cpu", **kwargs)
+    state, metrics = step(state, batch)
+    assert state.step == 1 and metric in metrics
+    assert np.isfinite(metrics["loss"].item())
