@@ -271,10 +271,29 @@ printing its own lines:
    of its training loop (end to end), the period between steps and an eval
    forward's span on the card's clock (CUDA events; nothing synchronises
    between steps), and the peak memory.
+17. the temporal TCN driver at full width (``phase_tcn_driver``; 512-d
+   non-negative features of 45 videos of 1,000-6,000 frames, 11 + 3 x 10
+   layers at 512 maps, float32, ``-l 0.001``): MT4MTLKD's tenco mode ``-t
+   -e --mask``, TERL's TCN_black ``-t -e --dedup_black --loss_type single
+   --weight_source balancing``, then ``--resume``; K1 0 launches a
+   training step and 41 an eval forward; before it ``phase_model_tcn``: an
+   eval forward and a training step (dropouts and mask 0) on the card
+   against the CPU;
+18. TERL's learnT driver at full width (``phase_terl_driver``; Swin-T 224,
+   moco_dim 768, a queue of 16384, ``--mlp``, bf16, synthetic PNG frames):
+   ``-t -e --fused_train`` (K6 12 + 12 and the key encoder's K3 + K4 12
+   + 12 a step), ``-t -e``, ``-t --ht``, ``--cam_dump``; K3 + K4 12 + 12
+   an eval forward, no loop product; before it ``phase_model_terl``: one
+   float32 ``kcl_k=0`` step on the card against the CPU.
+Beside phase 3, ``phase_swin_widths`` times K3-K6 at Swin-T's and the
+nano's widths (C 96, 192, 32: N tiles of 96 and 32) against their plain
+versions with each launch's products per path, and
+``phase_teacher_swin_t`` predicts with a bf16 Swin-T ``TeacherSession``.
 
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
 path A), phase 15 (the video inference CLI's, then the dataset path's), phase
-16 (the teacher's training driver's, then the student's),
+16 (the teacher's training driver's, then the student's), phases 17 and 18
+(the TCN driver's, TERL's), the Swin-T teacher's predict,
 phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
 training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
@@ -496,14 +515,28 @@ TEACHER_MODEL_REL_TOL = 1e-3  # 24 blocks and the decoder, sums reordered
 TEACHER_Q8_MIN_CORR = 0.9998
 # kernel checks: (what, B, Hp=Wp, C, heads, window) for K3 and K5, shifted
 # by window // 2 and not; (what, tokens, C, hidden) for K4
+# Swin-T-224's stages 0 and 1 (C 96 and 192, window 7) and the nano's stage
+# 0 (C 32, window 4) at batch 16: C 96 and 32 are the widths off 64, whose
+# products (N 288, 96 and 32) take the Swin GEMM core's N tiles of 96 and 32
+SWIN_WIDTH_CASES = [("SwinT-224 stage 0", 16, 56, 96, 3, 7),
+                    ("SwinT-224 stage 1", 16, 28, 192, 6, 7),
+                    ("nano-64 stage 0", 16, 16, 32, 1, 4)]
+# one bf16 predict of the Swin-T-224 teacher: window 7 is odd, so each of
+# the 12 blocks is K3 + K4 ("split"), 4 wgmma products and an attention
+# phase each
+SWIN_T_TEACHER_LAUNCHES = {"window_mhsa": 12, "mlp_block": 12,
+                           "window_attn": 12, "swin_gemm": 48,
+                           "swin_gemm wgmma": 48}
 K3_CASES = [("SwinL-384 stage 2", 16, 24, 768, 24, 12),
             ("SwinL-224 stage 0, window 7", 16, 56, 192, 6, 7),
-            ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7)]
+            ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7), *SWIN_WIDTH_CASES]
 K4_CASES = [("SwinL-384 stage 2", 16 * 24 * 24, 768, 3072),
             ("SwinL-384 stage 3", 16 * 12 * 12, 1536, 6144),
-            ("ragged tokens", 1000, 192, 768)]
+            ("ragged tokens", 1000, 192, 768),
+            *((what, b * hw * hw, c, 4 * c)
+              for what, b, hw, c, _, _ in SWIN_WIDTH_CASES)]
 K5_CASES = [("SwinL-384 stage 0", 16, 96, 192, 6, 12),
-            ("SwinL-384 stage 1", 16, 48, 384, 12, 12)]
+            ("SwinL-384 stage 1", 16, 48, 384, 12, 12), *SWIN_WIDTH_CASES]
 # the window-attention phase alone (csrc/window_attn.cuh, the attention
 # of K3, K5, K6 and K10's body) on K3's packed qkv: (what, B, map side or
 # (Hp, Wp), heads, window), shifted by window // 2 and not where the map
@@ -520,7 +553,7 @@ ATTN_CASES = [("SwinL-384 stage 0", 16, 96, 6, 12),
 # K4 at stages 2 and 3, K5 at stages 0 and 1
 K3_Q8_CASES = K3_CASES[:2]
 K4_Q8_CASES = K4_CASES[:2]
-K5_Q8_CASES = K5_CASES
+K5_Q8_CASES = K5_CASES[:2]
 # the int8 teacher's Dense layers on Q1 at batch 16: (what, M, K, N)
 Q1_DENSE = [("stage-3 attn qkv", 16 * 144, 1536, 4608),
             ("merge0 reduction", 16 * 48 * 48, 768, 384),
@@ -607,11 +640,15 @@ TRAIN_BATCH, TRAIN_IMG = 8, 384
 K6_ATTN_CASES = [("SwinL-384 stage 0, batch 8", 8, 96, 192, 6, 12, 2),
                  ("SwinL-384 stage 1, batch 8", 8, 48, 384, 12, 12, 2),
                  ("SwinL-384 stage 2, batch 8", 8, 24, 768, 24, 12, 18),
-                 ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7, 0)]
+                 ("ragged, 3 x 21x14", 3, (21, 14), 64, 2, 7, 0),
+                 *((f"{what}, batch 8", 8, hw, c, heads, w, 0)
+                   for what, _, hw, c, heads, w in SWIN_WIDTH_CASES)]
 K6_MLP_CASES = [("SwinL-384 stage 0, batch 8", 8 * 96 * 96, 192, 768, 2),
                 ("SwinL-384 stage 1, batch 8", 8 * 48 * 48, 384, 1536, 2),
                 ("SwinL-384 stage 2, batch 8", 8 * 24 * 24, 768, 3072, 18),
-                ("ragged tokens", 1000, 192, 768, 0)]
+                ("ragged tokens", 1000, 192, 768, 0),
+                *((f"{what}, batch 8", 8 * hw * hw, c, 4 * c, 0)
+                  for what, _, hw, c, _, _ in SWIN_WIDTH_CASES)]
 K6_GRAD_ATTN = ("SwinL-384 stage 2, batch 2", 2, 24, 768, 24, 12)
 K6_GRAD_MLP = ("SwinL-384 stage 2, batch 2", 2 * 24 * 24, 768, 3072)
 # the training step (main path): make_spatial_train_step on Q2L(swin_L_384,
@@ -1739,6 +1776,113 @@ def phase_k3(card: str) -> dict:
             "plain_ms": ms["plain"],
             **bound(*attn_work(b, hw, hw, c, heads, w, True, 2), "bf16"),
             "library_ms": None, "loop_ms": ms["loop"]}
+
+
+def phase_swin_widths(card: str) -> dict:
+    """K3, K4, K5 and K6's two branches at the widths off 64
+    (``SWIN_WIDTH_CASES``: Swin-T-224's stages 0 and 1, the nano's stage
+    0), each checked against its plain version by the K3-K6 phases; here
+    each launch's products per path (wgmma in bf16, the FMA loop in float32,
+    none on the loop; the C libraries' counts equal the wrappers'), then
+    kernel and plain version in turns, shifted, beside the bound. Returns
+    {kernel: {case dtype: {ms, plain_ms, bound_ms, bound_by}}}."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+    from computervision_codes_tpu_torch.ops.mlp_block import (
+        mlp_block_cuda, mlp_block_reference)
+    from computervision_codes_tpu_torch.ops.swin_block import (
+        swin_block_cuda, swin_block_reference)
+    from computervision_codes_tpu_torch.ops.swin_train import (
+        mlp_block_branch_cuda, window_mhsa_branch_cuda)
+    from computervision_codes_tpu_torch.ops.window_mhsa import (
+        window_mhsa_cuda, window_mhsa_reference)
+
+    rows = {k: {} for k in ("window_mhsa", "mlp_block", "swin_block",
+                            "window_mhsa_branch", "mlp_block_branch")}
+    for what, b, hw, c, heads, w in SWIN_WIDTH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name, es = str(dtype)[6:], dtype.itemsize
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            x, attn, mlp = swin_inputs((b, hw, hw), c, 4 * c, heads, w,
+                                       dtype, 77)
+            mask, kw = swin_mask(hw, hw, w, w // 2), dict(window=w,
+                                                          num_heads=heads)
+            xm = x.reshape(-1, c)
+            a_work = attn_work(b, hw, hw, c, heads, w, True, es)
+            m_work = mlp_work(b * hw * hw, c, 4 * c, es)
+            cases = {
+                "window_mhsa": (
+                    lambda: window_mhsa_cuda(x, *attn, mask, **kw),
+                    lambda: window_mhsa_reference(x, *attn, mask, **kw),
+                    a_work),
+                "mlp_block": (lambda: mlp_block_cuda(xm, *mlp),
+                              lambda: mlp_block_reference(xm, *mlp), m_work),
+                "swin_block": (
+                    lambda: swin_block_cuda(x, *attn, mask, *mlp, **kw),
+                    lambda: swin_block_reference(x, *attn, mask, *mlp, **kw),
+                    (a_work[0] + m_work[0],
+                     a_work[1] + m_work[1] - 2 * es * b * hw * hw * c)),
+                "window_mhsa_branch": (
+                    lambda: window_mhsa_branch_cuda(x, *attn, mask, **kw),
+                    lambda: window_mhsa_reference(x, *attn, mask, **kw,
+                                                  res_add=False), a_work),
+                "mlp_block_branch": (
+                    lambda: mlp_block_branch_cuda(xm, *mlp),
+                    lambda: mlp_block_reference(xm, *mlp, res_add=False),
+                    m_work)}
+            path = "wgmma" if dtype == torch.bfloat16 else "fma"
+            for kernel, (fn, ref, (ops, nbytes)) in cases.items():
+                swin_gemm.reset_launches()
+                fn()
+                torch.cuda.synchronize()
+                got = check_gemm_counts(f"{kernel} {name} {what}")
+                want = dict.fromkeys(swin_gemm.PATHS, 0) | {
+                    path: 4 if kernel == "swin_block" else 2}
+                check(got == want, f"{kernel} {name} {what}: products per "
+                                   f"path {got}, want {want}")
+                ms, runs = in_turns({"plain": ref, "kernel": fn},
+                                    {"plain": 5, "kernel": 10})
+                rows[kernel][f"{what} {name}"] = {
+                    "ms": ms["kernel"], "plain_ms": ms["plain"],
+                    **bound(ops, nbytes, kind)}
+                print(f"[kernels] {kernel} width time {name} {what} B={b} "
+                      f"{hw}x{hw} C={c} heads={heads} w={w} shifted: kernel "
+                      f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+                      f"bound {rows[kernel][f'{what} {name}']['bound_ms']:.4f}"
+                      f" ms; products {got}; runs {runs}; {card}")
+            del x, attn, mlp, xm, cases
+    swin_gemm.reset_launches()
+    return rows
+
+
+def phase_teacher_swin_t(card: str) -> dict:
+    """The user-visible form of the widths off 64: a bf16 TeacherSession
+    on Swin-T-224 (stage 0 at C 96, window 7: plan "split", K3 + K4 at
+    every block) predicts 16 frames; its products all take wgmma. Returns
+    the launches of one predict."""
+    from computervision_codes_tpu_torch.ops import swin_gemm
+    from computervision_codes_tpu_torch.serving import TeacherSession
+
+    sess = TeacherSession.create(batch=16, img_size=224,
+                                 backbone="swin_T_224_1k", device=DEVICE)
+    frames = np.random.default_rng(6).integers(0, 256, (16, 224, 224, 3),
+                                               dtype=np.uint8)
+    sess.predict(frames)  # warm-up
+    reset_launches()
+    out, ms = timed_call(lambda: sess.predict(frames))
+    got = path_launches()
+    check_gemm_counts("Swin-T teacher predict")
+    check_attn_counts("Swin-T teacher predict")
+    p = out["i"]
+    check(p.shape == (16, TASK_SIZES["i"]) and bool(np.isfinite(p).all()),
+          f"Swin-T teacher i: {p.shape} or non-finite")
+    want = dict.fromkeys(got, 0) | SWIN_T_TEACHER_LAUNCHES
+    check(got == want, f"Swin-T teacher predict launches {got}")
+    print(f"[teacher] TeacherSession bf16 swin_T_224_1k Q2L 'i' 16 frames "
+          f"224x224: {ms:.3f} ms per predict; launches "
+          f"{ {k: v for k, v in got.items() if v} }; {card}")
+    del sess
+    torch.cuda.empty_cache()
+    return got
 
 
 def attn_inputs(b, hp, wp, heads, w, dtype, seed):
@@ -5238,15 +5382,19 @@ def capture_sessions(cls, method: str, label: str, want: dict, into: list,
         cls.create = original
 
 
+SPATIAL_STEPS = ("make_spatial_train_step", "make_spatial_eval_step")
+
+
 @contextlib.contextmanager
-def timed_steps(module, events: dict):
+def timed_steps(module, events: dict, names: tuple = SPATIAL_STEPS):
     """While open, each train and eval step that ``module`` (a driver)
-    makes records a CUDA event on the current stream as it is called and
-    one as it returns, with the call's ms on the host clock, into
-    ``events["train"]`` and ``events["eval"]``: nothing synchronises, so
-    the host runs ahead of the card as the driver runs it alone."""
-    made = {"train": module.make_spatial_train_step,
-            "eval": module.make_spatial_eval_step}
+    makes with its step factories ``names`` (train, eval) records a CUDA
+    event on the current stream as it is called and one as it returns,
+    with the call's ms on the host clock, into ``events["train"]`` and
+    ``events["eval"]``: nothing synchronises, so the host runs ahead of the
+    card as the driver runs it alone."""
+    made = {kind: getattr(module, name)
+            for kind, name in zip(("train", "eval"), names)}
 
     def wrap(kind, factory):
         def make(*args, **kw):
@@ -5265,13 +5413,13 @@ def timed_steps(module, events: dict):
             return call
         return make
 
-    module.make_spatial_train_step = wrap("train", made["train"])
-    module.make_spatial_eval_step = wrap("eval", made["eval"])
+    for kind, name in zip(("train", "eval"), names):
+        setattr(module, name, wrap(kind, made[kind]))
     try:
         yield
     finally:
-        module.make_spatial_train_step = made["train"]
-        module.make_spatial_eval_step = made["eval"]
+        for kind, name in zip(("train", "eval"), names):
+            setattr(module, name, made[kind])
 
 
 def step_periods(pairs: list) -> list:
@@ -5281,7 +5429,8 @@ def step_periods(pairs: list) -> list:
 
 
 def driver_run(label: str, module, argv: list, want_step: dict,
-               want_eval: dict, card: str) -> tuple:
+               want_eval: dict, card: str, names: tuple = SPATIAL_STEPS,
+               batch: int = 0, tag: str = "spatial") -> tuple:
     """``module.main(argv)`` on the card with its steps timed by events:
     every kernel's launches must be ``want_step`` per training step plus
     ``want_eval`` per eval forward, the Swin GEMM core's products on
@@ -5289,15 +5438,18 @@ def driver_run(label: str, module, argv: list, want_step: dict,
     its loop (the driver's own ``train_seconds``), the median ms of a
     step's call on the host clock, the median period between steps and
     an eval forward's span on the card's clock, and the peak device
-    memory. Returns (result, the steps' events
-    by kind, launches)."""
+    memory. ``names``: the driver's step factories (``timed_steps``);
+    ``batch``: the frames of a step (0: the driver's ``-b``; a temporal
+    driver's steps take a clip each, whose frames the result counts);
+    ``tag``: the lines' prefix. Returns (result, the steps' events by
+    kind, launches)."""
     events = {}
-    batch = int(argv[argv.index("-b") + 1])
+    batch = batch or int(argv[argv.index("-b") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = path_launches()
     t0 = time.perf_counter()
-    with timed_steps(module, events):
+    with timed_steps(module, events, names):
         result = module.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -5319,23 +5471,28 @@ def driver_run(label: str, module, argv: list, want_step: dict,
     spans = [e[0].elapsed_time(e[1]) for e in events.get("eval", [])]
     eval_ms = float(np.median(spans[1:])) if evals > 1 else None
     epoch_s = result.get("train_seconds", [])
-    print(f"[spatial] {label}: {steps} training steps, {evals} eval "
-          f"forwards of batch {batch}; launches "
+    clips = result.get("train_frames")  # a temporal driver: a clip a step
+    frames = sum(clips) if clips else steps * batch
+    per_step = frames / steps if clips else batch
+    print(f"[{tag}] {label}: {steps} training steps, {evals} eval "
+          f"forwards of " + ("one video each" if clips else f"batch {batch}")
+          + "; launches "
           f"{ {k: v for k, v in count.items() if v} }; "
-          + (f"the epoch {steps * batch} frames (the last batch padded) in "
+          + (f"the epoch {frames} frames in "
              f"{sum(epoch_s):.3f} s of its training loop (host clock) = "
-             f"{steps * batch / sum(epoch_s):.1f} frames/s end to end; "
+             f"{frames / sum(epoch_s):.1f} frames/s end to end; "
              if epoch_s else "")
           + "ms per training step, median after the first: a call on the "
           "host clock (no synchronise) "
           + (f"{host_ms:.3f}, " if host_ms else "-, ")
           + "between consecutive steps' ends on the card's clock "
-          + (f"{step_ms:.3f} = {batch / step_ms * 1e3:.1f} frames/s per "
+          + (f"{step_ms:.3f} = {per_step / step_ms * 1e3:.1f} frames/s per "
              f"step" if step_ms else "-")
           + "; ms of an eval forward on the card's clock, median after "
           f"the first: "
-          + (f"{eval_ms:.3f} = {batch / eval_ms * 1e3:.1f} frames/s of the "
-             f"batch" if eval_ms else "-")
+          + (f"{eval_ms:.3f}" + ("" if clips else
+                                  f" = {batch / eval_ms * 1e3:.1f} frames/s "
+                                  f"of the batch") if eval_ms else "-")
           + f"; peak device memory {peak / 2**30:.2f} GiB; the run "
           f"{wall:.1f} s (host clock, model creation and decode included); "
           f"{card}")
@@ -5570,6 +5727,307 @@ def phase_spatial_drivers(card: str) -> tuple:
     print(f"[spatial] phase 16 wall time {time.perf_counter() - t_phase:.1f}"
           f" s (host clock), writing the tree {write_s:.1f} s of it; {card}")
     return teacher_launches, student_launches
+
+
+TCN_PATH = ("the temporal TCN driver (cli.temporal_tcn: tenco -t -e --mask, "
+            "TCN_black -t -e and --resume; float32, K1 in eval only)")
+TERL_PATH = ("TERL's learnT driver (cli.terl_learnt -t -e with and without "
+             "--fused_train, --ht, --cam_dump; Swin-T 224, bf16)")
+TCN_LENGTHS = tuple(int(t) for t in np.linspace(1000, 6000, 45))
+TCN_DIM = 512  # the spatial student's pooled feature
+TCN_STEPS = ("make_loss_type_train_step", "make_tcn_eval_step")
+TCN_EVAL_LAUNCHES = {"dilated_residual": LAYERS_PER_FORWARD}
+TCN_MODEL_T = 1000  # card vs CPU: one eval forward and one step
+# the driver runs' peak learning rate (-l): at the reference's 0.01 the
+# 41-layer TCN's first losses on random features are in the hundreds and
+# its SGD diverges to NaN within a few steps, in both packages (CPU runs of
+# their train steps); 0.001 trains
+TCN_LR = 0.001
+TERL_BACKBONE, TERL_IMG, TERL_FRAMES, TERL_BATCH = "swin_T_224_1k", 224, 4, 32
+TERL_QUEUE = 16384
+TERL_STEPS = ("make_terl_train_step", "make_terl_eval_step")
+# Swin-T's 12 blocks, window 7: K3 + K4 in every eval forward (the key
+# module's too); K6's two branches in the query forward under --fused_train
+TERL_EVAL_LAUNCHES = {"window_mhsa": 12, "mlp_block": 12, "window_attn": 12,
+                      "swin_gemm": 48}
+TERL_FUSED_STEP = {"window_mhsa_branch": 12, "mlp_block_branch": 12,
+                   "window_mhsa": 12, "mlp_block": 12, "window_attn": 24,
+                   "swin_gemm": 96}
+TERL_MODEL_BATCH = 2  # card vs CPU: one float32 kcl_k=0 step
+
+
+def tcn_tree(root: str):
+    """The TCN phase's CSV tree and seeded 512-d feature store ("Res18"),
+    videos of TCN_LENGTHS frames, each with two frozen pairs (equal
+    consecutive rows, which --dedup_black drops); returns the split. The
+    features are non-negative, as the spatial student's pooled post-ReLU
+    features are."""
+    from computervision_codes_tpu_torch.data.feature_store import (
+        FeatureStore)
+    from computervision_codes_tpu_torch.data.splits import resolve_split
+    from computervision_codes_tpu_torch.data.synthetic import (
+        synthetic_feature_dict, write_synthetic_dataset)
+
+    split = resolve_split("cholect45-crossval", 1)
+    write_synthetic_dataset(root, split.all_videos, list(TCN_LENGTHS))
+    feats = synthetic_feature_dict(split.all_videos, list(TCN_LENGTHS),
+                                   TCN_DIM, seed=8)
+    for f in feats.values():
+        np.maximum(f, 0, out=f)  # post-ReLU, as a ResNet's pooled features
+        f[101] = f[100]
+        f[501] = f[500]
+    FeatureStore(f"{root}/data_feats", "Res18").save(1, "feats", feats)
+    return split
+
+
+def phase_model_tcn() -> None:
+    """The full-width TCN (512 maps, 11 + 3 x 10 layers), float32, on the
+    card against the CPU: an eval forward (K1 on the card) and one
+    training step with its dropouts and mask at 0 (the plain path on both:
+    no K1 launch)."""
+    from computervision_codes_tpu_torch.models import tcn as tcn_mod
+    from computervision_codes_tpu_torch.train import (
+        build_sgd, create_train_state, make_tcn_train_step)
+
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1, TCN_MODEL_T, TCN_DIM)).astype(np.float32)
+    batch = {"features": x} | {
+        f"label_{k}": (rng.random((TCN_MODEL_T, n)) < 0.2).astype(
+            np.float32) for k, n in TASK_SIZES.items()}
+    readings = {}
+    for device in ("cpu", DEVICE):
+        model = tcn_mod.TemporalTCN(TCN_DIM, generator=torch.Generator()
+                                    .manual_seed(0))
+        model.mask_rate = model.channel_dropout = 0.0
+        for m in model.modules():
+            if isinstance(m, tcn_mod.DilatedResidualLayer):
+                m.dropout = 0.0
+        state = create_train_state(model, build_sgd(0.01, 1e-5),
+                                   device=device)
+        with torch.inference_mode():
+            out = state.model.eval()(torch.from_numpy(x).to(device))
+        probs = {k: torch.sigmoid(out[k][0]).float().cpu() for k in
+                 TASK_SIZES}
+        before = launches()
+        t0 = time.perf_counter()
+        _, metrics = make_tcn_train_step(model, device=device)(state, batch)
+        loss = metrics["loss_total"].item()
+        seconds = time.perf_counter() - t0
+        count = launched_since(before)
+        norm = float(torch.stack([p.grad.float().norm() for p in
+                                  state.model.parameters()]).norm())
+        readings[device] = (probs, loss, norm, count, seconds)
+    (p_cpu, l_cpu, n_cpu, _, t_cpu), (p_dev, l_dev, n_dev, count, t_dev) = (
+        readings["cpu"], readings[DEVICE])
+    card_vs_cpu(f"full-width TCN eval forward, T={TCN_MODEL_T}, float32,",
+                [(k, p_dev[k], p_cpu[k]) for k in TASK_SIZES], MODEL_REL_TOL)
+    check(count == dict.fromkeys(KERNELS, 0),
+          f"TCN training step launched {count}")
+    loss_rel = abs(l_dev - l_cpu) / max(1.0, abs(l_cpu))
+    norm_rel = abs(n_dev - n_cpu) / max(n_cpu, 1e-12)
+    check(loss_rel <= TRAIN_F32_LOSS_REL and norm_rel <= TRAIN_F32_GRAD_REL,
+          f"TCN training step card vs CPU: loss {l_dev} vs {l_cpu}, "
+          f"gradient norm {n_dev} vs {n_cpu}")
+    print(f"[model] float32 TCN training step (512 maps, 41 layers, T="
+          f"{TCN_MODEL_T}, dropouts and mask 0, the plain path): loss "
+          f"{l_dev:.6f} vs {l_cpu:.6f} (relative {loss_rel:.2e}, tol "
+          f"{TRAIN_F32_LOSS_REL:g}), global gradient norm {n_dev:.6e} vs "
+          f"{n_cpu:.6e} (relative {norm_rel:.2e}, tol "
+          f"{TRAIN_F32_GRAD_REL:g}); no kernel launched; CPU step "
+          f"{t_cpu:.2f} s, card step {t_dev:.2f} s (host clock)")
+
+
+def phase_tcn_driver(card: str) -> dict:
+    """The temporal TCN driver at full width (512-d features of videos of
+    1,000-6,000 frames, 11 + 3 x 10 layers at 512 maps, float32): (a)
+    MT4MTLKD's tenco mode ``-t -e --mask``, (b) TERL's TCN_black mode ``-t
+    -e --dedup_black --loss_type single --weight_source balancing``, (c)
+    (b) again with ``--resume``. K1 0 launches a training step (the plain
+    path, as JAX trains) and 41 an eval forward. Returns the launches,
+    counted from 0."""
+    from computervision_codes_tpu_torch.cli import temporal_tcn
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        t0 = time.perf_counter()
+        split = tcn_tree(root)
+        write_s = time.perf_counter() - t0
+        reset_launches()
+        base = ["--data_dir", root, "--epochs", "1", "--device", DEVICE,
+                "-l", *[str(TCN_LR)] * 3]
+        runs = {"(a) tenco -t -e --mask": base + [
+                    "-t", "-e", "--mask", "--ckpt_root", f"{root}/ck_a"],
+                "(b) TCN_black -t -e": base + [
+                    "-t", "-e", "--dedup_black", "--loss_type", "single",
+                    "--weight_source", "balancing", "--ckpt_root",
+                    f"{root}/ck_b"]}
+        runs["(c) TCN_black --resume"] = runs["(b) TCN_black -t -e"] + [
+            "--resume"]
+        steps = {}
+        for label, argv in runs.items():
+            res, events, _ = driver_run(label, temporal_tcn, argv, {},
+                                        TCN_EVAL_LAUNCHES, card, TCN_STEPS,
+                                        batch=1, tag="tcn")
+            finite_losses(label, res)
+            check(len(events["eval"]) == len(split.val) + len(split.test),
+                  f"{label}: {len(events['eval'])} eval forwards")
+            check(all(0.0 <= m <= 1.0 for m in res["test_mAP"].values()),
+                  f"{label}: test mAP {res['test_mAP']}")
+            steps[label] = res["step"]
+            frames = sum(res["train_frames"])
+            print(f"[tcn] {label}: {res['step']} steps over {frames} clip "
+                  f"frames ({frames / len(events['train']):.0f} a step), "
+                  f"loss terms {res['train_loss'][0]}; test mAP "
+                  f"{rounded(res['test_mAP'])}")
+        check(steps["(c) TCN_black --resume"]
+              == 2 * steps["(b) TCN_black -t -e"],
+              f"--resume: steps {steps}")
+        tcn = path_launches()
+    print(f"[tcn] phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock), writing the tree {write_s:.1f} s of it; {card}")
+    return tcn
+
+
+def terl_batch(rng, b: int) -> dict:
+    """A seeded TERL training batch of ``b`` frames at TERL_IMG with two
+    tail anchors a frame."""
+    from computervision_codes_tpu_torch.models.moco import (
+        select_tail_anchors)
+
+    tails = np.zeros((b, 100), np.float32)
+    for i in range(b):
+        tails[i, rng.choice(100, 2, replace=False)] = 1
+    s, c, v = select_tail_anchors(tails, 4 * b)
+    lab = {k: (rng.random((b, n)) < 0.3).astype(np.float32)
+           for k, n in TASK_SIZES.items() if k != "ivt"}
+    return {"image1": rng.standard_normal((b, TERL_IMG, TERL_IMG, 3)).astype(
+                np.float32),
+            "image2": rng.standard_normal((b, TERL_IMG, TERL_IMG, 3)).astype(
+                np.float32),
+            "anchor_sample": s, "anchor_class": c, "anchor_valid": v,
+            "label_ivt": np.maximum(tails, rng.random((b, 100)) < 0.05
+                                    ).astype(np.float32),
+            **{f"label_{k}": a for k, a in lab.items()}}
+
+
+def phase_model_terl() -> None:
+    """One float32 TERL step (Swin-T 224, moco_dim 768, a queue of
+    TERL_QUEUE, --mlp, --fused_train, kcl_k 0, DropPath off: nothing is
+    drawn) on the card against the CPU: the loss terms, the gradient
+    norm, the enqueued keys."""
+    from computervision_codes_tpu_torch.models import moco
+    from computervision_codes_tpu_torch.models.common import DropPath
+    from computervision_codes_tpu_torch.train import build_sgd
+    from computervision_codes_tpu_torch.train.terl import (
+        create_terl_state, make_terl_train_step)
+
+    batch = terl_batch(np.random.default_rng(13), TERL_MODEL_BATCH)
+    readings, queue0 = {}, None
+    for device in ("cpu", DEVICE):
+        model = moco.TERLModel(TERL_BACKBONE, 768, mlp=True,
+                               fused_train=True,
+                               generator=torch.Generator().manual_seed(0))
+        for m in model.modules():
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+        state = create_terl_state(model, build_sgd(0.01, 1e-5), seed=1,
+                                  queue_size=TERL_QUEUE, device=device)
+        # one queue for both: a CUDA generator draws other numbers
+        if queue0 is None:
+            queue0 = copy.deepcopy(state.queue.state_dict())
+        else:
+            state.queue.load_state_dict(queue0)
+        ptr = int(state.queue.ptr)
+        before = launches()
+        t0 = time.perf_counter()
+        _, metrics = make_terl_train_step(model, w_epoch=0, kcl_k=0)(
+            state, batch, 0)
+        terms = {k: v.item() for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        count = launched_since(before)
+        norm = float(torch.stack([p.grad.float().norm() for p in
+                                  state.model.parameters()]).norm())
+        keys = state.queue.feats[ptr:int(state.queue.ptr)].float().cpu()
+        readings[device] = (terms, norm, keys, count, seconds)
+    (t_cpu, n_cpu, k_cpu, _, s_cpu), (t_dev, n_dev, k_dev, count, s_dev) = (
+        readings["cpu"], readings[DEVICE])
+    # float32: the products on the FMA loop, none counted as wgmma
+    want = dict.fromkeys(KERNELS, 0) | TERL_FUSED_STEP | {"swin_gemm": 0}
+    check(count == want, f"float32 TERL step launches {count}, want {want}")
+    rel = {k: abs(t_dev[k] - v) / max(1.0, abs(v)) for k, v in t_cpu.items()}
+    norm_rel = abs(n_dev - n_cpu) / max(n_cpu, 1e-12)
+    check(all(r <= TRAIN_F32_LOSS_REL for r in rel.values())
+          and norm_rel <= TRAIN_F32_GRAD_REL,
+          f"TERL step card vs CPU: loss terms {t_dev} vs {t_cpu}, gradient "
+          f"norm {n_dev} vs {n_cpu}")
+    card_vs_cpu("float32 TERL step, the enqueued keys,",
+                [("keys", k_dev, k_cpu)], MODEL_REL_TOL)
+    print(f"[model] float32 TERL step ({TERL_BACKBONE} {TERL_IMG}, moco_dim "
+          f"768, queue {TERL_QUEUE}, --mlp --fused_train, kcl_k 0, DropPath "
+          f"off, batch {TERL_MODEL_BATCH}): loss terms card {t_dev} vs CPU "
+          f"{t_cpu} (relative {max(rel.values()):.2e}, tol "
+          f"{TRAIN_F32_LOSS_REL:g}); gradient norm {n_dev:.6e} vs "
+          f"{n_cpu:.6e} (relative {norm_rel:.2e}); {len(k_dev)} keys "
+          f"enqueued; launches { {k: v for k, v in count.items() if v} }; "
+          f"CPU step {s_cpu:.2f} s, card step {s_dev:.2f} s (host clock)")
+
+
+def phase_terl_driver(card: str) -> dict:
+    """TERL's learnT driver at full width (Swin-T 224, moco_dim 768, a
+    queue of 16384, --mlp, bf16) on synthetic PNG frames: (a) ``-t -e
+    --fused_train`` (K6 in the query forward, K3 + K4 in the key module's
+    and every eval forward), (b) ``-t -e`` (the query forward plain), (c)
+    ``-t --ht``, (d) ``--cam_dump`` of the test frames. Returns the
+    launches, counted from 0."""
+    from computervision_codes_tpu_torch.cli import terl_learnt
+    from computervision_codes_tpu_torch.data.splits import resolve_split
+    from computervision_codes_tpu_torch.data.synthetic import (
+        write_synthetic_dataset)
+
+    t_phase = time.perf_counter()
+    plain_step = {k: v for k, v in TERL_EVAL_LAUNCHES.items()}
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        split = resolve_split("cholect45-crossval", 1)
+        write_synthetic_dataset(root, split.all_videos, TERL_FRAMES,
+                                height=TERL_IMG, width=TERL_IMG,
+                                write_images=True)
+        reset_launches()
+        base = ["--data_dir", root, "--backbone", TERL_BACKBONE,
+                "--img_size", str(TERL_IMG), "-b", str(TERL_BATCH),
+                "--mlp", "--moco_k", str(TERL_QUEUE), "--epochs", "1",
+                "--dtype", "bfloat16", "--device", DEVICE]
+        runs = (("(a) -t -e --fused_train", ["-t", "-e", "--fused_train"],
+                 TERL_FUSED_STEP, True),
+                ("(b) -t -e", ["-t", "-e"], plain_step, True),
+                ("(c) -t --ht", ["-t", "--ht"], plain_step, False))
+        for i, (label, extra, step_want, tested) in enumerate(runs):
+            res, events, _ = driver_run(
+                label, terl_learnt, base + extra + [
+                    "--ckpt_root", f"{root}/ck_{i}"], step_want,
+                TERL_EVAL_LAUNCHES, card, TERL_STEPS, tag="terl")
+            finite_losses(label, res)
+            check(res["step"] == len(events["train"]) >= 1,
+                  f"{label}: {res['step']} steps")
+            print(f"[terl] {label}: loss terms {res['train_loss'][0]}"
+                  + (f"; test mAP {rounded(res['test_mAP'])}" if tested
+                     else ""))
+        before = path_launches()
+        cams = terl_learnt.main(base + ["--cam_dump", f"{root}/cams",
+                                        "--ckpt_root", f"{root}/ck_1"])
+        count = {k: v - before[k] for k, v in path_launches().items()}
+        forwards = count["window_mhsa"] // 12
+        check(forwards >= 1 and all(
+            count[k] == v * forwards for k, v in TERL_EVAL_LAUNCHES.items()),
+            f"(d) --cam_dump launches {count}")
+        paths = cams["cam_paths"]
+        check(len(paths) >= 4 and all(os.path.getsize(p) > 0 for p in paths),
+              f"(d) --cam_dump wrote {len(paths)} overlays")
+        print(f"[terl] (d) --cam_dump: {len(paths)} overlay PNGs over "
+              f"{forwards} eval forwards")
+        terl = path_launches()
+    print(f"[terl] phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"(host clock); {card}")
+    return terl
 
 
 def rounded(table: dict) -> dict:
@@ -5876,6 +6334,11 @@ def main() -> None:
     measured["window_mhsa_branch"], measured["mlp_block_branch"] = \
         phase_k6(card)
     slice_s = time.perf_counter() - slice_s
+    widths_s = time.perf_counter()  # K3-K6 at the widths off 64
+    for name, rows in phase_swin_widths(card).items():
+        measured[name]["swin_widths"] = rows
+    swin_t_teacher = phase_teacher_swin_t(card)
+    widths_s = time.perf_counter() - widths_s
     probe_s = time.perf_counter()  # the probes' phases, summed
     measured["swin_gemm"] = phase_p1(card)
     p2_loops = phase_p2(card)
@@ -5956,6 +6419,12 @@ def main() -> None:
     spatial_s = time.perf_counter()  # this slice's phase: both drivers
     spatial_teacher, spatial_student = phase_spatial_drivers(card)
     spatial_s = time.perf_counter() - spatial_s
+    temporal_s = time.perf_counter()  # the TCN and TERL drivers
+    phase_model_tcn()
+    tcn_path = phase_tcn_driver(card)
+    phase_model_terl()
+    terl_path = phase_terl_driver(card)
+    temporal_s = time.perf_counter() - temporal_s
     t0 = time.perf_counter()
     reset_launches()  # K8's op path starts here
     phase_k8_path(card)
@@ -5997,6 +6466,10 @@ def main() -> None:
              "the probe drivers (int8_kernel_probe and swin_pack_probe "
              "main())": probes,
              SPATIAL_TEACHER_PATH: spatial_teacher,
+             "the Swin-T-224 teacher's bf16 predict (C 96 at stage 0)":
+                 swin_t_teacher,
+             TCN_PATH: tcn_path,
+             TERL_PATH: terl_path,
              "the student's training driver (cli.spatial_cnn -t -e -d, "
              "--optimizer sam, --qat: ResNet18 on cuDNN and cuBLAS, no "
              "kernel of the port)": spatial_student}
@@ -6019,7 +6492,9 @@ def main() -> None:
     from computervision_codes_tpu_torch.ops.swin_gemm import PATHS
     for label in ("teacher sessions (creation and predicts)",
                   "the Swin-L-384 teacher's training steps (both plans) and "
-                  "the trained module's eval", SPATIAL_TEACHER_PATH):
+                  "the trained module's eval", SPATIAL_TEACHER_PATH,
+                  "the Swin-T-224 teacher's bf16 predict (C 96 at stage 0)",
+                  TERL_PATH):
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
@@ -6079,7 +6554,10 @@ def main() -> None:
           f"step) {mstct_s:.1f} s; the probes' (P1's and P2's checks, both "
           f"drivers' main()) {probe_s:.1f} s; the frame source's "
           f"(phase_frames) {frames_s:.1f} s; the training drivers' "
-          f"(phase 16) {spatial_s:.1f} s (host clock)")
+          f"(phase 16) {spatial_s:.1f} s; the widths off 64 (their K3-K6 "
+          f"times and the Swin-T teacher) {widths_s:.1f} s; the TCN and "
+          f"TERL drivers (phases 17-18, card vs CPU included) "
+          f"{temporal_s:.1f} s (host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/"

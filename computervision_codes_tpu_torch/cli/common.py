@@ -103,11 +103,13 @@ def seed_everything(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def maybe_warm_start(flags, state, backbone: str, logger):
+def maybe_warm_start(flags, state, backbone: str, logger,
+                     submodule: str = "backbone"):
     """Apply ``--imagenet_pretrain``: the converted official checkpoint
-    into the backbone (``models.pretrained``); a no-op when the flag is
-    empty. A directory is best-effort per backbone (no file for it: train
-    from scratch, logged); a .pth path raises on any problem."""
+    into the backbone at ``submodule`` (child names joined by "/"; TERL's
+    is ``encoder/backbone``), by ``models.pretrained``; a no-op when the
+    flag is empty. A directory is best-effort per backbone (no file for
+    it: train from scratch, logged); a .pth path raises on any problem."""
     path = getattr(flags, "imagenet_pretrain", "")
     if not path:
         return state
@@ -119,7 +121,8 @@ def maybe_warm_start(flags, state, backbone: str, logger):
         logger.log(f"imagenet_pretrain: no checkpoint for {backbone} in "
                    f"{path} — training from scratch")
         return state
-    return warm_start_backbone(state, backbone, path, log=logger.log)
+    return warm_start_backbone(state, backbone, path, log=logger.log,
+                               submodule=submodule)
 
 
 def refuse_unported(flags) -> None:

@@ -87,7 +87,7 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w1,
            const void* b1, const void* w2, const void* b2, void* h,
            void* stats, void* normed, void* y, int M, int C, int hidden,
            int res_add, int dtype, void* stream) {
-  if (M <= 0 || C <= 0 || C % 64 || hidden <= 0 || hidden % 64)
+  if (M <= 0 || C <= 0 || C % 32 || hidden <= 0 || hidden % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -84,7 +84,7 @@ int launch(const void* x, const void* g1, const void* be1, const void* wqkv,
            void* stats, void* out, int B, int Hp, int Wp, int C, int heads,
            int window, int hidden, float scale, int dtype, void* stream) {
   if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
-      hidden % 64)
+      hidden % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -111,8 +111,8 @@ int launch_q8(const void* x, const void* g1, const void* be1,
               void* amax, void* codes, void* out, int B, int Hp, int Wp,
               int C, int heads, int window, int hidden, float scale,
               int dtype, void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || hidden <= 0 ||
-      hidden % 64)
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window, 64) ||
+      hidden <= 0 || hidden % 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int strips = B * (Hp / window);

@@ -65,8 +65,10 @@
 // The int8 epilogues and quantizers use the _rn intrinsics and rintf (no
 // FMA contraction), in the JAX code's order of operations.
 //
-// Constraints, checked by the C entry points: K % 32 == 0 and N % 64 == 0
-// for the loops (C % 64 == 0 for the blocks); head_dim 32; window <= 12
+// Constraints, checked by the C entry points: K % 32 == 0 and N % 32 == 0
+// for the float loops (a last N tile of 32 columns is masked), N % 64 == 0
+// for the int8 loop and P1's int8w; C % 32 == 0 for the float blocks, C % 64
+// == 0 for the int8 branch; head_dim 32; window <= 12
 // (window_attn.cuh instantiates its strips for N <= 144).
 
 #pragma once
@@ -338,8 +340,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
       for (int i = 0; i < Tile::NB; ++i) {
         const int v = tid + i * THREADS;
         const int r = v / (BN / V), c = (v % (BN / V)) * V;
-        rb[i] = *reinterpret_cast<const uint4*>(
-            p.w + (size_t)(k0 + r) * p.N + n0 + c);
+        // columns past N (a last tile of 32, N % 32 == 0) read as zeros
+        rb[i] = n0 + c < p.N ? *reinterpret_cast<const uint4*>(
+                                   p.w + (size_t)(k0 + r) * p.N + n0 + c)
+                             : make_uint4(0u, 0u, 0u, 0u);
       }
     }
   };
@@ -404,7 +408,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs<T, W> p) {
 
   for (int i = tid; i < BM * BN; i += THREADS) {
     const int r = i / BN, c = i % BN;
-    if (m0 + r >= p.M) continue;
+    if (m0 + r >= p.M || n0 + c >= p.N) continue;
     const size_t o = (size_t)(m0 + r) * p.N + n0 + c;
     if constexpr (EPI == EPI_SCALE) {
       p.out[o] = from_f<T>(__fmul_rn(Cs[r * LDC + c], p.scale[n0 + c]));
@@ -438,18 +442,24 @@ cudaError_t ln_stats(const T* x, float2* stats, int M, int C,
   return cudaGetLastError();
 }
 
+// N % 32 == 0 (int8w codes: N % 64 == 0); a last tile of 32 is masked
 template <typename T, bool LN, int EPI, typename W = T>
 cudaError_t gemm(const GemmArgs<T, W>& p, cudaStream_t s) {
-  if (p.M <= 0 || p.K % BK || p.N % BN || (p.M + BM - 1) / BM > 65535)
+  if (p.M <= 0 || p.K % BK || p.N % (sizeof(W) == 1 ? BN : 32) ||
+      (p.M + BM - 1) / BM > 65535)
     return cudaErrorInvalidValue;
-  const dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
   gemm_kernel<T, LN, EPI, W><<<grid, THREADS, 0, s>>>(p);
   return cudaGetLastError();
 }
 
-inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w) {
+// c_multiple: 32 for the float paths (every Swin width), 64 for the int8
+// branch and P2, whose loops tile N by 64
+inline bool block_shape_ok(int B, int Hp, int Wp, int C, int heads, int w,
+                           int c_multiple = 32) {
   return B > 0 && w > 0 && w <= MAX_WINDOW && Hp % w == 0 && Wp % w == 0 &&
-         Hp > 0 && Wp > 0 && C % 64 == 0 && heads > 0 && C == heads * HD &&
+         Hp > 0 && Wp > 0 && C % c_multiple == 0 && heads > 0 &&
+         C == heads * HD &&
          (long long)B * (Hp / w) * (Wp / w) <= 2147483647LL && heads <= 65535;
 }
 

@@ -20,8 +20,13 @@
 //                      read and divided once, where the loop quantized A
 //                      once per 64-column N tile;
 //   wgmma_gemm_kernel  out = epilogue(A B + b): 128 x BN tiles, BN 128 where
-//                      it divides N, else 192, else 64 (tile_n; every
-//                      Swin-L N is a multiple of 192, P1's chunks are 1024).
+//                      it divides N, else 192, else 64, else (bf16 only) 96,
+//                      else 32 (tile_n; every Swin-L N is a multiple of 192,
+//                      P1's chunks are 1024; Swin-T's stage 0 has N 288 and
+//                      96, the nano's 96 and 32). A B stage is BN / 64 boxes
+//                      of 64 columns, rounded up: at BN 32 and 96 its last
+//                      box reads 32 columns past the tile (zeros past N, or
+//                      the next tile's), which the product does not read.
 //                      Warpgroup 0 produces: one thread issues the TMA loads
 //                      of A and B into a ring of 4 stages of 128 bytes of K
 //                      (128-byte swizzle), handed over by full/empty
@@ -71,10 +76,12 @@
 // gemm_path_int8w, the rule of ops/swin_gemm.py::gemm_path) follows from
 // the operand type and the shape alone: float32 stays on the FMA loop (TF32
 // would change its numbers); bf16 and int8w take wgmma when K % 8 == 0
-// (TMA's 16-byte row pitch of A) and N % 64 == 0 (the tiles), int8 when
-// K % 16 == 0 and N % 64 == 0; anything else would take the loop, which
-// needs K % 32 == 0 and N % 64 == 0 and so refuses those shapes too. Every
-// main-path product takes wgmma. The loop is kept for those shapes and,
+// (TMA's 16-byte row pitch of A) and N % 32 == 0 (bf16; int8w N % 64 ==
+// 0), int8 when K % 16 == 0 and N % 64 == 0; anything else would take the
+// loop, which needs K % 32 == 0 and N % 32 (int8: 64) == 0 and so refuses
+// those shapes too. Every main-path product takes wgmma. K need not be a
+// multiple of a stage's 64: TMA fills the columns of A and the rows of B
+// past K with zeros. The loop is kept for those shapes and,
 // through each library's "_loop" entry points (a template flag here, never
 // set by a main path), as the parent that chip_smoke.py times and compares
 // against (P1's int8w on it: the WMMA loop widening on load). Each library
@@ -113,7 +120,7 @@ using bf16 = __nv_bfloat16;
 enum GemmPath { PATH_WGMMA = 0, PATH_LOOP = 1, PATH_FMA = 2 };
 
 inline int gemm_path_bf16(int K, int N) {
-  return K % 8 == 0 && N % 64 == 0 ? PATH_WGMMA : PATH_LOOP;
+  return K % 8 == 0 && N % 32 == 0 ? PATH_WGMMA : PATH_LOOP;
 }
 inline int gemm_path_q8(int K, int N) {
   return K % 16 == 0 && N % 64 == 0 ? PATH_WGMMA : PATH_LOOP;
@@ -122,9 +129,11 @@ inline int gemm_path_int8w(int K, int N) {
   return K % 8 == 0 && N % 64 == 0 ? PATH_WGMMA : PATH_LOOP;
 }
 
-// the N tile of the wgmma path (N % 64 == 0)
+// the N tile of the wgmma path (N % 32 == 0; 96 and 32 for bf16 only)
 inline int tile_n(int N) {
-  return N % 128 == 0 ? 128 : N % 192 == 0 ? 192 : 64;
+  return N % 128 == 0 ? 128 : N % 192 == 0 ? 192 : N % 64 == 0 ? 64
+                                               : N % 96 == 0  ? 96
+                                                              : 32;
 }
 
 namespace {
@@ -197,8 +206,10 @@ constexpr int WIDEN_THREADS = 512;
 // The ring: STAGES slots of A, of B and, with WIDEN (int8w), of B's codes
 // (BN / 64 raw boxes), then the full and empty mbarriers of each slot and,
 // with WIDEN, one a slot that its widened B is ready
+// the 64-column boxes of a B stage at tile BN (32 and 96 round up)
+template <int BN> constexpr int b_boxes = (BN + 63) / 64;
 template <int BN, bool WIDEN = false> struct Smem {
-  static constexpr int B_BYTES = BN * KB;
+  static constexpr int B_BYTES = b_boxes<BN> * B_BOX;
   static constexpr int RAW_BYTES = WIDEN ? BN / 64 * RAW_BOX : 0;
   // 1024 for aligning the ring by hand, the ring, the mbarriers
   static constexpr int SIZE =
@@ -218,12 +229,13 @@ template <int EPI, typename W = bf16> struct Bf16Op {
   using Args = GemmArgs<bf16, W>;
   static __host__ __device__ int k_bytes(int K) { return 2 * K; }
 
-  // B's stage: BN / 64 boxes of 64 N x 64 K rows, one after another
+  // B's stage: BN / 64 (rounded up) boxes of 64 N x 64 K rows, one after
+  // another
   template <int BN>
   static __device__ void load_b(uint8_t* dst, const CUtensorMap* tm, int kb,
                                 int n_block, uint64_t* bar) {
 #pragma unroll
-    for (int j = 0; j < BN / 64; ++j)
+    for (int j = 0; j < wg::b_boxes<BN>; ++j)
       hopper::tma_load_2d(dst + j * wg::B_BOX, tm, 2 * (n_block + 64 * j),
                           kb * (wg::KB / 2), bar);
   }
@@ -431,6 +443,9 @@ template <class Op> struct Widens : std::false_type {};
 template <> struct Widens<Int8wOp> : std::true_type {};
 template <class Op>
 constexpr int threads_of = Widens<Op>::value ? wg::WIDEN_THREADS : wg::THREADS;
+// the Ops with N tiles of 96 and 32 (bf16 x bf16: WgmmaBF16T has them)
+template <class Op> struct NarrowTiles : std::false_type {};
+template <int EPI> struct NarrowTiles<Bf16Op<EPI>> : std::true_type {};
 
 // Persistent: block b takes tiles b, b + gridDim.x, ... in N-fastest order
 // (the blocks in flight share their A rows in L2). The ring's stage and
@@ -617,8 +632,13 @@ cudaError_t launch_wgmma_tiled(const CUtensorMap& tm_a,
   switch (tile_n(p.N)) {
     case 128: return launch_wgmma<Op, 128>(tm_a, tm_b, p, s);
     case 192: return launch_wgmma<Op, 192>(tm_a, tm_b, p, s);
-    default: return launch_wgmma<Op, 64>(tm_a, tm_b, p, s);
+    case 64: return launch_wgmma<Op, 64>(tm_a, tm_b, p, s);
   }
+  if constexpr (NarrowTiles<Op>::value) {
+    if (tile_n(p.N) == 96) return launch_wgmma<Op, 96>(tm_a, tm_b, p, s);
+    return launch_wgmma<Op, 32>(tm_a, tm_b, p, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // bf16: A p.a (M, K), B p.w (K, N) row-major, both viewed as bytes

@@ -282,7 +282,7 @@ int launch(const void* x, const void* gamma, const void* beta,
            const void* bproj, const void* bias, void* qkv, void* attn,
            void* stats, void* y, int B, int Hp, int Wp, int C, int heads,
            int window, int group, float scale, int res_add, void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window) || group <= 0 ||
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window, 64) || group <= 0 ||
       heads % group)
     return (int)cudaErrorInvalidValue;
   const int chunk = chunk_of(group, window);

@@ -112,7 +112,7 @@ int launch_q8(const void* x, const void* gamma, const void* beta,
               void* stats, void* amax, void* codes, void* y, int B, int Hp,
               int Wp, int C, int heads, int window, float scale, int dtype,
               void* stream) {
-  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window))
+  if (!swin::block_shape_ok(B, Hp, Wp, C, heads, window, 64))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run_q8 = [&](auto zero) {

@@ -24,6 +24,13 @@ the flax names its children carry:
   ``fc_*/{W,b}`` (the ``Mlp`` children are named ``Dense_0``/``Dense_1``,
   as flax names them; TResNet's SE ``fc1``/``fc2`` are ``Dense``).
 
+* TERL's queue (``models.moco.MoCoQueue``) reads its buffers ``feats``,
+  ``l_ivt``, ``l_i``, ``l_v``, ``l_t``, ``ptr`` and ``proto_{i,v,t}`` from
+  the ``queue`` collection, in their own dtypes (the labels and the pointer
+  int32): ``load_jax_variables(queue, {"queue": tree["queue"]})`` with the
+  ``queue`` of a JAX ``TERLTrainState``, whose ``params`` and
+  ``key_params`` load into the query module and its key copy.
+
 Every leaf of ``variables`` must be used and every parameter filled:
 a missing or extra key raises ``KeyError``, a shape mismatch ``ValueError``.
 
@@ -58,11 +65,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .moco import QUEUE_FIELDS, MoCoQueue
 from .quantized import QConv
 from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
 from .tcn import Conv1x1
 
-_COLLECTIONS = ("params", "batch_stats", "frozen")
+_COLLECTIONS = ("params", "batch_stats", "frozen", "queue")
 Path = Tuple[str, ...]
 
 
@@ -82,14 +90,14 @@ class _Loader:
         self.variables = variables
         self.used: Set[Path] = set()
 
-    def get(self, coll: str, path: Path) -> np.ndarray:
+    def get(self, coll: str, path: Path, dtype=np.float32) -> np.ndarray:
         node = self.variables.get(coll, {})
         for i, k in enumerate(path):
             if not isinstance(node, Mapping) or k not in node:
                 raise KeyError(f"missing {coll}/{'/'.join(path[:i + 1])}")
             node = node[k]
         self.used.add((coll,) + path)
-        return np.asarray(node, dtype=np.float32)
+        return np.asarray(node, dtype=dtype)
 
     def put(self, dst: torch.Tensor, value: np.ndarray, where: str) -> None:
         if tuple(dst.shape) != value.shape:
@@ -125,6 +133,12 @@ class _Loader:
                                    ("running_mean", "batch_stats", "mean"),
                                    ("running_var", "batch_stats", "var")):
                 self.put(getattr(module, dst), self.get(coll, p(key)), name)
+        elif isinstance(module, MoCoQueue):
+            for key in QUEUE_FIELDS:
+                dst = getattr(module, key)
+                self.put(dst, self.get("queue", p(key),
+                                       np.dtype(str(dst.dtype)[6:])),
+                         f"queue/{key}")
         else:
             for key, param in module.named_parameters(recurse=False):
                 self.put(param, self.get("params", p(key)), f"{name}/{key}")
@@ -154,7 +168,9 @@ class _Exporter:
         node = self.variables.setdefault(coll, {})
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = value.detach().float().cpu().numpy().copy()
+        if value.is_floating_point():
+            value = value.float()
+        node[path[-1]] = value.detach().cpu().numpy().copy()
 
     def export(self, module: nn.Module, path: Path) -> None:
         def p(*keys: str) -> Path:
@@ -167,6 +183,9 @@ class _Exporter:
         elif isinstance(module, Conv1x1):
             self.put("params", p("kernel"), module.weight.T[None])
             self.put("params", p("bias"), module.bias)
+        elif isinstance(module, MoCoQueue):
+            for key in QUEUE_FIELDS:
+                self.put("queue", p(key), getattr(module, key))
         elif isinstance(module, BatchNorm):
             frozen = isinstance(module, FrozenBatchNorm)
             for src, coll, key in (("weight", "params", "scale"),
@@ -185,7 +204,8 @@ class _Exporter:
 def jax_variables(module: nn.Module):
     """The variables of ``module``'s JAX counterpart (the inverse of
     ``load_jax_variables``): ``{"params": ...}``, with ``batch_stats`` and
-    ``frozen`` where the module has such BatchNorms."""
+    ``frozen`` where the module has such BatchNorms (a ``MoCoQueue``:
+    ``{"queue": ...}``, its labels and pointer int32)."""
     exporter = _Exporter()
     exporter.export(module, ())
     return exporter.variables

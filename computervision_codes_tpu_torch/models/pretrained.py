@@ -135,13 +135,17 @@ def _merge(dst: Dict, src: Dict, path: str = "") -> Tuple[Dict, list, list]:
     return merged, loaded, skipped
 
 
-def warm_start_backbone(state, backbone: str, path: str, log=print):
-    """Return ``state`` with its model's ``backbone`` filled from the
-    converted checkpoint, in place: its parameters and its BatchNorm
-    buffers. A backbone holding FrozenBatchNorm (the Q2L teacher's ResNet)
-    takes the ``frozen`` layout, else live ``batch_stats`` (the CNN
-    student)."""
-    module = state.model.backbone
+def warm_start_backbone(state, backbone: str, path: str, log=print,
+                        submodule: str = "backbone"):
+    """Return ``state`` with its model's backbone filled from the converted
+    checkpoint, in place: its parameters and its BatchNorm buffers. The
+    backbone is the module at ``submodule``, a path of child names joined
+    by "/" (TERL's ``encoder/backbone``). A backbone holding FrozenBatchNorm
+    (the Q2L teacher's ResNet) takes the ``frozen`` layout, else live
+    ``batch_stats`` (the CNN student)."""
+    module = state.model
+    for name in submodule.split("/"):
+        module = getattr(module, name)
     dst = jax_variables(module)
     src = load_backbone_variables(backbone, path,
                                   frozen_bn="frozen" in dst)
@@ -149,7 +153,7 @@ def warm_start_backbone(state, backbone: str, path: str, log=print):
     for col in ("params", "batch_stats", "frozen"):
         if col in dst and col in src:
             merged[col], ld, sk = _merge(dst[col], src[col],
-                                         f"{col}/backbone")
+                                         f"{col}/{submodule}")
             loaded += ld
             skipped += sk
     if not loaded:

@@ -44,7 +44,9 @@ from . import swin_gemm
 from .quant import quantize_weight
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-C_MULTIPLE = 64  # the kernels' GEMM tiles: C and the hidden width % 64
+# the kernels' GEMM tiles: C and the hidden width % 32 on the float paths
+# (every Swin width), % 64 on the int8 branch
+C_MULTIPLE, Q8_C_MULTIPLE = 32, 64
 Q8_BLOCK_TOKENS = 512  # the int8 branch's largest token block
 
 
@@ -254,8 +256,8 @@ def launch_mlp_block(x, gamma, beta, w1, b1, w2, b2, *, res_add: bool,
     and its two products to ``swin_gemm.launches`` by path. ``loop``: both
     products on the loop (the parent's entry point).
 
-    x (..., C) float32 or bfloat16 with C % 64 == 0; w1 (C, hidden), b1,
-    w2 (hidden, C), b2 in x's dtype, hidden % 64 == 0; gamma, beta (C,) in
+    x (..., C) float32 or bfloat16 with C % 32 == 0; w1 (C, hidden), b1,
+    w2 (hidden, C), b2 in x's dtype, hidden % 32 == 0; gamma, beta (C,) in
     any float dtype. In bf16 a normed scratch (M, C) takes LN(x).
     """
     c = x.shape[-1]
@@ -355,9 +357,9 @@ def launch_mlp_block_q8(x, gamma, beta, w1: Q8Weight, b1, w2: Q8Weight, b2,
         {"gamma": (gamma, (c,)), "beta": (beta, (c,))})
     w1c, s1, w2c, s2 = check_q8("mlp_block", x, {"w1": (w1, (hidden, c)),
                                                  "w2": (w2, (c, hidden))})
-    if c % C_MULTIPLE or hidden % C_MULTIPLE:
-        raise ValueError(f"mlp_block kernel needs C and hidden % "
-                         f"{C_MULTIPLE} == 0, got C={c}, hidden={hidden}")
+    if c % Q8_C_MULTIPLE or hidden % Q8_C_MULTIPLE:
+        raise ValueError(f"mlp_block int8 kernel needs C and hidden % "
+                         f"{Q8_C_MULTIPLE} == 0, got C={c}, hidden={hidden}")
     m = xm.numel() // c
     y = torch.empty_like(xm)
     if m == 0:

@@ -39,9 +39,9 @@ import functools
 import torch
 
 from . import swin_gemm
-from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, check_operands,
-                        check_q8, launch_checked, mlp_block_reference,
-                        mlp_products, mlp_q8_reference)
+from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8_C_MULTIPLE, Q8Weight,
+                        check_operands, check_q8, launch_checked,
+                        mlp_block_reference, mlp_products, mlp_q8_reference)
 from .window_attention import count_phase
 from .window_mhsa import (HEAD_DIM, attention_operands, attn_products,
                           window_mhsa_q8_reference, window_mhsa_reference)
@@ -184,9 +184,9 @@ def launch_swin_block_q8(x, g1, be1, wqkv: Q8Weight, bqkv, wproj: Q8Weight,
         {"g2": (g2, (c,)), "be2": (be2, (c,))})
     w1c, s1, w2c, s2 = check_q8("swin_block", x, {"w1": (w1, (hidden, c)),
                                                   "w2": (w2, (c, hidden))})
-    if hidden % C_MULTIPLE:
-        raise ValueError(f"swin_block kernel needs hidden % {C_MULTIPLE} == "
-                         f"0, got {hidden}")
+    if hidden % Q8_C_MULTIPLE:
+        raise ValueError(f"swin_block int8 kernel needs hidden % "
+                         f"{Q8_C_MULTIPLE} == 0, got {hidden}")
     m = b * hp * wp
     out = torch.empty_like(x)
     if m == 0:

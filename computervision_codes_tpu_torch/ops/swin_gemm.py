@@ -10,15 +10,18 @@ the C code applies too (``gemm_path_bf16``/``gemm_path_q8``/
 
 - ``"fma"``: float32 products, on the FMA loop of ``swin_common.cuh``
   (TF32 would change float32's numbers);
-- ``"wgmma"``: bf16 products and P1's weight-only int8 (``"int8w"``: bf16
-  activations times int8 codes) with K % 8 == 0 (TMA's 16-byte row pitch),
-  int8 products with K % 16 == 0, N % 64 == 0 for all three (the N tiles,
-  ``tile_n``); every product of the Swin-L models takes it. wgmma cannot
+- ``"wgmma"``: bf16 products with K % 8 == 0 (TMA's 16-byte row pitch) and
+  N % 32 == 0 (the N tiles, ``tile_n``: 96 and 32 cover Swin-T's stage 0,
+  N 288 and 96, and the nano's N 96 and 32), P1's weight-only int8
+  (``"int8w"``: bf16 activations times int8 codes) with K % 8 == 0 and int8
+  products with K % 16 == 0, both at N % 64 == 0; every product of the
+  Swin-L and Swin-T models takes it. wgmma cannot
   widen int8 operands, so for int8w seven warps of the kernel widen each
   stage's codes into a bf16 B stage themselves (``Int8wOp``;
   ``widened_offset`` is where each code lands);
 - ``"loop"``: the rest (``swin_common.cuh``'s WMMA / ``mma.sync`` loops,
-  which need K % 32 == 0 and N % 64 == 0 and so refuse those shapes too).
+  which need K % 32 == 0 and N % 32 == 0 (int8 and int8w N % 64 == 0) and
+  so refuse those shapes too).
 
 Each library (``LIBRARIES``) counts its products per path twice: here in
 ``launches``, which each wrapper adds to by the rule when its C entry point
@@ -59,7 +62,9 @@ def gemm_path(kind: str, k: int, n: int) -> str:
     int8 weight codes)."""
     if kind == "float32":
         return "fma"
-    if kind in ("bfloat16", "int8w"):
+    if kind == "bfloat16":
+        ok = k % 8 == 0 and n % 32 == 0
+    elif kind == "int8w":
         ok = k % 8 == 0 and n % 64 == 0
     elif kind == "int8":
         ok = k % 16 == 0 and n % 64 == 0
@@ -69,9 +74,12 @@ def gemm_path(kind: str, k: int, n: int) -> str:
 
 
 def tile_n(n: int) -> int:
-    """The wgmma path's N tile: 128 where it divides N, else 192, else 64
-    (N % 64 == 0)."""
-    return 128 if n % 128 == 0 else 192 if n % 192 == 0 else 64
+    """The wgmma path's N tile: 128 where it divides N, else 192, else 64,
+    else 96, else 32 (N % 32 == 0; 96 and 32 for bf16 only)."""
+    for tile in (128, 192, 64, 96, 32):
+        if n % tile == 0:
+            return tile
+    raise ValueError(f"the wgmma path takes N % 32 == 0, got N={n}")
 
 
 # int8w's B stage (csrc/swin_gemm.cuh, wg:: and Int8wOp): a stage is 64 K

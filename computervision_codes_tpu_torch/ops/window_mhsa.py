@@ -52,8 +52,8 @@ import functools
 import torch
 
 from . import swin_gemm
-from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8Weight, block_absmax,
-                        check_operands, check_q8, check_res_add,
+from .mlp_block import (C_MULTIPLE, DTYPE_CODES, Q8_C_MULTIPLE, Q8Weight,
+                        block_absmax, check_operands, check_q8, check_res_add,
                         launch_checked, layer_norm_f32, layer_norm_float32,
                         mm_f32, q8_dot)
 from .window_attention import count_phase
@@ -159,8 +159,10 @@ def window_mhsa_reference(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     return (x.float() + o.float()).to(x.dtype)
 
 
-def check_geometry(x, window: int, num_heads: int) -> None:
-    """The kernels' limits on the block geometry; raises ValueError."""
+def check_geometry(x, window: int, num_heads: int,
+                   multiple: int = C_MULTIPLE) -> None:
+    """The kernels' limits on the block geometry (C % ``multiple``: 32 on
+    the float paths, 64 on the int8 branch); raises ValueError."""
     if x.ndim != 4:
         raise ValueError(f"x must be (B, Hp, Wp, C), got {tuple(x.shape)}")
     _, hp, wp, c = x.shape
@@ -170,9 +172,9 @@ def check_geometry(x, window: int, num_heads: int) -> None:
     if not 0 < window <= MAX_WINDOW:
         raise ValueError(f"window kernels take window <= {MAX_WINDOW}, got "
                          f"{window}")
-    if c != num_heads * HEAD_DIM or c % C_MULTIPLE:
+    if c != num_heads * HEAD_DIM or c % multiple:
         raise ValueError(f"window kernels need head_dim {HEAD_DIM} and C % "
-                         f"{C_MULTIPLE} == 0, got C={c}, heads={num_heads}")
+                         f"{multiple} == 0, got C={c}, heads={num_heads}")
 
 
 def attention_operands(what, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
@@ -182,7 +184,8 @@ def attention_operands(what, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     as the JAX module passes them. The matrices are x, wqkv, bqkv, wproj,
     bproj, bias; with ``quant`` (``Q8Weight``s) x, wqkv's codes and scales,
     bqkv, wproj's codes and scales, bproj, bias."""
-    check_geometry(x, window, num_heads)
+    check_geometry(x, window, num_heads,
+                   Q8_C_MULTIPLE if quant else C_MULTIPLE)
     _, hp, wp, c = x.shape
     n = window * window
     bias = bias.to(x.dtype)
@@ -238,7 +241,7 @@ def launch_window_mhsa(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     product on the loop (the parent's entry point).
 
     x (B, Hp, Wp, C) float32 or bfloat16, Hp and Wp multiples of ``window``
-    (<= 12), head_dim 32, C % 64 == 0; weights and biases in x's dtype;
+    (<= 12), head_dim 32, C % 32 == 0; weights and biases in x's dtype;
     gamma, beta in any float dtype; bias and mask are cast to x's dtype.
     In bf16 the attn scratch holds LN(x) for the QKV product first.
     """

@@ -28,6 +28,12 @@ the schedule's ``count``. The ``rng`` slot holds a JAX ``PRNGKey`` (uint32,
 So a resumed port run and a resumed JAX run draw different dropout masks
 from the same file, as the two packages do from one seed.
 
+A TERL state (``train.terl.TERLTrainState``) is the JAX ``TERLTrainState``'s
+layout instead: ``step``, ``params``, ``opt_state``, ``key_params`` (the key
+module's), ``queue`` (the keys, the four label queues, the pointer and the
+prototypes) and ``rng``; under ``--fix_backbone`` (``freeze_swin_early``)
+``opt_state`` is optax's ``multi_transform`` state around the chain.
+
 Usage::
 
     variables = restore_variables(checkpoint_path(directory, "student"))
@@ -285,7 +291,11 @@ def _sgd_opt_state(optimizer) -> Dict[str, Any]:
     lr_state = ({"count": np.asarray(optimizer.count, np.int32)}
                 if getattr(optimizer, "schedule", None) is not None else {})
     sgd = {"0": {}, "1": lr_state}
-    return {"0": {}, "1": sgd} if group["weight_decay"] else {"0": sgd}
+    chain = {"0": {}, "1": sgd} if group["weight_decay"] else {"0": sgd}
+    if getattr(optimizer, "frozen", False):  # freeze_swin_early
+        return {"inner_states": {"frozen": {"inner_state": {}},
+                                 "train": {"inner_state": chain}}}
+    return chain
 
 
 def _find_count(tree) -> Optional[int]:
@@ -315,24 +325,32 @@ def train_state_dict(state, save_optimizer: bool = True) -> Dict[str, Any]:
     if not save_optimizer:
         return {"params": variables["params"],
                 "batch_stats": variables.get("batch_stats")}
-    return {"step": np.asarray(state.step, np.int32),
+    tree = {"step": np.asarray(state.step, np.int32),
             "params": variables["params"],
-            "opt_state": _sgd_opt_state(state.optimizer),
-            "batch_stats": variables.get("batch_stats"),
-            "frozen": variables.get("frozen"),
-            "rng": _rng_key(state.rng)}
+            "opt_state": _sgd_opt_state(state.optimizer)}
+    if getattr(state, "queue", None) is not None:  # TERL
+        tree |= {"key_params": jax_variables(state.key_model)["params"],
+                 "queue": jax_variables(state.queue)["queue"]}
+    else:
+        tree |= {"batch_stats": variables.get("batch_stats"),
+                 "frozen": variables.get("frozen")}
+    return tree | {"rng": _rng_key(state.rng)}
 
 
 def load_train_state(state, tree: Dict[str, Any],
                      save_optimizer: bool = True):
-    """Restore ``state`` in place from a flax state dict: the weights, and
-    with ``save_optimizer`` the step, the optimizer's schedule count and
-    the generator (seeded from the ``rng`` key)."""
+    """Restore ``state`` in place from a flax state dict: the weights (a
+    TERL state's key module and queue too), and with ``save_optimizer`` the
+    step, the optimizer's schedule count and the generator (seeded from the
+    ``rng`` key)."""
     variables = {"params": tree["params"]}
     for coll in ("batch_stats", "frozen"):
         if isinstance(tree.get(coll), dict):
             variables[coll] = tree[coll]
     load_jax_variables(state.model, variables)
+    if getattr(state, "queue", None) is not None and "queue" in tree:
+        load_jax_variables(state.key_model, {"params": tree["key_params"]})
+        load_jax_variables(state.queue, {"queue": tree["queue"]})
     if not save_optimizer:
         return state
     state.step = int(np.asarray(tree["step"]))

@@ -17,7 +17,10 @@ where |g| is the global norm over every parameter's gradient (a parameter
 the loss does not reach has a zero gradient, as in JAX). Here the
 parameters are perturbed in place and restored, bit for bit, before the
 functions return, so the optimizer applies the gradient at the unperturbed
-weights. ``freeze_swin_early`` is not ported yet (the TERL slice).
+weights.
+
+``freeze_swin_early`` is TERL's ``--fix_backbone``: the optimizer of the
+other parameters, with the Swin patch embed and stages 0-1 frozen.
 """
 
 from __future__ import annotations
@@ -63,6 +66,49 @@ def build_sgd(learning_rate: LearningRate, weight_decay: float = 0.0,
     count, L2 ``weight_decay`` and ``momentum`` (0: none)."""
     return functools.partial(SGD, learning_rate=learning_rate,
                              weight_decay=weight_decay, momentum=momentum)
+
+
+SWIN_EARLY = ("patch_embed", "patch_norm", "stage0_block", "stage1_block",
+              "merge0", "merge1")
+
+
+def is_swin_early(name: str) -> bool:
+    """Whether the parameter ``name`` (``named_parameters``) is in a Swin
+    backbone's patch embed or stages 0-1, patch merges included: the name
+    after its ``backbone`` part starts with one of ``SWIN_EARLY``."""
+    parts = name.split(".")
+    if "backbone" not in parts:
+        return False
+    nxt = parts[parts.index("backbone") + 1:]
+    return bool(nxt) and nxt[0].startswith(SWIN_EARLY)
+
+
+def freeze_swin_early(optimizer: Callable[[Iterable], SGD]
+                      ) -> Callable[[Iterable], SGD]:
+    """TERL ``--fix_backbone``: the reference sets requires_grad=False on
+    every backbone parameter whose torch name holds 'patch', 'layers.0' or
+    'layers.1' (TERL/6_baseline_learnT/models/backbone.py:203-206), the
+    patch embed and its norm and the first two stages with their patch
+    merges; the JAX version gives them ``optax.set_to_zero`` (no update,
+    no weight decay). Returns the optimizer as a function of the module's
+    ``named_parameters()`` (``create_train_state`` passes them when the
+    function has ``named``): it sets requires_grad=False on those
+    parameters and makes ``optimizer`` over the rest, marked ``frozen``
+    (the checkpoint writes the JAX ``multi_transform`` state)."""
+
+    def make(named) -> SGD:
+        train = []
+        for name, p in named:
+            if is_swin_early(name):
+                p.requires_grad_(False)
+            else:
+                train.append(p)
+        opt = optimizer(train)
+        opt.frozen = True
+        return opt
+
+    make.named = True
+    return make
 
 
 def _gradients(loss_fn: Callable, params: Sequence[torch.Tensor],

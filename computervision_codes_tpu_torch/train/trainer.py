@@ -2,7 +2,8 @@
 
 Counterpart of ``computervision_codes_tpu/train/trainer.py``:
 ``create_train_state``, ``make_spatial_train_step`` and
-``make_spatial_eval_step``. A step is a function ``(state, batch) ->
+``make_spatial_eval_step``, and the temporal TCN's ``make_tcn_train_step``
+and ``make_tcn_eval_step``. A step is a function ``(state, batch) ->
 (state, metrics)`` that runs eagerly on the state's device: the forward in
 training mode with the state's generator for its dropout and DropPath
 masks, the reference's loss mix (MT4MTLKD/Spatial_cnn/run.py:145-224), the
@@ -36,7 +37,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..losses import bce_with_logits, distill_kl, mse_feature_kd
+from ..losses import (bce_with_logits, distill_kl, mse_feature_kd,
+                      tcn_multitask_loss)
 from ..models.qat import qat_params
 from .optim import sam_gradients
 from .state import TrainState
@@ -49,12 +51,14 @@ def create_train_state(model: nn.Module, optimizer: Callable, seed: int = 0,
                        device: str = "cuda") -> TrainState:
     """Move ``model`` (its weights already made, from a seed or loaded) to
     ``device`` and build its optimizer there (``optimizer``: what
-    ``build_sgd`` returns). The state's generator, on the same device,
-    starts from ``seed``."""
+    ``build_sgd`` returns, or ``freeze_swin_early`` of it, which takes the
+    named parameters). The state's generator, on the same device, starts
+    from ``seed``."""
     model = model.to(device)
     rng = torch.Generator(device=device).manual_seed(seed)
-    return TrainState(model=model, optimizer=optimizer(model.parameters()),
-                      rng=rng)
+    params = (model.named_parameters() if getattr(optimizer, "named", False)
+              else model.parameters())
+    return TrainState(model=model, optimizer=optimizer(params), rng=rng)
 
 
 def _to_device(value, device) -> torch.Tensor:
@@ -157,5 +161,75 @@ def make_spatial_eval_step(model: nn.Module, qat: bool = False,
             out = model(_to_device(images, device))
         probs = {k: torch.sigmoid(v) for k, v in out["logits"].items()}
         return probs, out["feature"]
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Temporal TCN track
+
+
+def tcn_loss_step(select: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+                  comp_weight: float = 0.1,
+                  pos_weights: Optional[Dict[str, Any]] = None,
+                  apply_mask: bool = True, device: str = "cuda"):
+    """A TCN training step whose loss is ``select(parts)`` of the
+    ``tcn_multitask_loss`` parts: the forward in ``.train()`` (the input
+    mask with ``apply_mask``, the channel and layer dropouts, all from the
+    state's generator), the backward and one SGD update. The batch holds
+    ``features`` (B, T, D) and ``label_{ivt,i,v,t}`` (T, C) or (B, T, C),
+    and optionally ``frame_mask`` (T,): numpy arrays or tensors. A
+    parameter the selected loss does not reach gets a zero gradient, so
+    weight decay moves it as optax does. The metrics are ``loss_{part}``
+    of every part and ``loss_selected``."""
+
+    def step(state: TrainState, batch: Dict[str, Any]
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out = state.model(_to_device(batch["features"], device),
+                          apply_mask=apply_mask, generator=state.rng)
+        labels = {k: _to_device(batch[f"label_{k}"], device)
+                  for k in ("ivt", "i", "v", "t")}
+        mask = batch.get("frame_mask")
+        parts = tcn_multitask_loss(
+            out, labels, comp_weight=comp_weight, pos_weights=pos_weights,
+            frame_mask=None if mask is None else _to_device(mask, device))
+        loss = select(parts)
+        loss.backward()
+        for p in state.model.parameters():  # weight decay moves them too
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.optimizer.step()
+        state.step += 1
+        return state, {f"loss_{k}": v.detach()
+                       for k, v in dict(parts, selected=loss).items()}
+
+    return step
+
+
+def make_tcn_train_step(model: nn.Module, comp_weight: float = 0.1,
+                        pos_weights: Optional[Dict[str, Any]] = None,
+                        apply_mask: bool = True, device: str = "cuda"):
+    """The JAX ``make_tcn_train_step``: ``tcn_loss_step`` on the fusion
+    loss's total, comp_weight (i + v + t) + ivt. The step trains the
+    state's module; ``model`` is accepted for parity."""
+    del model
+    return tcn_loss_step(lambda parts: parts["total"], comp_weight,
+                         pos_weights, apply_mask, device)
+
+
+def make_tcn_eval_step(model: nn.Module, device: str = "cuda"):
+    """``(state, features) -> {task: sigmoid of pyramid level 0}`` in
+    ``.eval()`` (every dilated layer through K1 on the card), as the
+    reference evaluates (Temporal_tenco/run.py:252-264). The state's
+    module runs; ``model`` is accepted for parity."""
+    del model
+
+    def step(state: TrainState, features) -> Dict[str, torch.Tensor]:
+        state.model.eval()
+        with torch.inference_mode():
+            out = state.model(_to_device(features, device))
+        return {k: torch.sigmoid(out[k][0]) for k in ("ivt", "i", "v", "t")}
 
     return step

@@ -185,12 +185,14 @@ def test_dispatch_per_design(recorded, rng):
 
 
 def test_tcn_launches_the_new_design_only(recorded, monkeypatch):
-    """A causal TCN stage of 3 layers on a CUDA tensor (stood in for)
-    launches the current design 3 times and the previous one never."""
+    """A causal TCN stage of 3 layers in ``.eval()`` on a CUDA tensor
+    (stood in for) launches the current design 3 times and the previous
+    one never."""
     monkeypatch.setattr(port, "_forward", lambda x, *rest: (
         port.dilated_residual_cuda(x, *rest)))
     stage = port_tcn.TCNStage(3, 128, causal=True, dtype=torch.bfloat16,
                               generator=torch.Generator().manual_seed(0))
+    stage.eval()  # the kernel is the eval path's; .train() runs the plain
     with torch.no_grad():
         stage(torch.zeros(1, 20, 128, dtype=torch.bfloat16))
     assert port.design_launches == {"new": 3, "prev": 0}

@@ -236,7 +236,7 @@ def test_float32_takes_the_fma_loop(k, n):
 
 
 @pytest.mark.parametrize("kind, k, n", [("bfloat16", 36, 128),
-                                        ("bfloat16", 64, 96),
+                                        ("bfloat16", 64, 48),
                                         ("int8", 24, 128),
                                         ("int8", 128, 48),
                                         ("int8w", 36, 128),
@@ -524,3 +524,89 @@ def test_p1_int8w_launches_once_a_call(recorded, rng):
     assert p1.gemm_int8w_loop_cuda.launches == 0
     assert sg.launches["int8_kernel_probe"] == {"wgmma": 3, "loop": 0,
                                                 "fma": 0}
+
+
+# ---- every Swin width: C % 32 == 0 on the float paths --------------------
+
+SWIN_T = _swin_products("swin_T_224_1k", 224, 16)
+SWIN_T_TRAIN = _swin_products("swin_T_224_1k", 224, 8, train=True)
+NANO = _swin_products("swin_nano_64", 64, 2)
+
+
+@pytest.mark.parametrize("what, m, k, n, kind",
+                         sorted(set(SWIN_T + SWIN_T_TRAIN + NANO)))
+def test_swin_t_and_nano_products_take_wgmma(what, m, k, n, kind):
+    """Swin-T's stage 0 (QKV N 288, proj and fc2 N 96, K 96) and the nano's
+    (N 96 and 32, K 32) take the wgmma core on the new N tiles."""
+    assert sg.gemm_path(kind, k, n) == "wgmma"
+    assert n % sg.tile_n(n) == 0
+
+
+@pytest.mark.parametrize("n, tile", [(32, 32), (96, 96), (288, 96),
+                                     (160, 32), (384, 128), (576, 192)])
+def test_narrow_n_tiles(n, tile):
+    assert sg.gemm_path("bfloat16", 96, n) == "wgmma"
+    assert sg.tile_n(n) == tile
+
+
+@pytest.mark.parametrize("kind, k, n", [("int8", 96, 96), ("int8w", 96, 96),
+                                        ("int8", 96, 288)])
+def test_int8_products_keep_n_multiple_of_64(kind, k, n):
+    assert sg.gemm_path(kind, k, n) == "loop"
+
+
+def test_tile_n_refuses_n_off_32():
+    with pytest.raises(ValueError, match="N % 32"):
+        sg.tile_n(48)
+
+
+@pytest.mark.parametrize("c, heads, w, hw", [(96, 3, 7, 14), (32, 1, 4, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k4_k5_k6_take_every_swin_width(recorded, rng, c, heads, w, hw,
+                                           dtype):
+    """Swin-T's stage 0 (C 96, window 7) and the nano's (C 32, window 4)
+    reach the C entry points of K3, K4, K5 and K6's two branches, each
+    product on its path: wgmma in bf16, the FMA loop in float32."""
+    from computervision_codes_tpu_torch.ops import swin_train as k6
+
+    hidden, b = 4 * c, 2
+    x, attn, mlp = _swin_operands(rng, (b, hw, hw), c, hidden, heads, w,
+                                  dtype)
+    kw = dict(window=w, num_heads=heads)
+    k3.window_mhsa_cuda(x, *attn, None, **kw)
+    k4.mlp_block_cuda(x, *mlp)
+    k5.swin_block_cuda(x, *attn, None, *mlp, **kw)
+    k6.window_mhsa_branch_cuda(x, *attn, None, **kw)
+    k6.mlp_block_branch_cuda(x, *mlp)
+    assert [name for name, _ in recorded.calls] == [
+        "window_mhsa", "mlp_block", "swin_block", "window_mhsa",
+        "mlp_block"]
+    path = "wgmma" if dtype == torch.bfloat16 else "fma"
+    want = dict.fromkeys(sg.PATHS, 0)
+    assert sg.launches["window_mhsa"] == dict(want, **{path: 4})
+    assert sg.launches["mlp_block"] == dict(want, **{path: 4})
+    assert sg.launches["swin_block"] == dict(want, **{path: 4})
+    a3 = _shapes(recorded.calls[0][1])
+    assert a3[13:19] == [b, hw, hw, c, heads, w]
+
+
+def test_other_widths_and_the_int8_branch_still_raise(recorded, rng):
+    """C or hidden off 32 raises ValueError naming the shape, before any
+    C entry point; the int8 branch keeps C and hidden % 64."""
+    x, attn, mlp = _swin_operands(rng, (2, 8, 8), 48, 192, 2, 4,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="C=48"):
+        k4.mlp_block_cuda(x, *mlp)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        k3.window_mhsa_cuda(x, *attn, None, window=4, num_heads=2)
+    x, attn, mlp = _swin_operands(rng, (2, 8, 8), 64, 208, 2, 4,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden"):
+        k5.swin_block_cuda(x, *attn, None, *mlp, window=4, num_heads=2)
+    x, attn, mlp = _swin_operands(rng, (2, 14, 14), 96, 384, 3, 7,
+                                  torch.bfloat16)
+    with pytest.raises(ValueError, match="C % 64"):
+        k3.window_mhsa_q8_cuda(x, *_q8(attn), None, window=7, num_heads=3)
+    with pytest.raises(ValueError, match="% 64"):
+        k4.mlp_block_q8_cuda(x, *_q8(mlp))
+    assert recorded.calls == []

@@ -34,7 +34,7 @@ def test_temporal_tcn_matches_jax(rng, causal, hier):
     want = jmodel.apply(variables, jnp.asarray(x))
 
     model = TemporalTCN(in_features=24, causal=causal, hier=hier, **KW)
-    load_jax_variables(model, variables)
+    load_jax_variables(model, variables).eval()
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     assert set(got) == set(want)
