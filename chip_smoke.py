@@ -285,6 +285,27 @@ printing its own lines:
    + 12 a step), ``-t -e``, ``-t --ht``, ``--cam_dump``; K3 + K4 12 + 12
    an eval forward, no loop product; before it ``phase_model_terl``: one
    float32 ``kcl_k=0`` step on the card against the CPU.
+19. the backbone zoo and augmentation on the device: beside phase 3,
+   ``phase_q1_tresnet`` holds Q1 at each of the int8 TResNet-L-448's 17
+   distinct convolutions (85 a forward: 42 on the TMA producer, 22 on
+   cp.async, the 21 with Cin 76 or 152 on the mma.sync loop), bf16 and
+   float32, with no activation and the leaky epilogue at 1e-2 and 1e-3,
+   on its path and on the loop, against the plain version bit for bit,
+   and times each shape on its path, on the loop and plain at batch 16;
+   beside phase 4, ``phase_model_zoo`` holds the float32 CvT-w24-384 and
+   the int8 TResNet-L-448 on the card against the CPU, and
+   ``phase_device_augment`` the device augmentation with fixed draws
+   (ops exact, rotations within a level) and times a batch of 32 frames
+   at 256x448; on the main path, ``phase_zoo_sessions`` predicts with
+   CvT-w24-384 teacher sessions in bf16 and int8 (Q1's TMA path under
+   193 Dense calls; the attention the plain version, no K7) and the
+   TResNet-L-448 session with ``quantize=True`` (K9 52, Q1 19),
+   ``phase_int8_tresnet`` runs the int8 TResNet-L backbone (Q1 by path a
+   forward, fidelity to the bf16 backbone, both timed in turns) and
+   ``scripts.zoo_bench``'s rows, ``phase_zoo_drivers`` the teacher
+   driver's ``-t`` at CvT-w24-384 and TResNet-L-448, and
+   ``phase_augment_drivers`` the student's and TERL's epochs without and
+   with ``--device_augment``, in turns.
 Beside phase 3, ``phase_swin_widths`` times K3-K6 at Swin-T's and the
 nano's widths (C 96, 192, 32: N tiles of 96 and 32) against their plain
 versions with each launch's products per path, and
@@ -596,6 +617,7 @@ MSTCT_CLASSES, MSTCT_EMBED = 100, 512
 # uint8 frames per predict; K9 runs every activated ABN: 52 per forward
 # (stem 1, nine basic blocks 1 each, 21 bottlenecks 2 each)
 TRESNET, TRESNET_IMG, TRESNET_BATCH = "tresnet_l", 448, 16
+TRESNET_SPEC = dict(width=76, layers=(4, 5, 18, 3))  # models.tresnet's
 TRESNET_LAUNCHES = {"fused_scale_bias_act": 52}
 # K9 against its plain version evaluated in float32 from the same rounded
 # constants, rounded once: the same float32 operations in the same order
@@ -6306,6 +6328,496 @@ def phase_frames(card: str, teacher) -> tuple:
     return infer_launches, dataset_launches
 
 
+# ---------------------------------------------------------------------------
+# the backbone zoo and augmentation on the device: the CvT-w24-384/Q2L
+# teacher (its attention the plain version, as JAX computes it outside any
+# Pallas kernel; its int8 Dense layers on Q1's TMA path), the int8-Dense
+# TResNet-L-448 teacher session, the int8 TResNet-L-448 backbone
+# (models.quant_tresnet: 85 convolutions a forward on Q1, 21 of them on the
+# mma.sync loop as Cin 76 and 152 are no multiple of 16), the teacher
+# driver's -t at both backbones, and --device_augment in the student's and
+# TERL's drivers
+CVT, CVT_IMG, CVT_BATCH = "cvt_w24", 384, 16
+# Q1 calls per int8 CvT-w24 Q2L("i") predict: every Dense of >= 512 inputs,
+# each call of it: stage 0's MLP Dense_1 (2 blocks), stage 1's q/k/v/proj
+# and both MLP Dense (2 x 6), stage 2's q/k/v/proj once and its MLP's two
+# Dense twice (the spatial and the cls tokens; 20 x 8), and Q2L's 19
+CVT_Q8_DENSE = 2 + 12 + 160 + 19
+TRESNET_Q8_DENSE = 19  # Q2L's Dense at d_model 2432; the SE layers < 512
+CVT_MODEL_FRAMES, TRESNET_Q8_MODEL_FRAMES = 2, 2  # card against CPU
+# the int8 TResNet-L on the card against its plain version on the CPU: both
+# take the same static scales and Q1 equals its plain version bit for bit,
+# but the float parts between (cuDNN's blur pool and float32 SE against the
+# CPU's) may round differently and move a code by one; bf16's cross-device
+# bound: within 4% of the largest magnitude, correlation > 0.999
+TRESNET_Q8_CPU_REL, TRESNET_Q8_CPU_CORR = 0.04, 0.999
+# the int8 backbone against the bf16 float one on the card (PTQ noise):
+# the int8 ResNet's fidelity bounds (tests/test_quantized.py)
+TRESNET_Q8_COS, TRESNET_Q8_REL = 0.99, 0.15
+TRESNET_Q8_REPS = 10
+ZOO_DRIVER_BATCH = 8
+AUG_BATCH, AUG_HW = 32, (256, 448)  # the student's batch and geometry
+AUG_REPS = 20
+# the whole list card against CPU: a rotation's one-level difference then
+# passes through the sharpness blend (x 1.6) and the contrast jitter (up to
+# x 1.2): at most 4 levels, on at most 1e-3 of the values past one
+AUG_LIST_LEVELS, AUG_LIST_SHARE = 4, 1e-3
+# --device_augment: the student (ResNet18 256x448, batch 32, float32) and
+# TERL (Swin-T 224, batch 32, bf16) on phase 16's PNG tree, each run
+# without and with the flag, in turns (a, b, b, a)
+AUG_DRIVER_ORDER = (False, True, True, False)
+ZOO_CVT_PATH = ("teacher sessions: CvT-w24-384 Q2L bf16 and int8 (its "
+                "attention the plain version; Q1 on the int8 Dense)")
+ZOO_TRESNET_PATH = ("teacher session: TResNet-L-448 Q2L quantize=True (the "
+                    "float TResNet on K9; Q1 on the int8 Dense)")
+INT8_TRESNET_PATH = ("the int8 TResNet-L-448 backbone (models.quant_tresnet: "
+                     "Q1 loop 21, cp.async 22, TMA 42 a forward) and "
+                     "scripts.zoo_bench main()")
+TERL_AUG_PATH = ("TERL's learnT driver -t without and with --device_augment "
+                 "(Swin-T 224, bf16)")
+
+
+def tresnet_convs(width: int, layers, img: int) -> list:
+    """The int8 TResNet's convolutions in call order at img x img: (what,
+    Cin, Cout, k, pad, H_in, slope or None); every one at stride 1 (a
+    stride-2 block's blur pool and average pool take the stride)."""
+    h, out, cin = img // 4, [], width
+    out.append(("stem", 48, width, 3, 1, h, 1e-2))
+    for si, depth in enumerate(layers):
+        filters = width * 2 ** si
+        bottleneck = si >= 2
+        cout = filters * (4 if bottleneck else 1)
+        for bi in range(depth):
+            name = f"layer{si + 1}_{bi}"
+            ho = (h + 1) // 2 if si > 0 and bi == 0 else h
+            if bottleneck:
+                out += [(f"{name}.conv1", cin, filters, 1, 0, h, 1e-3),
+                        (f"{name}.conv2", filters, filters, 3, 1, h, 1e-3),
+                        (f"{name}.conv3", filters, cout, 1, 0, ho, None)]
+            else:
+                out += [(f"{name}.conv1", cin, filters, 3, 1, h, 1e-3),
+                        (f"{name}.conv2", filters, filters, 3, 1, ho, None)]
+            if ho != h or cin != cout:
+                out.append((f"{name}.downsample", cin, cout, 1, 0, ho, None))
+            h, cin = ho, cout
+    return out
+
+
+def tresnet_q1_want(width: int, layers, img: int) -> dict:
+    """Q1's path launches of one int8 TResNet forward."""
+    from computervision_codes_tpu_torch.ops.quant import qconv_path
+
+    want = dict.fromkeys(q1_path_wrappers(), 0)
+    for _, cin, _, k, p, _, _ in tresnet_convs(width, layers, img):
+        path = qconv_path(cin, k, k, 1, ((p, p), (p, p)))
+        want[path] += 1
+        want["quantize"] += path != "loop"
+    return want
+
+
+def phase_q1_tresnet(card: str) -> dict:
+    """Q1 at each distinct convolution of the int8 TResNet-L-448, in bf16
+    and float32, with no activation and the leaky epilogue at 1e-2 and
+    1e-3: the path ``qconv_path`` picks (the loop where Cin % 16 != 0, a
+    wgmma producer elsewhere) and the loop at every shape, against the
+    plain version bit for bit; then, at the teacher's batch, each shape's
+    time on its path, on the loop, and the plain version's, in turns,
+    summed over a forward's 85 convolutions beside the bound."""
+    from computervision_codes_tpu_torch.ops.quant import (
+        activation_scale, qconv_bn_cuda, qconv_bn_reference,
+        qconv_loop_cuda, qconv_path)
+
+    from computervision_codes_tpu_torch.models.tresnet import VARIANTS
+
+    spec = TRESNET_SPEC
+    check(VARIANTS[TRESNET] == spec, f"{TRESNET}: {VARIANTS[TRESNET]}")
+    convs = tresnet_convs(spec["width"], spec["layers"], TRESNET_IMG)
+    check(len(convs) == 85, f"{len(convs)} TResNet-L int8 convs")
+    shapes = {}
+    for what, cin, cout, k, p, h, slope in convs:
+        shapes.setdefault((cin, cout, k, p, h), [what, 0, set()])
+        shapes[(cin, cout, k, p, h)][1] += 1
+        shapes[(cin, cout, k, p, h)][2].add(slope)
+    by_path = dict.fromkeys(("gemm", "conv", "loop"), 0)
+    for seed, ((cin, cout, k, p, h), (what, count, _)) in enumerate(
+            shapes.items()):
+        pad = ((p, p), (p, p))
+        path = qconv_path(cin, k, k, 1, pad)
+        by_path[path] += count
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w_q, mult, bias = qconv_inputs(Q1_CHECK_N, cin, cout, k, h, h,
+                                              dtype, 500 + seed)
+            s_act = activation_scale(x).reshape(1)
+            for slope in (None, 1e-2, 1e-3):
+                tag = (f"Q1 TResNet-L {str(dtype)[6:]} {what} {cin}->{cout} "
+                       f"{k}x{k} at {h}x{h} slope {slope}")
+                want = qconv_bn_reference(x, s_act, w_q, mult, bias, 1, pad,
+                                          leaky_slope=slope, dtype=dtype)
+                for name, fn, form in (("path", qconv_bn_cuda, path),
+                                       ("loop", qconv_loop_cuda, "loop")):
+                    before = q1_launches()
+                    got = fn(x, s_act, w_q, mult, bias, 1, pad,
+                             leaky_slope=slope, dtype=dtype)
+                    check_q1_paths(before, 1, form, f"{tag} {name}")
+                    check(torch.equal(got, want),
+                          f"{tag} {name}: output differs by "
+                          f"{(got.float() - want.float()).abs().max().item()}"
+                          f" at {int((got != want).sum())} of {got.numel()}")
+            del x, got, want
+    print(f"[kernels] Q1 at the int8 TResNet-L-448's {len(shapes)} distinct "
+          f"convolutions (85 a forward: {by_path}), N={Q1_CHECK_N}, bf16 and "
+          f"float32, no activation and the leaky epilogue at 1e-2 and 1e-3: "
+          f"the path qconv_path picks and the loop equal the plain version "
+          f"bit for bit")
+
+    total = {"path": 0.0, "loop": 0.0, "plain": 0.0}
+    loop_convs = {"path": 0.0, "loop": 0.0}  # the 21 the loop serves
+    work = {"ops": 0, "bytes": 0}
+    n = TRESNET_BATCH
+    for (cin, cout, k, p, h), (what, count, slopes) in shapes.items():
+        pad = ((p, p), (p, p))
+        path = qconv_path(cin, k, k, 1, pad)
+        slope = max(s for s in slopes if s) if any(slopes) else None
+        x, w_q, mult, bias = qconv_inputs(n, cin, cout, k, h, h,
+                                          torch.bfloat16, seed=77)
+        s_act = activation_scale(x).reshape(1)
+        fns = {"path": lambda: qconv_bn_cuda(x, s_act, w_q, mult, bias, 1,
+                                             pad, leaky_slope=slope),
+               "loop": lambda: qconv_loop_cuda(x, s_act, w_q, mult, bias, 1,
+                                               pad, leaky_slope=slope),
+               "plain": lambda: qconv_bn_reference(
+                   x, s_act, w_q, mult, bias, 1, pad, leaky_slope=slope)}
+        ms, runs = in_turns(fns, {"path": 20, "loop": 20, "plain": 3})
+        for name in total:
+            total[name] += count * ms[name]
+        if path == "loop":
+            for name in loop_convs:
+                loop_convs[name] += count * ms[name]
+        macs = n * h * h * cout * k * k * cin
+        work["ops"] += count * 2 * macs
+        work["bytes"] += count * (2 * n * h * h * (cin + cout)
+                                  + cout * k * k * cin + 8 * cout)
+        print(f"[kernels] Q1 TResNet-L time N={n} {what} {cin}->{cout} "
+              f"{k}x{k} at {h}x{h} (x{count} a forward, leaky {slope}): its "
+              f"path ({path}) {ms['path']:.4f} ms "
+              f"({2 * macs / ms['path'] / 1e9:.1f} TOP/s), loop "
+              f"{ms['loop']:.4f} ms ({2 * macs / ms['loop'] / 1e9:.1f} "
+              f"TOP/s), plain {ms['plain']:.4f} ms; runs {runs}; {card}")
+        del x
+    b = bound(work["ops"], work["bytes"], "int8")
+    print(f"[kernels] Q1 per int8 TResNet-L-448 forward of {n} frames (85 "
+          f"convs, in turns shape by shape): the paths qconv_path picks "
+          f"{total['path']:.4f} ms ({b['bound_ms'] / total['path']:.1%} of "
+          f"the {b['bound_ms']:.4f} ms bound, by {b['bound_by']}), every "
+          f"conv on the loop {total['loop']:.4f} ms, plain "
+          f"{total['plain']:.4f} ms; the {by_path['loop']} convs with Cin % "
+          f"16 != 0 (the loop's live users) {loop_convs['path']:.4f} ms; "
+          f"{card}")
+    return {"tresnet_l_448": {
+        "convs_by_path": by_path, "ms": round(total["path"], 4),
+        "loop_only_ms": round(total["loop"], 4),
+        "plain_ms": round(total["plain"], 4),
+        "loop_convs_ms": round(loop_convs["path"], 4), **b}}
+
+
+def zoo_frames(n: int, img: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, img, img, 3)).astype(np.float32))
+
+
+def int8_tresnet(seed: int):
+    """The bf16 TResNet-L on the card, BatchNorm drawn from ``seed``, and
+    its int8 twin calibrated on 4 frames."""
+    from computervision_codes_tpu_torch.models.quant_tresnet import (
+        make_int8_tresnet)
+    from computervision_codes_tpu_torch.models.tresnet import build_tresnet
+
+    model = build_tresnet(TRESNET, torch.bfloat16,
+                          torch.Generator().manual_seed(seed))
+    randomize_bn(model, seed + 1)
+    model = model.to(DEVICE).eval()
+    cal = zoo_frames(4, TRESNET_IMG, seed + 2).to(DEVICE, torch.bfloat16)
+    with torch.inference_mode():
+        return model, make_int8_tresnet(TRESNET, model, cal)
+
+
+def phase_model_zoo() -> None:
+    """Card against CPU: the float32 CvT-w24 backbone at 384 on
+    CVT_MODEL_FRAMES frames (no kernel of the port on it) and the int8
+    TResNet-L-448 on TRESNET_Q8_MODEL_FRAMES frames (Q1 on the card, its
+    plain version on the CPU, the same static scales)."""
+    from computervision_codes_tpu_torch.models.cvt import build_cvt
+
+    cpu_model = build_cvt(CVT, generator=torch.Generator().manual_seed(0))
+    randomize_bn(cpu_model, 1)
+    cpu_model.eval()
+    dev_model = copy.deepcopy(cpu_model).to(DEVICE)
+    x = zoo_frames(CVT_MODEL_FRAMES, CVT_IMG, 2)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu_model(x)
+        t_cpu = time.perf_counter() - t0
+        before = launches()
+        got = dev_model(x.to(DEVICE))
+        count = launched_since(before)
+    check(count == dict.fromkeys(KERNELS, 0),
+          f"CvT model launches {count}")
+    card_vs_cpu(f"CvT float32 {CVT}", [(k, got[k], want[k]) for k in (
+        "feature_map", "pooled", "pre_norm_cls")], TEACHER_MODEL_REL_TOL)
+    print(f"[model] CvT float32 {CVT} at {CVT_IMG}: CPU forward of "
+          f"{CVT_MODEL_FRAMES} frames {t_cpu:.2f} s (host clock)")
+    del cpu_model, dev_model, got, want
+
+    _, q = int8_tresnet(10)
+    q_cpu = copy.deepcopy(q).cpu()
+    x = zoo_frames(TRESNET_Q8_MODEL_FRAMES, TRESNET_IMG, 13)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = q_cpu(x)
+        t_cpu = time.perf_counter() - t0
+        before, q1_before = launches(), q1_launches()
+        got = q(x.to(DEVICE))
+        count = launched_since(before)
+        now = q1_launches()
+    q1 = {k: now[k] - q1_before[k] for k in now}
+    want_q1 = tresnet_q1_want(**TRESNET_SPEC, img=TRESNET_IMG)
+    check(count == dict.fromkeys(KERNELS, 0) | {"qconv_bn": 85}
+          and q1 == want_q1, f"int8 TResNet launches {count}, Q1 by path "
+                             f"{q1}, want {want_q1}")
+    for name, g, w in [("pooled", got["pooled"], want["pooled"])] + [
+            (f"stage {i + 1}", a, b) for i, (a, b) in enumerate(
+                zip(got["stages"], want["stages"]))]:
+        g, w = g.float().cpu(), w.float()
+        err = (g - w).abs().max().item()
+        top = w.abs().max().item()
+        corr = float(np.corrcoef(g.numpy().ravel(), w.numpy().ravel())[0, 1])
+        same = float((g == w).float().mean())
+        check(err <= TRESNET_Q8_CPU_REL * top and corr > TRESNET_Q8_CPU_CORR,
+              f"int8 TResNet {name}: card vs CPU max_abs_err {err} of "
+              f"{top}, correlation {corr}")
+        print(f"[model] int8 {TRESNET} {name}: card vs CPU max_abs_err "
+              f"{err:.3e} of max|ref| {top:.3f} (tol "
+              f"{TRESNET_Q8_CPU_REL:g}), correlation {corr:.6f}, equal "
+              f"{same:.2%}")
+    print(f"[model] int8 {TRESNET}: Q1 by path per forward {q1}; CPU plain "
+          f"forward of {TRESNET_Q8_MODEL_FRAMES} frames {t_cpu:.2f} s (host "
+          f"clock)")
+
+
+def phase_int8_tresnet(card: str) -> None:
+    """The int8 TResNet-L-448 backbone at the teacher's batch: launches by
+    Q1 path a forward, its pooled feature against the bf16 float
+    backbone's (PTQ fidelity), both forwards' ms in turns and the peak
+    memory; then scripts.zoo_bench's rows."""
+    from computervision_codes_tpu_torch.scripts import zoo_bench
+
+    model, q = int8_tresnet(20)
+    x = zoo_frames(TRESNET_BATCH, TRESNET_IMG, 21).to(DEVICE, torch.bfloat16)
+    with torch.inference_mode():
+        before, q1_before = launches(), q1_launches()
+        got = q(x)
+        count = launched_since(before)
+        now = q1_launches()
+        ref = model(x)
+    q1 = {k: now[k] - q1_before[k] for k in now}
+    want_q1 = tresnet_q1_want(**TRESNET_SPEC, img=TRESNET_IMG)
+    check(count == dict.fromkeys(KERNELS, 0) | {"qconv_bn": 85}
+          and q1 == want_q1, f"int8 TResNet launches {count}, Q1 {q1}")
+    g, r = got["pooled"].float(), ref["pooled"].float()
+    cos = float(F.cosine_similarity(g.ravel(), r.ravel(), dim=0))
+    rel = float((g - r).norm() / r.norm())
+    check(bool(torch.isfinite(g).all()) and cos > TRESNET_Q8_COS
+          and rel < TRESNET_Q8_REL, f"int8 TResNet pooled against bf16: cos "
+                                    f"{cos}, rel {rel}")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        q(x)
+        peak = torch.cuda.max_memory_allocated() - resident
+        ms, runs = in_turns({"int8": lambda: q(x), "bf16": lambda: model(x)},
+                            {"int8": TRESNET_Q8_REPS,
+                             "bf16": TRESNET_Q8_REPS})
+    print(f"[int8 tresnet] {TRESNET} {TRESNET_BATCH} frames "
+          f"{TRESNET_IMG}x{TRESNET_IMG}: Q1 by path per forward {q1} (85 "
+          f"calls, no K9); pooled against the bf16 backbone's: cosine "
+          f"{cos:.5f}, relative L2 {rel:.4f} (bounds {TRESNET_Q8_COS}, "
+          f"{TRESNET_Q8_REL}); ms per forward in turns: int8 "
+          f"{ms['int8']:.3f}, bf16 {ms['bf16']:.3f} ({runs}); a forward "
+          f"adds {peak / 2**30:.2f} GiB at its peak; {card}")
+    del model, q
+    rows = zoo_bench.main([])
+    check(len(rows) == 4 and all(r["fps"] > 0 for r in rows),
+          f"zoo_bench rows {rows}")
+
+
+def phase_zoo_sessions(card: str) -> tuple:
+    """The CvT-w24-384 teacher session in bf16 and int8 (``quantize=True``:
+    Q1's TMA path for every Dense of >= 512 inputs, CVT_Q8_DENSE calls a
+    predict; the attention the plain version, no K7), then the TResNet-L
+    session with ``quantize=True`` (K9 52 and Q1 TRESNET_Q8_DENSE a
+    predict). Returns the launches of each, counted from 0."""
+    reset_launches()
+    phase_teacher(card, {"bf16": ({}, {}),
+                         "int8": ({"qconv_bn": CVT_Q8_DENSE},
+                                  {"quantize": True})},
+                  CVT, CVT_IMG, CVT_BATCH)
+    cvt = path_launches()
+    reset_launches()
+    phase_teacher(card, {"int8 Dense": (
+        TRESNET_LAUNCHES | {"qconv_bn": TRESNET_Q8_DENSE},
+        {"quantize": True})}, TRESNET, TRESNET_IMG, TRESNET_BATCH)
+    return cvt, path_launches()
+
+
+def phase_zoo_drivers(card: str, root: str) -> None:
+    """The teacher driver's ``-t`` (one epoch and its validation, bf16,
+    loss "i", batch ZOO_DRIVER_BATCH) at CvT-w24-384 (no kernel of the
+    port) and TResNet-L-448 (K9 in the validation forwards only), on
+    phase 16's tree."""
+    from computervision_codes_tpu_torch.cli import spatial_transformer
+
+    for backbone, img, eval_want in ((CVT, CVT_IMG, {}),
+                                     (TRESNET, TRESNET_IMG,
+                                      TRESNET_LAUNCHES)):
+        argv = ["--data_dir", root, "--backbone", backbone,
+                "--image_height", str(img), "--image_width", str(img),
+                "-b", str(ZOO_DRIVER_BATCH), "--loss_type", "i", "--dtype",
+                "bfloat16", "--device", DEVICE, "--epochs", "1", "-t",
+                "--ckpt_root", f"{root}/ckpt_{backbone}"]
+        res, events, _ = driver_run(f"teacher -t --backbone {backbone} "
+                                    f"{img}", spatial_transformer, argv, {},
+                                    eval_want, card, tag="zoo")
+        finite_losses(f"teacher {backbone}", res)
+        check(res["step"] == len(events["train"]) >= 4,
+              f"teacher {backbone}: {res['step']} steps")
+
+
+def phase_device_augment(card: str) -> dict:
+    """``make_device_augment`` (the default list and every device
+    augmentation) with fixed draws on the card against the CPU at the
+    student's batch and geometry: the flips, autocontrast, sharpness and
+    jitter equal, each rotation within one level (the share of differing
+    pixels printed), the normalised output's largest difference; then the
+    ms of a batch on the card, each list and rotation, and the host's
+    PIL-free augmentation of the same frames for comparison."""
+    from computervision_codes_tpu_torch.data import device_augment as da
+    from computervision_codes_tpu_torch.data import transforms
+
+    rng = np.random.default_rng(30)
+    h, w = AUG_HW
+    frames = endoscope_frames(AUG_BATCH, AUG_HW, 31)
+    x = torch.from_numpy(np.stack(frames))
+    xd = x.to(DEVICE)
+    angles = torch.from_numpy(rng.uniform(-90, 90, AUG_BATCH).astype(
+        np.float32))
+    bf = torch.from_numpy(rng.uniform(0.9, 1.1, AUG_BATCH).astype(np.float32))
+    cf = torch.from_numpy(rng.uniform(0.8, 1.2, AUG_BATCH).astype(np.float32))
+    ops = {"autocontrast": (da.autocontrast_u8, ()),
+           "sharpness": (da.sharpness_u8, ()),
+           "jitter": (da.jitter_u8, (bf, cf)),
+           "rotate gather": (da.rotate_expand_resize_u8, (angles,)),
+           "rotate two_pass": (da.rotate_expand_resize_fast, (angles,))}
+    shares = {}
+    for name, (fn, args) in ops.items():
+        want = fn(x, *args)
+        got = fn(xd, *(a.to(DEVICE) for a in args)).cpu()
+        diff = (got.int() - want.int()).abs()
+        shares[name] = float((diff > 0).float().mean())
+        exact = not name.startswith("rotate")
+        check(int(diff.max()) <= (0 if exact else 1),
+              f"device_augment {name}: card vs CPU up to {int(diff.max())} "
+              f"levels")
+    augs = ("original", "vflip", "hflip", "contrast", "rot90", "brightness",
+            "jitter")
+    draws = da.draw_augment(augs, AUG_BATCH,
+                            torch.Generator().manual_seed(32))
+    want = da.apply_augment(augs, x, draws)
+    got = da.apply_augment(augs, xd, [
+        None if d is None else tuple(t.to(DEVICE) for t in d)
+        if isinstance(d, tuple) else d.to(DEVICE) for d in draws]).cpu()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    level = 1 / 255 / float(transforms.IMAGENET_STD.min())
+    past = float((diff > level * 1.0001).float().mean())
+    check(err <= AUG_LIST_LEVELS * level * 1.0001 and past <= AUG_LIST_SHARE,
+          f"device_augment pipeline: card vs CPU {err} ({err / level:.2f} "
+          f"levels), {past:.2e} of the values past one level")
+    print(f"[augment] {AUG_BATCH} frames {h}x{w}, fixed draws, card against "
+          f"CPU: share of differing pixels {shares} (flips exact; "
+          f"autocontrast, sharpness and jitter must be 0, the rotations "
+          f"within one level); the whole list {augs} normalised: max "
+          f"|difference| {err:.3e} = {err / level:.2f} levels, "
+          f"{past:.2e} of the values past one level (bounds "
+          f"{AUG_LIST_LEVELS} levels, {AUG_LIST_SHARE:g})")
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    fns = {"default list (gather)": da.make_device_augment(),
+           "default list (two_pass)": da.make_device_augment(
+               rot_impl="two_pass"),
+           "flips + contrast": da.make_device_augment(
+               ("original", "vflip", "hflip", "contrast")),
+           "two views (TERL)": da.make_device_augment(two_view=True)}
+    ms, runs = in_turns({k: functools.partial(f, gen, xd)
+                         for k, f in fns.items()},
+                        dict.fromkeys(fns, AUG_REPS))
+    t0 = time.perf_counter()
+    host_rng = np.random.default_rng(34)
+    for f in frames:
+        transforms.apply_augmentations(host_rng, f, transforms.DEFAULT_AUGS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[augment] ms per batch of {AUG_BATCH} frames {h}x{w} on the "
+          f"card, in turns: " + ", ".join(
+              f"{k} {v:.3f} ({AUG_BATCH / v * 1e3:.0f} frames/s)"
+              for k, v in ms.items())
+          + f"; runs {runs}; the host's augmentation of the same frames on "
+            f"one thread {host_ms:.1f} ms ({AUG_BATCH / host_ms * 1e3:.0f} "
+            f"frames/s, host clock); {card}")
+    return {k: round(v, 4) for k, v in ms.items()}
+
+
+def phase_augment_drivers(card: str, root: str) -> tuple:
+    """The student's and TERL's training epochs on phase 16's tree without
+    and with ``--device_augment``, in turns: frames/s of each epoch and the
+    steps' periods. Returns the launches of each driver's runs, counted
+    from 0."""
+    from computervision_codes_tpu_torch.cli import spatial_cnn, terl_learnt
+
+    rates = {}
+    counts = []
+    for name, module, argv, names, step_want, eval_want, tag in (
+            ("student", spatial_cnn,
+             ["--data_dir", root, "-b", str(SPATIAL_STUDENT_BATCH),
+              "--loss_type", "i", "--epochs", "1", "--device", DEVICE, "-t"],
+             SPATIAL_STEPS, {}, {}, "spatial"),
+            ("TERL", terl_learnt,
+             ["--data_dir", root, "--backbone", TERL_BACKBONE,
+              "--img_size", str(TERL_IMG), "-b", str(TERL_BATCH), "--mlp",
+              "--moco_k", str(TERL_QUEUE), "--epochs", "1", "--dtype",
+              "bfloat16", "--device", DEVICE, "-t"],
+             TERL_STEPS, TERL_EVAL_LAUNCHES, TERL_EVAL_LAUNCHES, "terl")):
+        reset_launches()
+        for i, flag in enumerate(AUG_DRIVER_ORDER):
+            label = (f"{name} -t" + (" --device_augment" if flag else ""))
+            res, events, _ = driver_run(
+                label, module, argv + ["--ckpt_root", f"{root}/aug_{name}_{i}"]
+                + (["--device_augment"] if flag else []), step_want,
+                eval_want, card, names, tag=tag)
+            finite_losses(label, res)
+            steps = len(events["train"])
+            frames = steps * int(argv[argv.index("-b") + 1])
+            periods = step_periods(events["train"])
+            rates.setdefault(label, []).append(
+                (frames / sum(res["train_seconds"]),
+                 float(np.median(periods)) if periods else None))
+        counts.append(path_launches())
+    print(f"[augment] epochs in turns (without, with, with, without): "
+          + "; ".join(f"{label}: frames/s {[round(r[0], 1) for r in v]}, "
+                      f"median step period ms "
+                      f"{[round(r[1], 3) if r[1] else None for r in v]}"
+                      for label, v in rates.items()) + f"; {card}")
+    return tuple(counts)
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -6345,6 +6857,9 @@ def main() -> None:
     phase_gemm_walk(card)
     probe_s = time.perf_counter() - probe_s
     measured["qconv_bn"] |= phase_q1_dense(card)
+    zoo_s = time.perf_counter()  # this slice's phases, summed
+    measured["qconv_bn"] |= phase_q1_tresnet(card)
+    zoo_s = time.perf_counter() - zoo_s
     phase_model()
     phase_model_int8()
     phase_model_teacher_int8(phase_model_teacher())
@@ -6353,6 +6868,10 @@ def main() -> None:
     phase_model_mstct_train()
     mstct_s = time.perf_counter() - mstct_s
     phase_model_tresnet()
+    t0 = time.perf_counter()
+    phase_model_zoo()
+    phase_device_augment(card)
+    zoo_s += time.perf_counter() - t0
     phase_model_swin_fused()
     t0 = time.perf_counter()
     phase_model_train()
@@ -6392,6 +6911,18 @@ def main() -> None:
         card, {"bf16": (TRESNET_LAUNCHES, {})},
         TRESNET, TRESNET_IMG, TRESNET_BATCH)
     tresnet = path_launches()
+    t0 = time.perf_counter()
+    cvt_sessions, tresnet_q8_session = phase_zoo_sessions(card)
+    reset_launches()  # the int8 TResNet-L backbone and zoo_bench start here
+    phase_int8_tresnet(card)
+    int8_tresnet = path_launches()
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
+        spatial_tree(root)
+        reset_launches()  # the teacher driver at CvT and TResNet
+        phase_zoo_drivers(card, root)
+        zoo_drivers = path_launches()
+        student_aug, terl_aug = phase_augment_drivers(card, root)
+    zoo_s += time.perf_counter() - t0
     frames_s = time.perf_counter()  # this slice's phase
     infer_path, dataset_path = phase_frames(card, teachers["bf16"])
     frames_s = time.perf_counter() - frames_s
@@ -6472,7 +7003,15 @@ def main() -> None:
              TERL_PATH: terl_path,
              "the student's training driver (cli.spatial_cnn -t -e -d, "
              "--optimizer sam, --qat: ResNet18 on cuDNN and cuBLAS, no "
-             "kernel of the port)": spatial_student}
+             "kernel of the port)": spatial_student,
+             ZOO_CVT_PATH: cvt_sessions,
+             ZOO_TRESNET_PATH: tresnet_q8_session,
+             INT8_TRESNET_PATH: int8_tresnet,
+             "the teacher driver -t at CvT-w24-384 and TResNet-L-448 (bf16, "
+             "loss i; K9 in TResNet's validation forwards)": zoo_drivers,
+             "the student's driver -t without and with --device_augment "
+             "(no kernel of the port)": student_aug,
+             TERL_AUG_PATH: terl_aug}
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     print("[main path] launches: " + "; ".join(
         f"{label} { {k: v for k, v in p.items() if v} }"
@@ -6480,6 +7019,8 @@ def main() -> None:
     # Q1: the student's convolutions take the cp.async producer, the
     # teacher's Dense layers the TMA one, and no serving path the loop
     for label, p in paths.items():
+        if label == INT8_TRESNET_PATH:
+            continue  # every form a forward (phase_int8_tresnet checks it)
         form = "gemm" if label.startswith("teacher") else "conv"
         got = {k: p[f"qconv_bn {k}"] for k in q1_path_wrappers()}
         check(got == q1_want(p["qconv_bn"], form),
@@ -6494,7 +7035,7 @@ def main() -> None:
                   "the Swin-L-384 teacher's training steps (both plans) and "
                   "the trained module's eval", SPATIAL_TEACHER_PATH,
                   "the Swin-T-224 teacher's bf16 predict (C 96 at stage 0)",
-                  TERL_PATH):
+                  TERL_PATH, TERL_AUG_PATH):
         got = {k: paths[label][f"swin_gemm {k}"] for k in PATHS}
         check(got["wgmma"] > 0 and got["loop"] == got["fma"] == 0,
               f"{label}: Swin GEMM products per path {got}")
@@ -6557,7 +7098,11 @@ def main() -> None:
           f"(phase 16) {spatial_s:.1f} s; the widths off 64 (their K3-K6 "
           f"times and the Swin-T teacher) {widths_s:.1f} s; the TCN and "
           f"TERL drivers (phases 17-18, card vs CPU included) "
-          f"{temporal_s:.1f} s (host clock)")
+          f"{temporal_s:.1f} s; the backbone zoo and --device_augment "
+          f"(Q1 at TResNet-L's shapes, CvT and int8 TResNet card vs CPU, the "
+          f"augmentation's check and times, the CvT and TResNet sessions, "
+          f"the int8 backbone and zoo_bench, the drivers) {zoo_s:.1f} s "
+          f"(host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"{PACKAGE}/csrc/"

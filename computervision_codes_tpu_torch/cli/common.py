@@ -128,15 +128,12 @@ def maybe_warm_start(flags, state, backbone: str, logger,
 def refuse_unported(flags) -> None:
     """The flags whose code is not ported yet raise, naming their slice:
     ``--dp_devices`` / ``--tp_devices`` > 1 (ROADMAP Queue 1 item 8, the
-    parallel slice) and ``--device_augment`` (item 7)."""
+    parallel slice)."""
     for name in ("dp_devices", "tp_devices"):
         if getattr(flags, name, 0) > 1:
             raise NotImplementedError(
                 f"--{name} > 1 is not ported yet (ROADMAP Queue 1 item 8, "
                 f"the parallel slice)")
-    if getattr(flags, "device_augment", False):
-        raise NotImplementedError("--device_augment is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
 
 
 def maybe_resume(flags, ckpt, state, logger):

@@ -24,9 +24,12 @@ what the temporal TCN stage reads).
   mAP table and the dump's path.
 
 The student runs on cuDNN and cuBLAS, as the JAX student runs plain XLA:
-no kernel of the port sits on this path. Not ported yet, and refused:
-``--dp_devices > 1`` (ROADMAP Queue 1 item 8) and ``--device_augment``
-(item 7).
+no kernel of the port sits on this path. ``--device_augment`` ships the
+training frames as uint8 and augments and normalises them on ``--device``
+(``data.device_augment``), each step's draws from a generator seeded from
+``seed ^ 0x5EED``, the epoch and the step, as the JAX driver folds its
+key. Not ported yet, and refused: ``--dp_devices > 1`` (ROADMAP Queue 1
+item 8).
 
     python -m computervision_codes_tpu_torch.cli.spatial_cnn \\
         --data_dir D -t -e -d [--loss_type all --rates 1 0.5 0.1] \\
@@ -41,6 +44,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..data.device_augment import make_device_augment, step_generator
 from ..data.feature_store import FeatureStore
 from ..data.pipeline import CholecDataset, batch_iterator
 from ..data.prefetch import prefetch_to_device
@@ -68,7 +72,9 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                    help="data-parallel devices (not ported yet; 0 or 1 = "
                         "one device)")
     p.add_argument("--device_augment", action="store_true",
-                   help="augmentation on the device (not ported yet)")
+                   help="train-time augmentation and normalisation on the "
+                        "device (data/device_augment.py): the host only "
+                        "decodes and resizes")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     flags, _ = p.parse_known_args(argv)
@@ -86,7 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                             flags.kfold,
                             augmentation_list=flags.augmentation_list,
                             image_size=(flags.image_height,
-                                        flags.image_width))
+                                        flags.image_width),
+                            device_augment=flags.device_augment)
     split = dataset.split
     feats_root = flags.feats_dir or f"{flags.data_dir}/data_feats"
     if flags.loss_type == "all" and flags.train:
@@ -135,6 +142,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       f"{flags.warmups} decay {flags.decay_rate} dtype "
                       f"{flags.dtype} device {device}")
     result = {}
+    augment = (make_device_augment(tuple(flags.augmentation_list))
+               if flags.device_augment else None)
 
     if flags.train:
         losses, seconds = [], []
@@ -148,9 +157,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                         drop_last=False, pad_last=True)
                 stream = ({k: v for k, v in b.items() if k != "valid"}
                           for b in stream)
-                for batch in prefetch_to_device(stream, device=device):
+                for step_no, batch in enumerate(
+                        prefetch_to_device(stream, device=device)):
                     if guard.requested:
                         break
+                    if augment is not None:
+                        batch["image"] = augment(step_generator(
+                            device, flags.seed ^ 0x5EED, epoch, step_no),
+                            batch["image"])
                     state, m = train_step(state, batch)
                 if guard.requested:
                     ckpt.save(state, tag="latest")

@@ -30,9 +30,12 @@ its flags and ``--device`` (default ``cuda``, where the model runs):
 Probabilities are the sigmoid of the logits in the model dtype; the
 dumped features are float32 (numpy has no bfloat16), holding the model's
 values exactly. On the card the Swin blocks run K3, K4 and K5 in eval and
-K6 under ``--fused_train``. Not ported yet, and refused: ``--dp_devices``
-and ``--tp_devices`` > 1 (ROADMAP Queue 1 item 8) and ``--device_augment``
-(item 7).
+K6 under ``--fused_train``. ``--device_augment`` ships each training
+batch's frames as uint8 and augments and normalises them on ``--device``
+(``data.device_augment``), each step's draws from a generator seeded from
+``seed ^ 0x5EED`` and the step's number, as the JAX driver folds its key.
+Not ported yet, and refused: ``--dp_devices`` and ``--tp_devices`` > 1
+(ROADMAP Queue 1 item 8).
 
     python -m computervision_codes_tpu_torch.cli.spatial_transformer \\
         --data_dir D -t -e -d [--loss_type all --rates 1 0.5 0.1] \\
@@ -47,6 +50,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..data.device_augment import make_device_augment, step_generator
 from ..data.feature_store import FeatureStore
 from ..data.pipeline import CholecDataset, batch_iterator
 from ..losses import TARGET_POS_WEIGHT, TOOL_POS_WEIGHT, VERB_POS_WEIGHT
@@ -87,7 +91,9 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                    help="data-parallel devices (not ported yet; 0 or 1 = "
                         "one device)")
     p.add_argument("--device_augment", action="store_true",
-                   help="augmentation on the device (not ported yet)")
+                   help="train-time augmentation and normalisation on the "
+                        "device (data/device_augment.py): the host only "
+                        "decodes and resizes")
     p.add_argument("--tp_devices", type=int, default=0,
                    help="tensor-parallel devices (not ported yet; 0 or 1 = "
                         "one device)")
@@ -108,7 +114,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                             flags.kfold,
                             augmentation_list=flags.augmentation_list,
                             image_size=(flags.image_height,
-                                        flags.image_width))
+                                        flags.image_width),
+                            device_augment=flags.device_augment)
     split = dataset.split
     feats_root = flags.feats_dir or f"{flags.data_dir}/data_feats"
     if flags.loss_type == "all" and flags.train:
@@ -165,9 +172,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       flags.batch, f"backbone {flags.backbone} dtype "
                       f"{flags.dtype} device {device}")
     result = {}
+    augment = (make_device_augment(tuple(flags.augmentation_list))
+               if flags.device_augment else None)
 
     if flags.train:
         losses, seconds = [], []
+        step_no = 0
         # the handlers are restored on leaving: main may run in a process
         # that goes on
         with PreemptionGuard() as guard:
@@ -181,6 +191,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     if guard.requested:
                         break
                     batch.pop("valid")
+                    if augment is not None:
+                        batch["image"] = augment(
+                            step_generator(device, flags.seed ^ 0x5EED,
+                                           step_no),
+                            torch.as_tensor(batch["image"]).to(device))
+                        step_no += 1
                     state, m = train_step(state, batch)
                 if guard.requested:
                     ckpt.save(state, tag="latest")

@@ -37,9 +37,10 @@ non-causal layer of the real frames near the end (the reference runs each
 video at its own length, Temporal_tenco/run.py:252-264). At a length equal
 to a bucket the two drivers compute the same thing.
 
-``--device`` (default ``cuda``) is where the model runs. Not ported yet,
-and refused: ``--dp_devices`` / ``--tp_devices`` > 1 and
-``--device_augment``.
+``--device`` (default ``cuda``) is where the model runs. Flags the driver
+does not declare are ignored, as the JAX driver ignores them
+(``parse_known_args``): the frame-level drivers' ``--dp_devices``,
+``--tp_devices`` and ``--device_augment`` among them.
 """
 
 from __future__ import annotations
@@ -95,12 +96,6 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                         "with (0_5fold_TCN_black/run.py:432-435); "
                         "'balancing' = the per-variant/per-fold "
                         "get_weight_balancing tables (run.py:168-265)")
-    p.add_argument("--dp_devices", type=int, default=0,
-                   help="data parallelism (not ported yet)")
-    p.add_argument("--tp_devices", type=int, default=0,
-                   help="tensor parallelism (not ported yet)")
-    p.add_argument("--device_augment", action="store_true",
-                   help="on-device augmentation (not ported yet)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     flags, _ = p.parse_known_args(argv)
@@ -168,7 +163,6 @@ def eval_video(state, eval_step, seq) -> Dict[str, np.ndarray]:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = parse_flags(argv)
-    common.refuse_unported(flags)
     if flags.loss_type not in LOSS_TYPES:
         raise ValueError(f"unknown --loss_type {flags.loss_type!r}; one of "
                          f"{LOSS_TYPES}")

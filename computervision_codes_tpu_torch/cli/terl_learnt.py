@@ -40,7 +40,10 @@ triplet probabilities over each component class (test.py:246-252);
 On the card the query's Swin blocks run K6 (under ``--fused_train``), the
 key module's and every eval forward's run K3 and K4 (Swin-T's odd window
 7: plan "split"). ``--device`` (default ``cuda``) is where the model runs.
-Not ported yet, and refused: ``--device_augment``.
+``--device_augment`` ships each frame once, as uint8, and makes both
+contrastive views from it on the device (``data.device_augment``,
+``two_view``), each step's draws from a generator seeded from ``seed ^
+0x2C0F``, the epoch and the step, as the JAX driver folds its key.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.device_augment import make_device_augment, step_generator
 from ..data.feature_store import FeatureStore
 from ..data.pipeline import CholecDataset, batch_iterator, video_eval_batches
 from ..losses.components import component_max_logits
@@ -124,8 +128,8 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                         "per-task CAM overlay PNGs for test-split frames "
                         "(reference cam.py:200-278)")
     p.add_argument("--device_augment", action="store_true",
-                   help="both contrastive views on the device (not ported "
-                        "yet)")
+                   help="both contrastive views augmented on the device "
+                        "from one uint8 upload (data/device_augment.py)")
     p.add_argument("--cam_frames", type=int, default=8,
                    help="max frames to render with --cam_dump")
     p.add_argument("--device", type=str, default="cuda",
@@ -145,8 +149,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dataset = CholecDataset(flags.data_dir, flags.dataset_variant,
                             flags.kfold,
                             augmentation_list=flags.augmentation_list,
-                            image_size=(flags.img_size, flags.img_size))
+                            image_size=(flags.img_size, flags.img_size),
+                            device_augment=flags.device_augment)
     split = dataset.split
+    augment2 = (make_device_augment(tuple(flags.augmentation_list),
+                                    two_view=True)
+                if flags.device_augment else None)
     feats_root = flags.feats_dir or f"{flags.data_dir}/data_feats"
 
     modelname = common.build_modelname(flags) + "_learnT"
@@ -247,7 +255,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     lab_ivt = batch["label_ivt"][:, class_map]
                     s, c, v = select_tail_anchors(
                         lab_ivt * tail_ivt_mask[None, :], max_anchors)
-                    tb = {"image1": batch["image"], "image2": batch["image2"],
+                    if augment2 is not None:
+                        img1, img2 = augment2(
+                            step_generator(device, flags.seed ^ 0x2C0F,
+                                           epoch, n_batches),
+                            torch.as_tensor(batch["image"]).to(device))
+                    else:
+                        img1, img2 = batch["image"], batch["image2"]
+                    tb = {"image1": img1, "image2": img2,
                           "anchor_sample": s, "anchor_class": c,
                           "anchor_valid": v,
                           "label_ivt": lab_ivt.astype(np.float32)}

@@ -132,22 +132,31 @@ class LayerNorm(nn.Module):
         return layer_norm_f32(x, self.scale, self.bias).to(self.dtype)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x) in x's dtype: the activation of CvT's MLP (the
+    JAX ``quick_gelu``)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 class Mlp(nn.Module):
-    """Transformer MLP (Dense -> exact GELU -> Dense; no dropout, the Swin
-    models' rate being 0). The children carry flax's auto names
-    ``Dense_0`` and ``Dense_1``."""
+    """Transformer MLP (Dense -> ``act`` -> Dense; no dropout, the Swin and
+    CvT models' rate being 0). ``act`` is exact (erf) GELU by default, as
+    the JAX ``Mlp``'s. The children carry flax's auto names ``Dense_0``
+    and ``Dense_1``."""
 
     def __init__(self, dim: int, hidden: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 act=F.gelu):
         super().__init__()
+        self.act = act
         self.Dense_0 = Dense(dim, hidden, dtype=dtype, generator=generator,
                              init="trunc_normal")
         self.Dense_1 = Dense(hidden, dim, dtype=dtype, generator=generator,
                              init="trunc_normal")
 
     def forward(self, x):
-        return self.Dense_1(F.gelu(self.Dense_0(x)))  # exact (erf) GELU
+        return self.Dense_1(self.act(self.Dense_0(x)))
 
 
 def keep_mask(shape, keep: float, device,

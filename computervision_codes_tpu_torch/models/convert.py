@@ -42,18 +42,20 @@ and a flax checkpoint of the port's weights restores in JAX.
 The torch-layout converters are the port's copies of the JAX package's
 (``models/convert.py`` there): ``load_torch_state_dict`` reads a ``.pth``
 (``torch.load(..., weights_only=True)``, ``module.`` prefixes stripped), and
-``convert_torchvision_resnet``, ``convert_swin`` and ``convert_tresnet`` map
-a torchvision / microsoft / TResNet state dict onto the flax-named numpy
-tree that ``load_jax_variables`` takes (conv OIHW -> HWIO, linear (out, in)
--> (in, out), BatchNorm -> ``params`` scale/bias + ``batch_stats``
-mean/var, or all four in ``frozen``). ``convert_cvt`` waits for the CvT
-backbone (the zoo slice) and raises.
+``convert_torchvision_resnet``, ``convert_swin``, ``convert_tresnet`` and
+``convert_cvt`` map a torchvision / microsoft / TResNet / CvT (microsoft's
+or HF transformers' ``CvtModel`` layout) state dict onto the flax-named
+numpy tree that ``load_jax_variables`` takes (conv OIHW -> HWIO, linear
+(out, in) -> (in, out), BatchNorm -> ``params`` scale/bias +
+``batch_stats`` mean/var, or all four in ``frozen``).
 
 ``load_jax_quantized(qmodule, q_backbone)`` does the same for a tree that
-the JAX ``quantize_resnet`` / ``calibrate_resnet`` made: int8 ``w_q`` goes
-from HWIO to the kernel's (Cout, kh, kw, Cin), ``w`` (a float stem) stays
-HWIO, and ``mult``, ``bias`` and ``act_scale`` come across as they are (a
-conv without ``act_scale`` in the tree goes back to dynamic scales).
+the JAX ``quantize_resnet`` / ``calibrate_resnet`` (or ``quantize_tresnet``
+/ ``calibrate_tresnet``, whose SE ``Dense`` layers stay float) made: int8
+``w_q`` goes from HWIO to the kernel's (Cout, kh, kw, Cin), ``w`` (a float
+stem) stays HWIO, and ``mult``, ``bias`` and ``act_scale`` come across as
+they are (a conv without ``act_scale`` in the tree goes back to dynamic
+scales).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ import torch
 import torch.nn as nn
 
 from .moco import QUEUE_FIELDS, MoCoQueue
+from .quant_tresnet import FloatDense
 from .quantized import QConv
 from .resnet import BatchNorm, Conv2d, FrozenBatchNorm
 from .tcn import Conv1x1
@@ -212,10 +215,11 @@ def jax_variables(module: nn.Module):
 
 
 def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:
-    """Fill a ``QuantizedResNet`` in place from a JAX quantized tree of the
-    same architecture and stem kind."""
+    """Fill a ``QuantizedResNet`` or ``QuantizedTResNet`` in place from a
+    JAX quantized tree of the same architecture and stem kind (a
+    TResNet's float SE ``kernel`` and ``bias`` too)."""
     convs = {name: m for name, m in qmodule.named_modules()
-             if isinstance(m, QConv)}
+             if isinstance(m, (QConv, FloatDense))}
     nodes = {}
 
     def walk(tree, prefix):
@@ -233,6 +237,13 @@ def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:
     with torch.no_grad():
         for name, conv in convs.items():
             node = {k: np.asarray(v) for k, v in nodes[name].items()}
+            if isinstance(conv, FloatDense):
+                for key in ("kernel", "bias"):
+                    conv.get_buffer(key).copy_(torch.from_numpy(
+                        np.array(node.pop(key), np.float32)))
+                if node:
+                    raise KeyError(f"{name}: unknown keys {sorted(node)}")
+                continue
             kinds = ("w" in node, "w" in conv.qw)
             if kinds[0] != kinds[1]:
                 raise ValueError(f"{name}: float stem in "
@@ -398,10 +409,116 @@ def convert_tresnet(sd: Dict[str, np.ndarray], layers) -> Dict:
     return {"params": params, "batch_stats": stats}
 
 
+_HF_CVT_RENAMES = (
+    (".embedding.convolution_embeddings.projection.", ".patch_embed.proj."),
+    (".embedding.convolution_embeddings.normalization.", ".patch_embed.norm."),
+    (".attention.attention.convolution_projection_query.convolution_projection.convolution.",
+     ".attn.conv_proj_q.conv."),
+    (".attention.attention.convolution_projection_key.convolution_projection.convolution.",
+     ".attn.conv_proj_k.conv."),
+    (".attention.attention.convolution_projection_value.convolution_projection.convolution.",
+     ".attn.conv_proj_v.conv."),
+    (".attention.attention.convolution_projection_query.convolution_projection.normalization.",
+     ".attn.conv_proj_q.bn."),
+    (".attention.attention.convolution_projection_key.convolution_projection.normalization.",
+     ".attn.conv_proj_k.bn."),
+    (".attention.attention.convolution_projection_value.convolution_projection.normalization.",
+     ".attn.conv_proj_v.bn."),
+    (".attention.attention.projection_query.", ".attn.proj_q."),
+    (".attention.attention.projection_key.", ".attn.proj_k."),
+    (".attention.attention.projection_value.", ".attn.proj_v."),
+    (".attention.output.dense.", ".attn.proj."),
+    (".intermediate.dense.", ".mlp.fc1."),
+    (".output.dense.", ".mlp.fc2."),
+    (".layernorm_before.", ".norm1."),
+    (".layernorm_after.", ".norm2."),
+)
+
+
+def _cvt_canonical(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Normalize an HF CvtModel/CvtForImageClassification state_dict onto
+    the official microsoft layout the reference loads
+    (Spatial_transformer/models/cls_cvt — keys stage{i}.blocks.{j}.*).
+    Official-layout dicts pass through unchanged."""
+    if not any(".encoder.stages." in k or k.startswith("encoder.stages.")
+               for k in sd):
+        return sd
+    out = {}
+    for k, v in sd.items():
+        k = k.removeprefix("cvt.")
+        k = k.replace("encoder.stages.", "stage")
+        # stage{i}.layers.{j}. -> stage{i}.blocks.{j}.
+        k = k.replace(".layers.", ".blocks.")
+        for old, new in _HF_CVT_RENAMES:
+            k = k.replace(old, new)
+        k = k.replace("layernorm.", "norm.")  # CvtForImageClassification
+        out[k] = v
+    return out
+
+
 def convert_cvt(sd: Dict[str, np.ndarray], depths) -> Dict:
-    """The CvT converter waits for the CvT backbone."""
-    raise NotImplementedError("CvT checkpoints are not ported yet: the CvT "
-                              "backbone comes with the backbone zoo slice")
+    """CvT state_dict (official microsoft / reference layout, or HF
+    transformers CvtModel) -> ``{"params", "batch_stats"}`` for
+    ``models.cvt.CvT``.
+
+    The reference loads CvT-w24-384x384-IN-22k.pth into its vendored
+    cls_cvt modules (Spatial_transformer/models/backbone.py:202-214); this
+    maps that layout onto the flax tree: depthwise conv OIHW (C,1,3,3) ->
+    HWIO (3,3,1,C), BatchNorm running stats -> batch_stats collection.
+    """
+    sd = _cvt_canonical(sd)
+    params: Dict = {}
+    stats: Dict = {}
+    for si, depth in enumerate(depths):
+        st = f"stage{si}"
+        params[f"embed{si}"] = {
+            "kernel": _conv(sd[f"{st}.patch_embed.proj.weight"]),
+            "bias": sd[f"{st}.patch_embed.proj.bias"]}
+        params[f"embed_norm{si}"] = {
+            "scale": sd[f"{st}.patch_embed.norm.weight"],
+            "bias": sd[f"{st}.patch_embed.norm.bias"]}
+        if f"{st}.cls_token" in sd:
+            params["cls_token"] = sd[f"{st}.cls_token"]
+        for bi in range(depth):
+            t = f"{st}.blocks.{bi}"
+            attn: Dict = {}
+            attn_stats: Dict = {}
+            for tk, ours in (("q", "proj_q"), ("k", "proj_k"),
+                             ("v", "proj_v")):
+                bn_p, bn_s = _bn(sd, f"{t}.attn.conv_proj_{tk}.bn")
+                attn[ours] = {
+                    "dw": {"kernel": _conv(
+                        sd[f"{t}.attn.conv_proj_{tk}.conv.weight"])},
+                    "bn": bn_p}
+                attn_stats[ours] = {"bn": bn_s}
+                attn[tk] = {"kernel": _dense(sd[f"{t}.attn.proj_{tk}.weight"]),
+                            "bias": sd[f"{t}.attn.proj_{tk}.bias"]}
+            attn["proj"] = {"kernel": _dense(sd[f"{t}.attn.proj.weight"]),
+                            "bias": sd[f"{t}.attn.proj.bias"]}
+            params[f"stage{si}_block{bi}"] = {
+                "norm1": {"scale": sd[f"{t}.norm1.weight"],
+                          "bias": sd[f"{t}.norm1.bias"]},
+                "norm2": {"scale": sd[f"{t}.norm2.weight"],
+                          "bias": sd[f"{t}.norm2.bias"]},
+                "attn": attn,
+                "mlp": {
+                    "Dense_0": {"kernel": _dense(sd[f"{t}.mlp.fc1.weight"]),
+                                "bias": sd[f"{t}.mlp.fc1.bias"]},
+                    "Dense_1": {"kernel": _dense(sd[f"{t}.mlp.fc2.weight"]),
+                                "bias": sd[f"{t}.mlp.fc2.bias"]},
+                },
+            }
+            stats[f"stage{si}_block{bi}"] = {"attn": attn_stats}
+    if "norm.weight" in sd:
+        params["norm"] = {"scale": sd["norm.weight"],
+                          "bias": sd["norm.bias"]}
+    else:
+        # HF CvtModel carries no final LayerNorm (it lives in the
+        # classification head); identity matches a fresh init.
+        dim = params[f"embed{len(depths) - 1}"]["bias"].shape[0]
+        params["norm"] = {"scale": np.ones(dim, np.float32),
+                          "bias": np.zeros(dim, np.float32)}
+    return {"params": params, "batch_stats": stats}
 
 
 def convert_swin(sd: Dict[str, np.ndarray], depths) -> Dict:

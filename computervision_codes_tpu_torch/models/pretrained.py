@@ -97,7 +97,10 @@ def load_backbone_variables(backbone: str, path: str,
         return convert_torchvision_resnet(sd, RESNET_VARIANTS[backbone][0],
                                           frozen_bn=frozen_bn)
     if backbone.lower().startswith("cvt"):
-        return convert_cvt(sd, ())
+        from .cvt import VARIANTS as CVT_VARIANTS
+
+        key = backbone if backbone in CVT_VARIANTS else "cvt_w24"
+        return convert_cvt(sd, CVT_VARIANTS[key]["depths"])
     if backbone.startswith("tresnet"):
         from .tresnet import VARIANTS as TR_VARIANTS
 

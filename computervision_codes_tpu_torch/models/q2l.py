@@ -1,4 +1,4 @@
-"""Query2Label teacher (Swin, ResNet or TResNet backbone + DETR-style
+"""Query2Label teacher (Swin, ResNet, CvT or TResNet backbone + DETR-style
 decoder), eval and training forward.
 
 Counterpart of ``models/q2l.py`` in the JAX package: d_model = the
@@ -21,8 +21,10 @@ backbone. The int8 teacher is
 for ``models.quant_dense.Int8Dense``.
 
 The TResNet backbones (``models.tresnet``) give d_model = width * 8 * 4
-(2432 for TResNet-L), the channels of their last stage; the Swin options do
-not apply to them and are ignored, as the JAX module ignores them.
+(2432 for TResNet-L), the channels of their last stage, and the CvT
+backbones (``models.cvt``) the width of their last stage (1024 for
+CvT-w24), from their final-norm'd spatial map; the Swin options do not
+apply to either and are ignored, as the JAX module ignores them.
 
 The KD block (``kd_attention``, ``models.spatial_cnn.KDCrossTaskAttention``
 over the task feature) exists for ``loss_type="all"`` with a
@@ -31,8 +33,6 @@ teacher features (the driver's init): ``forward(images, feat_i, feat_v,
 feat_t)`` then returns ``out["kd"]``. ``return_sim_mat`` also returns each
 task decoder's last cross-attention map, the mean over heads of the
 softmax, ``out["sim_mat"][task]`` (B, K, HW), as the JAX option.
-
-Not ported yet, and refused: the CvT backbones (the zoo slice).
 """
 
 from __future__ import annotations
@@ -43,6 +43,9 @@ import torch
 import torch.nn as nn
 
 from .common import Dense, Dropout, GroupWiseLinear, LayerNorm
+from .cvt import VARIANTS as CVT_VARIANTS
+from .cvt import build_cvt
+from .cvt import feature_dim as cvt_feature_dim
 from .position_encoding import sine_position_embedding
 from .resnet import VARIANTS as RESNET_VARIANTS
 from .resnet import build_resnet, feature_dim
@@ -214,9 +217,9 @@ class Q2L(nn.Module):
         elif backbone in TRESNET_VARIANTS:
             self.backbone = build_tresnet(backbone, dtype, g)
             dim = tresnet_feature_dim(backbone)
-        elif backbone.startswith("cvt"):
-            raise NotImplementedError(f"backbone {backbone!r} is not ported "
-                                      f"yet (the backbone zoo slice)")
+        elif backbone in CVT_VARIANTS:
+            self.backbone = build_cvt(backbone, dtype, g)
+            dim = cvt_feature_dim(backbone)
         else:
             raise ValueError(f"unknown backbone {backbone!r}")
         self.backbone_name, self.dim = backbone, dim
@@ -242,7 +245,8 @@ class Q2L(nn.Module):
     def feature_map(self, images: torch.Tensor,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-        if self.backbone_name in SWIN_VARIANTS:
+        if self.backbone_name in SWIN_VARIANTS or \
+                self.backbone_name in CVT_VARIANTS:
             return self.backbone(images, generator)["feature_map"]
         return self.backbone(images)["stages"][-1]
 

@@ -48,16 +48,18 @@ BN_EPS = 1e-5
 class Conv2d(nn.Module):
     """Conv, weight OIHW, initialised as the JAX package's
     ``variance_scaling(2.0, "fan_out", "normal")``; bias-free unless
-    ``bias`` (zeros, as flax's ``Conv``)."""
+    ``bias`` (zeros, as flax's ``Conv``). ``groups`` is flax's
+    ``feature_group_count`` (weight (Cout, Cin / groups, k, k))."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 bias: bool = False):
+                 bias: bool = False, groups: int = 1):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.groups = groups
         std = math.sqrt(2.0 / (kernel * kernel * cout))
-        w = torch.empty(cout, cin, kernel, kernel)
+        w = torch.empty(cout, cin // groups, kernel, kernel)
         self.weight = nn.Parameter(nn.init.normal_(w, 0.0, std,
                                                    generator=generator))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
@@ -67,16 +69,18 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(self.dtype)
         w = self.weight if self.weight_fn is None else self.weight_fn(
             self.weight)
-        return F.conv2d(x, w.to(self.dtype), b, self.stride, self.padding)
+        return F.conv2d(x, w.to(self.dtype), b, self.stride, self.padding,
+                        groups=self.groups)
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over NCHW maps. Eval: y = x * w + b, with w = weight /
     sqrt(var + eps) and b = bias - mean * w computed in float32, then cast
     to the compute dtype. Training (``.train()``): flax's batch statistics
-    in float32 (mean, and the variance max(0, mean(x^2) - mean^2)),
-    y = (x - mean) * (rsqrt(var + eps) * weight) + bias in float32, cast
-    to the compute dtype, and the running statistics updated in place.
+    in float32, or float64 for float64 maps (mean, and the variance max(0,
+    mean(x^2) - mean^2)), y = (x - mean) * (rsqrt(var + eps) * weight) +
+    bias in that type, cast to the compute dtype, and the running
+    statistics updated in place.
     ``weight`` and ``bias`` are parameters (flax's ``scale`` and ``bias``),
     the statistics buffers."""
 
@@ -106,7 +110,7 @@ class BatchNorm(nn.Module):
         return x * w.to(self.dtype).view(shape) + b.to(self.dtype).view(shape)
 
     def batch_forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
         mean = xf.mean(dims)
         var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)

@@ -1,4 +1,4 @@
-"""TResNet backbone (anti-aliased SE-ResNet), eval forward.
+"""TResNet backbone (anti-aliased SE-ResNet), eval and training forward.
 
 Counterpart of ``models/tresnet.py`` in the JAX package (the reference's
 ``tresnet_sync.py:139-225``), with its structure: a 4x4 space-to-depth stem
@@ -13,7 +13,10 @@ zero gamma.
 float32 and rounded to the compute dtype, then one
 ``ops.fused_norm.fused_scale_bias_act`` pass (K9 on the card: 52 launches
 per TResNet-L forward); an ABN without activation is the plain BatchNorm.
-Training-mode ABN is not ported (the student/teacher training slice).
+In ``.train()`` an ABN is the JAX training ABN, plain torch as that is
+plain XLA: BatchNorm on the batch statistics, which moves the running
+statistics at flax's momentum 0.9 (``models.resnet.BatchNorm``), then the
+leaky ReLU; K9 stays on the eval path.
 
 Inputs at the public boundary are NHWC, as in the JAX package; inside, the
 maps are NCHW in ``channels_last`` memory format (the port's ResNet does
@@ -63,10 +66,30 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """The shortcut's AvgPool(2, stride 2, ceil, padding excluded) over an
+    NCHW map, as flax's ``avg_pool(padding="SAME",
+    count_include_pad=False)`` computes it: the four taps summed one after
+    another in x's dtype, then divided by the count of real taps (1, 2 or
+    4, so exactly)."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (0, w % 2, 0, h % 2))
+    s = xp[..., 0::2, 0::2] + xp[..., 0::2, 1::2]
+    s = s + xp[..., 1::2, 0::2]
+    s = s + xp[..., 1::2, 1::2]
+    if h % 2 == 0 and w % 2 == 0:
+        return s / 4
+    ones = F.pad(torch.ones(h, w, device=x.device), (0, w % 2, 0, h % 2))
+    count = ones.reshape(h // 2 + h % 2, 2, w // 2 + w % 2, 2).sum((1, 3))
+    return s / count.to(x.dtype)
+
+
 class ABN(nn.Module):
-    """Eval InPlaceABN: ``leaky_relu(x * w + b)`` with w = scale /
+    """InPlaceABN: in eval ``leaky_relu(x * w + b)`` with w = scale /
     sqrt(var + eps) and b = bias - mean * w in float32, rounded to the
-    compute dtype (``act``), or the plain BatchNorm (not ``act``)."""
+    compute dtype (``act``), or the plain BatchNorm (not ``act``); in
+    training the batch-statistics BatchNorm, then the leaky ReLU (``act``)
+    in the compute dtype."""
 
     def __init__(self, n: int, act: bool = True, slope: float = 1e-3,
                  zero_init: bool = False,
@@ -79,11 +102,9 @@ class ABN(nn.Module):
                 self.bn.weight.zero_()
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("training-mode ABN is not ported yet "
-                                      "(the student/teacher training slice)")
-        if not self.act:
-            return self.bn(x)
+        if self.training or not self.act:
+            y = self.bn(x)
+            return F.leaky_relu(y, self.slope) if self.act else y
         bn = self.bn
         w = bn.weight * (bn.running_var + BN_EPS) ** -0.5
         b = bn.bias - bn.running_mean * w
@@ -122,7 +143,7 @@ class _Block(nn.Module):
         if not self.has_downsample:
             return x
         if self.stride == 2:
-            x = F.avg_pool2d(x, 2, 2, ceil_mode=True, count_include_pad=False)
+            x = avg_pool_2x2(x)
         return self.downsample_abn(self.downsample(x))
 
     def blur(self, x):

@@ -403,9 +403,16 @@ class _MultiHeadAttention(torch.autograd.Function):
         return torch.autograd.grad(out, inputs, g)
 
 
-def multi_head_attention(q, k, v):
-    """Differentiable attention over (B, H, T, D): kernel forward on CUDA,
-    plain forward on CPU, backward through the plain version."""
+def multi_head_attention(q, k, v, backend: str = "auto"):
+    """Differentiable attention over (B, H, T, D), as the JAX op's
+    ``backend``: ``"xla"`` is the plain version on any device (autograd
+    through it); ``"pallas"`` and ``"auto"`` the kernel path, the kernel
+    forward on CUDA, the plain forward on CPU, the backward through the
+    plain version."""
+    if backend == "xla":
+        return attention_reference(q, k, v)
+    if backend not in ("pallas", "auto"):
+        raise ValueError(f"unknown attention backend {backend!r}")
     return _MultiHeadAttention.apply(q, k, v)
 
 

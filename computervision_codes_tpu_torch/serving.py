@@ -18,7 +18,8 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
 * ``from_checkpoint`` serves a checkpoint that the JAX package's
   ``CheckpointManager`` wrote (``train.checkpoint``; no msgpack needed);
 * ``TeacherSession`` serves the bf16 Q2L teacher (Swin-L-384 by default,
-  or a ResNet or TResNet backbone, e.g. TResNet-L at 448x448): frames ->
+  or a ResNet, CvT or TResNet backbone, e.g. CvT-w24 at 384x384 or
+  TResNet-L at 448x448): frames ->
   task probabilities and the per-frame feature vector that the cached
   feature bus carries. ``quantize=True`` serves the int8 teacher
   of the JAX session: ``Q2L(quant_eval=True, s2d_embed=True)`` (the Swin
@@ -38,6 +39,7 @@ Usage::
     teacher = TeacherSession.create(batch=16, img_size=384, device="cuda")
     teacher = TeacherSession.create(quantize=True)   # the int8 teacher
     teacher = TeacherSession.create(backbone="tresnet_l", img_size=448)
+    teacher = TeacherSession.create(backbone="cvt_w24", quantize=True)
     out = teacher.predict(frames_uint8)     # {task: (B, C), "feature": (B, D)}
 """
 
@@ -315,18 +317,19 @@ class TeacherSession:
         """``variables``: the JAX ``Q2L`` variables to serve; without them,
         weights are drawn from a ``torch.Generator`` seeded with 0.
 
-        ``backbone`` is a Swin, ResNet or TResNet variant of ``Q2L``
+        ``backbone`` is a Swin, ResNet, CvT or TResNet variant of ``Q2L``
         (``"tresnet_l"`` at ``img_size=448`` is the published TResNet-L
-        teacher; K9 runs every activated ABN on the card).
+        teacher, K9 running every activated ABN on the card;
+        ``"cvt_w24"`` at ``img_size=384`` the published CvT teacher).
 
-        ``quantize=True`` serves the int8 teacher (Swin backbones only: the
-        int8 TResNet is not ported yet). ``calibrate_frames``, normalised
+        ``quantize=True`` serves the int8 teacher, as the JAX session does:
+        ``Q2L(quant_eval=True, s2d_embed=True)``, whose two flags act on a
+        Swin backbone only, then every ``Dense`` of at least 512 inputs
+        int8 on Q1. A TResNet or CvT backbone's convolutions stay float
+        (the int8 TResNet backbone is ``models.quant_tresnet``, which the
+        JAX session does not use). ``calibrate_frames``, normalised
         (N, H, W, 3) frames, bake the ``Int8Dense`` scales; without them
         ``_default_calibration`` at (2, img, img, 3) stands in."""
-        if quantize and backbone.startswith("tresnet"):
-            raise NotImplementedError("quantize=True with a TResNet backbone "
-                                      "is not ported yet (the int8 TResNet "
-                                      "slice)")
         device = torch.device(device)
         model = Q2L(backbone=backbone, loss_type=loss_type,
                     dtype=torch.bfloat16,

@@ -39,6 +39,17 @@ F32_REL, PALLAS_ATOL, GRAD_F32_ATOL = 1e-5, 2e-5, 3e-5
 OUT_BF16_ULPS, GRAD_BF16_ULPS = 2, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_ulp(top: float) -> float:
     return 2.0 ** (np.floor(np.log2(top)) - 7)
 

@@ -11,6 +11,7 @@ for every kind of object and length a state dict holds, and
 (TrainState files of MS-TCT: ``tests/test_torch_mstct_train.py``).
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -27,9 +28,11 @@ from flax import serialization
 from computervision_codes_tpu.models.pipeline import (
     EndToEndRecognizer as JaxRecognizer,
 )
+import computervision_codes_tpu.train as jax_train
 from computervision_codes_tpu.serving import InferenceSession as JaxSession
-from computervision_codes_tpu.train import build_sgd, create_train_state
+from computervision_codes_tpu.train import build_sgd
 from computervision_codes_tpu.train.checkpoint import CheckpointManager
+from computervision_codes_tpu.train.state import TrainState
 from computervision_codes_tpu_torch.models.convert import (
     jax_variables,
     load_jax_variables,
@@ -73,6 +76,17 @@ assert not bad, bad
 """.replace("{sep}", SEP)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat(tree, prefix=""):
     for k, v in tree.items():
         if hasattr(v, "items"):
@@ -81,13 +95,25 @@ def _flat(tree, prefix=""):
             yield prefix + k, np.asarray(v)
 
 
-@pytest.mark.parametrize("save_optimizer", [True, False])
-def test_restore_without_msgpack(tmp_path, save_optimizer):
+@pytest.fixture(scope="module")
+def small_state():
+    """A small recognizer's TrainState: ``create_train_state``'s fields,
+    with the init jitted (eager takes several times as long)."""
     model = JaxRecognizer(num_layers_pg=2, num_layers_r=2, num_refinements=1,
                           num_f_maps=8, dtype=jnp.bfloat16)
-    state = create_train_state(
-        model, build_sgd(1e-2, momentum=0.9), jax.random.PRNGKey(0),
-        (jnp.zeros((1, 2, 32, 56, 3), jnp.bfloat16),))
+    key = jax.random.PRNGKey(0)
+    variables = jax.jit(model.init)(key, jnp.zeros((1, 2, 32, 56, 3),
+                                                   jnp.bfloat16))
+    return TrainState.create(
+        apply_fn=model.apply, params=variables["params"],
+        tx=build_sgd(1e-2, momentum=0.9),
+        batch_stats=variables["batch_stats"],
+        rng=jax.random.fold_in(key, 1))
+
+
+@pytest.mark.parametrize("save_optimizer", [True, False])
+def test_restore_without_msgpack(tmp_path, small_state, save_optimizer):
+    state = small_state
     manager = CheckpointManager(str(tmp_path), "student",
                                 save_optimizer=save_optimizer)
     path = manager.save(state, tag="latest")
@@ -125,18 +151,50 @@ def test_rejects_what_it_does_not_read(tmp_path):
             restore_variables(str(path))
 
 
+def shaped_train_state(model, optimizer, rng, example_inputs,
+                       init_kwargs=None):
+    """``create_train_state``'s TrainState with zeros in place of the
+    init's values: the tree a restore needs (it reads the template's
+    structure only), from ``jax.eval_shape`` instead of an eager flax
+    init, which takes longer than the sessions."""
+    shapes = jax.eval_shape(
+        lambda r, *x: model.init(r, *x, **(init_kwargs or {})), rng,
+        *example_inputs)
+    variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    return TrainState.create(
+        apply_fn=model.apply, params=variables["params"], tx=optimizer,
+        batch_stats=variables.get("batch_stats"),
+        frozen=variables.get("frozen"), rng=jax.random.fold_in(rng, 1))
+
+
+@contextlib.contextmanager
+def shaped_templates():
+    """JAX ``from_checkpoint`` within the block builds its restore
+    template with ``shaped_train_state``."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_train, "create_train_state", shaped_train_state)
+        yield
+
+
 def test_from_checkpoint_matches_jax(tmp_path, rng):
     """Both packages serve the same JAX-written TrainState (the default
     recognizer, as JAX ``from_checkpoint`` builds its template at
-    (1, 4, H, W, 3) bf16). Bound: the bf16 cross-check of
+    (1, 4, H, W, 3) bf16; the template from ``shaped_train_state``).
+    Bound: the bf16 cross-check of
     tests/test_torch_serving.py (max 0.1, correlation > 0.999)."""
     h, w = 32, 56
-    state = create_train_state(
-        JaxRecognizer(dtype=jnp.bfloat16), build_sgd(1e-2),
-        jax.random.PRNGKey(0), (jnp.zeros((1, 4, h, w, 3), jnp.bfloat16),))
+    # create_train_state's fields, the variables the port's seeded
+    # recognizer's (an eager flax init takes longer than the sessions)
+    variables = jax_variables(EndToEndRecognizer(
+        generator=torch.Generator().manual_seed(0)))
+    state = TrainState.create(
+        apply_fn=JaxRecognizer(dtype=jnp.bfloat16).apply,
+        params=variables["params"], tx=build_sgd(1e-2),
+        batch_stats=variables["batch_stats"], rng=jax.random.PRNGKey(0))
     CheckpointManager(str(tmp_path), "student").save(state)
     kw = dict(batch=1, clip_len=4, height=h, width=w)
-    jsess = JaxSession.from_checkpoint(str(tmp_path), "student", **kw)
+    with shaped_templates():
+        jsess = JaxSession.from_checkpoint(str(tmp_path), "student", **kw)
     sess = InferenceSession.from_checkpoint(str(tmp_path), "student",
                                             device="cpu", **kw)
     clips = rng.integers(0, 256, (1, 4, h, w, 3)).astype(np.uint8)

@@ -6,15 +6,20 @@ and TCN sizes of tests/test_cli_infer.py:15-17; and its refusals.
 
 Bound: the bf16 cross-check of tests/test_torch_serving.py (max 0.1 with a
 correlation above 0.999): both packages run the model in bf16 and round in
-other places.
+other places. The JAX driver's restore template comes from
+``shaped_train_state`` (tests/test_torch_checkpoint.py), not an eager
+flax init.
 """
 
+import os
+import sys
 import warnings
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from computervision_codes_tpu.cli import infer as jax_infer
 from computervision_codes_tpu.models.pipeline import (
@@ -26,6 +31,9 @@ from computervision_codes_tpu.train.state import TrainState
 from computervision_codes_tpu_torch.cli import infer
 from computervision_codes_tpu_torch.data.synthetic import write_png
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_checkpoint import shaped_templates  # noqa: E402
+
 H, W = 32, 56
 GEOM = ["--height", str(H), "--width", str(W)]
 TCN_SIZES = dict(num_layers_pg=3, num_layers_r=2, num_refinements=1,
@@ -33,6 +41,17 @@ TCN_SIZES = dict(num_layers_pg=3, num_layers_r=2, num_refinements=1,
 TCN = ["--num_layers_PG", "3", "--num_layers_R", "2", "--num_R", "1",
        "--num_f_maps", "16"]
 CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +95,8 @@ def test_offline_matches_jax(frame_dir, ckpt_dir, tmp_path):
     """Two clips of 4 frames, the second padded and trimmed back."""
     args = ["--video", frame_dir, "--ckpt_dir", ckpt_dir, "--modelname",
             "offline", "--batch", "1", "--clip_len", "4"] + GEOM
-    want = jax_infer.main(args)
+    with shaped_templates():
+        want = jax_infer.main(args)
     out = str(tmp_path / "preds.npz")
     got = infer.main(args + CPU + ["--out", out])
     assert got["frames"] == want["frames"] == 6
@@ -91,7 +111,7 @@ def test_offline_matches_jax(frame_dir, ckpt_dir, tmp_path):
 def test_streaming_matches_jax(frame_dir, ckpt_dir):
     args = ["--video", frame_dir, "--ckpt_dir", ckpt_dir, "--modelname",
             "stream", "--streaming", "--context", "16"] + GEOM + TCN
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), shaped_templates():
         warnings.simplefilter("ignore")  # context 16 < receptive field 21
         want = jax_infer.main(args)
         got = infer.main(args + CPU)

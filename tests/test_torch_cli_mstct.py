@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from computervision_codes_tpu.cli import temporal_mstct as jax_driver
 from computervision_codes_tpu.data.labels import load_video_labels
@@ -89,6 +90,17 @@ TRAIN_FLAGS = ["-t", "--epochs", "1", "--window", "16", "-b", "8",
 # frames: a near-tie may swap)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_REL = 1e-5, 1e-6, 1e-2
 TRAIN_DUMP_REL, TRAIN_MAP_ABS = 1e-4, 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _init_latest(ckpt_roots):

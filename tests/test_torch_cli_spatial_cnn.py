@@ -236,9 +236,38 @@ def test_sam_qat_resume_and_refusals(runs, tmp_path, option):
         assert "training from scratch" in log
         return
     assert "Resumed from" in log and "at step 0" in log
-    for flag in ("--dp_devices", "--device_augment"):
-        argv = base + [flag] + ([] if flag == "--device_augment" else ["2"])
-        with pytest.raises(NotImplementedError,
-                           match="item 8" if flag == "--dp_devices"
-                           else "item 7"):
-            spatial_cnn.main(argv)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        spatial_cnn.main(base + ["--dp_devices", "2"])
+
+
+def test_device_augment_trains(runs, tmp_path, monkeypatch):
+    """``-t --device_augment`` at batch 8 (4 steps): each step's uint8
+    batch, copied to the device by the prefetcher, goes through
+    ``make_device_augment`` (held to JAX's by
+    tests/test_torch_device_augment.py) with its own generator, and the
+    epoch trains to finite losses and moved BatchNorm statistics."""
+    root = runs["root"]
+    seen = []
+    make = spatial_cnn.make_device_augment
+
+    def spy(*args, **kw):
+        fn = make(*args, **kw)
+
+        def call(generator, images):
+            seen.append((images.dtype, tuple(images.shape),
+                         generator.initial_seed()))
+            return fn(generator, images)
+        return call
+
+    monkeypatch.setattr(spatial_cnn, "make_device_augment", spy)
+    argv = [a for a in runs["train"] if a != "--resume"]
+    argv[argv.index("-b") + 1] = "8"
+    result = spatial_cnn.main(argv + ["--ckpt_root", str(tmp_path),
+                                      "--device", "cpu", "--device_augment"])
+    assert result["step"] == 4 and len(seen) == 4
+    assert {s[:2] for s in seen} == {(torch.uint8, (8, H, W, 3))}
+    assert len({s[2] for s in seen}) == 4  # a generator a step
+    assert all(np.isfinite(list(e.values())).all()
+               for e in result["train_loss"])
+    stats = dict(_leaves(_ckpt(tmp_path, ".")["batch_stats"]))
+    assert all(np.isfinite(s).all() for s in stats.values())

@@ -19,9 +19,11 @@ float32 noise of 0 may flip between the packages). (Over more steps float32
 rounding is amplified: after 31 steps at ``-b 2`` two plans of the port
 itself differ by 8e-4 in ``hard_loss`` and 1.7% in ``soft_loss``.) Then
 ``--resume`` continues the port's step count, and the unported flags
-raise. The JAX driver's eager flax init (35 s here) is swapped for the
-initial state made here from a seeded port model; every run starts from
-a checkpoint anyway.
+raise. The same one-step comparison holds a CvT (``cvt_nano``) and a
+small TResNet teacher, the TResNet's running statistics too. The JAX
+driver's eager flax init (35 s here) is swapped for the initial state
+made here from a seeded port model; every run starts from a checkpoint
+anyway.
 """
 
 import functools
@@ -65,6 +67,8 @@ TRAIN_BATCH = 32
 STEPS = 1  # 31 training frames at -b 32
 SIZES = {"i": 6, "v": 10, "t": 15}
 LOSS_RTOL = 1e-5
+STATS_REL = 1e-3  # running statistics: tests/test_torch_tresnet.py's
+# float32 training bound
 COMMON = ["--backbone", "swin_nano_64", "--image_height", str(IMG),
           "--image_width", str(IMG), "--loss_type", "all",
           "--rates", "1", "0.5", "0.1", "--teacher_dim", str(TEACHER_DIM),
@@ -125,13 +129,13 @@ def write_tree(root, feat_sides):
     return split
 
 
-def save_init(roots, tag):
+def save_init(roots, tag, backbone="swin_nano_64"):
     """The JAX driver's initial state, saved under ``tag`` in each root."""
     sched = reference_warmup_exp_schedule(0.01, 0.1, 58, 0.99, STEPS)
     state = initial_state(
-        jax_q2l.Q2L(backbone="swin_nano_64", loss_type="all",
+        jax_q2l.Q2L(backbone=backbone, loss_type="all",
                     teacher_dim=TEACHER_DIM),
-        port_q2l.Q2L(backbone="swin_nano_64", loss_type="all",
+        port_q2l.Q2L(backbone=backbone, loss_type="all",
                      teacher_dim=TEACHER_DIM,
                      generator=torch.Generator().manual_seed(47)),
         build_sgd(sched, 1e-5))
@@ -141,14 +145,15 @@ def save_init(roots, tag):
     return state
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("cholect45"))
-    write_tree(root, ("feats_jax", "feats_port"))
-    state = save_init([root + "/ckpt_jax", root + "/ckpt_port",
-                       root + "/ckpt_init"], "latest")
+def train_both(root, ckpt, backbone, port_flags=()):
+    """One ``-t`` epoch of each driver from the same ``_latest`` (saved in
+    ``ckpt``'s init, jax and port roots), dropout and drop path 0, the
+    JAX driver first; returns both results."""
+    state = save_init([f"{ckpt}/ckpt_{side}"
+                       for side in ("jax", "port", "init")], "latest",
+                      backbone)
     train = ["--data_dir", root, "-t", "--epochs", "1", "--resume",
-             "-b", str(TRAIN_BATCH), *COMMON]
+             "-b", str(TRAIN_BATCH), *COMMON, "--backbone", backbone]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_q2l, "Q2LTransformer", functools.partial(
             jax_q2l.Q2LTransformer, dropout=0.0))
@@ -159,12 +164,20 @@ def runs(tmp_path_factory):
         mp.setattr(spatial_transformer, "Q2L", functools.partial(
             port_q2l.Q2L, drop_path_rate=0.0))
         jax_result = jax_driver.main(train + [
-            "--ckpt_root", root + "/ckpt_jax", "--feats_dir",
+            "--ckpt_root", ckpt + "/ckpt_jax", "--feats_dir",
             root + "/feats_jax"])
         port_result = spatial_transformer.main(train + [
-            "--ckpt_root", root + "/ckpt_port", "--feats_dir",
-            root + "/feats_port", "--fused_train", "--remat",
-            "--device", "cpu"])
+            "--ckpt_root", ckpt + "/ckpt_port", "--feats_dir",
+            root + "/feats_port", *port_flags, "--device", "cpu"])
+    return jax_result, port_result
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("cholect45"))
+    write_tree(root, ("feats_jax", "feats_port"))
+    jax_result, port_result = train_both(
+        root, root, "swin_nano_64", ("--fused_train", "--remat"))
     return {"root": root, "jax": jax_result, "port": port_result}
 
 
@@ -181,19 +194,21 @@ def _events(root, side):
                             "train/loss")
 
 
-def test_training_matches_jax_driver(runs):
-    root = runs["root"]
-    got, want = _events(root, "ckpt_port"), _events(root, "ckpt_jax")
+def assert_training_matches(ckpt, port_result, batch_stats=False):
+    """The two drivers' logged losses and ``_latest`` parameters (and,
+    with ``batch_stats``, running statistics within ``STATS_REL`` of each
+    tensor's largest magnitude) after one step from ``ckpt``'s init."""
+    got, want = _events(ckpt, "ckpt_port"), _events(ckpt, "ckpt_jax")
     assert len(got) == len(want) == 1
     g, w = got[0]["values"], want[0]["values"]
     assert set(g) == set(w) and {"soft_loss", "kd_loss", "hard_loss"} <= \
         set(g)
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL, err_msg=k)
-    assert runs["port"]["step"] == STEPS
-    assert runs["port"]["train_loss"] == [g]
+    assert port_result["step"] == STEPS
+    assert port_result["train_loss"] == [g]
     init, port, theirs = (read_msgpack(
-        f"{root}/{side}/run_Q2L/{MODELNAME}_latest.msgpack")
+        f"{ckpt}/{side}/run_Q2L/{MODELNAME}_latest.msgpack")
         for side in ("ckpt_init", "ckpt_port", "ckpt_jax"))
     assert int(port["step"]) == int(theirs["step"]) == STEPS
     assert "kd_attention" in port["params"]
@@ -203,6 +218,18 @@ def test_training_matches_jax_driver(runs):
     assert set(ours) == set(want) == set(before)
     for path, w in want.items():
         _assert_param_close(".".join(path), ours[path], w, before[path])
+    if batch_stats:
+        ours = dict(_leaves(port["batch_stats"]))
+        want = dict(_leaves(theirs["batch_stats"]))
+        assert set(ours) == set(want) and want
+        for path, w in want.items():
+            np.testing.assert_allclose(ours[path], w, rtol=0,
+                                       atol=STATS_REL * np.abs(w).max(),
+                                       err_msg=".".join(path))
+
+
+def test_training_matches_jax_driver(runs):
+    assert_training_matches(runs["root"], runs["port"])
 
 
 def test_resume_and_refusals(runs, tmp_path):
@@ -216,8 +243,64 @@ def test_resume_and_refusals(runs, tmp_path):
     assert result["step"] == 2 * STEPS
     log = open(f"{tmp_path}/run_Q2L/{MODELNAME}.log").read()
     assert "Resumed from" in log and f"at step {STEPS}" in log
-    for flag, item in (("--dp_devices", "item 8"), ("--tp_devices", "item 8"),
-                       ("--device_augment", "item 7")):
-        argv = base + [flag] + ([] if flag == "--device_augment" else ["2"])
-        with pytest.raises(NotImplementedError, match=item):
-            spatial_transformer.main(argv)
+    for flag in ("--dp_devices", "--tp_devices"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            spatial_transformer.main(base + [flag, "2"])
+
+
+def counting(fn, calls):
+    """``fn``, each call appended to ``calls``."""
+    def call(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+    return call
+
+
+@pytest.mark.parametrize("path", ["cvt_nano", "tresnet_small",
+                                  "--device_augment"])
+def test_new_training_paths_run(runs, tmp_path, path, monkeypatch):
+    """A CvT backbone and a TResNet backbone (training-mode ABN; width 16,
+    layers (1, 2, 2, 1), registered as a variant in both packages): one
+    step of each driver from the same ``_latest``, held to each other as
+    ``test_training_matches_jax_driver`` holds the Swin's, the TResNet's
+    running statistics too. ``--device_augment`` (the Swin nano, each
+    step's uint8 batch augmented by ``make_device_augment``; its draws are
+    the port's own): ``-t`` at batch 8 (4 steps over the 31 frames, loss
+    "i"), the steps, finite losses and a ``_latest`` holding the
+    backbone's parameters; the augmentation is held to JAX's by
+    tests/test_torch_device_augment.py."""
+    from computervision_codes_tpu.models import tresnet as jax_tresnet
+    from computervision_codes_tpu_torch.models import tresnet
+    from test_torch_tresnet import SMALL
+
+    monkeypatch.setitem(jax_tresnet.VARIANTS, "tresnet_small", SMALL)
+    monkeypatch.setitem(tresnet.VARIANTS, "tresnet_small", SMALL)
+    if not path.startswith("--"):
+        _, port_result = train_both(runs["root"], str(tmp_path), path)
+        assert_training_matches(str(tmp_path), port_result,
+                                batch_stats=path.startswith("tresnet"))
+        return
+    made, augmented = [], []
+    original = spatial_transformer.make_device_augment
+
+    def make(*args, **kw):
+        made.append(args)
+        return counting(original(*args, **kw), augmented)
+
+    monkeypatch.setattr(spatial_transformer, "make_device_augment", make)
+    argv = ["--data_dir", runs["root"], "-t", "--epochs", "1", "-b", "8",
+            "--backbone", "swin_nano_64", "--loss_type", "i",
+            "--image_height", str(IMG), "--image_width", str(IMG),
+            "--ckpt_root", str(tmp_path), "--device", "cpu",
+            "--augmentation_list", "original", "vflip", "hflip", "contrast",
+            "rot90", path]
+    result = spatial_transformer.main(argv)
+    assert result["step"] == 4
+    assert all(np.isfinite(list(e.values())).all()
+               for e in result["train_loss"])
+    assert made == [(("original", "vflip", "hflip", "contrast",
+                      "rot90"),)] and len(augmented) == 4
+    name = "rendezvous_lcholect45-crossval_cholect1_i"
+    params = read_msgpack(f"{tmp_path}/run_/{name}_latest.msgpack")["params"]
+    assert "backbone" in params and all(
+        np.isfinite(v).all() for _, v in _leaves(params["backbone"]))

@@ -254,13 +254,19 @@ def test_jax_restores_the_ports_tcn_checkpoint(trained):
                  jax.tree.map(np.asarray, restored.params), mine["params"])
 
 
-def test_unported_flags_and_loss_types_raise(tree):
-    base = ["--data_dir", tree, "-e", "--device", "cpu", *FLAGS]
-    for extra, err in ((["--dp_devices", "2"], NotImplementedError),
-                       (["--device_augment"], NotImplementedError),
-                       (["--loss_type", "kd"], ValueError)):
-        with pytest.raises(err):
-            temporal_tcn.main(base + extra)
+def test_unported_flags_and_loss_types_raise(evals):
+    """The frame-level drivers' parallel and augmentation flags are not
+    the TCN driver's: both drivers ignore them and evaluate as without
+    them. ``--loss_type kd`` raises."""
+    argv = ["--data_dir", evals["root"], "-e", "--dedup_black",
+            "--ckpt_root", evals["root"] + "/ckpt_eval", *FLAGS]
+    extra = ["--dp_devices", "2", "--tp_devices", "2", "--device_augment"]
+    want = jax_driver.parse_flags(argv)
+    assert vars(jax_driver.parse_flags(argv + extra)) == vars(want)
+    got = temporal_tcn.main(argv + extra + ["--device", "cpu"])
+    assert got["test_mAP"] == evals["port"]["test_mAP"]
+    with pytest.raises(ValueError):
+        temporal_tcn.main(argv + ["--device", "cpu", "--loss_type", "kd"])
 
 
 def test_crossval_matches_jax(tree, capsys):

@@ -191,10 +191,36 @@ def test_fix_backbone_checkpoint_both_ways(tmp_path):
                                          "key_params", "queue", "rng"}
 
 
-def test_device_augment_is_refused(runs):
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        terl_learnt.main(["--data_dir", "unused", "--device_augment",
-                          "--device", "cpu"])
+def test_device_augment_is_refused(runs, tmp_path, monkeypatch):
+    """``--device_augment``, refused until the device path was ported,
+    trains: each step's frames leave the host once, as uint8, and both
+    views come from ``make_device_augment(two_view=True)`` (held to JAX's
+    ops by tests/test_torch_device_augment.py) with the step's generator;
+    the step's loss is finite and the queue advances."""
+    seen = []
+    make = terl_learnt.make_device_augment
+
+    def spy(*args, **kw):
+        assert kw.get("two_view") is True
+        fn = make(*args, **kw)
+
+        def call(generator, images):
+            seen.append((images.dtype, tuple(images.shape)))
+            views = fn(generator, images)
+            seen.append(tuple(v.shape for v in views))
+            return views
+        return call
+
+    monkeypatch.setattr(terl_learnt, "make_device_augment", spy)
+    root = os.path.dirname(runs["roots"]["port"])
+    res = terl_learnt.main(["--data_dir", root, "-t", *ARGS,
+                            "--ckpt_root", str(tmp_path), "--device", "cpu",
+                            "--device_augment"])
+    assert res["step"] == 1
+    assert seen == [(torch.uint8, (32, IMG, IMG, 3)),
+                    ((32, IMG, IMG, 3), (32, IMG, IMG, 3))]
+    assert all(np.isfinite(list(e.values())).all()
+               for e in res["train_loss"])
 
 
 def test_imagenet_pretrain_fills_encoder_backbone(runs, tmp_path,

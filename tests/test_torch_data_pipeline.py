@@ -44,6 +44,17 @@ KEYS = ("label_i", "label_v", "label_t", "label_ivt", "teacher_pred_i",
         "teacher_feat_t", "valid")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def trees(tmp_path_factory):
     roots = {}
@@ -157,6 +168,14 @@ def test_device_augment_ships_uint8(trees):
     got = list(pipeline.batch_iterator(ds, VIDEOS, 5, train=True,
                                        drop_last=True))
     assert got[0]["image"].dtype == np.uint8 and "image2" not in got[0]
+    _compare(got, want, image_atol=1)
+    # TERL's two views: under device_augment both are made on the device
+    # from the one uint8 "image", so neither package ships an "image2"
+    want = list(jax_pipeline.batch_iterator(jds, VIDEOS, 5, train=True,
+                                            drop_last=True, two_views=True))
+    got = list(pipeline.batch_iterator(ds, VIDEOS, 5, train=True,
+                                       drop_last=True, two_views=True))
+    assert "image2" not in got[0] and "image2" not in want[0]
     _compare(got, want, image_atol=1)
 
 

@@ -24,6 +24,17 @@ from computervision_codes_tpu_torch.ops import dilated_conv as port
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _layer(rng, b=2, t=70, c=16):
     return (rng.standard_normal((b, t, c)).astype(np.float32),
             (rng.standard_normal((3, c, c)) * 0.1).astype(np.float32),

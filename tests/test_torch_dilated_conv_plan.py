@@ -34,6 +34,17 @@ CS = (128, 256, 512, 1024)
 SHAPES = ((4, 256), (1, 256), (16, 256), (1, 1), (2, 37), (1, 300))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("resident", [None, 15])
 @pytest.mark.parametrize("c", CS)
 @pytest.mark.parametrize("b, t", SHAPES)

@@ -43,6 +43,17 @@ F32_ATOL, LSE_ATOL = 3e-5, 3e-5
 BF16_OUT_REL, BF16_GRAD_REL = 2.0 ** -7, 2.0 ** -6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(shape, tk, dtype, seed=0):
     """q (B, H, Tq, D), k and v (B, H, Tk, D) from a numpy seed, as JAX and
     torch arrays of ``dtype`` holding the same values."""

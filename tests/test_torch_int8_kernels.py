@@ -41,6 +41,17 @@ from computervision_codes_tpu_torch.ops.mlp_block import q8_weight
 ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _f(rng, scale, *shape):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 

@@ -46,6 +46,17 @@ INT8_FLAGS = dict(quant_eval=True, s2d_embed=True, quant_min_dim=0)
 MODEL_CORR, MODEL_REL = 0.999, 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     rng = np.random.default_rng(11)

@@ -35,6 +35,17 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2.0 ** -8, 2.0 ** -5)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, rel, what=""):
     got = got.float().numpy() if isinstance(got, torch.Tensor) else got
     want = np.asarray(jnp.asarray(want, jnp.float32))

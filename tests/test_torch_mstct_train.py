@@ -78,6 +78,17 @@ STEPS_PER_EPOCH, WD = 2, 1e-5
 LOSS_RTOL, PARAM_ATOL, PARAM_UPDATE_REL = 1e-5, 1e-6, 1e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_side():
     """The JAX model, its schedule, a train state as ``create_train_state``

@@ -16,6 +16,17 @@ from computervision_codes_tpu_torch.models.pipeline import EndToEndRecognizer
 KW = dict(num_layers_pg=3, num_layers_r=2, num_refinements=2, num_f_maps=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_recognizer_matches_jax(rng, causal):
     clips = rng.standard_normal((1, 8, 32, 56, 3)).astype(np.float32)

@@ -187,10 +187,14 @@ def test_tresnet_converter_matches_jax(pretrain_dir):
     got = convert.convert_tresnet(sd, LAYERS)
     _assert_trees_equal(got, want)
     load_jax_variables(TResNet(width=WIDTH, layers=LAYERS), got)
-    with pytest.raises(NotImplementedError, match="zoo slice"):
-        convert.convert_cvt(sd, (1, 2, 10))
-    with pytest.raises(NotImplementedError, match="zoo slice"):
-        load_backbone_variables("cvt_w24", pretrain_dir[1])
+    # a TResNet state dict is no CvT checkpoint: both converters reject it
+    # (convert_cvt's parity: tests/test_torch_cvt.py), and the CvT warm
+    # start finds no checkpoint where the directory holds none
+    for fn in (convert.convert_cvt, jax_convert.convert_cvt):
+        with pytest.raises(KeyError):
+            fn(sd, (1, 2, 10))
+    with pytest.raises(FileNotFoundError):
+        load_backbone_variables("cvt_w24", pretrain_dir[0])
 
 
 def test_resolve_checkpoint(pretrain_dir):

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from computervision_codes_tpu.models.q2l import Q2L as JaxQ2L
-from computervision_codes_tpu_torch.models.convert import load_jax_variables
+from computervision_codes_tpu_torch.models.convert import (jax_variables,
+                                                          load_jax_variables)
 from computervision_codes_tpu_torch.models.position_encoding import (
     sine_position_embedding,
 )
@@ -25,12 +26,25 @@ ATOL = 5e-5
 BF16_REL, BF16_CORR = 0.04, 0.999
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(backbone, loss_type, frames, dtype=jnp.float32):
     jmodel = JaxQ2L(backbone=backbone, loss_type=loss_type, fused_eval=False,
                     dtype=dtype)
-    variables = JaxQ2L(backbone=backbone, loss_type=loss_type).init(
-        jax.random.PRNGKey(2), jnp.asarray(frames))
-    want = jmodel.apply(variables, jnp.asarray(frames, dtype))
+    # the port's seeded module's variables (an eager flax init of Q2L
+    # takes longer than the forwards)
+    variables = jax_variables(Q2L(backbone=backbone, loss_type=loss_type,
+                                  generator=torch.Generator().manual_seed(2)))
+    want = jax.jit(jmodel.apply)(variables, jnp.asarray(frames, dtype))
     tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
     model = Q2L(backbone=backbone, loss_type=loss_type, dtype=tdtype)
     load_jax_variables(model, variables)
@@ -86,7 +100,10 @@ def test_position_embedding_matches_jax():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="zoo"):
+    # the CvT backbones build (their parity: tests/test_torch_cvt.py); a
+    # CvT name outside VARIANTS is unknown
+    assert Q2L(backbone="cvt_nano").dim == 64
+    with pytest.raises(ValueError, match="unknown backbone"):
         Q2L(backbone="cvt_21_384_22k")
     with pytest.raises(ValueError, match="unknown backbone"):
         Q2L(backbone="vgg16")

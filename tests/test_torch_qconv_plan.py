@@ -27,6 +27,17 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 ACTS = ({"relu": False}, {"relu": True}, {"leaky_slope": 0.01})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def resnet18_convs(h: int, w: int) -> list:
     """(Cin, Cout, k, stride, pad, H, W) of ResNet18's int8 convolutions on
     h x w frames (after the stem and pool: h / 4 x w / 4)."""

@@ -35,13 +35,27 @@ from computervision_codes_tpu.models import quant_dense as jqd
 from computervision_codes_tpu.models.q2l import Q2L as JaxQ2L
 from computervision_codes_tpu_torch.models import quant_dense as pqd
 from computervision_codes_tpu_torch.models.common import Dense
-from computervision_codes_tpu_torch.models.convert import load_jax_variables
+from computervision_codes_tpu_torch.models.convert import (
+    jax_variables,
+    load_jax_variables,
+)
 from computervision_codes_tpu_torch.models.q2l import Q2L
 
 KW = dict(backbone="swin_nano_64", loss_type="all")
 INT8_FLAGS = dict(quant_eval=True, s2d_embed=True, quant_min_dim=0)
 SCALE_RTOL = 1e-5
 MODEL_CORR, MODEL_REL = 0.999, 0.02
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class _JaxTwice(fnn.Module):
@@ -119,8 +133,10 @@ def q2l_pair():
     rng = np.random.default_rng(3)
     frames = rng.standard_normal((1, 64, 64, 3)).astype(np.float32)
     cal = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
-    variables = jax.jit(JaxQ2L(**KW).init)(jax.random.PRNGKey(2),
-                                           jnp.asarray(frames))
+    # the variables of a port model made from a seed (the JAX init's tree,
+    # without compiling that init)
+    variables = jax_variables(Q2L(generator=torch.Generator().manual_seed(2),
+                                  **KW))
     jm = JaxQ2L(fused_eval=True, **INT8_FLAGS, **KW)
     scales = jqd.collect_dense_scales(jm, variables, jnp.asarray(cal))
     qd = jqd.quantize_dense_params(variables)

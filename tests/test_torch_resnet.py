@@ -32,6 +32,17 @@ _BN_DRAW = {"mean": (-0.5, 0.5), "var": (0.5, 1.5), "scale": (0.5, 1.5),
             "bias": (-0.2, 0.2)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomize_bn(tree, rng):
     """Numpy copy of a variables tree with every BN vector randomised."""
     out = {}

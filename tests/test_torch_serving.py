@@ -20,6 +20,7 @@ from computervision_codes_tpu.serving import InferenceSession as JaxSession
 from computervision_codes_tpu.serving import (
     StreamingSession as JaxStreamingSession,
 )
+from computervision_codes_tpu_torch.models.convert import jax_variables
 from computervision_codes_tpu_torch.models.pipeline import EndToEndRecognizer
 from computervision_codes_tpu_torch.serving import (
     InferenceSession,
@@ -32,16 +33,37 @@ SMALL = dict(num_layers_pg=3, num_layers_r=2, num_refinements=2,
              num_f_maps=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def seeded_variables(seed: int, **kw):
+    """The JAX variables of the port's recognizer made from ``seed`` (the
+    flax init's distributions; an eager flax init of the recognizer takes
+    longer than the JAX session's compiles)."""
+    return jax_variables(EndToEndRecognizer(
+        generator=torch.Generator().manual_seed(seed), **kw))
+
+
 def test_inference_session_matches_jax_session(rng):
     """Same variables, same uint8 clip; both sessions normalise in float32
     and run the model in bf16. bf16 keeps 8 significant bits and the
     random-init logits reach |30|, so one rounding moves a probability near
-    0.5 by up to ~0.06 (the JAX bf16 session is itself 0.056 from its
-    float32 model here). Bound: max 0.1 with correlation > 0.999, the bf16
+    0.5 by up to ~0.06 (the JAX bf16 session was 0.056 from its float32
+    model on a JAX init). Bound: max 0.1 with correlation > 0.999, the bf16
     cross-check bound of the JAX package's own serving tests."""
-    jsess = JaxSession.create(batch=1, clip_len=4, height=32, width=56)
+    variables = seeded_variables(0)
+    jsess = JaxSession.create(batch=1, clip_len=4, height=32, width=56,
+                              variables=variables)
     sess = InferenceSession.create(batch=1, clip_len=4, height=32, width=56,
-                                   variables=jsess.variables, device="cpu")
+                                   variables=variables, device="cpu")
     clips = rng.integers(0, 256, (1, 4, 32, 56, 3)).astype(np.uint8)
     want = jsess.predict(clips.copy())
     got = sess.predict(clips)
@@ -78,8 +100,7 @@ def test_inference_session_quantized_matches_jax(rng):
     variables and the same explicit calibration clips in both packages;
     the int8 backbone and the bf16 TCN under the bf16 bound."""
     h, w = 32, 56
-    variables = JaxRecognizer(dtype=jnp.bfloat16).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 4, h, w, 3), jnp.bfloat16))
+    variables = seeded_variables(1)
     cal = _calibration(rng, (1, 8, h, w, 3))
     kw = dict(batch=1, clip_len=4, height=h, width=w, quantize=True,
               fused_stem=True)
@@ -103,7 +124,9 @@ def test_streaming_quantized_matches_jax(rng):
     h, w = 32, 56
     tcn = dict(num_layers_pg=2, num_layers_r=2, num_refinements=1,
                num_f_maps=8)
-    variables = JaxRecognizer(causal=True, dtype=jnp.bfloat16, **tcn).init(
+    # the JAX init, jitted (eager takes three times as long)
+    variables = jax.jit(JaxRecognizer(causal=True, dtype=jnp.bfloat16,
+                                      **tcn).init)(
         jax.random.PRNGKey(5), jnp.zeros((1, 4, h, w, 3), jnp.bfloat16))
     cal = _calibration(rng, (4, h, w, 3))
     kw = dict(context=8, height=h, width=w, quantize=True, fused_stem=True,

@@ -26,6 +26,17 @@ F32_ATOL = 2e-5
 BF16_ATOL = 0.05
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _weights(rng):
     w = (rng.standard_normal((7, 7, 3, 64)) * 0.1).astype(np.float32)
     bias = (rng.standard_normal(64) * 0.5).astype(np.float32)

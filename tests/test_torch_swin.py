@@ -39,12 +39,25 @@ BF16_REL, BF16_CORR = 0.04, 0.999
 WIN7 = dict(embed_dim=32, depths=(2, 2), num_heads=(2, 4), window_size=7)
 
 
+_JAX = {}  # the module's JAX inits and forwards, each computed once
+
+
 def _jax_forward(cfg, frames, dtype=jnp.float32, fused_eval=False):
-    model = JaxSwin(fused_eval=fused_eval, dtype=dtype, **cfg)
-    variables = JaxSwin(fused_eval=False, **cfg).init(
-        jax.random.PRNGKey(1), jnp.asarray(frames))
-    return variables, model.apply(variables, jnp.asarray(frames,
-                                                         dtype))
+    """The JAX variables (its init at ``frames``' shape) and the JAX
+    forward of ``frames``; the tests that ask for the same ones share
+    them."""
+    arch = tuple(sorted(cfg.items()))
+    init_key = (arch, frames.shape)
+    if init_key not in _JAX:
+        _JAX[init_key] = jax.jit(JaxSwin(fused_eval=False, **cfg).init)(
+            jax.random.PRNGKey(1), jnp.asarray(frames))
+    variables = _JAX[init_key]
+    key = (arch, frames.tobytes(), str(dtype), fused_eval)
+    if key not in _JAX:
+        model = JaxSwin(fused_eval=fused_eval, dtype=dtype, **cfg)
+        _JAX[key] = jax.jit(model.apply)(variables,
+                                         jnp.asarray(frames, dtype))
+    return variables, _JAX[key]
 
 
 def _port(cfg, variables, dtype=torch.float32, fused_eval=None):
@@ -142,8 +155,8 @@ def test_fused_attn_matches_jax(rng, cfg, hw):
     4 windows) and 49-token windows."""
     frames = rng.standard_normal((2, hw, hw, 3)).astype(np.float32)
     variables, _ = _jax_forward(cfg, frames)
-    want = JaxSwin(fused_eval=False, use_fused_attn=True, **cfg).apply(
-        variables, jnp.asarray(frames))
+    want = jax.jit(JaxSwin(fused_eval=False, use_fused_attn=True,
+                           **cfg).apply)(variables, jnp.asarray(frames))
     model = load_jax_variables(SwinTransformer(use_fused_attn=True, **cfg),
                                variables).eval()
     with torch.no_grad():

@@ -39,6 +39,17 @@ from computervision_codes_tpu_torch.scripts import int8_kernel_probe as p1
 ATOL = 2e-5  # float32, as tests/test_torch_swin_kernels.py
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ln_params(rng, c):
     return (torch.from_numpy(1 + 0.1 * rng.standard_normal(c).astype(
         np.float32)), torch.from_numpy(0.1 * rng.standard_normal(c).astype(

@@ -31,6 +31,17 @@ from computervision_codes_tpu_torch.ops import window_mhsa
 ATOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _attn_arrays(rng, c, heads, n, scale=0.1):
     f = lambda *s: (rng.standard_normal(s) * scale).astype(np.float32)
     return [f(c) + 1, f(c), f(c, 3 * c), f(3 * c), f(c, c), f(c),

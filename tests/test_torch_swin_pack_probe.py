@@ -31,6 +31,17 @@ B, HW, C, HEADS, W = 1, 8, 128, 4, 4
 BF16_ULPS = 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed):
     """x and the attention operands in the JAX probe's dtypes: LayerNorm
     vectors float32, the rest bf16 (as numpy float32 of bf16 values)."""

@@ -57,6 +57,17 @@ ATTN_NAMES = ("x", "gamma", "beta", "wqkv", "bqkv", "wproj", "bproj", "bias")
 MLP_NAMES = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _attn_arrays(rng, b=2, hw=8, c=64, heads=2, w=4):
     f = lambda *s: (rng.standard_normal(s) * 0.1).astype(np.float32)
     return [rng.standard_normal((b, hw, hw, c)).astype(np.float32),

@@ -25,6 +25,17 @@ KW = dict(num_layers_pg=3, num_layers_r=2, num_refinements=2, num_f_maps=16)
 ATOL, RTOL = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("causal,hier", [(False, False), (True, False),
                                          (False, True)])
 def test_temporal_tcn_matches_jax(rng, causal, hier):

@@ -54,6 +54,17 @@ POS = {"i": np.asarray(TOOL_POS_WEIGHT, np.float32),
 SIZES = {"ivt": 100, "i": 6, "v": 10, "t": 15}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(rng, t=T, mask=False):
     batch = {"features": rng.standard_normal((1, t, IN_DIM)).astype(
         np.float32)}

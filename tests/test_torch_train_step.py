@@ -72,6 +72,17 @@ from computervision_codes_tpu_torch.train import (
 PW = {"i": TOOL_POS_WEIGHT, "v": VERB_POS_WEIGHT, "t": TARGET_POS_WEIGHT}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_pos_weights_match_jax():
     assert (TOOL_POS_WEIGHT, VERB_POS_WEIGHT, TARGET_POS_WEIGHT) == (
         JAX_TOOL_PW, JAX_VERB_PW, JAX_TARGET_PW)

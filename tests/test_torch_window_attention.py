@@ -27,6 +27,17 @@ F32_REL, BF16_ULPS = 1e-5, 2
 BW, HEADS, N, D = 16, 2, 16, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(nw, seed, masked=True):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((BW, HEADS, N, D)).astype(np.float32)

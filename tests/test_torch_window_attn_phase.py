@@ -37,6 +37,17 @@ HEADS, D, NW = 2, 32, 2
 CASES = [(n, masked) for n in (16, 49, 144) for masked in (False, True)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The module's torch work on one thread: under the suite's parallel
+    workers, torch's default of one thread per core oversubscribes the
+    host, and tiny ops then wait on descheduled threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(n, masked, seed):
     """q, k, v (2 * NW windows, HEADS, n, D), bias (HEADS, n, n) and a 0 /
     -100 mask of NW windows (or None), float32 numpy."""
