@@ -306,6 +306,24 @@ printing its own lines:
    driver's ``-t`` at CvT-w24-384 and TResNet-L-448, and
    ``phase_augment_drivers`` the student's and TERL's epochs without and
    with ``--device_augment``, in turns.
+20. the parallel paths and the servables at world size 1 on NCCL (a
+   ``file://`` store in a temporary directory; ``phase_parallel``, after
+   phase 15): (a) ``InferenceSession.create(mesh=...)`` bf16 and int8
+   fused stem against phase 5's meshless sessions, bit for bit, K1 41 (Q1
+   19, K2 1) a predict, in turns; (b) ``export`` and ``load_exported`` of
+   those two and of bf16 and int8 ``StreamingSession``s (the TCN's depth
+   cut), bit for bit, the load's time; ``cli.export --quantize`` from a
+   checkpoint the port wrote and ``cli.infer --servable`` over 300 PNG
+   frames, equal to phase 5's int8 float-stem session (no calibration in
+   the load: Q1 19 a predict); (c) ``parallel.long_video.eval_sharded`` of
+   the full-width MS-TCT over a 4,096-frame video, gathered (K7 8) and ring
+   (K8's forward 8), and of the bf16 session's TCN (K1 41 on the
+   halo-extended shard), against the unsharded forwards; (d) a DP step of
+   the ResNet18 student and a TP step of Swin-T/Q2L against their
+   single-device steps, and a pipelined Swin-T stage against its blocks in
+   order; (e) ``utils.profiling.trace`` around one predict, whose Chrome
+   trace names K1's kernel 41 times. More ranks than one need more cards:
+   the CPU tests hold every collective at 2 and 4 gloo ranks.
 Beside phase 3, ``phase_swin_widths`` times K3-K6 at Swin-T's and the
 nano's widths (C 96, 192, 32: N tiles of 96 and 32) against their plain
 versions with each launch's products per path, and
@@ -314,7 +332,8 @@ versions with each launch's products per path, and
 Phases 5-6 (the student's main path), phase 7 (the Swin teachers', then
 path A), phase 15 (the video inference CLI's, then the dataset path's), phase
 16 (the teacher's training driver's, then the student's), phases 17 and 18
-(the TCN driver's, TERL's), the Swin-T teacher's predict,
+(the TCN driver's, TERL's), phase 20 (the parallel paths', each call
+under test counted from just before it), the Swin-T teacher's predict,
 phase 8 (MS-TCT's), phase 10 (path B), phase 11 (the teacher's
 training), phase 12 (K8's op path), phase 13 (MS-TCT training) and phase
 14 (the probe drivers) each start with every launch count set to 0 and read them just after, and each
@@ -6818,6 +6837,459 @@ def phase_augment_drivers(card: str, root: str) -> tuple:
     return tuple(counts)
 
 
+# phase_parallel, the parallel paths and the servables at world size 1 on
+# NCCL: the MS-TCT video (a whole synthetic video at the driver's width),
+# the TCN's (the bf16 session's own TCN), the PNG frames the servable CLI
+# scores (noise, as phase 15's), the student's DP step and the Swin-T/Q2L
+# TP step
+PARALLEL_MSTCT_T, PARALLEL_TCN_T, PARALLEL_FRAMES = 4096, 2048, 300
+PARALLEL_DP = (8, 256, 448)  # the student's batch and frames
+PARALLEL_TP = ("swin_T_224_1k", 4, 224)  # the teacher, batch, image
+PARALLEL_PATH = ("the parallel paths at world size 1 on NCCL (mesh "
+                 "sessions, servables and cli.export / cli.infer "
+                 "--servable, sharded MS-TCT and TCN eval, DP and TP steps, "
+                 "the pipelined Swin stage)")
+# the DP step at world size 1 takes the single-device arithmetic, so it is
+# held to it bit for bit; the TP step at world size 1 is the plain step (no
+# leaf splits over one rank): within float32 rounding
+PARALLEL_TP_RTOL, PARALLEL_TP_ATOL = 1e-5, 1e-6
+
+
+def _diff_launches(before: dict) -> dict:
+    now = path_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def phase_parallel(card: str, offline: dict, clips: np.ndarray,
+                   streaming: dict) -> dict:
+    """The parallel layer and the servables, at world size 1 on NCCL (one
+    card; more ranks are the CPU tests' gloo groups): (a) mesh sessions
+    bf16 and int8 fused stem against the meshless ones of phase 5, bit for
+    bit, launches per predict; (b) export and load_exported of both, and of
+    phase 5's bf16 and int8 streaming sessions (the full-depth causal TCN),
+    bit for bit with phase 5's launches per push, the load's time;
+    cli.export --quantize from a checkpoint the port wrote, then cli.infer
+    --servable over PNG frames, equal to phase 5's int8 float-stem session
+    (the servable is not calibrated again: Q1 19 a predict, no more);
+    (c) eval_sharded of the full-width MS-TCT on a whole video, gathered
+    (K7) and ring (K8's forward), and of the TCN (K1 on the halo-extended
+    shard), against the unsharded forwards; (d) a DP step of the student
+    and a TP step of the Swin-T/Q2L teacher against their single-device
+    steps, and a pipelined Swin-T stage against its blocks in order; (e)
+    ``utils.profiling.trace`` around one predict, its Chrome trace naming
+    K1's kernel. Returns the parallel paths' launches, summed over the
+    calls under test only (each counted from just before it)."""
+    import torch.distributed as dist
+
+    from computervision_codes_tpu_torch.cli import export as cli_export
+    from computervision_codes_tpu_torch.cli import infer
+    from computervision_codes_tpu_torch.models.mstct import MSTCT
+    from computervision_codes_tpu_torch.models.q2l import Q2L
+    from computervision_codes_tpu_torch.models.spatial_cnn import SpatialCNN
+    from computervision_codes_tpu_torch.models.swin import build_swin
+    from computervision_codes_tpu_torch.parallel import mesh as pmesh
+    from computervision_codes_tpu_torch.parallel.long_video import (
+        eval_sharded)
+    from computervision_codes_tpu_torch.parallel.swin_pipeline import (
+        extract_stage_pairs, pipelined_swin_stage)
+    from computervision_codes_tpu_torch.parallel.tp import (
+        shard_state_tp, sharded_leaf_count)
+    from computervision_codes_tpu_torch.serving import (InferenceSession,
+                                                        StreamingSession)
+    from computervision_codes_tpu_torch.train import (
+        build_sgd, create_train_state, make_spatial_train_step)
+    from computervision_codes_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    from computervision_codes_tpu_torch.utils.profiling import (
+        TRACE_FILE, trace)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(path_launches(), 0)
+
+    def run(fn):
+        """fn(), its launches added to the path's and returned."""
+        before = path_launches()
+        out = fn()
+        got = _diff_launches(before)
+        for k, n in got.items():
+            total[k] += n
+        return out, got
+
+    b, t, h, w = OFFLINE
+    k1 = dict.fromkeys(KERNELS, 0) | {"dilated_residual": LAYERS_PER_FORWARD}
+    int8_fused = k1 | {"stem_pool": 1, "qconv_bn": INT8_CONVS}
+    int8_float = dict(int8_fused, stem_pool=0)
+
+    def kernel_counts(got: dict) -> dict:
+        return {k: got[k] for k in KERNELS if got.get(k)}
+
+    with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as tmp:
+        root = Path(tmp)
+        pmesh.init_process(0, 1, f"file://{root / 'store'}", DEVICE)
+        try:
+            mesh = pmesh.make_mesh(n_data=1, device_type=DEVICE)
+            check(pmesh.mesh_device(mesh).type == DEVICE,
+                  f"mesh device {pmesh.mesh_device(mesh)}")
+
+            # (a) mesh sessions against the meshless ones, bit for bit
+            for label, want, kw in (
+                    ("bf16", k1, {}),
+                    ("int8 fused stem", int8_fused,
+                     {"quantize": True, "fused_stem": True})):
+                sess = InferenceSession.create(batch=b, clip_len=t,
+                                               height=h, width=w, mesh=mesh,
+                                               **kw)
+                ref = offline[label].predict(clips)
+                ms = {"mesh": [], "meshless": []}
+                for _ in range(3):  # in turns; the first warms up
+                    (probs, call_ms), got = run(
+                        lambda: timed_call(lambda: sess.predict(clips)))
+                    ms["mesh"].append(round(call_ms, 3))
+                    ms["meshless"].append(round(timed_call(
+                        lambda: offline[label].predict(clips))[1], 3))
+                    check(kernel_counts(got) == kernel_counts(want),
+                          f"mesh session {label}: launches "
+                          f"{kernel_counts(got)}, want {kernel_counts(want)}")
+                    for k in TASK_SIZES:
+                        check(np.array_equal(probs[k], ref[k]),
+                              f"mesh session {label} {k}: differs from the "
+                              f"meshless session by "
+                              f"{np.abs(probs[k] - ref[k]).max()}")
+                print(f"[parallel] (a) InferenceSession(mesh=1x1x1, NCCL) "
+                      f"{label} {b}x{t} frames {h}x{w}: probabilities equal "
+                      f"to the meshless session's bit for bit; launches per "
+                      f"predict {kernel_counts(want)}; ms per predict in "
+                      f"turns, mesh {ms['mesh']}, meshless {ms['meshless']} "
+                      f"(CUDA events; the first warms up); {card}")
+                del sess
+
+            # (b) servables: export and load, bit for bit
+            for label, want in (("bf16", k1),
+                                ("int8 fused stem", int8_fused)):
+                path = offline[label].export(str(root / label.replace(
+                    " ", "_")))
+                t0 = time.perf_counter()
+                loaded = InferenceSession.load_exported(path, device=DEVICE)
+                load_s = time.perf_counter() - t0
+                ref = offline[label].predict(clips)
+                (probs, call_ms), got = run(
+                    lambda: timed_call(lambda: loaded.predict(clips)))
+                check(kernel_counts(got) == {k: n for k, n in want.items()
+                                             if n},
+                      f"servable {label}: launches {kernel_counts(got)}")
+                for k in TASK_SIZES:
+                    check(np.array_equal(probs[k], ref[k]),
+                          f"servable {label} {k}: differs from the exported "
+                          f"session by {np.abs(probs[k] - ref[k]).max()}")
+                mib = os.path.getsize(
+                    Path(path) / "variables.msgpack") / 2 ** 20
+                print(f"[parallel] (b) {label} servable: load_exported "
+                      f"{load_s:.2f} s (host clock: the modules rebuilt, "
+                      f"the stored variables loaded, no calibration), "
+                      f"{mib:.1f} MiB of variables; its predict equal to "
+                      f"the exported "
+                      f"session's bit for bit, {call_ms:.3f} ms; {card}")
+                del loaded
+            stream_frames = np.random.default_rng(20).integers(
+                0, 256, (4, h, w, 3), dtype=np.uint8)
+            for label, want in (("bf16", k1),
+                                ("int8 fused stem", int8_fused)):
+                sess = streaming[label][0][0]  # one stream, phase 5's
+                path = sess.export(str(root / f"stream_{label[:4]}"))
+                t0 = time.perf_counter()
+                loaded = StreamingSession.load_exported(path, device=DEVICE)
+                load_s = time.perf_counter() - t0
+                sess.reset()  # the servable starts from a zero buffer
+                for i, frame in enumerate(stream_frames):
+                    ref = sess.push(frame)
+                    got_probs, got = run(lambda: loaded.push(frame))
+                    check(kernel_counts(got) == kernel_counts(want),
+                          f"streaming servable {label} push {i}: launches "
+                          f"{kernel_counts(got)}, want {kernel_counts(want)}")
+                    for k in TASK_SIZES:
+                        check(np.array_equal(got_probs[k], ref[k]),
+                              f"streaming servable {label} push {i} {k}: "
+                              f"differs from the exported session")
+                sess.reset()
+                print(f"[parallel] (b) streaming {label} servable (phase "
+                      f"5's session: causal, context {sess.context}, the "
+                      f"default {LAYERS_PER_FORWARD}-layer TCN): "
+                      f"load_exported {load_s:.2f} s; {len(stream_frames)} "
+                      f"pushes equal to the exported session's bit for "
+                      f"bit, launches per push {kernel_counts(want)}; {card}")
+                del loaded
+
+            # cli.export from a checkpoint the port wrote, cli.infer
+            # --servable over PNG frames
+            state = create_train_state(offline["bf16"].model,
+                                       build_sgd(1e-2), device=DEVICE)
+            CheckpointManager(str(root / "ckpt"), "student").save(state)
+            del state
+            servable = str(root / "cli_servable")
+            t0 = time.perf_counter()
+            (_, export_launches) = run(lambda: cli_export.main([
+                "--ckpt_dir", str(root / "ckpt"), "--modelname", "student",
+                "--out", servable, "--batch", str(b), "--clip_len", str(t),
+                "--height", str(h), "--width", str(w), "--quantize",
+                "--device", DEVICE]))
+            export_s = time.perf_counter() - t0
+            check(export_launches["qconv_bn"] == INT8_CONVS,
+                  f"cli.export --quantize: its calibration forward launched "
+                  f"Q1 {export_launches['qconv_bn']} times")
+            frames = np.random.default_rng(21).integers(
+                0, 256, (PARALLEL_FRAMES, h, w, 3), dtype=np.uint8)
+            write_frames(root / "VID01", frames, level=1, filter_type=0)
+            res, got = run(lambda: infer.main(
+                ["--video", str(root / "VID01"), "--servable", servable,
+                 "--device", DEVICE]))
+            predicts = -(-PARALLEL_FRAMES // (b * t))
+            check(kernel_counts(got) == {
+                "dilated_residual": LAYERS_PER_FORWARD * predicts,
+                "qconv_bn": INT8_CONVS * predicts},
+                f"cli.infer --servable: launches {kernel_counts(got)}")
+            span = b * t
+            ref = {k: [] for k in TASK_SIZES}
+            for start in range(0, PARALLEL_FRAMES, span):
+                clip = np.zeros((span, h, w, 3), np.uint8)
+                part = frames[start:start + span]
+                clip[:len(part)] = part
+                out = offline["int8 float stem"].predict(
+                    clip.reshape(b, t, h, w, 3))
+                for k in ref:
+                    ref[k].append(out[k].reshape(span, -1)[:len(part)])
+            for k in TASK_SIZES:
+                want_k = np.concatenate(ref[k])
+                check(np.array_equal(res["probs"][k], want_k),
+                      f"cli.infer --servable {k}: differs from phase 5's "
+                      f"int8 float-stem session by "
+                      f"{np.abs(res['probs'][k] - want_k).max()}")
+            print(f"[parallel] (b) cli.export --quantize from a checkpoint "
+                  f"the port wrote ({export_s:.1f} s host clock, one "
+                  f"calibration forward: Q1 {INT8_CONVS}), then cli.infer "
+                  f"--servable over {PARALLEL_FRAMES} PNG frames of {h}x{w}: "
+                  f"equal to phase 5's int8 float-stem session bit for bit; "
+                  f"launches {kernel_counts(got)} ({predicts} predict, no "
+                  f"calibration); {res['seconds']:.3f} s end to end; {card}")
+
+            # (c) sequence-parallel eval of the full-width MS-TCT and TCN
+            seq = pmesh.make_mesh(n_data=1, n_seq=1, device_type=DEVICE)
+            g = torch.Generator().manual_seed(22)
+            mstct = MSTCT(MSTCT_IN, generator=g).to(DEVICE).eval()
+            feats = torch.randn(1, PARALLEL_MSTCT_T, MSTCT_IN,
+                                generator=g).to(DEVICE)
+            with torch.inference_mode():
+                want = mstct(feats)
+                timings = {}
+                for label, ring in (("gather", False), ("ring", True)):
+                    mstct.ring_mesh = seq if ring else None
+                    calls = []
+                    for _ in range(3):  # the first warms up
+                        (out, ms_), got = run(lambda: timed_call(
+                            lambda: eval_sharded(mstct, feats, seq)))
+                        calls.append(round(ms_, 3))
+                        kind = "flash_attention_fwd" if ring else "attention"
+                        check(kernel_counts(got) == {kind: MSTCT_LAUNCHES},
+                              f"MS-TCT eval_sharded {label}: launches "
+                              f"{kernel_counts(got)}")
+                        for k in ("logits", "feature"):
+                            err = _max_rel(out[k], want[k])
+                            check(err <= REL_TOL[torch.float32],
+                                  f"MS-TCT eval_sharded {label} {k}: "
+                                  f"{err:.3g} of the unsharded forward's "
+                                  f"largest")
+                    mstct.ring_mesh = None
+                    timings[label] = (calls, _max_rel(out["logits"],
+                                                      want["logits"]))
+                ms_whole = [round(timed_call(lambda: mstct(feats))[1], 3)
+                            for _ in range(3)]
+            print(f"[parallel] (c) MS-TCT full width float32, one video of "
+                  f"{PARALLEL_MSTCT_T} frames, eval_sharded over a 1-rank "
+                  f"seq axis: gathered (K7 {MSTCT_LAUNCHES} a forward) "
+                  f"ms {timings['gather'][0]}, max rel "
+                  f"{timings['gather'][1]:.2e}; ring (K8's forward "
+                  f"{MSTCT_LAUNCHES} a forward, lse merge) ms "
+                  f"{timings['ring'][0]}, max rel {timings['ring'][1]:.2e}; "
+                  f"unsharded ms {ms_whole} (CUDA events; the first of "
+                  f"each warms up); {card}")
+            tcn = offline["bf16"].model.tcn
+            x = torch.randn(1, PARALLEL_TCN_T, 512, generator=g).to(
+                DEVICE, torch.bfloat16)
+            with torch.inference_mode():
+                want = tcn(x)
+                (out, ms_), got = run(lambda: timed_call(
+                    lambda: eval_sharded(tcn, x, seq)))
+            check(kernel_counts(got) == {
+                "dilated_residual": LAYERS_PER_FORWARD},
+                f"TCN eval_sharded: launches {kernel_counts(got)}")
+            err = max(_max_rel(o, wv) for key in ("ivt", "i", "v", "t")
+                      for o, wv in zip(out[key], want[key]))
+            check(err <= REL_TOL[torch.bfloat16],
+                  f"TCN eval_sharded: {err:.3g} of the unsharded forward's "
+                  f"largest")
+            print(f"[parallel] (c) TCN (the bf16 session's, 41 layers at "
+                  f"512) over {PARALLEL_TCN_T} frames, eval_sharded: K1 "
+                  f"{LAYERS_PER_FORWARD} on the halo-extended shard, max rel "
+                  f"{err:.2e} against the unsharded forward, {ms_:.3f} ms; "
+                  f"{card}")
+
+            # (d) a DP step, a TP step and a pipelined Swin stage
+            n, dh, dw = PARALLEL_DP
+            rng = np.random.default_rng(23)
+            batch = {"image": rng.standard_normal(
+                (n, dh, dw, 3)).astype(np.float32)}
+            for k, c in TASK_SIZES.items():
+                batch[f"label_{k}"] = (rng.random((n, c)) < 0.3).astype(
+                    np.float32)
+            student = SpatialCNN("resnet18", loss_type="ivt",
+                                 generator=torch.Generator().manual_seed(24))
+            states = [create_train_state(copy.deepcopy(student),
+                                         build_sgd(1e-2, 1e-5),
+                                         device=DEVICE)
+                      for _ in range(3)]
+            cudnn = (torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+            # cuDNN's deterministic algorithms: the two single-device steps
+            # and the DP step then take the same sums
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+            try:
+                ref_m = [make_spatial_train_step(student, "ivt",
+                                                 device=DEVICE)(st, batch)[1]
+                         for st in states[1:]]
+                (_, dp_m), got = run(lambda: make_spatial_train_step(
+                    student, "ivt", device=DEVICE, mesh=mesh)(states[0],
+                                                              batch))
+            finally:
+                (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = cudnn
+            single, again, dp = (st.model.state_dict() for st in states)
+            repeat = max(float((again[k].float() - v.float()).abs().max())
+                         for k, v in single.items())
+            check(repeat == 0.0 and all(
+                float(ref_m[0][k]) == float(ref_m[1][k]) for k in ref_m[0]),
+                  f"single-device step under cuDNN's deterministic "
+                  f"algorithms: two runs differ by {repeat:.3g}")
+            for k, v in ref_m[0].items():
+                check(float(dp_m[k]) == float(v),
+                      f"DP step {k}: {float(dp_m[k])!r} against {float(v)!r}")
+            for name, v in dp.items():
+                err = float((v.float() - single[name].float()).abs().max())
+                check(torch.equal(v, single[name]),
+                      f"DP step {name}: differs from the single-device step "
+                      f"by {err:.3g}")
+            print(f"[parallel] (d) DP step (student ResNet18, batch {n} of "
+                  f"{dh}x{dw}, 1-rank data axis: BatchNorm's moments and "
+                  f"the gradients all-reduced over NCCL, cuDNN's "
+                  f"deterministic algorithms) against the single-device "
+                  f"step: loss {float(dp_m['loss'])!r}, every parameter and "
+                  f"running statistic equal bit for bit (two single-device "
+                  f"runs equal too); launches {kernel_counts(got)}"
+                  f" (cuDNN and cuBLAS); {card}")
+            del states, student
+            backbone, tb, img = PARALLEL_TP
+            teacher = Q2L(backbone, loss_type="i", fused_eval=False,
+                          generator=torch.Generator().manual_seed(25))
+            tstates = [create_train_state(copy.deepcopy(teacher),
+                                          build_sgd(1e-2, 1e-5, 0.9),
+                                          seed=26, device=DEVICE)
+                       for _ in range(2)]
+            tp_mesh = pmesh.make_mesh(n_data=1, n_model=1,
+                                      device_type=DEVICE)
+            tstates[0] = shard_state_tp(tstates[0], tp_mesh)
+            tbatch = {"image": rng.standard_normal(
+                (tb, img, img, 3)).astype(np.float32)}
+            for k, c in TASK_SIZES.items():
+                tbatch[f"label_{k}"] = (rng.random((tb, c)) < 0.3).astype(
+                    np.float32)
+            _, ref_m = make_spatial_train_step(teacher, "i", device=DEVICE)(
+                tstates[1], tbatch)
+            ((_, tp_m), tp_ms), got = run(lambda: timed_call(
+                lambda: make_spatial_train_step(teacher, "i", device=DEVICE,
+                                                mesh=tp_mesh)(
+                    tstates[0], tbatch)))
+            check(abs(float(tp_m["loss"]) - float(ref_m["loss"]))
+                  <= PARALLEL_TP_RTOL * abs(float(ref_m["loss"])),
+                  f"TP step loss {float(tp_m['loss'])} against "
+                  f"{float(ref_m['loss'])}")
+            pairs = zip(tstates[0].model.parameters(),
+                        tstates[1].model.parameters())
+            err = max(float((p - q).detach().abs().max()) for p, q in pairs)
+            check(err <= PARALLEL_TP_ATOL, f"TP step parameters: {err:.3g}")
+            check(sharded_leaf_count(tstates[0]) == 0,
+                  "a leaf split over a one-rank model axis")
+            print(f"[parallel] (d) TP step ({backbone}/Q2L, batch {tb} of "
+                  f"{img}x{img}, 1-rank model axis: the plain path forced, "
+                  f"no leaf split) against the single-device plain step: "
+                  f"loss {float(tp_m['loss']):.6f}, parameters within "
+                  f"{err:.2e}; {tp_ms:.3f} ms; launches {kernel_counts(got)}"
+                  f"; {card}")
+            del tstates, teacher
+            swin = build_swin(backbone, fused_eval=False,
+                              generator=torch.Generator().manual_seed(27)
+                              ).to(DEVICE).eval()
+            stage = 2
+            dim = swin.embed_dim * 2 ** stage
+            blocks = [getattr(swin, f"stage{stage}_block{d}")
+                      for d in range(swin.depths[stage])]
+            heads, window = blocks[0].num_heads, blocks[0].window
+            side = img // 32 * 2  # stage 2's map at the image size
+            x = torch.randn(tb, side, side, dim, generator=g).to(DEVICE)
+            with torch.inference_mode():
+                want = x
+                for blk in blocks:
+                    want = blk(want)
+                stacked, n_blocks = extract_stage_pairs(swin, stage)
+                (out, ms_), got = run(lambda: timed_call(
+                    lambda: pipelined_swin_stage(
+                        stacked, x, tp_mesh, n_micro=2, dim=dim,
+                        num_heads=heads, window=window)))
+            err = _max_rel(out, want)
+            check(err <= REL_TOL[torch.float32],
+                  f"pipelined Swin stage: {err:.3g}")
+            print(f"[parallel] (d) pipelined {backbone} stage {stage} "
+                  f"({n_blocks} blocks as {n_blocks // 2} shift pairs, 2 "
+                  f"microbatches of {tb // 2}, a 1-stage model axis) against "
+                  f"its blocks in order: max rel {err:.2e}, {ms_:.3f} ms; "
+                  f"{card}")
+            del swin, stacked
+
+            # (e) trace() around one predict names K1's kernel
+            sess = offline["bf16"]
+            (_, got) = run(lambda: _traced(trace, root / "trace", sess,
+                                           clips))
+            events = json.loads((root / "trace" / TRACE_FILE).read_text())[
+                "traceEvents"]
+            k1_events = [e for e in events if e.get("cat") == "kernel"
+                         and "k1_kernel" in e.get("name", "")]
+            check(len(k1_events) == LAYERS_PER_FORWARD,
+                  f"trace: {len(k1_events)} K1 kernel events, want "
+                  f"{LAYERS_PER_FORWARD}")
+            name = k1_events[0]["name"] if k1_events else ""
+            print(f"[parallel] (e) utils.profiling.trace around one bf16 "
+                  f"predict: the Chrome trace names K1's kernel "
+                  f"{LAYERS_PER_FORWARD} times ({name[:48]}...), its device "
+                  f"time "
+                  f"{sum(e.get('dur', 0) for e in k1_events) / 1e3:.3f} ms; "
+                  f"{card}")
+        finally:
+            dist.destroy_process_group()
+    print(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s (host "
+          f"clock); launches on the parallel paths "
+          f"{ {k: n for k, n in total.items() if n} }; {card}")
+    return total
+
+
+def _traced(trace, directory: Path, sess, clips):
+    with trace(str(directory)):
+        return sess.predict(clips)
+
+
 def main() -> None:
     if not (ROOT / PACKAGE / "csrc" / "dilated_residual.cu").is_file():
         fail(f"{PACKAGE}/ not found beside {Path(__file__).name}: run from a "
@@ -6926,6 +7398,9 @@ def main() -> None:
     frames_s = time.perf_counter()  # this slice's phase
     infer_path, dataset_path = phase_frames(card, teachers["bf16"])
     frames_s = time.perf_counter() - frames_s
+    parallel_s = time.perf_counter()  # the parallel slice's phase
+    parallel_path = phase_parallel(card, offline, clips, streaming)
+    parallel_s = time.perf_counter() - parallel_s
     with tempfile.TemporaryDirectory(dir=ROOT / PACKAGE / "_build") as root:
         split, lengths = mstct_tree(root)
         reset_launches()  # the MS-TCT driver's main path starts here
@@ -7011,7 +7486,8 @@ def main() -> None:
              "loss i; K9 in TResNet's validation forwards)": zoo_drivers,
              "the student's driver -t without and with --device_augment "
              "(no kernel of the port)": student_aug,
-             TERL_AUG_PATH: terl_aug}
+             TERL_AUG_PATH: terl_aug,
+             PARALLEL_PATH: parallel_path}
     total = {name: sum(p[name] for p in paths.values()) for name in KERNELS}
     print("[main path] launches: " + "; ".join(
         f"{label} { {k: v for k, v in p.items() if v} }"
@@ -7101,7 +7577,8 @@ def main() -> None:
           f"{temporal_s:.1f} s; the backbone zoo and --device_augment "
           f"(Q1 at TResNet-L's shapes, CvT and int8 TResNet card vs CPU, the "
           f"augmentation's check and times, the CvT and TResNet sessions, "
-          f"the int8 backbone and zoo_bench, the drivers) {zoo_s:.1f} s "
+          f"the int8 backbone and zoo_bench, the drivers) {zoo_s:.1f} s; "
+          f"the parallel paths and servables (phase 20) {parallel_s:.1f} s "
           f"(host clock)")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -5,7 +5,8 @@ package: the reference-compatible flags (``common_parser``, names and
 defaults unchanged), ``build_modelname``, the challenge-protocol table
 (``ignore_null_protocol``), ``seed_everything``, which seeds ``random``,
 numpy and torch, ``maybe_warm_start`` (``--imagenet_pretrain``),
-``maybe_resume``, ``refuse_unported`` (the flags of later slices), and
+``maybe_resume``, the ranks of a parallel driver (``launch_ranks``,
+``parallel_context`` and its ``Placement``), and
 the eval loop over frames from disk with its reports (``make_metrics``,
 ``reset_metrics``, ``evaluate_videos``, ``host_outputs``,
 ``compute_map_table``, ``print_final_report``).
@@ -14,15 +15,22 @@ the eval loop over frames from disk with its reports (``make_metrics``,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import random
-from typing import Dict, Sequence
+import shutil
+import sys
+import tempfile
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..data.pipeline import CholecDataset, video_eval_batches
 from ..metrics import Recognition
+from ..train.checkpoint import CheckpointManager
+from ..utils.logging import ExperimentLogger
 
 COMPONENTS = ("i", "v", "t", "iv", "it", "ivt")
 
@@ -125,15 +133,110 @@ def maybe_warm_start(flags, state, backbone: str, logger,
                                submodule=submodule)
 
 
-def refuse_unported(flags) -> None:
-    """The flags whose code is not ported yet raise, naming their slice:
-    ``--dp_devices`` / ``--tp_devices`` > 1 (ROADMAP Queue 1 item 8, the
-    parallel slice)."""
-    for name in ("dp_devices", "tp_devices"):
-        if getattr(flags, name, 0) > 1:
-            raise NotImplementedError(
-                f"--{name} > 1 is not ported yet (ROADMAP Queue 1 item 8, "
-                f"the parallel slice)")
+def launch_ranks(main, argv, flags, n: int):
+    """Run the driver's ``main(argv)`` on ``n`` ranks (one command, as one
+    JAX process drives every local device; or joined under ``torchrun``)
+    on ``--device``'s kind of device; rank 0's result."""
+    from ..parallel.mesh import launch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return launch(main, n, (argv,), device_type=torch.device(
+        flags.device).type)
+
+
+@dataclass
+class Placement:
+    """Where a driver's rank runs: its mesh (None on one device), its
+    device, and for a rank other than 0 of a group a temporary directory
+    for its logs (``scratch``)."""
+
+    mesh: object
+    device: torch.device
+    scratch: Optional[str] = None
+
+    def logger(self, model_dir: str, modelname: str) -> ExperimentLogger:
+        """The run's logger; a rank other than 0 logs into ``scratch``."""
+        return ExperimentLogger(self.scratch or model_dir, modelname)
+
+    def checkpoints(self, model_dir: str, modelname: str):
+        """The run's ``CheckpointManager``; in a group every rank reads its
+        files, whole under tensor parallelism, and rank 0 alone writes them
+        (``RankZeroWrites``)."""
+        ckpt = CheckpointManager(model_dir, modelname)
+        return ckpt if self.mesh is None else RankZeroWrites(ckpt)
+
+
+class RankZeroWrites:
+    """A ``CheckpointManager`` shared by a group's ranks. Its writes and
+    restores see the whole parameters of a tensor-parallel state
+    (``parallel.tp.gathered_tp``, a no-op where nothing is split); rank 0
+    alone writes (``save``, ``update``) and every rank then waits at a
+    barrier, so that a read that follows sees the file; everything else
+    passes through."""
+
+    def __init__(self, ckpt):
+        self.ckpt = ckpt
+
+    def __getattr__(self, name):
+        return getattr(self.ckpt, name)
+
+    def _write(self, name, state, *args, **kw):
+        import torch.distributed as dist
+
+        from ..parallel.tp import gathered_tp
+
+        with gathered_tp(state.model):
+            out = (getattr(self.ckpt, name)(state, *args, **kw)
+                   if dist.get_rank() == 0 else "written by rank 0")
+        dist.barrier()
+        return out
+
+    def save(self, state, *args, **kw):
+        return self._write("save", state, *args, **kw)
+
+    def update(self, state, *args, **kw):
+        return self._write("update", state, *args, **kw)
+
+    def restore(self, state, *args, **kw):
+        from ..parallel.tp import gathered_tp
+
+        with gathered_tp(state.model):
+            return self.ckpt.restore(state, *args, **kw)
+
+
+@contextlib.contextmanager
+def parallel_context(flags, n_data: int, n_model: int = 1, n_seq: int = 1):
+    """The ``Placement`` of this rank for ``--dp_devices`` x
+    ``--seq_devices`` x ``--tp_devices`` (no mesh, ``--device``, on one
+    device). The global ``--batch`` must divide by the data axis. A rank
+    other than 0's scratch directory is removed when the block ends."""
+    import torch.distributed as dist
+
+    if n_data * n_model * n_seq <= 1:
+        yield Placement(None, torch.device(flags.device))
+        return
+    from ..parallel.mesh import make_mesh, mesh_device
+
+    if flags.batch % n_data:
+        raise ValueError("--batch must be divisible by --dp_devices")
+    mesh = make_mesh(n_data=n_data, n_seq=n_seq, n_model=n_model,
+                     device_type=torch.device(flags.device).type)
+    scratch = (tempfile.mkdtemp(prefix=f"rank{dist.get_rank()}_")
+               if dist.get_rank() else None)
+    try:
+        yield Placement(mesh, mesh_device(mesh), scratch)
+        dist.barrier()
+    finally:
+        if scratch:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+
+def is_rank_zero() -> bool:
+    """Outside a group, or rank 0 of it (the rank that writes shared
+    outputs such as the feature dump)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def maybe_resume(flags, ckpt, state, logger):

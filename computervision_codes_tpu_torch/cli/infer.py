@@ -27,13 +27,16 @@ worker thread while the device scores the current one; the decode releases
 the GIL in its file reads, its inflate and its C calls. Output: .npz with
 float32 arrays i/v/t/ivt of shape (T, C).
 
-Not ported: MJPEG containers (``.avi``/``.mjpg``: the data plane has no
-libjpeg, so they raise) and ``--servable`` (exported servables, which
-``cli.export`` writes in the JAX package).
+``--servable`` serves an exported session (``cli.export`` or a session's
+``export``; a JAX-written servable too), offline or with ``--streaming``,
+its shape and TCN taken from the servable and the frames decoded at its
+height and width. Not ported: MJPEG containers (``.avi``/``.mjpg``: the
+data plane has no libjpeg, so they raise).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -73,12 +76,13 @@ class _FrameSource:
 
 
 def _session(cls, flags, kw: dict):
+    if flags.servable:
+        return cls.load_exported(flags.servable, device=flags.device)
     if flags.ckpt_dir:
         return cls.from_checkpoint(flags.ckpt_dir, flags.modelname, **kw)
     if flags.random_init:
         return cls.create(**kw)
-    raise ValueError("need --ckpt_dir or --random_init (--servable is not "
-                     "ported)")
+    raise ValueError("need --servable, --ckpt_dir or --random_init")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -89,7 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    help="a PNG frame directory (.avi/.mjpg containers need "
                         "libjpeg and raise)")
     p.add_argument("--servable", type=str, default="",
-                   help="not ported: exported servables raise")
+                   help="an exported servable (cli.export / sess.export())")
     p.add_argument("--ckpt_dir", type=str, default="")
     p.add_argument("--modelname", type=str, default="")
     p.add_argument("--network", type=str, default="resnet18")
@@ -116,14 +120,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    help="the sessions' device (cpu only when asked)")
     flags, _ = p.parse_known_args(argv)
 
+    from .. import serving
+
+    if flags.servable:  # the servable's geometry decides the decode size
+        with open(os.path.join(flags.servable, "meta.json")) as fh:
+            meta = json.load(fh)
+        flags.height, flags.width = meta["height"], meta["width"]
     src = _FrameSource(flags.video, (flags.height, flags.width))
     t = len(src)
-    if flags.servable:
-        raise NotImplementedError(
-            "--servable: exported servables (cli.export) are not ported; "
-            "serve with --ckpt_dir/--modelname or --random_init")
-
-    from .. import serving
 
     common = dict(height=flags.height, width=flags.width,
                   network=flags.network, quantize=flags.quantize,
@@ -137,9 +141,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         span = max(flags.batch * flags.clip_len, 256)
         score = lambda chunk: _score_streaming(sess, chunk)  # noqa: E731
     else:
-        b, cl = flags.batch, flags.clip_len
         sess = _session(serving.InferenceSession, flags,
-                        dict(common, batch=b, clip_len=cl))
+                        dict(common, batch=flags.batch,
+                             clip_len=flags.clip_len))
+        b, cl = sess.batch, sess.clip_len
         span = b * cl
         score = lambda chunk: _score_offline(sess, b, cl, chunk)  # noqa: E731
     t0 = time.perf_counter()

@@ -28,8 +28,17 @@ no kernel of the port sits on this path. ``--device_augment`` ships the
 training frames as uint8 and augments and normalises them on ``--device``
 (``data.device_augment``), each step's draws from a generator seeded from
 ``seed ^ 0x5EED``, the epoch and the step, as the JAX driver folds its
-key. Not ported yet, and refused: ``--dp_devices > 1`` (ROADMAP Queue 1
-item 8).
+key.
+
+``--dp_devices N`` trains data-parallel on N ranks, started by this one
+command (``parallel.mesh.launch``; or joined under ``torchrun``), one per
+device: each rank takes its 1/N of every batch, training-mode BatchNorm
+takes the moments of the whole batch and the gradients (and SAM's norm)
+are averaged over the ranks, so that the step is the single-device step on
+the global batch, as JAX's under a batch-sharded mesh. Under
+``--device_augment`` every rank draws the numbers of the whole batch and
+keeps its rows, so each frame is augmented as on one device. Evaluation
+runs whole on every rank; rank 0 writes the logs, checkpoints and dump.
 
     python -m computervision_codes_tpu_torch.cli.spatial_cnn \\
         --data_dir D -t -e -d [--loss_type all --rates 1 0.5 0.1] \\
@@ -50,10 +59,10 @@ from ..data.pipeline import CholecDataset, batch_iterator
 from ..data.prefetch import prefetch_to_device
 from ..losses import TARGET_POS_WEIGHT, TOOL_POS_WEIGHT, VERB_POS_WEIGHT
 from ..models.spatial_cnn import SpatialCNN
+from ..parallel.mesh import batch_sharding, replicate
 from ..train import (build_sgd, create_train_state, make_spatial_eval_step,
                      make_spatial_train_step, reference_warmup_exp_schedule)
 from ..train.checkpoint import CheckpointManager
-from ..utils.logging import ExperimentLogger
 from ..utils.preempt import PreemptionGuard
 from . import common
 
@@ -69,8 +78,8 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                         "(models/qat.py); eval/dump run the fake-quant "
                         "weights")
     p.add_argument("--dp_devices", type=int, default=0,
-                   help="data-parallel devices (not ported yet; 0 or 1 = "
-                        "one device)")
+                   help="data-parallel devices (batch split over the mesh "
+                        "data axis; 0 or 1 = one device)")
     p.add_argument("--device_augment", action="store_true",
                    help="train-time augmentation and normalisation on the "
                         "device (data/device_augment.py): the host only "
@@ -83,9 +92,16 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = parse_flags(argv)
-    common.refuse_unported(flags)
+    n_data = max(1, flags.dp_devices)
+    if n_data > 1 and not torch.distributed.is_initialized():
+        return common.launch_ranks(main, argv, flags, n_data)
+    with common.parallel_context(flags, n_data) as place:
+        return _main(flags, place)
+
+
+def _main(flags, place) -> dict:
+    mesh, device = place.mesh, place.device
     generator = common.seed_everything(flags.seed)
-    device = torch.device(flags.device)
     dtype = torch.bfloat16 if flags.dtype == "bfloat16" else torch.float32
 
     dataset = CholecDataset(flags.data_dir, flags.dataset_variant,
@@ -104,8 +120,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     modelname = common.build_modelname(flags)
     model_dir = f"{flags.ckpt_root}/run_{flags.version}"
-    logger = ExperimentLogger(model_dir, modelname)
-    ckpt = CheckpointManager(model_dir, modelname)
+    logger = place.logger(model_dir, modelname)
+    ckpt = place.checkpoints(model_dir, modelname)
 
     model = SpatialCNN(network=flags.network, loss_type=flags.loss_type,
                        teacher_dim=flags.teacher_dim, dtype=dtype,
@@ -122,13 +138,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         state = CheckpointManager(flags.pretrain_dir, modelname).restore(
             state)
     state = common.maybe_resume(flags, ckpt, state, logger)
+    batch_sh = None
+    if mesh is not None:
+        state.model = replicate(state.model, mesh)
+        batch_sh = batch_sharding(mesh)
 
     pos_weights = {"i": TOOL_POS_WEIGHT, "v": VERB_POS_WEIGHT,
                    "t": TARGET_POS_WEIGHT}
     train_step = make_spatial_train_step(
         model, flags.loss_type, flags.rates, flags.temp, pos_weights,
         sam_rho=flags.sam_rho if flags.optimizer == "sam" else 0.0,
-        qat=flags.qat, device=device)
+        qat=flags.qat, device=device, mesh=mesh)
     eval_step = make_spatial_eval_step(model, qat=flags.qat, device=device)
 
     def run_batch(images):
@@ -142,7 +162,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       f"{flags.warmups} decay {flags.decay_rate} dtype "
                       f"{flags.dtype} device {device}")
     result = {}
-    augment = (make_device_augment(tuple(flags.augmentation_list))
+    augment = (make_device_augment(tuple(flags.augmentation_list),
+                                   sharding=batch_sh)
                if flags.device_augment else None)
 
     if flags.train:
@@ -158,7 +179,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 stream = ({k: v for k, v in b.items() if k != "valid"}
                           for b in stream)
                 for step_no, batch in enumerate(
-                        prefetch_to_device(stream, device=device)):
+                        prefetch_to_device(stream, device=device,
+                                           sharding=batch_sh)):
                     if guard.requested:
                         break
                     if augment is not None:
@@ -221,9 +243,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                        flags.batch, common.make_metrics(),
                                        collect_features=True)
         task = "" if flags.loss_type in ("all", "ivt") else flags.loss_type
-        path = store.save(flags.kfold, "feats", feats, task=task)
-        logger.log(f"Dumped features for {len(feats)} videos to {path}")
-        result["dump_path"] = path
+        if common.is_rank_zero():
+            path = store.save(flags.kfold, "feats", feats, task=task)
+            logger.log(f"Dumped features for {len(feats)} videos to {path}")
+            result["dump_path"] = path
 
     logger.close()
     return result

@@ -34,8 +34,19 @@ K6 under ``--fused_train``. ``--device_augment`` ships each training
 batch's frames as uint8 and augments and normalises them on ``--device``
 (``data.device_augment``), each step's draws from a generator seeded from
 ``seed ^ 0x5EED`` and the step's number, as the JAX driver folds its key.
-Not ported yet, and refused: ``--dp_devices`` and ``--tp_devices`` > 1
-(ROADMAP Queue 1 item 8).
+
+``--dp_devices`` x ``--tp_devices`` ranks (started by this one command,
+``parallel.mesh.launch``, or joined under ``torchrun``) train on a (data,
+model) mesh: the batch is split over ``data`` and the gradients averaged
+over it (under ``--device_augment`` every rank draws the numbers of the
+whole batch and keeps its rows, as on one device), and ``parallel.tp``
+splits the transformer's Dense pairs over ``model`` (Megatron column ->
+row). As the JAX driver forces, tensor parallelism takes the plain path:
+no ``--fused_train``, no ``--quant_eval`` and ``fused_eval=False``, so no
+kernel runs under it.
+Checkpoints hold the whole parameters (gathered over ``model`` for the
+write, cut again after a restore); rank 0 writes them, the logs and the
+dump.
 
     python -m computervision_codes_tpu_torch.cli.spatial_transformer \\
         --data_dir D -t -e -d [--loss_type all --rates 1 0.5 0.1] \\
@@ -55,10 +66,10 @@ from ..data.feature_store import FeatureStore
 from ..data.pipeline import CholecDataset, batch_iterator
 from ..losses import TARGET_POS_WEIGHT, TOOL_POS_WEIGHT, VERB_POS_WEIGHT
 from ..models.q2l import Q2L
+from ..parallel.mesh import batch_sharding, local_slice, replicate
+from ..parallel.tp import shard_state_tp
 from ..train import (build_sgd, create_train_state, make_spatial_eval_step,
                      make_spatial_train_step, reference_warmup_exp_schedule)
-from ..train.checkpoint import CheckpointManager
-from ..utils.logging import ExperimentLogger
 from ..utils.preempt import PreemptionGuard
 from . import common
 
@@ -88,15 +99,16 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                    help="'dots' keeps the GEMM outputs; 'none' recomputes "
                         "everything")
     p.add_argument("--dp_devices", type=int, default=0,
-                   help="data-parallel devices (not ported yet; 0 or 1 = "
-                        "one device)")
+                   help="data-parallel devices (batch split over the mesh "
+                        "data axis; 0 or 1 = one device)")
     p.add_argument("--device_augment", action="store_true",
                    help="train-time augmentation and normalisation on the "
                         "device (data/device_augment.py): the host only "
                         "decodes and resizes")
     p.add_argument("--tp_devices", type=int, default=0,
-                   help="tensor-parallel devices (not ported yet; 0 or 1 = "
-                        "one device)")
+                   help="tensor-parallel devices: the Megatron split of "
+                        "parallel/tp.py over the mesh model axis; composes "
+                        "with --dp_devices")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     flags, _ = p.parse_known_args(argv)
@@ -105,9 +117,16 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = parse_flags(argv)
-    common.refuse_unported(flags)
+    n_data, n_model = max(1, flags.dp_devices), max(1, flags.tp_devices)
+    if n_data * n_model > 1 and not torch.distributed.is_initialized():
+        return common.launch_ranks(main, argv, flags, n_data * n_model)
+    with common.parallel_context(flags, n_data, n_model) as place:
+        return _main(flags, place)
+
+
+def _main(flags, place) -> dict:
+    mesh, device = place.mesh, place.device
     generator = common.seed_everything(flags.seed)
-    device = torch.device(flags.device)
     dtype = torch.bfloat16 if flags.dtype == "bfloat16" else torch.float32
 
     dataset = CholecDataset(flags.data_dir, flags.dataset_variant,
@@ -126,15 +145,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     modelname = common.build_modelname(flags) + f"_{flags.loss_type}"
     model_dir = f"{flags.ckpt_root}/run_{flags.version}"
-    logger = ExperimentLogger(model_dir, modelname)
-    ckpt = CheckpointManager(model_dir, modelname)
+    logger = place.logger(model_dir, modelname)
+    ckpt = place.checkpoints(model_dir, modelname)
 
+    # the kernels take whole weights: tensor parallelism takes the plain
+    # path, as the JAX driver forces its XLA path
+    tp_active = flags.tp_devices > 1
+    if tp_active and (flags.fused_train or flags.quant_eval):
+        print("[tp] --tp_devices forces the plain path: ignoring "
+              "--fused_train/--quant_eval (the kernels take whole weights)")
     model_kw = dict(backbone=flags.backbone, loss_type=flags.loss_type,
                     teacher_dim=flags.teacher_dim, dtype=dtype)
     model = Q2L(**model_kw, remat=flags.remat,
                 remat_policy="" if flags.remat_policy == "none"
                 else flags.remat_policy,
-                fused_train=flags.fused_train, generator=generator)
+                fused_train=flags.fused_train and not tp_active,
+                fused_eval=False if tp_active else None,
+                generator=generator)
     steps_per_epoch = max(1, len(dataset.frame_index(split.train))
                           // flags.batch)
     sched = reference_warmup_exp_schedule(
@@ -144,17 +171,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                seed=flags.seed, device=device)
     state = common.maybe_warm_start(flags, state, flags.backbone, logger)
     state = common.maybe_resume(flags, ckpt, state, logger)
+    if mesh is not None:
+        state.model = replicate(state.model, mesh)
+        state = shard_state_tp(state, mesh)
 
     pos_weights = {"i": TOOL_POS_WEIGHT, "v": VERB_POS_WEIGHT,
                    "t": TARGET_POS_WEIGHT}
     train_step = make_spatial_train_step(model, flags.loss_type, flags.rates,
                                          flags.temp, pos_weights,
-                                         device=device)
+                                         device=device, mesh=mesh)
     # validation picks the checkpoint with the float model; the int8 twin
     # serves only the final --test and --dump passes
     val_step = make_spatial_eval_step(model, device=device)
     eval_step = val_step
-    if flags.quant_eval:
+    if flags.quant_eval and not tp_active:
         twin = Q2L(**model_kw, quant_eval=True,
                    quant_min_dim=flags.quant_min_dim).to(device)
         eval_step = make_spatial_eval_step(twin, device=device)
@@ -172,8 +202,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       flags.batch, f"backbone {flags.backbone} dtype "
                       f"{flags.dtype} device {device}")
     result = {}
-    augment = (make_device_augment(tuple(flags.augmentation_list))
-               if flags.device_augment else None)
+    augment = (make_device_augment(
+        tuple(flags.augmentation_list),
+        sharding=None if mesh is None else batch_sharding(mesh))
+        if flags.device_augment else None)
 
     if flags.train:
         losses, seconds = [], []
@@ -191,6 +223,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     if guard.requested:
                         break
                     batch.pop("valid")
+                    if mesh is not None:  # this rank's rows of the batch
+                        batch = {k: local_slice(v, batch_sharding(mesh))
+                                 for k, v in batch.items()}
                     if augment is not None:
                         batch["image"] = augment(
                             step_generator(device, flags.seed ^ 0x5EED,
@@ -245,9 +280,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                        flags.batch, common.make_metrics(),
                                        collect_features=True)
         task = flags.loss_type if flags.loss_type in ("i", "v", "t") else ""
-        path = store.save(flags.kfold, "feats", feats, task=task)
-        logger.log(f"Dumped features to {path}")
-        result["dump_path"] = path
+        if common.is_rank_zero():
+            path = store.save(flags.kfold, "feats", feats, task=task)
+            logger.log(f"Dumped features to {path}")
+            result["dump_path"] = path
 
     logger.close()
     return result

@@ -46,8 +46,18 @@ Probabilities are the sigmoid of the logits in the model dtype, as the
 JAX ``eval_fn``; the dumped arrays are float32 (numpy has no bfloat16),
 holding those values exactly. ``--device`` (default ``cuda``) is where the
 model runs: on the card attention is kernel K7 (``ops/attention.py``),
-differentiated through its plain version as in JAX. Not ported yet, and
-refused: ``--seq_devices > 1`` (the parallel slice).
+differentiated through its plain version as in JAX.
+
+``--seq_devices N`` evaluates (``-e``, ``-d`` and validation) with each
+video's frames split over N ranks (``parallel.long_video.eval_sharded``,
+started by this one command or joined under ``torchrun``): the temporal
+convolutions exchange halos and the attention gathers the keys and values
+(``--seq_attn gather``, K7 on the card) or rings them (``ring``:
+``MSTCT.ring_mesh``, K8's forward per block). A video whose length does
+not divide by N is padded with zero frames at its end to the next multiple
+and the outputs trimmed; the padded frames are keys of the attention, as
+the JAX driver's bucket padding is. Training runs whole on every rank;
+rank 0 writes the logs, checkpoints and dumps.
 """
 
 from __future__ import annotations
@@ -72,9 +82,7 @@ from ..metrics import Recognition
 from ..models.mstct import MSTCT
 from ..train import (build_sgd, create_train_state,
                      reference_warmup_exp_schedule)
-from ..train.checkpoint import CheckpointManager
 from ..train.state import TrainState
-from ..utils.logging import ExperimentLogger
 from ..utils.preempt import PreemptionGuard
 from . import common
 
@@ -96,8 +104,8 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
                    help="log per-epoch train mAP (the reference logs train "
                         "mAP every batch, run.py:159-196)")
     p.add_argument("--seq_devices", type=int, default=0,
-                   help="context-parallel full-video eval over this many "
-                        "devices (not ported yet; 0 or 1 = one device)")
+                   help="context-parallel full-video eval: shard T over "
+                        "this many devices (0 or 1 = one device)")
     p.add_argument("--seq_attn", type=str, default="gather",
                    choices=("gather", "ring"),
                    help="attention schedule under --seq_devices")
@@ -174,14 +182,42 @@ def predict(model, feats: Sequence, device) -> List[tuple]:
     return out
 
 
+def predict_sharded(model, feats: np.ndarray, mesh, ring: bool, device
+                    ) -> tuple:
+    """(sigmoid probabilities, feature) of one (T, C) sequence, float32
+    numpy, from the eval forward with T split over the mesh's ``seq``
+    ranks (zero frames padded at the end to a multiple of them, trimmed
+    from the outputs); ``ring`` rings every attention."""
+    from ..parallel.long_video import eval_sharded
+    from ..parallel.mesh import SEQ_AXIS, axis_size
+
+    t = len(feats)
+    pad = -t % axis_size(mesh, SEQ_AXIS)
+    x = torch.from_numpy(np.pad(np.asarray(feats), ((0, pad), (0, 0)))[None])
+    model.eval()
+    model.ring_mesh = mesh if ring else None
+    try:
+        with torch.inference_mode():
+            res = eval_sharded(model, x.to(device), mesh)
+    finally:
+        model.ring_mesh = None
+    probs = torch.sigmoid(res["logits"][0, :t]).float().cpu().numpy()
+    return probs, res["feature"][0, :t].float().cpu().numpy()
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = parse_flags(argv)
-    if flags.seq_devices > 1:
-        raise NotImplementedError("--seq_devices > 1 is not ported yet: it "
-                                  "comes with the parallel slice")
+    n_seq = max(1, flags.seq_devices)
+    if n_seq > 1 and not torch.distributed.is_initialized():
+        return common.launch_ranks(main, argv, flags, n_seq)
+    with common.parallel_context(flags, 1, n_seq=n_seq) as place:
+        return _main(flags, place)
+
+
+def _main(flags, place) -> dict:
+    seq_mesh, device = place.mesh, place.device
     generator = common.seed_everything(flags.seed)
     np_rng = np.random.default_rng(flags.seed)
-    device = torch.device(flags.device)
     dtype = torch.bfloat16 if flags.dtype == "bfloat16" else torch.float32
     task = flags.loss_type
     num_classes, pos_weight = TASK_INFO[task]
@@ -196,8 +232,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     modelname = common.build_modelname(flags) + f"_mstct_{task}"
     model_dir = f"{flags.ckpt_root}/run_{flags.version}"
-    logger = ExperimentLogger(model_dir, modelname)
-    ckpt = CheckpointManager(model_dir, modelname)
+    logger = place.logger(model_dir, modelname)
+    ckpt = place.checkpoints(model_dir, modelname)
 
     model = MSTCT(in_dim, tuple(flags.inter_channels), flags.num_block,
                   flags.head, flags.mlp_ratio, flags.final_embedding_dim,
@@ -219,7 +255,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for video in videos:
             seq = ds[video]
             t0 = time.perf_counter()
-            [(probs, feats)] = predict(state.model, [seq.features], device)
+            if seq_mesh is not None:
+                probs, feats = predict_sharded(state.model, seq.features,
+                                               seq_mesh,
+                                               flags.seq_attn == "ring",
+                                               device)
+            else:
+                [(probs, feats)] = predict(state.model, [seq.features],
+                                           device)
             ms[video] = (time.perf_counter() - t0) * 1e3  # ends on the host
             metric.update(seq.labels[task], probs)
             metric.video_end()
@@ -299,10 +342,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         out_store = FeatureStore(feats_root, flags.version or "Q2LMSTCT")
         feats_out, preds_out, result["eval_ms"]["dump"] = run_eval(
             split.all_videos, Recognition(num_classes), collect=True)
-        fpath = out_store.save(flags.kfold, "feats", feats_out, task=task)
-        ppath = out_store.save(flags.kfold, "pred", preds_out, task=task)
-        logger.log(f"Dumped {fpath} and {ppath}")
-        result["dump_paths"] = (fpath, ppath)
+        if common.is_rank_zero():
+            fpath = out_store.save(flags.kfold, "feats", feats_out,
+                                   task=task)
+            ppath = out_store.save(flags.kfold, "pred", preds_out, task=task)
+            logger.log(f"Dumped {fpath} and {ppath}")
+            result["dump_paths"] = (fpath, ppath)
 
     logger.close()
     return result

@@ -140,7 +140,6 @@ def parse_flags(argv: Optional[Sequence[str]] = None):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     flags = parse_flags(argv)
-    common.refuse_unported(flags)
     generator = common.seed_everything(flags.seed)
     device = torch.device(flags.device)
     dtype = torch.bfloat16 if flags.dtype == "bfloat16" else torch.float32

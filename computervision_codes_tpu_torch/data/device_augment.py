@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import axis_size, local_slice
 from .transforms import DEFAULT_AUGS, IMAGENET_MEAN, IMAGENET_STD
 
 # augmentation -> probability of applying it per sample (the others draw
@@ -345,23 +346,37 @@ def apply_augment(augmentation_list: Sequence[str], x: torch.Tensor,
 
 def make_device_augment(augmentation_list: Sequence[str] = DEFAULT_AUGS,
                         dtype=torch.float32, two_view: bool = False,
-                        rot_impl: str = "gather"):
+                        rot_impl: str = "gather", sharding=None):
     """``(generator, uint8 (B, H, W, 3)) -> normalised (B, H, W, 3)
     dtype``, the reference's train augmentations in list order with
     per-sample draws from ``generator`` (on the frames' device); with
     ``two_view`` a pair of independently augmented views of the same
     frames (the first view's numbers drawn first). ``rot_impl``:
-    "gather" (default) or "two_pass". A host-only or unknown augmentation
-    raises ``ValueError`` here."""
+    "gather" (default) or "two_pass". With ``sharding``
+    (``parallel.mesh.batch_sharding``) the frames are this rank's rows of
+    a global batch: the numbers are drawn for the whole batch from the
+    same generator on every rank, and each draw keeps this rank's rows, so
+    that every sample is augmented as on one device. A host-only or
+    unknown augmentation raises ``ValueError`` here."""
     augs = tuple(augmentation_list)
     _check(augs)
     if rot_impl not in ("two_pass", "gather"):
         raise ValueError(f"unknown rot_impl {rot_impl!r}")
 
+    def local(d):
+        """This rank's rows of one draw (None, a tensor or a pair)."""
+        if sharding is None or d is None:
+            return d
+        if isinstance(d, tuple):
+            return tuple(local(x) for x in d)
+        return local_slice(d, sharding)
+
     def one(generator, images):
-        draws = draw_augment(augs, images.shape[0], generator,
-                             images.device)
-        return apply_augment(augs, images, draws, dtype, rot_impl)
+        rows = images.shape[0] * (1 if sharding is None else axis_size(
+            sharding.mesh, sharding.spec[0]))
+        draws = draw_augment(augs, rows, generator, images.device)
+        return apply_augment(augs, images, [local(d) for d in draws],
+                             dtype, rot_impl)
 
     if two_view:
         def augment2(generator, images):

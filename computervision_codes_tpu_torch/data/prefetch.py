@@ -9,6 +9,9 @@ batch N+1 overlaps the step on batch N (double buffering at depth 2). The
 consumer's stream waits on each copy's event before it gets the batch, and
 every handed-over tensor is recorded on that stream, so the allocator does
 not reuse its memory while the consumer's work is queued.
+
+With ``sharding`` (``parallel.mesh.batch_sharding``) each rank stages and
+copies only its slice of every batch, to its own device, on the same path.
 """
 
 from __future__ import annotations
@@ -25,11 +28,15 @@ def prefetch_to_device(iterator: Iterator[Dict], depth: int = 2,
                        sharding=None) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield batches of ``iterator`` (dicts of arrays) as tensors on
     ``device``, keeping ``depth`` in flight. On a CPU device the tensors
-    share the arrays' memory. ``sharding`` (a batch split over devices)
-    is not ported: it raises."""
+    share the arrays' memory. ``sharding`` (a ``parallel.mesh.Sharding``
+    of the batch): each leaf is cut to this rank's slice first, and the
+    device is the rank's (``device`` is then not used)."""
     if sharding is not None:
-        raise NotImplementedError("prefetch_to_device(sharding=...): "
-                                  "sharded batches are not ported yet")
+        from ..parallel.mesh import local_slice, mesh_device
+
+        device = mesh_device(sharding.mesh)
+        iterator = ({k: local_slice(v, sharding) for k, v in b.items()}
+                    for b in iterator)
     device = torch.device(device)
     if device.type != "cuda":
         for batch in iterator:

@@ -59,8 +59,11 @@ class Dense(nn.Module):
             lecun_normal_(w, cin, generator)
         self.kernel = nn.Parameter(w)
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.tp = None  # the sharded product (parallel.tp.shard_params_tp)
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp(self, x)
         y = x.to(self.dtype) @ self.kernel.to(self.dtype)
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
@@ -92,7 +95,10 @@ class TemporalConv(nn.Module):
     reshape a view, with the float32 sums a convolution takes: on the card
     cuBLAS, not cuDNN, which plans anew for every sequence length (the
     driver's every video; ``scripts/mstct_merge_conv_probe.py``). A grouped
-    one (MS-TCT's depthwise ``tc``) runs as ``F.conv1d``."""
+    one (MS-TCT's depthwise ``tc``) runs as ``F.conv1d``. Inside
+    ``parallel.context.sequence_sharded`` x is this rank's T shard and the
+    k // 2 frames padded on either side are the neighbours' (zeros past
+    the global ends)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  groups: int = 1, dtype: torch.dtype = torch.float32,
@@ -107,14 +113,22 @@ class TemporalConv(nn.Module):
     def forward(self, x):
         x, w = x.to(self.dtype), self.kernel.to(self.dtype)
         k, cout = w.shape[0], w.shape[-1]
+        from ..parallel.context import active_shard, gather_halo
+
+        shard = active_shard()
         if self.groups == 1:
             t = x.shape[1]
-            xp = F.pad(x, (0, 0, k // 2, k // 2))  # pads time
+            xp = (F.pad(x, (0, 0, k // 2, k // 2)) if shard is None  # time
+                  else gather_halo(x, k // 2, k // 2, shard))
             cols = torch.cat([xp[:, i:i + t] for i in range(k)], dim=-1)
             y = cols @ w.reshape(-1, cout)
-        else:
+        elif shard is None:
             y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0),
                          padding=k // 2, groups=self.groups).transpose(1, 2)
+        else:
+            xp = gather_halo(x, k // 2, k // 2, shard)
+            y = F.conv1d(xp.transpose(1, 2), w.permute(2, 1, 0),
+                         groups=self.groups).transpose(1, 2)
         return y + self.bias.to(self.dtype)
 
 

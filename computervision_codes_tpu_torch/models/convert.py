@@ -214,6 +214,28 @@ def jax_variables(module: nn.Module):
     return exporter.variables
 
 
+def jax_quantized(qmodule: nn.Module):
+    """The JAX quantized tree of a ``QuantizedResNet`` or
+    ``QuantizedTResNet`` (the inverse of ``load_jax_quantized``): each
+    conv's ``w_q`` (HWIO int8), ``mult``, ``bias`` and ``act_scale`` (when
+    calibrated), or a float conv's ``w`` and ``bias``, as numpy."""
+    tree: Dict = {}
+    for name, conv in qmodule.named_modules():
+        if not isinstance(conv, (QConv, FloatDense)):
+            continue
+        node = tree
+        for k in name.split("."):
+            node = node.setdefault(k, {})
+        for key, value in conv.named_buffers(recurse=False):
+            if value is None:
+                continue
+            a = value.detach().cpu()
+            if key == "w_q":
+                a = a.permute(1, 2, 3, 0)  # OHWI -> HWIO
+            node[key] = a.numpy().copy()
+    return tree
+
+
 def load_jax_quantized(qmodule: nn.Module, q_backbone) -> nn.Module:
     """Fill a ``QuantizedResNet`` or ``QuantizedTResNet`` in place from a
     JAX quantized tree of the same architecture and stem kind (a

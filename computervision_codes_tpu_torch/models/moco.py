@@ -248,12 +248,21 @@ def init_queue(generator: Optional[torch.Generator], k: int, dim: int,
 
 @torch.no_grad()
 def enqueue(queue: MoCoQueue, keys: torch.Tensor, lab_ivt: torch.Tensor,
-            valid: torch.Tensor) -> MoCoQueue:
+            valid: torch.Tensor, group=None) -> MoCoQueue:
     """Write the valid anchors' keys and labels at the pointer, in order,
     dropping those past the end; the pointer then moves on by the number
-    written, modulo K (reference :176-221)."""
+    written, modulo K (reference :176-221). Under data parallelism
+    ``group`` (the data group) first gathers every rank's anchors in rank
+    order (``parallel.context.all_gather_keys``, the reference's
+    ``concat_all_gather``), so that every rank's queue takes the global
+    batch's keys."""
     k = queue.feats.shape[0]
-    valid = torch.as_tensor(valid, device=queue.feats.device) > 0
+    valid = torch.as_tensor(valid, device=queue.feats.device)
+    if group is not None:
+        from ..parallel.context import all_gather_keys
+
+        keys, lab_ivt, valid = all_gather_keys(keys, lab_ivt, valid, group)
+    valid = valid > 0
     order = torch.cumsum(valid.int(), 0) - 1
     pos = queue.ptr.long() + order
     ok = valid & (pos < k)

@@ -15,12 +15,22 @@ multi_head_attention``: the plain version on the CPU, kernel K7 on the
 card, fed the (B, T, H, D) projections as strided (B, H, T, D) views and
 writing its output so that the merge of the heads is a view.
 
+Inside ``parallel.context.sequence_sharded`` (``parallel.long_video.
+eval_sharded``) the input is this rank's T shard: the temporal
+convolutions take their neighbours' frames (``TemporalConv``), each
+attention gathers the keys and values of every shard (K7 over the local
+queries and all keys) or, with ``ring_mesh``, runs the ring
+(``parallel.ring_attention``: K8's forward per block on the card), and
+the mixer's per-scale resize, the identity at stride 1, raises on a
+length mismatch. ``MSTCT(ring_mesh=mesh)`` outside a sharded block splits
+its input over the mesh's ``seq`` axis itself, rings, and gathers the
+result, as JAX's ``shard_map`` does.
+
 In ``.train()`` the forward applies the JAX model's two ``Dropout(0.5)``,
 on the input and between ``linear_fuse`` and ``linear_pred`` (the LRB's
 dropout is 0 there), with masks drawn from the ``generator`` passed to
 ``forward``; attention stays ``multi_head_attention`` (K7's forward on the
-card, the plain backward), as the JAX training step's ``_mha``. Not
-ported: ``ring_mesh`` (the parallel slice).
+card, the plain backward), as the JAX training step's ``_mha``.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ class GlobalRelationalBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.ring_mesh = None
         kw = dict(dtype=dtype, generator=generator, init="trunc_normal")
         self.q = Dense(dim, dim, **kw)
         self.kv = Dense(dim, 2 * dim, **kw)
@@ -73,8 +84,28 @@ class GlobalRelationalBlock(nn.Module):
         def heads(a):  # (B, T, C) -> (B, H, T, D), a view
             return a.reshape(b, t, h, c // h).transpose(1, 2)
 
-        out = multi_head_attention(heads(q), heads(k), heads(v))
+        out = self._attention(heads(q), heads(k), heads(v))
         return self.proj(out.transpose(1, 2).reshape(b, t, c))
+
+    def _attention(self, q, k, v):
+        from ..parallel import context, ring_attention
+
+        shard = context.active_shard()
+        if shard is None and self.ring_mesh is None:
+            return multi_head_attention(q, k, v)
+        if shard is None:  # split the whole sequence here, ring, gather
+            from ..parallel.long_video import eval_sharded
+
+            def local(x):  # (B, T / n, H, D, 3) -> (B, T / n, H, D)
+                qkv = (t.transpose(1, 2) for t in x.unbind(-1))
+                return self._attention(*qkv).transpose(1, 2)
+
+            return eval_sharded(
+                local, torch.stack([q, k, v], -1).transpose(1, 2),
+                self.ring_mesh).transpose(1, 2)
+        if self.ring_mesh is not None:
+            return ring_attention.ring_attention_shard(q, k, v, shard)
+        return context.gathered_attention(q, k, v, shard)
 
 
 class LocalRelationalBlock(nn.Module):
@@ -167,6 +198,11 @@ class TemporalMixer(nn.Module):
         def resize(x):
             if x.shape[1] == t1:
                 return x
+            from ..parallel.context import active_shard
+
+            if active_shard() is not None:
+                raise ValueError(f"a stage of length {x.shape[1]} against "
+                                 f"{t1} does not shard over the sequence")
             return interpolate_1d(x.transpose(1, 2), t1, "linear"
                                   ).transpose(1, 2)
 
@@ -222,9 +258,6 @@ class MSTCT(nn.Module):
                  ring_mesh=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if ring_mesh is not None:
-            raise NotImplementedError("MSTCT(ring_mesh=...) is not ported "
-                                      "yet (the parallel slice)")
         if len(embed_dims) != 4:
             raise ValueError(f"MSTCT has 4 stages, got embed_dims "
                              f"{tuple(embed_dims)}")
@@ -238,6 +271,20 @@ class MSTCT(nn.Module):
         self.classifier = MSTCTClassifier(4 * final_embedding_dim,
                                           final_embedding_dim, num_classes,
                                           dtype, generator)
+        self.ring_mesh = ring_mesh
+
+    @property
+    def ring_mesh(self):
+        """The mesh whose ``seq`` ranks every attention rings over (None:
+        gathered attention when sharded, else the whole sequence)."""
+        return self._ring_mesh
+
+    @ring_mesh.setter
+    def ring_mesh(self, mesh) -> None:
+        self._ring_mesh = mesh
+        for m in self.modules():
+            if isinstance(m, GlobalRelationalBlock):
+                m.ring_mesh = mesh
 
     def forward(self, x, generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:

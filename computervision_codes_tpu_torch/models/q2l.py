@@ -84,15 +84,15 @@ class MultiHeadAttention(nn.Module):
         b, nq, _ = q.shape
         nk = k.shape[1]
 
-        def split(t, n):
-            return t.reshape(b, n, h, hd).transpose(1, 2)
+        def split(t, n):  # -1: a rank's heads under tensor parallelism
+            return t.reshape(b, n, -1, hd).transpose(1, 2)
 
         attn = (split(self.q_proj(q), nq) * hd ** -0.5) @ split(
             self.k_proj(k), nk).transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
         attn = self.dropout(attn, generator)
         out = (attn @ split(self.v_proj(v), nk)).transpose(1, 2)
-        out = self.out_proj(out.reshape(b, nq, self.dim))
+        out = self.out_proj(out.reshape(b, nq, -1))
         return (out, attn.mean(dim=1)) if return_attn else out
 
 

@@ -37,10 +37,12 @@ import math
 from typing import Dict, Optional, Sequence, Tuple, Type
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.stem_pool import stem_pool_fused
+from ..parallel.context import all_reduce_sum, data_group
 
 BN_EPS = 1e-5
 
@@ -80,7 +82,12 @@ class BatchNorm(nn.Module):
     in float32, or float64 for float64 maps (mean, and the variance max(0,
     mean(x^2) - mean^2)), y = (x - mean) * (rsqrt(var + eps) * weight) +
     bias in that type, cast to the compute dtype, and the running
-    statistics updated in place.
+    statistics updated in place. Inside ``parallel.context.data_parallel``
+    the moments are those of the data group's whole batch: each rank holds
+    an equal shard of it (``parallel.mesh.local_slice``), so the global
+    E[x] and E[x^2] are the means over the group of the ranks' own,
+    all-reduced differentiably (on one rank the single-device arithmetic,
+    bit for bit).
     ``weight`` and ``bias`` are parameters (flax's ``scale`` and ``bias``),
     the statistics buffers."""
 
@@ -112,8 +119,14 @@ class BatchNorm(nn.Module):
     def batch_forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        mean, sq = xf.mean(dims), (xf * xf).mean(dims)
+        group = data_group()
+        if group is not None:  # the mean of equal shards' moments
+            c = xf.shape[1]
+            moments = all_reduce_sum(torch.cat([mean, sq]), group) / \
+                dist.get_world_size(group)
+            mean, sq = moments[:c], moments[c:]
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dilated_conv import dilated_residual_fused
+from ..parallel.context import active_shard, gather_halo
 from .common import drop, interpolate_1d, keep_mask
 
 
@@ -94,10 +95,20 @@ class DilatedResidualLayer(nn.Module):
         dt = self.dtype
         w_taps, b1 = self.w_taps.to(dt), self.b1.to(dt)
         w2, b2 = self.w2.to(dt), self.b2.to(dt)
+        d, t = self.dilation, x.shape[1]
+        shard = active_shard()
+        if shard is not None:
+            if self.training:
+                raise ValueError("a sequence-sharded TCN evaluates only")
+            # K1 on [halo | x | halo], its output cropped: the kernel's own
+            # zero padding reaches the cropped rows only
+            left, right = (2 * d, 0) if self.causal else (d, d)
+            xe = gather_halo(x, left, right, shard)
+            return dilated_residual_fused(xe, w_taps, b1, w2, b2, d,
+                                          self.causal)[:, left:left + t]
         if not self.training:
             return dilated_residual_fused(x, w_taps, b1, w2, b2,
                                           self.dilation, self.causal)
-        d, t = self.dilation, x.shape[1]
         xp = F.pad(x, (0, 0, 2 * d, 0) if self.causal else (0, 0, d, d))
         h = (xp[:, :t] @ w_taps[0] + xp[:, d:d + t] @ w_taps[1]
              + xp[:, 2 * d:2 * d + t] @ w_taps[2] + b1)
@@ -196,6 +207,10 @@ class TemporalTCN(nn.Module):
                                       generator).expand_as(x), keep)
         f = self.pg(self.pg_conv_in(x), generator)
         feats = [f]
+        if self.hier and active_shard() is not None:
+            raise ValueError("TemporalTCN(hier=True) does not shard over the "
+                             "sequence: its stride-3 pooling straddles the "
+                             "shards")
         for r in range(self.num_refinements):
             f = getattr(self, f"refine{r}")(f, generator)
             if self.hier:

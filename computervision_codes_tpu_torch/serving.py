@@ -28,7 +28,30 @@ Counterpart of ``serving.py`` in the JAX package (``InferenceSession`` and
   static activation scales calibrated once at creation
   (``models.quant_dense``).
 
-Not ported yet: ``mesh`` and ``export``/``load_exported``.
+``InferenceSession.create(mesh=...)`` serves the batch in parallel over the
+mesh's ``data`` axis: each rank runs its batch / n clips through the
+ordinary model (K1, with Q1 and K2 in the int8 configuration, on the card)
+and the probabilities are all-gathered, so that ``predict`` returns the
+whole batch on every rank, as JAX's global output does.
+
+``export`` writes a servable directory in the JAX package's layout as far
+as it carries data: ``variables.msgpack`` (flax msgpack, written by
+``train.checkpoint.pack_msgpack``: the JAX ``EndToEndRecognizer``
+variables, or for an int8 session ``{"q_backbone", "tcn"}`` with the
+calibrated int8 codes and scales) and ``meta.json`` with JAX's keys plus
+what rebuilding needs (``network``, ``quantize``, ``s2d_stem``,
+``fused_stem``; a streaming session's TCN geometry and ``causal``). JAX
+also writes its programs as StableHLO (``*.jaxexport``), which only JAX
+runs, and the port's kernels are ctypes calls that ``torch.export``
+cannot trace: the port writes no program file, and ``load_exported``
+rebuilds the session from the port's modules and the stored variables (an
+int8 servable takes its codes and scales as stored, through
+``models.convert.load_jax_quantized``, and is not calibrated again). It
+reads a servable that JAX wrote too, ignoring its ``.jaxexport`` files and
+inferring what its ``meta.json`` lacks from the variables' tree (the
+backbone's blocks, the TCN's layers; the stem options, which the tree
+cannot tell, are ``load_exported``'s arguments). A mesh session, or one
+restored from an export, raises on ``export``, as in JAX.
 
 Usage::
 
@@ -36,6 +59,7 @@ Usage::
     sess = InferenceSession.create(quantize=True, fused_stem=True)
     sess = InferenceSession.from_checkpoint(directory, "student")
     probs = sess.predict(clips_uint8)       # {task: (B, T, C) numpy}
+    sess.export("servable"); sess = InferenceSession.load_exported("servable")
     teacher = TeacherSession.create(batch=16, img_size=384, device="cuda")
     teacher = TeacherSession.create(quantize=True)   # the int8 teacher
     teacher = TeacherSession.create(backbone="tresnet_l", img_size=448)
@@ -45,6 +69,8 @@ Usage::
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple, Union
@@ -53,13 +79,17 @@ import numpy as np
 import torch
 
 from .data.transforms import IMAGENET_MEAN, IMAGENET_STD
-from .models.convert import load_jax_variables
+from .models.convert import (jax_quantized, jax_variables,
+                             load_jax_quantized, load_jax_variables)
 from .models.pipeline import EndToEndRecognizer
 from .models.q2l import Q2L
 from .models.quant_dense import (apply_int8_dense, collect_dense_scales,
                                  quantize_dense_params)
-from .models.quantized import Int8Recognizer, make_int8_e2e
-from .train.checkpoint import checkpoint_path, restore_variables
+from .models.quantized import (Int8Recognizer, make_int8_e2e,
+                               quantize_resnet)
+from .models.resnet import VARIANTS as RESNET_VARIANTS, Bottleneck
+from .train.checkpoint import (checkpoint_path, pack_msgpack, read_msgpack,
+                               restore_variables)
 
 TASKS = ("ivt", "i", "v", "t")
 INT8_DENSE_MIN_FEATURES = 512  # the JAX TeacherSession's min_features
@@ -125,12 +155,16 @@ class InferenceSession:
     height: int
     width: int
     device: torch.device
+    mesh: object = None
+    # what export() writes beside JAX's meta keys; None for sessions built
+    # over a mesh or restored from an export
+    exportable: Optional[dict] = None
 
     @classmethod
     def create(cls, batch: int = 4, clip_len: int = 256, height: int = 256,
                width: int = 448, network: str = "resnet18",
                variables=None, quantize: bool = False,
-               calibrate_clips=None, s2d_stem: bool = False,
+               calibrate_clips=None, mesh=None, s2d_stem: bool = False,
                fused_stem: bool = False, device: Device = "cuda"
                ) -> "InferenceSession":
         """``variables``: the JAX ``EndToEndRecognizer`` variables to serve;
@@ -138,10 +172,22 @@ class InferenceSession:
         is used as given: a session never moves itself to another device.
 
         ``quantize=True`` serves the int8 backbone. ``calibrate_clips``,
-        normalised (B, T, H, W, 3) frames, bake its static activation
-        scales; without them ``_default_calibration`` at (1, 8, H, W, 3)
-        stands in. As in the JAX session, ``fused_stem`` applies to the
-        int8 backbone only and ``s2d_stem`` to both."""
+        normalised (B, T, H, W, 3), bake its static activation scales;
+        without them ``_default_calibration`` at (1, 8, H, W, 3) stands in.
+        As in the JAX session, ``fused_stem`` applies to the int8 backbone
+        only and ``s2d_stem`` to both.
+
+        ``mesh`` (``parallel.mesh.make_mesh``): batch parallelism over its
+        ``data`` axis, on this rank's device (``device`` is not used); the
+        batch must divide by the axis size."""
+        if mesh is not None:
+            from .parallel.mesh import DATA_AXIS, axis_size, mesh_device
+
+            n_data = axis_size(mesh, DATA_AXIS)
+            if batch % n_data:
+                raise ValueError(f"batch {batch} must divide the mesh data "
+                                 f"axis ({n_data})")
+            device = mesh_device(mesh)
         device = torch.device(device)
         model = _build_model(variables, device, network=network,
                              s2d_stem=s2d_stem, dtype=torch.bfloat16)
@@ -152,13 +198,17 @@ class InferenceSession:
             model = make_int8_e2e(
                 model, torch.as_tensor(calibrate_clips).to(device),
                 s2d_stem=s2d_stem, fused_stem=fused_stem)
-        return cls(model, batch, clip_len, height, width, device)
+        exportable = None if mesh is not None else dict(
+            network=network, quantize=quantize, s2d_stem=s2d_stem,
+            fused_stem=fused_stem)
+        return cls(model, batch, clip_len, height, width, device, mesh,
+                   exportable)
 
     @classmethod
     def from_checkpoint(cls, directory: str, modelname: str, **kwargs
                         ) -> "InferenceSession":
-        """Serve the EndToEndRecognizer state that the JAX package's
-        ``CheckpointManager`` saved as ``<modelname>.msgpack`` in
+        """Serve the EndToEndRecognizer state that a ``CheckpointManager``
+        (of either package) saved as ``<modelname>.msgpack`` in
         ``directory``; ``kwargs`` go to ``create``."""
         variables = restore_variables(checkpoint_path(directory, modelname))
         return cls.create(variables=variables, **kwargs)
@@ -169,15 +219,143 @@ class InferenceSession:
 
     def predict(self, clips) -> Dict[str, np.ndarray]:
         """uint8 (normalised here) or normalised float clips -> {task:
-        (B, T, C) float32 probabilities}."""
+        (B, T, C) float32 probabilities}; over a mesh, each rank runs its
+        slice and every rank returns the whole batch."""
         if tuple(clips.shape) != self.shape:
             raise ValueError(f"session serves shape {self.shape}, got "
                              f"{tuple(clips.shape)}")
         with torch.inference_mode():
+            if self.mesh is not None:
+                from .parallel.context import all_gather_cat
+                from .parallel.mesh import (DATA_AXIS, axis_group,
+                                            batch_sharding, local_slice)
+
+                x = _to_model_input(
+                    local_slice(clips, batch_sharding(self.mesh)),
+                    self.device, torch.bfloat16)
+                out = self.model(x)
+                group = axis_group(self.mesh, DATA_AXIS)
+                return {k: all_gather_cat(torch.sigmoid(out[k].float()),
+                                          group, 0).cpu().numpy()
+                        for k in TASKS}
             x = _to_model_input(clips, self.device, torch.bfloat16)
             out = self.model(x)
             return {k: torch.sigmoid(out[k].float()).cpu().numpy()
                     for k in TASKS}
+
+    def export(self, path: str) -> str:
+        """Write the servable (``variables.msgpack``, ``meta.json``) to
+        ``path``; restore with ``InferenceSession.load_exported(path)``."""
+        if self.exportable is None:
+            raise ValueError("session is not exportable (mesh-sharded or "
+                             "itself restored from an export)")
+        _write_servable(path, _session_variables(self.model), dict(
+            batch=self.batch, clip_len=self.clip_len, height=self.height,
+            width=self.width, **self.exportable))
+        return path
+
+    @classmethod
+    def load_exported(cls, path: str, device: Device = "cuda",
+                      s2d_stem: bool = False, fused_stem: bool = False
+                      ) -> "InferenceSession":
+        """Rebuild an exported session on ``device`` (the port's or the JAX
+        package's servable). The stem options stored in ``meta.json`` win
+        over the arguments, which stand in for a JAX servable's."""
+        meta, tree = _read_servable(path)
+        s2d = meta.get("s2d_stem", s2d_stem)
+        fused = meta.get("fused_stem", fused_stem)
+        model = _rebuild(tree, meta, torch.device(device), torch.bfloat16,
+                         dict(s2d_stem=s2d), (s2d, fused))
+        return cls(model, meta["batch"], meta["clip_len"], meta["height"],
+                   meta["width"], torch.device(device))
+
+
+def _session_variables(model) -> dict:
+    """The JAX variables of a session's model: the recognizer's, or for the
+    int8 model ``{"q_backbone", "tcn"}`` (JAX's ``make_int8_e2e`` tree)."""
+    if isinstance(model, Int8Recognizer):
+        return {"q_backbone": jax_quantized(model.backbone),
+                "tcn": jax_variables(model.tcn)["params"]}
+    return jax_variables(model)
+
+
+def _write_servable(path: str, variables: dict, meta: dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "variables.msgpack"), "wb") as fh:
+        fh.write(pack_msgpack(variables))
+    with open(os.path.join(path, "meta.json"), "w") as fh:
+        json.dump(meta, fh)
+
+
+def _read_servable(path: str):
+    with open(os.path.join(path, "meta.json")) as fh:
+        meta = json.load(fh)
+    return meta, read_msgpack(os.path.join(path, "variables.msgpack"))
+
+
+def infer_network(backbone: dict) -> str:
+    """The ResNet variant whose blocks a backbone tree holds (float params
+    or the quantized tree: ``layer{s}_{b}`` blocks, ``conv3`` in a
+    bottleneck)."""
+    sizes = []
+    for s in range(1, 5):
+        n = sum(1 for k in backbone if k.startswith(f"layer{s}_"))
+        sizes.append(n)
+    bottleneck = "conv3" in backbone.get("layer1_0", {})
+    for name, (want, block) in RESNET_VARIANTS.items():
+        if tuple(want) == tuple(sizes) and \
+                (block is Bottleneck) == bottleneck:
+            return name
+    raise ValueError(f"cannot tell the network of the servable: blocks "
+                     f"{sizes} ({'bottleneck' if bottleneck else 'basic'}) "
+                     f"match no ResNet of {sorted(RESNET_VARIANTS)}")
+
+
+def infer_tcn(tcn: dict) -> dict:
+    """The TCN geometry of a TCN params tree."""
+    if "pg" not in tcn or "pg_conv_in" not in tcn:
+        raise ValueError("cannot tell the TCN of the servable: no pg / "
+                         "pg_conv_in in its tree")
+    refines = sorted(k for k in tcn if k.startswith("refine"))
+    lengths = {len(tcn[k]) for k in refines}
+    if len(lengths) > 1:
+        raise ValueError(f"cannot tell the TCN of the servable: its "
+                         f"refinement stages have {sorted(lengths)} layers")
+    return dict(num_layers_pg=len(tcn["pg"]),
+                num_layers_r=lengths.pop() if lengths else 10,
+                num_refinements=len(refines),
+                num_f_maps=int(np.shape(tcn["pg_conv_in"]["kernel"])[-1]))
+
+
+def _rebuild(tree: dict, meta: dict, device: torch.device,
+             dtype: torch.dtype, model_kw: dict, q_stem: Tuple[bool, bool]):
+    """The session's model from a servable's variables: the float
+    recognizer (``model_kw`` to ``EndToEndRecognizer``), or the int8
+    backbone (its stored codes and scales; ``q_stem`` its ``s2d_stem``
+    and ``fused_stem``) under the float TCN."""
+    quantize = meta.get("quantize", "q_backbone" in tree)
+    params = tree.get("params", {})
+    tcn = params["tcn"] if "tcn" in params else tree.get("tcn")
+    if tcn is None:
+        raise ValueError("cannot tell the TCN of the servable: no tcn in its "
+                         "variables")
+    backbone = tree["q_backbone"] if quantize else params.get("backbone")
+    if backbone is None:
+        raise ValueError("cannot tell the backbone of the servable: no "
+                         "backbone or q_backbone in its variables")
+    network = meta.get("network") or infer_network(backbone)
+    model = _build_model(None, device, network=network, dtype=dtype,
+                         **model_kw, **infer_tcn(tcn))
+    load_jax_variables(model.tcn, {"params": tcn})
+    if not quantize:
+        load_jax_variables(model.backbone, {
+            "params": backbone,
+            "batch_stats": tree.get("batch_stats", {}).get("backbone", {})})
+        return model
+    qp = load_jax_quantized(quantize_resnet(model.backbone),
+                            tree["q_backbone"])
+    qp.s2d_stem, qp.fused_stem = q_stem
+    return Int8Recognizer(qp, model.tcn)
 
 
 @dataclass
@@ -202,6 +380,8 @@ class StreamingSession:
     streams: int = 1
     receptive_field: int = 0
     frames_seen_per_stream: np.ndarray = field(default=None)
+    # what export() writes beside JAX's meta keys; None once restored
+    exportable: Optional[dict] = None
 
     def __post_init__(self):
         if self.frames_seen_per_stream is None:
@@ -248,7 +428,13 @@ class StreamingSession:
             model = make_int8_e2e(model, frames[None], fused_stem=fused_stem)
         buffer = torch.zeros(streams, context, model.backbone.num_channels,
                              dtype=dtype, device=device)
-        return cls(model, buffer, context, height, width, streams, rf)
+        exportable = dict(
+            network=network, quantize=quantize, fused_stem=fused_stem,
+            causal=True, num_layers_pg=num_layers_pg,
+            num_layers_r=num_layers_r, num_refinements=num_refinements,
+            num_f_maps=num_f_maps)
+        return cls(model, buffer, context, height, width, streams, rf,
+                   exportable=exportable)
 
     @classmethod
     def from_checkpoint(cls, directory: str, modelname: str, **kwargs
@@ -280,6 +466,47 @@ class StreamingSession:
         if self.streams == 1:
             return {k: v[0] for k, v in probs.items()}
         return probs
+
+    def export(self, path: str) -> str:
+        """Write the streaming servable (``variables.msgpack``,
+        ``meta.json`` with the ring's geometry); restore with
+        ``StreamingSession.load_exported(path)``, which starts from a zero
+        buffer."""
+        if self.exportable is None:
+            raise ValueError("session restored from an export is not "
+                             "re-exportable")
+        if isinstance(self.model, Int8Recognizer):
+            variables = {"params": {"tcn": jax_variables(
+                             self.model.tcn)["params"]},
+                         "q_backbone": jax_quantized(self.model.backbone)}
+        else:
+            variables = jax_variables(self.model)
+        _write_servable(path, variables, dict(
+            context=self.context, height=self.height, width=self.width,
+            streams=self.streams, receptive_field=self.receptive_field,
+            feature_dim=int(self.buffer.shape[-1]),
+            dtype=str(self.buffer.dtype).replace("torch.", ""),
+            **self.exportable))
+        return path
+
+    @classmethod
+    def load_exported(cls, path: str, device: Device = "cuda",
+                      fused_stem: bool = False) -> "StreamingSession":
+        """Rebuild an exported streaming session on ``device`` with a zero
+        buffer (the port's or the JAX package's servable; ``fused_stem``
+        stands in where ``meta.json`` lacks it)."""
+        meta, tree = _read_servable(path)
+        if not meta.get("causal", True):
+            raise ValueError("a streaming servable runs the causal TCN")
+        fused = meta.get("fused_stem", fused_stem)
+        dtype = getattr(torch, meta["dtype"])
+        device = torch.device(device)
+        model = _rebuild(tree, meta, device, dtype,
+                         dict(causal=True, fused_stem=fused), (False, fused))
+        buffer = torch.zeros(meta["streams"], meta["context"],
+                             meta["feature_dim"], dtype=dtype, device=device)
+        return cls(model, buffer, meta["context"], meta["height"],
+                   meta["width"], meta["streams"], meta["receptive_field"])
 
     def reset(self, stream: Optional[int] = None) -> None:
         """Start a new video: zero the buffer and frame count of one stream,

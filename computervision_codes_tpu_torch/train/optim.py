@@ -14,7 +14,9 @@ each gradient comes from a loss evaluated at perturbed parameters,
             ε = ρ g_t/(|g_t| + 1e-16);  g = ∇L_tail(w + ε) + g_head
 
 where |g| is the global norm over every parameter's gradient (a parameter
-the loss does not reach has a zero gradient, as in JAX). Here the
+the loss does not reach has a zero gradient, as in JAX); under data
+parallelism each gradient is first averaged over the data group
+(``reduce``), so that the norm is the global batch's. Here the
 parameters are perturbed in place and restored, bit for bit, before the
 functions return, so the optimizer applies the gradient at the unperturbed
 weights.
@@ -112,14 +114,16 @@ def freeze_swin_early(optimizer: Callable[[Iterable], SGD]
 
 
 def _gradients(loss_fn: Callable, params: Sequence[torch.Tensor],
-               has_aux: bool):
+               has_aux: bool, reduce: Optional[Callable] = None):
     """(the gradient of ``loss_fn()`` for each parameter, zeros where the
-    loss does not reach it; the aux output or None)."""
+    loss does not reach it, passed through ``reduce``; the aux output or
+    None)."""
     out = loss_fn()
     loss, aux = out if has_aux else (out, None)
     grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)], aux
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return (grads if reduce is None else reduce(grads)), aux
 
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -152,19 +156,22 @@ def _buffers(module: Optional[nn.Module]) -> List[torch.Tensor]:
 
 def sam_gradients(loss_fn: Callable, params: Sequence[torch.Tensor],
                   rho: float = 0.05, has_aux: bool = False,
-                  module: Optional[nn.Module] = None):
+                  module: Optional[nn.Module] = None,
+                  reduce: Optional[Callable] = None):
     """Two-step SAM gradient of ``loss_fn() -> loss`` (or ``(loss, aux)``)
     over ``params``: a list of gradients (and the second pass's aux). The
     buffers of ``module`` (its BatchNorm statistics) are restored after the
     first pass, so that the perturbed pass alone moves them, as the JAX
-    step keeps the batch statistics of that pass."""
+    step keeps the batch statistics of that pass. ``reduce`` (the data
+    group's average under data parallelism) acts on each pass's gradients,
+    so that the perturbation takes the global gradient's norm."""
     buffers = _buffers(module)
     before = [b.detach().clone() for b in buffers]
-    g1, _ = _gradients(loss_fn, params, has_aux)
+    g1, _ = _gradients(loss_fn, params, has_aux, reduce)
     _restore(buffers, before)
     saved = _perturb(params, g1, rho)
     try:
-        g2, aux2 = _gradients(loss_fn, params, has_aux)
+        g2, aux2 = _gradients(loss_fn, params, has_aux, reduce)
     finally:
         _restore(params, saved)
     return (g2, aux2) if has_aux else g2
@@ -172,15 +179,16 @@ def sam_gradients(loss_fn: Callable, params: Sequence[torch.Tensor],
 
 def imbsam_gradients(loss_head_fn: Callable, loss_tail_fn: Callable,
                      params: Sequence[torch.Tensor], rho: float = 0.05,
-                     module: Optional[nn.Module] = None):
+                     module: Optional[nn.Module] = None,
+                     reduce: Optional[Callable] = None):
     """Three-step ImbSAM: sharpness-aware for the tail loss only. The
     buffers of ``module`` are restored after each pass (the JAX losses
-    return no mutated statistics)."""
+    return no mutated statistics); ``reduce`` as in ``sam_gradients``."""
     buffers = _buffers(module)
     before = [b.detach().clone() for b in buffers]
 
     def grad(fn):
-        g, _ = _gradients(fn, params, False)
+        g, _ = _gradients(fn, params, False, reduce)
         _restore(buffers, before)
         return g
 

@@ -93,7 +93,8 @@ def make_terl_train_step(model: TERLModel, w_con: float = 1.0,
                          w_epoch: int = 1, moco_m: float = 0.999,
                          moco_t: float = 0.07, kcl_k: int = 7,
                          use_mlp: bool = True, ht_masks=None,
-                         class_map=None, sam_rho: float = 0.0):
+                         class_map=None, sam_rho: float = 0.0,
+                         data_group=None):
     """``step(state, batch, epoch) -> (state, metrics)``. ``batch``:
     ``image1``/``image2`` (B, H, W, 3), ``label_{i,v,t,ivt}`` (B, C) (ivt
     in the head's class space), ``anchor_sample``/``anchor_class``/
@@ -105,7 +106,8 @@ def make_terl_train_step(model: TERLModel, w_con: float = 1.0,
     enqueue takes the second pass's keys. The metrics are ``loss_cls1``,
     ``loss_cls_ivt``, ``loss`` and with ``use_mlp`` ``loss_con``,
     ``loss_proto`` and ``loss_tail``; the step trains the state's module
-    (``model`` gives its triplet count)."""
+    (``model`` gives its triplet count). ``data_group``: the enqueue
+    gathers every rank's anchors over it (``models.moco.enqueue``)."""
     n_ivt = model.num_triplet
     cm_np = np.arange(100) if class_map is None else np.asarray(class_map)
     bank_np = bank_mod.load_bank()
@@ -207,7 +209,8 @@ def make_terl_train_step(model: TERLModel, w_con: float = 1.0,
         # the momentum update and the enqueue come after the update
         moco_mod.momentum_update(state.model, state.key_model, moco_m)
         if enq:
-            moco_mod.enqueue(queue, enq["k"], enq["lab_ivt"], valid)
+            moco_mod.enqueue(queue, enq["k"], enq["lab_ivt"], valid,
+                             data_group)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

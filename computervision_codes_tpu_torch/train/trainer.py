@@ -32,6 +32,7 @@ in each training forward (the JAX ``batch_stats`` mutation).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +41,7 @@ import torch.nn as nn
 from ..losses import (bce_with_logits, distill_kl, mse_feature_kd,
                       tcn_multitask_loss)
 from ..models.qat import qat_params
+from ..parallel.context import data_parallel
 from .optim import sam_gradients
 from .state import TrainState
 
@@ -70,7 +72,7 @@ def make_spatial_train_step(model: nn.Module, loss_type: str = "all",
                             temperature: float = 4.0,
                             pos_weights: Optional[Dict[str, Any]] = None,
                             sam_rho: float = 0.0, qat: bool = False,
-                            device: str = "cuda"):
+                            device: str = "cuda", mesh=None):
     """The training step on a batch of ``image`` (B, H, W, 3) and
     ``label_{i,v,t,ivt}`` multi-hot targets, and for ``"all"`` the
     teacher arrays its non-zero terms read, ``teacher_pred_{i,v,t}``
@@ -80,7 +82,18 @@ def make_spatial_train_step(model: nn.Module, loss_type: str = "all",
     for ``"all"`` ``hard_loss``, ``soft_loss`` (where ``rates[1]``) and
     ``kd_loss`` (where ``rates[2]``), where the JAX step has them. The
     step trains the state's module, as the JAX step applies
-    ``state.apply_fn``; ``model`` is accepted for parity."""
+    ``state.apply_fn``; ``model`` is accepted for parity.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): the step of JAX's batch-sharded
+    mesh, which equals the single-device step on the global batch. The
+    batch given is this rank's slice of it over the ``data`` axis;
+    training-mode BatchNorm takes the group's moments
+    (``parallel.context.data_parallel``); every gradient is averaged over
+    the ``data`` group before the update (and before SAM's norm); the
+    metrics are averaged too. Each loss here is a mean over the samples
+    of equal shards, so the mean of the ranks' losses is the global
+    batch's loss and the mean of their gradients its gradient. Under a
+    ``model`` axis (``parallel.tp``) the sharded products hold the rest."""
     if loss_type not in TASKS + ("all",):
         raise ValueError(f"unknown loss_type {loss_type!r}")
     pos_weights = pos_weights or {}
@@ -122,24 +135,61 @@ def make_spatial_train_step(model: nn.Module, loss_type: str = "all",
         metrics["loss"] = loss.detach()
         return loss, metrics
 
+    group = None if mesh is None else _data_group(mesh)
+    data_ctx = (contextlib.nullcontext if group is None else
+                functools.partial(data_parallel, group))
+    reduce = None if group is None else functools.partial(average, group)
+
     def step(state: TrainState, batch: Dict[str, Any]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         state.model.train()
         params = [p for p in state.model.parameters() if p.requires_grad]
-        if sam_rho > 0:
-            grads, metrics = sam_gradients(lambda: loss_fn(state, batch),
-                                           params, rho=sam_rho, has_aux=True,
-                                           module=state.model)
-        else:
-            loss, metrics = loss_fn(state, batch)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with data_ctx():
+            if sam_rho > 0:
+                grads, metrics = sam_gradients(
+                    lambda: loss_fn(state, batch), params, rho=sam_rho,
+                    has_aux=True, module=state.model, reduce=reduce)
+            else:
+                loss, metrics = loss_fn(state, batch)
+                grads = torch.autograd.grad(loss, params,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+                if reduce is not None:
+                    grads = reduce(grads)
         for p, g in zip(params, grads):  # left in place after the update
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g
         state.optimizer.step()
         state.step += 1
+        if reduce is not None:
+            metrics = dict(zip(metrics, reduce(list(metrics.values()))))
         return state, metrics
 
     return step
+
+
+def _data_group(mesh):
+    from ..parallel.mesh import DATA_AXIS, axis_group
+
+    return axis_group(mesh, DATA_AXIS)
+
+
+def average(group, tensors):
+    """The mean over ``group`` of each tensor (one all-reduce of them
+    all, flattened together in float32)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return list(tensors)
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
 
 
 def make_spatial_eval_step(model: nn.Module, qat: bool = False,

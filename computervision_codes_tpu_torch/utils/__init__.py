@@ -1,2 +1,6 @@
-"""Driver utilities of the port: preemption-safe training and experiment
-logs."""
+"""Driver utilities of the port: preemption-safe training, experiment logs
+and the profiling hooks (``trace``, ``timed``, ``StepTimer``)."""
+
+from .profiling import StepTimer, timed, trace
+
+__all__ = ["StepTimer", "timed", "trace"]

@@ -2,7 +2,9 @@
 ``--streaming``, serving JAX-written checkpoints from a PNG frame
 directory at the serving size (the resize the identity in both: the JAX
 driver decodes with PIL, the port with its data plane), with the geometry
-and TCN sizes of tests/test_cli_infer.py:15-17; and its refusals.
+and TCN sizes of tests/test_cli_infer.py:15-17; exported servables
+(``--servable``, offline and streaming, JAX-written and the port's own);
+and its refusals.
 
 Bound: the bf16 cross-check of tests/test_torch_serving.py (max 0.1 with a
 correlation above 0.999): both packages run the model in bf16 and round in
@@ -21,14 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from computervision_codes_tpu.cli import export as jax_export
 from computervision_codes_tpu.cli import infer as jax_infer
 from computervision_codes_tpu.models.pipeline import (
     EndToEndRecognizer as JaxRecognizer,
 )
+from computervision_codes_tpu.serving import (
+    StreamingSession as JaxStreamingSession,
+)
 from computervision_codes_tpu.train import build_sgd
 from computervision_codes_tpu.train.checkpoint import CheckpointManager
 from computervision_codes_tpu.train.state import TrainState
-from computervision_codes_tpu_torch.cli import infer
+from computervision_codes_tpu_torch.cli import export, infer
 from computervision_codes_tpu_torch.data.synthetic import write_png
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -131,8 +137,8 @@ def test_quantized_random_init_runs(frame_dir):
 def test_refusals(frame_dir, tmp_path):
     """As the JAX driver: a source of weights is required, and other
     inputs than a container or a directory are refused; beyond it, an
-    exported servable (not ported), an MJPEG container (no libjpeg) and an
-    empty directory."""
+    MJPEG container (no libjpeg) and an empty directory. (``--servable``,
+    refused until the parallel slice, serves: the tests below.)"""
     with pytest.raises(ValueError, match="random_init"):
         infer.main(["--video", frame_dir] + CPU + GEOM)
     mp4 = tmp_path / "x.mp4"
@@ -140,8 +146,6 @@ def test_refusals(frame_dir, tmp_path):
     for main in (jax_infer.main, infer.main):
         with pytest.raises(ValueError, match="container"):
             main(["--video", str(mp4), "--random_init"] + CPU)
-    with pytest.raises(NotImplementedError, match="servable"):
-        infer.main(["--video", frame_dir, "--servable", str(tmp_path)] + CPU)
     avi = tmp_path / "x.avi"
     avi.write_bytes(b"RIFF")
     with pytest.raises(RuntimeError, match="libjpeg"):
@@ -150,6 +154,51 @@ def test_refusals(frame_dir, tmp_path):
     empty.mkdir()
     with pytest.raises(ValueError, match="no frames"):
         infer.main(["--video", str(empty), "--random_init"] + CPU)
+
+
+def test_servable_offline_matches_jax(frame_dir, ckpt_dir, tmp_path):
+    """``--servable``: the JAX package's ``cli.export`` of the offline
+    checkpoint served by both drivers (the port ignores its StableHLO
+    programs and rebuilds the session from its variables), within the
+    bf16 bound; and the port's own ``cli.export`` of the same checkpoint
+    serves exactly what ``--ckpt_dir`` serves."""
+    shape = ["--batch", "1", "--clip_len", "4"] + GEOM
+    jax_servable = str(tmp_path / "jax_servable")
+    with shaped_templates():
+        jax_export.main(["--ckpt_dir", ckpt_dir, "--modelname", "offline",
+                         "--out", jax_servable] + shape)
+        want = jax_infer.main(["--video", frame_dir, "--servable",
+                               jax_servable] + GEOM)
+    got = infer.main(["--video", frame_dir, "--servable", jax_servable]
+                     + CPU)
+    assert got["frames"] == want["frames"] == 6
+    _assert_bf16_close(got["probs"], want["probs"])
+    port_servable = str(tmp_path / "port_servable")
+    export.main(["--ckpt_dir", ckpt_dir, "--modelname", "offline", "--out",
+                 port_servable] + shape + CPU)
+    served = infer.main(["--video", frame_dir, "--servable", port_servable]
+                        + CPU)
+    direct = infer.main(["--video", frame_dir, "--ckpt_dir", ckpt_dir,
+                         "--modelname", "offline"] + shape + CPU)
+    for k in direct["probs"]:
+        np.testing.assert_array_equal(served["probs"][k], direct["probs"][k])
+
+
+def test_servable_streaming_matches_jax(frame_dir, ckpt_dir, tmp_path):
+    """``--servable --streaming``: the JAX streaming session's servable
+    (its ring geometry from its meta.json, its TCN from the tree) pushed by
+    both drivers, within the bf16 bound."""
+    with warnings.catch_warnings(), shaped_templates():
+        warnings.simplefilter("ignore")  # context 16 < receptive field 21
+        sess = JaxStreamingSession.from_checkpoint(
+            ckpt_dir, "stream", context=16, height=H, width=W, **TCN_SIZES)
+        servable = sess.export(str(tmp_path / "stream_servable"))
+        want = jax_infer.main(["--video", frame_dir, "--servable", servable,
+                               "--streaming"] + GEOM)
+    got = infer.main(["--video", frame_dir, "--servable", servable,
+                      "--streaming"] + CPU)
+    assert got["probs"]["ivt"].shape == (6, 100)
+    _assert_bf16_close(got["probs"], want["probs"])
 
 
 def test_runs_on_cuda_unless_told(frame_dir):

@@ -17,9 +17,12 @@ JAX driver's own dump; at the other length (100) the JAX driver pads to
 128 and its outputs move, which the port does not copy. Both drivers then
 run ``-e -d --dtype bfloat16`` from the same checkpoint: at the bucket
 length the port's dumps hold the JAX driver's values within bf16 bounds,
-written as float32 where JAX pickles ml_dtypes bfloat16.
+written as float32 where JAX pickles ml_dtypes bfloat16. Last, the port's
+``-e -d --seq_devices 2 --seq_attn ring`` on two gloo ranks holds the same
+values as the JAX model and, at the bucket length, as the JAX driver.
 """
 
+import functools
 import os
 import shutil
 import signal
@@ -48,6 +51,7 @@ from computervision_codes_tpu.train.checkpoint import (
 from computervision_codes_tpu_torch.cli import temporal_mstct
 from computervision_codes_tpu_torch.models import mstct as port_mstct
 from computervision_codes_tpu_torch.models.common import Dropout
+from computervision_codes_tpu_torch.parallel import mesh as parallel_mesh
 from computervision_codes_tpu_torch.data.feature_store import FeatureStore
 from computervision_codes_tpu_torch.data.splits import resolve_split
 from computervision_codes_tpu_torch.data.synthetic import (
@@ -90,6 +94,7 @@ TRAIN_FLAGS = ["-t", "--epochs", "1", "--window", "16", "-b", "8",
 # frames: a near-tie may swap)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_REL = 1e-5, 1e-6, 1e-2
 TRAIN_DUMP_REL, TRAIN_MAP_ABS = 1e-4, 1e-3
+RANKS_TIMEOUT = 300  # s: a spawned group past it is killed, and fails
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -316,8 +321,8 @@ def test_training_resumes_like_jax_driver(runs, tmp_path):
 def test_driver_runs_training_flags_and_refuses_seq_devices(runs, tmp_path,
                                                             monkeypatch):
     """``--train``, ``--resume`` and ``--log_train_map`` run (dropout on);
-    a preemption signal saves ``_latest`` and stops; ``--seq_devices 2``
-    is still refused (the parallel slice)."""
+    a preemption signal saves ``_latest`` and stops. (``--seq_devices 2``,
+    refused until the parallel slice, runs: the test below.)"""
     base = ["--data_dir", runs["root"], "--feats_dir", runs["feats_jax"],
             "--ckpt_root", str(tmp_path), *MODEL_FLAGS, "--window", "16",
             "-b", "16", "--device", "cpu", "-t", "--log_train_map",
@@ -348,8 +353,38 @@ def test_driver_runs_training_flags_and_refuses_seq_devices(runs, tmp_path,
     result = temporal_mstct.main(base + ["--epochs", "1"])
     assert result["preempted"] and int(_ckpt(str(tmp_path), "latest")[
         "step"]) == 6
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        temporal_mstct.main(base + ["--seq_devices", "2"])
+
+
+def test_seq_devices_ring_matches_jax(runs, tmp_path, monkeypatch):
+    """``-e -d --seq_devices 2 --seq_attn ring`` from the JAX driver's
+    checkpoint: two gloo ranks (spawned by the driver itself), each video's
+    frames split between them (every length here divides by 2), the ring
+    running every attention. Every dump equals the JAX model at the
+    video's own length, and at the bucket length the JAX driver's dump,
+    within ``REL``: JAX's tests/test_parallel.py holds its driver's
+    sequence-sharded ring forward to the unsharded one (running that
+    driver with ``--seq_devices 2`` here recompiles for every video, 94 s
+    on this test's tree)."""
+    argv = [*runs["common"], "-e", "-d", "--seq_devices", "2",
+            "--seq_attn", "ring", "--device", "cpu"]
+    feats = str(tmp_path / "feats")
+    shutil.copytree(runs["feats_jax"], feats)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # one thread a rank
+    monkeypatch.setattr(parallel_mesh, "launch", functools.partial(
+        parallel_mesh.launch, timeout=RANKS_TIMEOUT))
+    result = temporal_mstct.main(argv + ["--feats_dir", feats])
+    assert result["test_mAP"] == pytest.approx(runs["natural_mAP"],
+                                               abs=1e-6)
+    port = {k: FeatureStore(feats, "Q2LMSTCT").load(1, k, task="ivt")
+            for k in ("feats", "pred")}
+    for v, n in runs["lengths"].items():
+        probs, feats_v = port["pred"][v[3:]], port["feats"][v[3:]]
+        assert probs.shape == (n, 100), v
+        assert _err(probs, runs["natural"][v][0]) <= REL, v
+        assert _err(feats_v, runs["natural"][v][1]) <= REL, v
+        if n == BUCKET:
+            for kind, got in (("pred", probs), ("feats", feats_v)):
+                assert _err(got, runs["jax"][kind][v[3:]]) <= REL, v
 
 
 @pytest.fixture(scope="module")

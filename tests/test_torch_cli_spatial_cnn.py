@@ -29,9 +29,14 @@ feature and Q2LMSTCT prediction stores that ``--loss_type all`` reads.
   directory that lacks the file: trained from scratch, logged) train one
   epoch each: finite losses and the running statistics moved
   (tests/test_torch_spatial_train.py holds both steps and the QAT eval to
-  JAX); the unported flags raise.
+  JAX).
+* ``--dp_devices 2`` trains the same step on two gloo ranks, started by
+  the driver itself, against the JAX driver's run in the same bounds;
+  with ``--device_augment`` against the port's one-device run with the
+  same seed.
 """
 
+import functools
 import os
 import shutil
 import sys
@@ -65,6 +70,7 @@ from computervision_codes_tpu_torch.data.synthetic import (
     write_synthetic_dataset,
 )
 from computervision_codes_tpu_torch.models.spatial_cnn import SpatialCNN
+from computervision_codes_tpu_torch.parallel import mesh as parallel_mesh
 from computervision_codes_tpu_torch.train.checkpoint import read_msgpack
 from computervision_codes_tpu_torch.utils.logging import summarize_events
 
@@ -75,6 +81,7 @@ SIZES = {"i": 6, "v": 10, "t": 15}
 LOSS_RTOL, PARAM_ATOL, PARAM_REL, STATS_REL, DUMP_ATOL, MAP_ABS = (
     1e-5, 1e-6, 0.1, 5e-5, 5e-5, 1e-6)
 LAYER4_REL = 0.5  # PARAM_REL in layer 4 (see the docstring)
+RANKS_TIMEOUT = 300  # s: a spawned group past it is killed, and fails
 COMMON = ["--image_height", str(H), "--image_width", str(W),
           "--loss_type", "all", "--rates", "1", "0.5", "0.1",
           "--teacher_dim", str(TEACHER_DIM), "--version", "stu",
@@ -160,17 +167,24 @@ def _leaves(tree, prefix=()):
 
 
 def test_training_matches_jax_driver(runs):
-    root = runs["root"]
+    assert_training_matches(runs["root"], "ckpt_port")
+
+
+def assert_training_matches(root, port_side, ref_side="ckpt_jax"):
+    """The port's run in ``port_side`` against the one step in
+    ``ref_side`` (the JAX driver's) from the same initial state: logged
+    losses, parameters and running statistics within the bounds of the
+    module's docstring."""
     got, want = (summarize_events(
         f"{root}/{side}/run_stu/{MODELNAME}.events.jsonl", "train/loss")
-        for side in ("ckpt_port", "ckpt_jax"))
+        for side in (port_side, ref_side))
     assert len(got) == len(want) == 1
     g, w = got[0]["values"], want[0]["values"]
     assert set(g) == set(w) and {"soft_loss", "kd_loss"} <= set(g)
     for k in w:
         np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL, err_msg=k)
     init = read_msgpack(f"{root}/ckpt_init/run_stu/{MODELNAME}.msgpack")
-    port, jax_ = _ckpt(root, "ckpt_port"), _ckpt(root, "ckpt_jax")
+    port, jax_ = _ckpt(root, port_side), _ckpt(root, ref_side)
     assert int(port["step"]) == int(jax_["step"]) == STEPS
     for coll in ("params", "batch_stats"):
         before = dict(_leaves(init[coll]))
@@ -236,8 +250,46 @@ def test_sam_qat_resume_and_refusals(runs, tmp_path, option):
         assert "training from scratch" in log
         return
     assert "Resumed from" in log and "at step 0" in log
-    with pytest.raises(NotImplementedError, match="item 8"):
-        spatial_cnn.main(base + ["--dp_devices", "2"])
+
+
+def test_data_parallel_matches_jax_driver(runs, monkeypatch):
+    """``--dp_devices 2`` from one command: two gloo ranks (spawned by the
+    driver, each on half of the 32 frames) take the JAX driver's step on
+    the whole batch (JAX's step under a batch-sharded mesh is its
+    single-device step, tests/test_parallel.py), within this module's
+    one-device bounds; rank 0's result comes back."""
+    root = runs["root"]
+    shutil.copytree(f"{root}/ckpt_init/run_stu", f"{root}/ckpt_dp/run_stu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # one thread a rank
+    monkeypatch.setattr(parallel_mesh, "launch", functools.partial(
+        parallel_mesh.launch, timeout=RANKS_TIMEOUT))
+    result = spatial_cnn.main(runs["train"] + [
+        "--ckpt_root", f"{root}/ckpt_dp", "--device", "cpu",
+        "--dp_devices", "2"])
+    assert result["step"] == STEPS
+    assert_training_matches(root, "ckpt_dp")
+
+
+def test_data_parallel_device_augment_matches_one_device(runs,
+                                                         monkeypatch):
+    """``--dp_devices 2 --device_augment``: the two ranks draw the
+    augmentation numbers of the whole batch and each keeps its rows, so
+    the step equals the port's one-device ``--device_augment`` step with
+    the same seed, within this module's bounds (a rank that drew for its
+    own 16 frames alone would give its frames rank 0's flips)."""
+    root = runs["root"]
+    for side in ("ckpt_aug", "ckpt_aug_dp"):
+        shutil.copytree(f"{root}/ckpt_init/run_stu",
+                        f"{root}/{side}/run_stu")
+    argv = runs["train"] + ["--device", "cpu", "--device_augment"]
+    spatial_cnn.main(argv + ["--ckpt_root", f"{root}/ckpt_aug"])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # one thread a rank
+    monkeypatch.setattr(parallel_mesh, "launch", functools.partial(
+        parallel_mesh.launch, timeout=RANKS_TIMEOUT))
+    result = spatial_cnn.main(argv + ["--ckpt_root", f"{root}/ckpt_aug_dp",
+                                      "--dp_devices", "2"])
+    assert result["step"] == STEPS
+    assert_training_matches(root, "ckpt_aug_dp", "ckpt_aug")
 
 
 def test_device_augment_trains(runs, tmp_path, monkeypatch):

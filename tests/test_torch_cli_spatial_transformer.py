@@ -18,10 +18,12 @@ of its update, but for one unit per Q2L FFN layer (a ReLU unit within
 float32 noise of 0 may flip between the packages). (Over more steps float32
 rounding is amplified: after 31 steps at ``-b 2`` two plans of the port
 itself differ by 8e-4 in ``hard_loss`` and 1.7% in ``soft_loss``.) Then
-``--resume`` continues the port's step count, and the unported flags
-raise. The same one-step comparison holds a CvT (``cvt_nano``) and a
-small TResNet teacher, the TResNet's running statistics too. The JAX
-driver's eager flax init (35 s here) is swapped for the initial state
+``--resume`` continues the port's step count, and ``--dp_devices 2
+--tp_devices 2`` on four gloo ranks takes the same step; ``--dp_devices 2
+--device_augment`` takes the port's one-device ``--device_augment`` step.
+The same one-step comparison holds a CvT (``cvt_nano``) and a small
+TResNet teacher, the TResNet's running statistics too. The JAX driver's
+eager flax init (35 s here) is swapped for the initial state
 made here from a seeded port model; every run starts from a checkpoint
 anyway.
 """
@@ -55,11 +57,13 @@ from computervision_codes_tpu_torch.data.synthetic import (
 )
 from computervision_codes_tpu_torch.models import q2l as port_q2l
 from computervision_codes_tpu_torch.models.convert import jax_variables
+from computervision_codes_tpu_torch.parallel.mesh import launch
 from computervision_codes_tpu_torch.train.checkpoint import read_msgpack
 from computervision_codes_tpu_torch.utils.logging import summarize_events
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_train_step import _assert_param_close  # noqa: E402
+import torch_parallel_workers as workers  # noqa: E402
 
 TEACHER_DIM, FRAMES, IMG = 24, 1, 64
 MODELNAME = "rendezvous_lcholect45-crossval_cholect1_all"
@@ -67,6 +71,7 @@ TRAIN_BATCH = 32
 STEPS = 1  # 31 training frames at -b 32
 SIZES = {"i": 6, "v": 10, "t": 15}
 LOSS_RTOL = 1e-5
+RANKS_TIMEOUT = 300  # s: a spawned group past it is killed, and fails
 STATS_REL = 1e-3  # running statistics: tests/test_torch_tresnet.py's
 # float32 training bound
 COMMON = ["--backbone", "swin_nano_64", "--image_height", str(IMG),
@@ -194,11 +199,13 @@ def _events(root, side):
                             "train/loss")
 
 
-def assert_training_matches(ckpt, port_result, batch_stats=False):
-    """The two drivers' logged losses and ``_latest`` parameters (and,
-    with ``batch_stats``, running statistics within ``STATS_REL`` of each
-    tensor's largest magnitude) after one step from ``ckpt``'s init."""
-    got, want = _events(ckpt, "ckpt_port"), _events(ckpt, "ckpt_jax")
+def assert_training_matches(ckpt, port_result, batch_stats=False,
+                            ref="ckpt_jax"):
+    """The port's logged losses and ``_latest`` parameters (and, with
+    ``batch_stats``, running statistics within ``STATS_REL`` of each
+    tensor's largest magnitude) after one step from ``ckpt``'s init,
+    against the run in ``ref`` (the JAX driver's)."""
+    got, want = _events(ckpt, "ckpt_port"), _events(ckpt, ref)
     assert len(got) == len(want) == 1
     g, w = got[0]["values"], want[0]["values"]
     assert set(g) == set(w) and {"soft_loss", "kd_loss", "hard_loss"} <= \
@@ -209,7 +216,7 @@ def assert_training_matches(ckpt, port_result, batch_stats=False):
     assert port_result["train_loss"] == [g]
     init, port, theirs = (read_msgpack(
         f"{ckpt}/{side}/run_Q2L/{MODELNAME}_latest.msgpack")
-        for side in ("ckpt_init", "ckpt_port", "ckpt_jax"))
+        for side in ("ckpt_init", "ckpt_port", ref))
     assert int(port["step"]) == int(theirs["step"]) == STEPS
     assert "kd_attention" in port["params"]
     before = dict(_leaves(init["params"]))
@@ -243,9 +250,58 @@ def test_resume_and_refusals(runs, tmp_path):
     assert result["step"] == 2 * STEPS
     log = open(f"{tmp_path}/run_Q2L/{MODELNAME}.log").read()
     assert "Resumed from" in log and f"at step {STEPS}" in log
-    for flag in ("--dp_devices", "--tp_devices"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            spatial_transformer.main(base + [flag, "2"])
+
+
+def test_data_and_tensor_parallel_match_jax_driver(runs, tmp_path,
+                                                   monkeypatch):
+    """``--dp_devices 2 --tp_devices 2``: four gloo ranks (a 2 x 2 data x
+    model mesh, the plain path forced, drop rates 0 as in ``train_both``)
+    take the JAX driver's step on the whole batch (under its mesh JAX's
+    step is its single-device step, tests/test_tensor_parallel.py), in the
+    bounds of ``assert_training_matches``; the checkpoint holds the whole
+    parameters."""
+    root = runs["root"]
+    for side in ("ckpt_jax", "ckpt_init"):
+        os.symlink(f"{root}/{side}", f"{tmp_path}/{side}")
+    shutil.copytree(f"{root}/ckpt_init/run_Q2L",
+                    f"{tmp_path}/ckpt_port/run_Q2L")
+    argv = ["--data_dir", root, "-t", "--epochs", "1", "--resume", "-b",
+            str(TRAIN_BATCH), *COMMON, "--ckpt_root", f"{tmp_path}/ckpt_port",
+            "--feats_dir", f"{root}/feats_port", "--device", "cpu",
+            "--dp_devices", "2", "--tp_devices", "2"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # one thread a rank
+    result = launch(workers.transformer_main_without_dropout, 4, (argv,),
+                    device_type="cpu", timeout=RANKS_TIMEOUT)
+    assert_training_matches(str(tmp_path), result)
+
+
+def test_data_parallel_device_augment_matches_one_device(runs, tmp_path,
+                                                         monkeypatch):
+    """``--dp_devices 2 --device_augment`` on two gloo ranks: each rank
+    draws the augmentation numbers of the whole batch and keeps its rows,
+    so the step equals the port's one-device ``--device_augment`` step
+    with the same seed (drop rates 0), in the bounds of
+    ``assert_training_matches``."""
+    root = runs["root"]
+    os.symlink(f"{root}/ckpt_init", f"{tmp_path}/ckpt_init")
+    for side in ("ckpt_one", "ckpt_port"):
+        shutil.copytree(f"{root}/ckpt_init/run_Q2L",
+                        f"{tmp_path}/{side}/run_Q2L")
+    argv = ["--data_dir", root, "-t", "--epochs", "1", "--resume", "-b",
+            str(TRAIN_BATCH), *COMMON, "--feats_dir", f"{root}/feats_port",
+            "--device", "cpu", "--device_augment"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_q2l, "DROPOUT", 0.0)
+        mp.setattr(spatial_transformer, "Q2L", functools.partial(
+            port_q2l.Q2L, drop_path_rate=0.0))
+        spatial_transformer.main(argv + ["--ckpt_root",
+                                         f"{tmp_path}/ckpt_one"])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # one thread a rank
+    result = launch(workers.transformer_main_without_dropout, 2,
+                    (argv + ["--ckpt_root", f"{tmp_path}/ckpt_port",
+                             "--dp_devices", "2"],),
+                    device_type="cpu", timeout=RANKS_TIMEOUT)
+    assert_training_matches(str(tmp_path), result, ref="ckpt_one")
 
 
 def counting(fn, calls):

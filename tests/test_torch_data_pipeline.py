@@ -34,6 +34,11 @@ from computervision_codes_tpu_torch.data import (
     video_supported,
 )
 from computervision_codes_tpu_torch.data.prefetch import prefetch_to_device
+from computervision_codes_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    launch,
+    make_mesh,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIDEOS = ("VID01", "VID02")
@@ -273,8 +278,19 @@ def test_prefetch_to_device_on_cpu(trees):
         for k, v in h.items():
             assert isinstance(d[k], torch.Tensor)
             assert torch.equal(d[k], torch.from_numpy(v))
-    with pytest.raises(NotImplementedError, match="shard"):
-        next(prefetch_to_device(iter(host), sharding=object()))
+    # a batch sharding over a one-rank mesh (a group in this process for
+    # the call): the rank's slice is the whole batch
+    sharded = launch(_prefetch_sharded, 1, (host,), device_type="cpu")
+    assert len(sharded) == len(host)
+    for h, d in zip(host, sharded):
+        for k, v in h.items():
+            assert torch.equal(d[k], torch.from_numpy(v))
+
+
+def _prefetch_sharded(host):
+    mesh = make_mesh(n_data=1, device_type="cpu")
+    return list(prefetch_to_device(iter(host),
+                                   sharding=batch_sharding(mesh)))
 
 
 _NO_JAX_NO_PIL = """

@@ -16,6 +16,7 @@ import torch
 from computervision_codes_tpu.models import mstct as jax_mstct
 from computervision_codes_tpu_torch.models import mstct
 from computervision_codes_tpu_torch.models.convert import load_jax_variables
+from computervision_codes_tpu_torch.parallel.mesh import launch, make_mesh
 
 DIMS = (16, 24, 32, 48)
 HEADS = 4
@@ -159,11 +160,16 @@ def test_mstct_matches_jax(rng, dtype):
 
 
 def test_mstct_refuses_what_is_not_ported():
-    """``ring_mesh`` is refused; the training forward, refused until the
-    training slice, now runs (a new module is in training mode) and draws
-    its dropout masks from the generator it is given."""
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        mstct.MSTCT(12, ring_mesh=object())
+    """``ring_mesh`` and the training forward, refused until their slices,
+    now run: ``MSTCT(ring_mesh=...)`` gives every attention block the mesh
+    and, over a one-rank mesh (a group in this process for the call), is
+    the model without it (one ring block is the whole sequence; the ring
+    over several ranks is tests/test_torch_parallel_context.py); a new
+    module is in training mode and draws its dropout masks from the
+    generator it is given."""
+    with_ring, without = launch(_ring_over_one_rank, 1, (),
+                                device_type="cpu")
+    torch.testing.assert_close(with_ring, without, atol=2e-5, rtol=0)
     model = mstct.MSTCT(12, embed_dims=(8, 8, 8, 8), num_blocks=1,
                         num_heads=2, final_embedding_dim=8)
     x = torch.ones(1, 4, 12)
@@ -171,3 +177,17 @@ def test_mstct_refuses_what_is_not_ported():
     assert out["logits"].shape == (1, 4, 100)
     torch.testing.assert_close(
         model(x, torch.Generator().manual_seed(0))["logits"], out["logits"])
+
+
+def _ring_over_one_rank():
+    mesh = make_mesh(n_data=1, device_type="cpu")
+    kw = dict(embed_dims=(8, 8, 8, 8), num_blocks=1, num_heads=2,
+              final_embedding_dim=8)
+    ring = mstct.MSTCT(12, ring_mesh=mesh,
+                       generator=torch.Generator().manual_seed(0), **kw)
+    assert all(m.ring_mesh is mesh for m in ring.modules()
+               if isinstance(m, mstct.GlobalRelationalBlock))
+    plain = mstct.MSTCT(12, generator=torch.Generator().manual_seed(0), **kw)
+    x = torch.randn(1, 16, 12, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        return (ring.eval()(x)["logits"], plain.eval()(x)["logits"])
